@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the HT-Paxos data plane (``repro``'s engine).
+
+Layout mirrors the reference package: ``core.tilesim`` (packed quorum
+windows), ``dissem.engine`` (dissemination stability), ``engine.merge``
+(round-robin merge and commit gate), ``engine.sharded`` (the four engine
+families), ``engine.api`` (the ``Engine`` facade), ``kernels`` (the
+hand-written CUDA kernels and their plain versions) and ``convert``
+(state carried to and from numpy). State is created on the CUDA device
+unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,132 @@
+"""Carry engine state and packed tiles between numpy and the port.
+
+A state crosses as nested numpy arrays under the reference's field names:
+the reference's ``EngineState`` or any of its family states (QuorumState,
+RecycleState, GatedRecycleState, DissemState, MergeState), as NamedTuples
+with array leaves or as nested dicts. Bitset fields (``ack_bits``,
+``vote_bits``, ``hold_bits``) cross as a ``uint32`` ↔ ``int32`` view with
+the same bits; every other field keeps its dtype (int32 or bool). The
+system has no weights: the engine state, merge log included, is all that
+carries across.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.tilesim import QuorumState
+from .dissem.engine import DissemState
+from .engine.api import EngineConfig, EngineState, create_state
+from .engine.merge import MergeState
+from .engine.sharded import GatedRecycleState, RecycleState
+
+BITSET_FIELDS = frozenset({"ack_bits", "vote_bits", "hold_bits"})
+# most specific first: each class is recognized by its field names
+_STATE_TYPES = (EngineState, GatedRecycleState, RecycleState, QuorumState,
+                DissemState, MergeState)
+
+
+def bits_from_numpy(a, device) -> torch.Tensor:
+    """uint32 (or int32) bitset array → int32 tensor with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype not in (np.uint32, np.int32):
+        raise TypeError(f"bitsets must be uint32 or int32, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def bits_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 bitset tensor → uint32 array with the same bits."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def _get(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _has(tree, name) -> bool:
+    return name in tree if isinstance(tree, dict) else hasattr(tree, name)
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, (tuple, dict))
+
+
+def _leaf_from_numpy(name: str, a, device) -> torch.Tensor:
+    if name in BITSET_FIELDS:
+        return bits_from_numpy(a, device)
+    a = np.asarray(a)
+    if a.dtype not in (np.bool_, np.int32):
+        raise TypeError(f"field {name!r} must be bool or int32, got "
+                        f"{a.dtype}")
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _from_tree(tree, device):
+    for cls in _STATE_TYPES:
+        if _is_node(tree) and all(_has(tree, f) for f in cls._fields):
+            break
+    else:
+        raise ValueError(f"not a recognized engine state: {type(tree)}")
+    fields = []
+    for f in cls._fields:
+        v = _get(tree, f)
+        fields.append(None if v is None else _from_tree(v, device)
+                      if _is_node(v) else _leaf_from_numpy(f, v, device))
+    return cls(*fields)
+
+
+def _find(tmpl, cls):
+    """First node of type ``cls`` in the template tree (depth first)."""
+    if isinstance(tmpl, cls):
+        return tmpl
+    if isinstance(tmpl, tuple):
+        for v in tmpl:
+            found = _find(v, cls)
+            if found is not None:
+                return found
+    return None
+
+
+def _check_like(got, want, path: str) -> None:
+    if isinstance(want, tuple):
+        if type(got) is not type(want):
+            raise ValueError(f"{path}: expected {type(want).__name__}, got "
+                             f"{type(got).__name__}")
+        for f in want._fields:
+            _check_like(getattr(got, f), getattr(want, f), f"{path}.{f}")
+    elif want is None or got is None:
+        if want is not got:
+            raise ValueError(f"{path}: expected {want!r}, got {got!r}")
+    elif got.shape != want.shape or got.dtype != want.dtype:
+        raise ValueError(f"{path}: expected {want.dtype}{tuple(want.shape)}"
+                         f", got {got.dtype}{tuple(got.shape)}")
+
+
+def engine_state_from_numpy(cfg: EngineConfig, tree, device):
+    """Build the port's state from a reference state given as numpy
+    arrays under the reference's field names: an ``EngineState`` gives an
+    :class:`EngineState`, a family state gives the port's family state.
+    Raises ``ValueError`` if its shapes or dtypes do not fit ``cfg``."""
+    state = _from_tree(tree, device)
+    tmpl = _find(create_state(cfg, "meta"), type(state))
+    if tmpl is None:
+        raise ValueError(f"{type(state).__name__} is not part of a "
+                         f"{cfg.family!r} engine state")
+    _check_like(state, tmpl, type(state).__name__)
+    return state
+
+
+def engine_state_to_numpy(state):
+    """The port's state (an ``EngineState`` or any family state) → nested
+    dicts of numpy arrays under the reference's field names, bitsets as
+    ``uint32``."""
+    out = {}
+    for f in state._fields:
+        v = getattr(state, f)
+        if v is None or isinstance(v, tuple):
+            out[f] = None if v is None else engine_state_to_numpy(v)
+        elif f in BITSET_FIELDS:
+            out[f] = bits_to_numpy(v)
+        else:
+            out[f] = v.detach().cpu().numpy()
+    return out

@@ -1,0 +1,112 @@
+"""The port on a CUDA card: each CUDA kernel against its plain version
+(bit-exact, in place and out of place, launch counted), the entry points'
+default device, and a small engine run on the card against the same run
+on the CPU. Every test is marked ``gpu`` and skips without a card.
+
+This file imports only torch, numpy and repro_torch, so it also runs on
+a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+from repro_torch import convert  # noqa: E402
+from repro_torch.engine import api  # noqa: E402
+from repro_torch.kernels import dissem as kd  # noqa: E402
+from repro_torch.kernels import quorum as kq  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+FAMILIES = ["plain", "recycled", "gated", "gated_recycled"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def inputs(seed, shape, dev):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2**32, shape, dtype=np.uint32)
+    upd = rng.integers(0, 2**32, shape, dtype=np.uint32)
+    stable = rng.random(shape[:-1]) < 0.3
+    return (convert.bits_from_numpy(bits, dev),
+            convert.bits_from_numpy(upd, dev), torch.from_numpy(stable).to(dev))
+
+
+@pytest.mark.parametrize("G,W,D", [(2, 12, 32), (3, 20, 33), (1, 7, 31),
+                                   (2, 36, 65), (4, 10, 1), (2, 24, 64),
+                                   (4, 2048, 1000)])
+def test_kernels_match_plain(cuda, G, W, D):
+    args = inputs(G + W + D, (G, W, (D + 31) // 32), cuda)
+    maj = D // 2 + 1
+    for kernel, fn, plain in (
+            (kq.KERNEL, kq.quorum_update_grouped,
+             kq.quorum_update_grouped_plain),
+            (kd.KERNEL, kd.stability_update_grouped,
+             kd.stability_update_grouped_plain)):
+        want = plain(*args, majority=maj)
+        before = kernel.launches
+        got = fn(*args, majority=maj)
+        assert kernel.launches == before + 1
+        buf = args[0].clone()
+        got_in = fn(buf, *args[1:], majority=maj, inplace=True)
+        assert got_in[0].data_ptr() == buf.data_ptr()
+        for g, g_in, w in zip(got, got_in, want):
+            assert torch.equal(g, w) and torch.equal(g_in, w)
+    if G == 1:
+        got = kq.quorum_update(args[0][0], args[1][0], args[2][0],
+                               majority=maj)
+        want = kq.quorum_update_grouped_plain(*args, majority=maj)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[0])
+
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_engine_on_card_matches_cpu(cuda, fam):
+    """Entry points default to cuda; a small run there equals the CPU's,
+    with 2 quorum launches per tick and 1 stability launch per gated
+    tick."""
+    G, W, T = 2, 16, 12
+    cfg = api.EngineConfig(
+        groups=G, window=W, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=T * 4,
+        recycling=api.RecyclingConfig(watermark=W // 2, id_stride=4096)
+        if "recycled" in fam else None,
+        gating=api.GatingConfig(stab_majority=3) if "gated" in fam else None)
+    rng = np.random.default_rng(FAMILIES.index(fam))
+    tiles = [((rng.random((T, G, W, 1)) < p) * np.uint32(m)).astype(np.uint32)
+             for p, m in ((0.7, 0x1F), (0.6, 0x7), (0.8, 0x1F))]
+    if cfg.gating is None:
+        tiles = tiles[:2]
+    state = api.create_state(cfg)
+
+    def leaves(x):
+        if isinstance(x, tuple):
+            for v in x:
+                yield from leaves(v)
+        elif x is not None:
+            yield x
+    assert all(t.is_cuda for t in leaves(state))
+    before = (kq.KERNEL.launches, kd.KERNEL.launches)
+    st, *res = api.run(cfg, state, *(convert.bits_from_numpy(x, cuda)
+                                     for x in tiles))
+    torch.cuda.synchronize()
+    assert (kq.KERNEL.launches - before[0], kd.KERNEL.launches - before[1]) \
+        == (2 * T, T if cfg.gating is not None else 0)
+    cst, *cres = api.run(cfg, api.create_state(cfg, "cpu"),
+                         *(convert.bits_from_numpy(x, "cpu") for x in tiles))
+    assert [int(x) for x in res[1:]] == [int(x) for x in cres[1:]]
+    assert torch.equal(res[0].cpu(), cres[0])
+    got, want = (convert.engine_state_to_numpy(s) for s in (st, cst))
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return all(same(a[k], b[k]) for k in a)
+        return (a is None and b is None) or np.array_equal(a, b)
+    assert same(got, want)
