@@ -22,10 +22,33 @@ Phases, each of which must pass or the script exits non-zero:
    run once each at the same width, also against the CPU;
 4. timing with CUDA events: each kernel at the engine's shapes beside its
    bound and its plain version (plus each one's device time from
-   ``torch.profiler``), and the engine's ticks/s and ids/s;
+   ``torch.profiler``), ``quorum_update`` at its test shape and a
+   main-path-sized tile, and the engine's ticks/s and ids/s;
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
-   heaviest kernels and PyTorch ops.
+   heaviest kernels and PyTorch ops;
+6. model-kernel phase: the flash attention and WKV6 kernels against
+   their plain versions on the card, at the serving path's shapes, the
+   shapes of the reference kernel tests, sliding-window, non-causal,
+   ragged and hv != h cases (flash), and ragged lengths and decay
+   ranges where the reference's chunked form overflows (WKV6);
+7. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
+   width and depth in bf16 (weights from the port's initialiser, seed 0),
+   B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches),
+   teacher-forced ``decode_step`` over the prompt (no kernel launch),
+   then 32 greedy ``decode_step``s; all logits finite. Both bf16 paths
+   against the f32 forward of the same weights (neither more than 2x
+   further from it than the other), and in f32 at full depth prefill vs
+   teacher-forced decode over 160 tokens within 1e-3 with equal greedy
+   tokens. Prefill and decode tokens/s, each kernel's device time in
+   the prefill, peak memory;
+8. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
+   the kernels, prefill with the plain versions and the teacher-forced
+   decode against each other;
+9. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
+   on the card;
+10. model-kernel timing at the serving path's shapes: kernel, plain
+   version and (flash) ``scaled_dot_product_attention``, with bounds.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -33,6 +56,7 @@ nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -54,7 +78,9 @@ T_FAMILY = 48         # plain/recycled/gated families, once each
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 WARMUP, REPS = 20, 200
+START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -106,7 +132,8 @@ def make_traffic(ticks: int, seed: int):
 def build_kernels() -> float:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build(["quorum.cu", "dissem.cu"])
+    logs = _build.build(["quorum.cu", "dissem.cu", "flash_attention.cu",
+                         "wkv6.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
         ptxas = [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
@@ -196,9 +223,11 @@ def engine_config(family: str):
 
 def reset_counts() -> None:
     from repro_torch.kernels import dissem as kd
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import quorum as kq
-    kq.KERNEL.launches = 0
-    kd.KERNEL.launches = 0
+    from repro_torch.kernels import rwkv6_scan as kw
+    for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kw.KERNEL):
+        kernel.launches = 0
 
 
 def read_counts() -> tuple[int, int]:
@@ -445,6 +474,527 @@ def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
     return res
 
 
+def time_quorum_single(dev) -> list[dict]:
+    """``quorum_update`` (the single-group form, a G = 1 launch) at its
+    test shape [7, 31 bits] and at a main-path-sized [2048, 32 words]
+    tile, in place."""
+    from repro_torch.kernels import quorum as kq
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    for w, n in ((7, 31), (2048, 32 * 32)):
+        words = (n + 31) // 32
+        upd = torch.from_numpy(sparse_words(rng, (w, words), 3, n)
+                               .view(np.int32)).to(dev)
+        bits = torch.zeros_like(upd)
+        stable = torch.zeros((w,), dtype=torch.bool, device=dev)
+        maj = n // 2 + 1
+
+        def kernel():
+            return kq.quorum_update(bits, upd, stable, majority=maj,
+                                    inplace=True)
+
+        def plain():
+            return kq.quorum_update_grouped_plain(
+                bits[None], upd[None], stable[None], majority=maj,
+                inplace=True)
+        ms = time_cuda(kernel)
+        plain_ms = time_cuda(plain)
+        found = [us for k, us in device_kernels(kernel, 50)
+                 if "quorum_kernel" in k]
+        check(len(found) == 50, f"quorum_update: profiler saw {len(found)} "
+              "of 50 kernel launches")
+        rows.append(dict(name="quorum_update", shape=[w, words], ms=ms,
+                         plain_ms=plain_ms, device_ms=sum(found) / 50e3,
+                         **kernel_bound(1, w, words, False)))
+        log(phase="timing/kernel", **rows[-1])
+    return rows
+
+
+# -- model serving path -------------------------------------------------------
+
+# (arch, the kernel its prefill runs on every layer)
+SERVE_ARCHS = (("yi-6b", "flash_attention"), ("rwkv6-3b", "wkv6_chunked"))
+SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
+F32_LAYERS = 2
+CPU_B, CPU_P, CPU_STEPS = 2, 256, 8
+# kernel vs plain version on the same inputs. Flash: the tolerances of
+# tests/test_kernels.py (f32 arithmetic in both; bf16 output rounding).
+# WKV6: both sides compute in f32 from the same values, so f32
+# reassociation only, relative to the output's size.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+WKV_TOL = 1e-5              # × (max |plain| + 1)
+# prefill vs teacher-forced decode logits. bf16: the two paths round
+# different partial sums (one batched GEMM against B GEMVs) through 32
+# random-weight layers; the rounding noise this leaves in the logits
+# (measured against the f32 forward of the same weights) is as large as
+# the top-2 gaps, so neither the logits nor the greedy tokens of the two
+# bf16 paths can be held to each other tighter than that noise. Each bf16
+# path is held against the f32 forward instead: neither may be more than
+# BF16_PATH_RATIO times further from it than the other (one bf16
+# arithmetic, no path worse). The exact check is in f32 at full depth:
+# prefill and teacher-forced decode over an F32_P-token prompt within
+# F32_LOGIT_TOL, greedy tokens equal. f32 and CPU-vs-card: f32 rounding.
+BF16_PATH_RATIO = 2.0
+F32_P = 160                 # > 128: the reference's NaN region for rwkv6
+F32_LOGIT_TOL = 1e-3
+CPU_LOGIT_TOL = 1e-4
+BF16, F32 = torch.bfloat16, torch.float32
+FLASH_CASES = [  # (B, Sq, Skv, H, K, h, hv, causal, window, dtype)
+    (4, 1024, 1024, 32, 4, 128, 128, True, -1, BF16),   # yi-6b prefill
+    (4, 1024, 1024, 32, 4, 128, 128, True, -1, F32),    # serve/f32
+    *[(2, S, S, H, K, h, hv, True, w, dt) for dt in (F32, BF16)
+      for (S, H, K, h, hv, w) in ((128, 4, 4, 32, 32, -1),
+                                  (256, 8, 4, 64, 64, -1),
+                                  (256, 8, 4, 64, 64, 100),
+                                  (128, 4, 2, 48, 32, -1))],  # test_kernels
+    (2, 512, 512, 8, 4, 64, 64, True, 100, BF16),       # sliding window
+    (2, 128, 128, 4, 2, 32, 32, False, -1, F32),        # non-causal
+    (2, 128, 128, 4, 2, 32, 32, False, 40, F32),        # non-causal window
+    (2, 100, 130, 4, 2, 64, 48, True, -1, F32),         # ragged, hv != h
+    (2, 130, 100, 4, 4, 32, 32, True, -1, F32),         # Sq > Skv
+    (2, 77, 77, 4, 2, 64, 64, True, 30, F32),           # ragged window
+    (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
+]
+WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
+    (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
+    (4, 1024, 40, 64, F32, 0.3),                        # serve/f32
+    *[(2, S, H, hd, dt, 1.0) for dt in (F32, BF16)
+      for (S, H, hd) in ((64, 2, 32), (128, 4, 64), (64, 1, 128))],
+    (2, 256, 4, 64, F32, 0.3),     # the reference's overflow range
+    (2, 300, 4, 64, F32, 3.0),     # ragged S, steep decay
+    (1, 37, 2, 32, F32, 1.0),      # ragged, shorter than a chunk
+]
+
+
+def model_kernel_modules():
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import rwkv6_scan as kw
+    return kf, kw
+
+
+def model_counts() -> dict:
+    kf, kw = model_kernel_modules()
+    return {"flash_attention": kf.KERNEL.launches,
+            "wkv6_chunked": kw.KERNEL.launches}
+
+
+def randn(gen, shape, dev, dtype=F32, scale=1.0) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def wkv_inputs(gen, B, S, H, hd, dtype, w_std, dev):
+    """r/k/v standard normal in ``dtype``; wlog = -softplus(N(0, w_std))
+    - 1e-4 in f32, as the model's ``_decay_log``; u = N(0, 0.1)."""
+    r, k, v = (randn(gen, (B, S, H, hd), dev, dtype) for _ in range(3))
+    wlog = -torch.nn.functional.softplus(
+        randn(gen, (B, S, H, hd), dev, scale=w_std)) - 1e-4
+    return r, k, v, wlog, randn(gen, (H, hd), dev, scale=0.1)
+
+
+def model_kernel_phase(dev) -> dict:
+    """Both model kernels against their plain versions on the card;
+    returns the worst absolute error per kernel. Any miss of a stated
+    tolerance fails the run."""
+    from repro_torch.kernels import ref
+    kf, kw = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    worst = {"flash_attention": 0.0, "wkv6_chunked": 0.0}
+    cases = []
+    for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in FLASH_CASES:
+        q = randn(gen, (B, Sq, H, h), dev, dt)
+        k = randn(gen, (B, Skv, K, h), dev, dt)
+        v = randn(gen, (B, Skv, K, hv), dev, dt)
+        got = kf.flash_attention(q, k, v, causal=causal, window=window)
+        want = kf.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == want.shape,
+              f"flash: output {got.dtype}{tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
+        check(err <= FLASH_TOL[dt], f"flash_attention {case}: max abs err "
+              f"{err} > {FLASH_TOL[dt]}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        cases.append(dict(kernel="flash_attention", case=case, err=err,
+                          tol=FLASH_TOL[dt]))
+    for (B, S, H, hd, dt, w_std) in WKV_CASES:
+        r, k, v, wlog, u = wkv_inputs(gen, B, S, H, hd, dt, w_std, dev)
+        got = kw.wkv6_chunked(r, k, v, wlog, u)
+        want = kw.wkv6_chunked_plain(r, k, v, wlog, u, chunk=128)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max()) + 1.0
+        err = float((got - want).abs().max())
+        case = [B, S, H, hd, str(dt), w_std]
+        check(bool(torch.isfinite(got).all()), f"wkv6 {case}: not finite")
+        check(err <= WKV_TOL * scale, f"wkv6_chunked {case}: max abs err "
+              f"{err} > {WKV_TOL} x {scale}")
+        extra = {}
+        if S <= 512 and w_std < 1.0:
+            # the reference's factorisation k * exp(-cum) over a chunk of
+            # 128 overflows here; the kernel stays equal to the recurrence
+            cum = torch.cumsum(wlog[:, :128], dim=1)
+            extra["reference_form_overflows"] = bool(
+                torch.isinf(torch.exp(-cum)).any())
+            seq = ref.wkv6_ref(r, k, v, wlog, u)
+            extra["err_vs_sequential"] = float((got - seq).abs().max())
+            check(extra["reference_form_overflows"]
+                  and extra["err_vs_sequential"] <= WKV_TOL * scale,
+                  f"wkv6 {case}: {extra}")
+        worst["wkv6_chunked"] = max(worst["wkv6_chunked"], err)
+        cases.append(dict(kernel="wkv6_chunked", case=case, err=err,
+                          tol=WKV_TOL * scale, **extra))
+    log(phase="kernels/model", cases=cases, max_abs_err=worst)
+    return worst
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model layers' kernel calls to the plain versions."""
+    from repro_torch.kernels import ops
+    kf, kw = model_kernel_modules()
+    saved = ops.attention, ops.wkv6
+    ops.attention = (lambda q, k, v, *, causal=True, window=-1:
+                     kf.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window))
+    ops.wkv6 = (lambda r, k, v, wlog, u, *, chunk=128:
+                kw.wkv6_chunked_plain(r, k, v, wlog, u, chunk=chunk))
+    try:
+        yield
+    finally:
+        ops.attention, ops.wkv6 = saved
+
+
+def f32_copy(lm):
+    """The same model with every parameter in f32."""
+    from repro_torch.models.transformer import LM
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    tree = {"embed": f32(lm["embed"].to_dict()),
+            "ln_f": f32(lm["ln_f"].to_dict()),
+            "segments": {name: [f32(layer.to_dict()) for layer in layers]
+                         for name, layers in lm["segments"].items()}}
+    return LM(lm.cfg.replace(dtype=F32), tree)
+
+
+def teacher_forced(lm, cfg, prompts, cache):
+    """decode_step over every prompt token; the last step's logits."""
+    from repro_torch.models import decode as D
+    for t in range(prompts.shape[1]):
+        logits, cache = D.decode_step(
+            lm, cfg, {"token": prompts[:, t:t + 1], "index": t}, cache)
+    return logits
+
+
+def serve_phase(arch: str, kernel: str, dev) -> dict:
+    """The serving path at full width and depth in bf16: prefill,
+    teacher-forced decode, greedy decode, checks and timing."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cfg = registry.get(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits_p, _ = D.prefill(lm, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    after_prefill = model_counts()
+    check(after_prefill[kernel] == cfg.n_layers
+          and sum(after_prefill.values()) == cfg.n_layers,
+          f"{arch} prefill launched {after_prefill}, expected "
+          f"{cfg.n_layers} x {kernel}")
+    cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B,
+                                       SERVE_P + SERVE_NEW + 4), dev)
+    t0 = time.perf_counter()
+    logits_d = teacher_forced(lm, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    check(model_counts() == after_prefill,
+          f"{arch}: decode launched a model kernel")
+    finite = bool(torch.isfinite(logits_p).all()
+                  and torch.isfinite(logits_d).all())
+    check(finite, f"{arch}: prefill or decode logits are not finite")
+
+    tok = logits_d.argmax(-1)[:, None]
+    all_finite = torch.ones((), dtype=torch.bool, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(SERVE_NEW):
+        logits, cache = D.decode_step(
+            lm, cfg, {"token": tok, "index": SERVE_P + i}, cache)
+        all_finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / SERVE_NEW
+    check(bool(all_finite), f"{arch}: greedy decode logits not finite")
+    launches = model_counts()
+    check(launches == after_prefill, f"{arch}: greedy decode launched "
+          f"{launches}")
+    peak_path = torch.cuda.max_memory_allocated()
+
+    # the f32 forward of the same weights (after the counted run), and
+    # the f32 prefill vs teacher-forced decode at full depth
+    lm32 = f32_copy(lm)
+    logits_f, _ = D.prefill(lm32, lm32.cfg, {"tokens": prompts})
+    short = prompts[:, :F32_P]
+    f32_prefill, _ = D.prefill(lm32, lm32.cfg, {"tokens": short})
+    f32_decode = teacher_forced(lm32, lm32.cfg, short, D.cache_zeros(
+        D.cache_spec(lm32.cfg, SERVE_B, F32_P), dev))
+    del lm32
+    torch.cuda.empty_cache()
+    f32_err = float((f32_prefill - f32_decode).abs().max())
+    check(f32_err <= F32_LOGIT_TOL and torch.equal(
+        f32_prefill.argmax(-1), f32_decode.argmax(-1)),
+        f"{arch}: f32 full depth, prefill vs teacher-forced decode over "
+        f"{F32_P} tokens: max abs err {f32_err}, greedy "
+        f"{f32_prefill.argmax(-1).tolist()} vs "
+        f"{f32_decode.argmax(-1).tolist()}")
+    lp, ld, lf = logits_p.float(), logits_d.float(), logits_f
+
+    def rms(x):
+        return float(x.square().mean().sqrt())
+    agree = dict(prefill_vs_decode=float((lp - ld).abs().max()),
+                 prefill_vs_f32=float((lp - lf).abs().max()),
+                 decode_vs_f32=float((ld - lf).abs().max()),
+                 rms_prefill_vs_decode=rms(lp - ld),
+                 rms_prefill_vs_f32=rms(lp - lf),
+                 rms_decode_vs_f32=rms(ld - lf), rms_f32_logits=rms(lf),
+                 max_abs_f32_logit=float(lf.abs().max()),
+                 f32_full_depth_prefill_vs_decode=f32_err)
+    tokens = {name: x.argmax(-1).tolist()
+              for name, x in (("prefill", lp), ("decode", ld), ("f32", lf))}
+    top2 = lf.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).tolist()
+    log(phase=f"serve/{arch}/agreement", **agree, greedy_tokens=tokens,
+        f32_top2_gap=gap)
+    a, b = agree["prefill_vs_f32"], agree["decode_vs_f32"]
+    check(max(a, b) <= BF16_PATH_RATIO * min(a, b),
+          f"{arch}: one bf16 path is further from the f32 forward than "
+          f"the other: {agree}")
+
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
+                           reps=3, warmup=1)
+    symbol = "flash_kernel" if kernel == "flash_attention" else "wkv6_kernel"
+    prof = device_kernels(lambda: D.prefill(lm, cfg, {"tokens": prompts}), 1)
+    mine = [us for name, us in prof if symbol in name]
+    check(len(mine) == cfg.n_layers, f"{arch}: profiler saw {len(mine)} "
+          f"{symbol} launches in one prefill")
+    dev_us = sum(us for _, us in prof)
+    steps = 4
+    t0 = time.perf_counter()
+    prof_d = device_kernels(lambda: D.decode_step(
+        lm, cfg, {"token": tok, "index": SERVE_P + SERVE_NEW}, cache), steps)
+    decode_wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    res = dict(arch=arch, params=n_params, batch=SERVE_B, prompt=SERVE_P,
+               new_tokens=SERVE_NEW, init_seconds=init_s,
+               prefill_first_seconds=prefill_first_s,
+               launches={kernel: after_prefill[kernel]},
+               **agree, greedy_tokens=tokens, f32_top2_gap=gap,
+               teacher_forced_seconds=tf_s,
+               teacher_forced_tokens_per_s=SERVE_B * SERVE_P / tf_s,
+               prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
+               decode_ms_per_step=decode_ms,
+               decode_tokens_per_s=SERVE_B / (decode_ms / 1e3),
+               prefill_kernel_us=sum(mine) / len(mine),
+               prefill_kernel_share=sum(mine) / dev_us,
+               prefill_device_ms=dev_us / 1e3,
+               prefill_device_busy_share=dev_us / 1e3 / prefill_ms,
+               decode_kernels_per_step=len(prof_d) / steps,
+               decode_device_us_per_step=sum(us for _, us in prof_d) / steps,
+               decode_profiled_wall_us_per_step=decode_wall_us,
+               peak_mem_bytes=peak_path,
+               peak_mem_bytes_with_timing=torch.cuda.max_memory_allocated())
+    log(phase=f"serve/{arch}", **res)
+    del lm, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_f32_phase(dev) -> dict:
+    """Full width, F32_LAYERS layers, f32: prefill with the kernels,
+    prefill with the plain versions, and the teacher-forced decode."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    out = {}
+    for arch, kernel in SERVE_ARCHS:
+        cfg = registry.get(arch).replace(n_layers=F32_LAYERS, dtype=F32)
+        lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P),
+                                device=dev,
+                                generator=torch.Generator(dev).manual_seed(
+                                    SEED + 1))
+        reset_counts()
+        with_kernel, _ = D.prefill(lm, cfg, {"tokens": prompts})
+        counts = model_counts()
+        with plain_kernels():
+            plain, _ = D.prefill(lm, cfg, {"tokens": prompts})
+        torch.cuda.synchronize()
+        check(model_counts() == counts and counts[kernel] == F32_LAYERS,
+              f"serve/f32 {arch}: launches {counts} then {model_counts()}")
+        cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, SERVE_P), dev)
+        decoded = teacher_forced(lm, cfg, prompts, cache)
+        errs = dict(kernel_vs_plain=float((with_kernel - plain).abs().max()),
+                    kernel_vs_decode=float((with_kernel - decoded)
+                                           .abs().max()))
+        same_tokens = bool(torch.equal(with_kernel.argmax(-1),
+                                       plain.argmax(-1))
+                           and torch.equal(with_kernel.argmax(-1),
+                                           decoded.argmax(-1)))
+        check(all(e <= F32_LOGIT_TOL for e in errs.values())
+              and same_tokens and bool(torch.isfinite(with_kernel).all()),
+              f"serve/f32 {arch}: {errs}, same greedy tokens {same_tokens}")
+        out[arch] = dict(errs, logits_max_abs=float(with_kernel.abs().max()),
+                         tolerance=F32_LOGIT_TOL, launches=counts[kernel])
+        del lm, cache
+        torch.cuda.empty_cache()
+    log(phase="serve/f32", layers=F32_LAYERS, batch=SERVE_B, prompt=SERVE_P,
+        **out)
+    return out
+
+
+def serve_cpu_phase(dev) -> dict:
+    """The smoke configs in f32 on one set of weights (drawn on the CPU
+    from seed 0, carried to the card through numpy): prefill and
+    CPU_STEPS decode steps on the CPU and on the card."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch, _ in SERVE_ARCHS:
+        cfg = registry.get_smoke(arch).replace(dtype=F32)
+        lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        lm_dev = convert.lm_params_from_jax(
+            convert.lm_params_to_numpy(lm_cpu), cfg, dev)
+        toks = np.random.default_rng(SEED + 4).integers(
+            0, cfg.vocab, (CPU_B, CPU_P))
+        errs = []
+        for lm, d in ((lm_cpu, "cpu"), (lm_dev, dev)):
+            prompts = torch.from_numpy(toks).to(d)
+            logits, _ = D.prefill(lm, cfg, {"tokens": prompts})
+            cache = D.cache_zeros(D.cache_spec(cfg, CPU_B, CPU_STEPS), d)
+            steps = [D.decode_step(lm, cfg, {"token": prompts[:, t:t + 1],
+                                             "index": t}, cache)[0]
+                     for t in range(CPU_STEPS)]
+            errs.append(torch.stack([logits, *steps]).cpu())
+        err = float((errs[0] - errs[1]).abs().max())
+        check(err <= CPU_LOGIT_TOL and bool(torch.isfinite(errs[1]).all()),
+              f"serve/cpu {arch}: card vs CPU max abs err {err}")
+        out[arch] = dict(max_abs_err=err, tolerance=CPU_LOGIT_TOL)
+    log(phase="serve/cpu", batch=CPU_B, prompt=CPU_P, decode_steps=CPU_STEPS,
+        **out)
+    return out
+
+
+def serve_cli(dev) -> None:
+    """``python -m repro_torch.launch.serve`` at smoke size, on the card
+    by default (no --device)."""
+    from repro_torch.launch import serve
+    for arch, _ in SERVE_ARCHS:
+        serve.main(["--arch", arch, "--prompt-len", "16", "--new-tokens",
+                    "8"])
+
+
+def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize) -> dict:
+    """Causal attention with Sq = Skv: the visible (query, key) pairs
+    need 2 h + 2 hv flops each at the bf16 tensor-core rate; q, k, v read
+    once and the output written once."""
+    pairs = B * H * Sq * (Sq + 1) // 2
+    flops = pairs * 2 * (h + hv)
+    nbytes = itemsize * (B * Sq * H * h + B * Skv * K * (h + hv)
+                         + B * Sq * H * hv)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def wkv_bound(B, S, H, hd, itemsize) -> dict:
+    """The recurrence needs 2 FMAs per state element per token (decay and
+    add k v; read out r S) = 4 hd^2 flops per token and head, counted at
+    the bf16 tensor-core rate; r/k/v read in their type, wlog and u in
+    f32, the f32 output written once."""
+    n = B * S * H * hd
+    flops = 4 * B * S * H * hd * hd
+    nbytes = 3 * itemsize * n + 4 * n + 4 * H * hd + 4 * n
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_model_kernels(dev) -> dict:
+    """Each model kernel at its serving-path shape (bf16, B=4, S=1024):
+    per call (CUDA events), the plain version, and for flash one
+    ``scaled_dot_product_attention`` call on the same inputs; with the
+    bound. The kernels' device times come from the serving phases'
+    ``torch.profiler`` pass over a whole prefill."""
+    import torch.nn.functional as F
+    kf, kw = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    rows = {}
+    B, S, H, K, h = SERVE_B, SERVE_P, 32, 4, 128
+    q = randn(gen, (B, S, H, h), dev, BF16)
+    k = randn(gen, (B, S, K, h), dev, BF16)
+    v = randn(gen, (B, S, K, h), dev, BF16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    if not gqa:          # no enable_gqa: k/v expanded over the group first
+        kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **({"enable_gqa": True} if gqa
+                                           else {}))
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - kf.flash_attention_plain(q, k, v).float())
+                    .abs().max())
+    check(lib_err <= FLASH_TOL[BF16], f"sdpa disagrees: {lib_err}")
+    rows["flash_attention"] = dict(
+        shape=[B, S, H, K, h], dtype="bfloat16",
+        ms=time_cuda(lambda: kf.flash_attention(q, k, v), reps=20, warmup=3),
+        plain_ms=time_cuda(lambda: kf.flash_attention_plain(q, k, v),
+                           reps=5, warmup=1),
+        library_ms=time_cuda(sdpa, reps=20, warmup=3),
+        library="torch.nn.functional.scaled_dot_product_attention"
+                "(is_causal=True" + (", enable_gqa=True)" if gqa
+                                     else ") on k/v expanded over G"),
+        library_vs_plain_err=lib_err,
+        **attention_bound(B, S, S, H, K, h, h, 2))
+    log(phase="timing/model_kernel", name="flash_attention",
+        **rows["flash_attention"])
+    B, S, H, hd = SERVE_B, SERVE_P, 40, 64
+    r, kk, vv, wlog, u = wkv_inputs(gen, B, S, H, hd, BF16, 0.3, dev)
+    rows["wkv6_chunked"] = dict(
+        shape=[B, S, H, hd], dtype="bfloat16",
+        ms=time_cuda(lambda: kw.wkv6_chunked(r, kk, vv, wlog, u), reps=20,
+                     warmup=3),
+        plain_ms=time_cuda(lambda: kw.wkv6_chunked_plain(r, kk, vv, wlog, u),
+                           reps=3, warmup=1),
+        library_ms=None,
+        library="none: no single PyTorch call computes the WKV6 recurrence",
+        **wkv_bound(B, S, H, hd, 2))
+    log(phase="timing/model_kernel", name="wkv6_chunked",
+        **rows["wkv6_chunked"])
+    return rows
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -462,6 +1012,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     log(torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
@@ -487,8 +1039,20 @@ def main() -> int:
         run_family(family, tiles_cpu, tiles_dev, dev, host_ticks=False)
 
     timings = time_kernels(dev, tiles_dev)
+    single = time_quorum_single(dev)
     engine = time_engine(tiles_dev, dev)
     profile_ticks(tiles_dev, dev)
+    del tiles_dev
+    torch.cuda.empty_cache()
+
+    # the model-serving path: each model's drive resets the counts first
+    model_errors = model_kernel_phase(dev)
+    serves = {kernel: serve_phase(arch, kernel, dev)
+              for arch, kernel in SERVE_ARCHS}
+    serve_f32_phase(dev)
+    serve_cpu_phase(dev)
+    serve_cli(dev)
+    model_timing = time_model_kernels(dev)
 
     by_name = {}
     for row in timings:                  # first row per kernel: main shape
@@ -515,10 +1079,35 @@ def main() -> int:
                              for r in timings if r["name"] == name])
         if name == "quorum_update_grouped":
             entry["also_replaces"] = "src/repro/kernels/quorum.py:72"
+            entry["also_replaces_timing"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "device_ms",
+                                   "bound_ms", "bound_by", "bytes")}
+                for r in single]
         kernels.append(entry)
+    for name, src, replaces in (
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:92"),
+            ("wkv6_chunked", "src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_scan.py:66")):
+        row, serve = model_timing[name], serves[name]
+        launches = serve["launches"][name]
+        check(launches > 0, f"{name} was not launched on its serving path")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches, path=f"serve/{serve['arch']} prefill",
+            max_abs_err=model_errors[name], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library=row["library"],
+            device_ms=serve["prefill_kernel_us"] / 1e3, shape=row["shape"],
+            dtype=row["dtype"]))
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",
                                        "tick_loop_ticks_per_s",
                                        "generations_min")})
+    log(serve={s["arch"]: {k: s[k] for k in (
+        "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
+        for s in serves.values()}, seconds=time.perf_counter() - START)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

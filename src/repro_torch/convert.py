@@ -1,13 +1,16 @@
-"""Carry engine state and packed tiles between numpy and the port.
+"""Carry engine state, packed tiles and model weights between numpy and
+the port.
 
 A state crosses as nested numpy arrays under the reference's field names:
 the reference's ``EngineState`` or any of its family states (QuorumState,
 RecycleState, GatedRecycleState, DissemState, MergeState), as NamedTuples
 with array leaves or as nested dicts. Bitset fields (``ack_bits``,
 ``vote_bits``, ``hold_bits``) cross as a ``uint32`` ↔ ``int32`` view with
-the same bits; every other field keeps its dtype (int32 or bool). The
-system has no weights: the engine state, merge log included, is all that
-carries across.
+the same bits; every other field keeps its dtype (int32 or bool).
+
+Model weights cross in the layout of the reference's ``init_lm``: nested
+dicts whose segment leaves are stacked along a leading layer axis
+(:func:`lm_params_from_jax`, :func:`lm_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from .dissem.engine import DissemState
 from .engine.api import EngineConfig, EngineState, create_state
 from .engine.merge import MergeState
 from .engine.sharded import GatedRecycleState, RecycleState
+from .models.common import ModelConfig
+from .models.transformer import LM, init_lm
 
 BITSET_FIELDS = frozenset({"ack_bits", "vote_bits", "hold_bits"})
 # most specific first: each class is recognized by its field names
@@ -130,3 +135,70 @@ def engine_state_to_numpy(state):
         else:
             out[f] = v.detach().cpu().numpy()
     return out
+
+
+# -- model weights ------------------------------------------------------------
+
+def _weights_like(tree, tmpl: dict, path: str, device) -> dict:
+    if tree.keys() != tmpl.keys():
+        raise ValueError(f"{path}: keys {sorted(tree)} != "
+                         f"{sorted(tmpl)}")
+    out = {}
+    for k, want in tmpl.items():
+        if isinstance(want, dict):
+            out[k] = _weights_like(tree[k], want, f"{path}.{k}", device)
+            continue
+        a = np.array(tree[k], dtype=np.float32)
+        if a.shape != tuple(want.shape):
+            raise ValueError(f"{path}.{k}: expected {tuple(want.shape)}, "
+                             f"got {a.shape}")
+        out[k] = torch.from_numpy(a).to(device=device, dtype=want.dtype)
+    return out
+
+
+def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
+    """The reference's ``init_lm`` parameter tree, as nested dicts of
+    numpy arrays (bf16 arrays too), → the port's :class:`LM` on
+    ``device``. Each stacked ``[n, ...]`` segment leaf is sliced into the
+    per-layer trees; every leaf goes through f32 to ``cfg.dtype``, which
+    is exact for bf16. Raises ``ValueError`` if a key or shape does not
+    fit ``cfg``."""
+    tmpl = init_lm(cfg, device="meta")
+    out = {}
+    for part in ("embed", "ln_f"):
+        out[part] = _weights_like(tree[part], tmpl[part].to_dict(), part,
+                                  device)
+    out["segments"] = {}
+    if tree["segments"].keys() != tmpl["segments"].keys():
+        raise ValueError(f"segments {sorted(tree['segments'])} != "
+                         f"{sorted(tmpl['segments'].keys())}")
+    for name, layers in tmpl["segments"].items():
+        stacked = tree["segments"][name]
+        out["segments"][name] = [
+            _weights_like(_layer(stacked, i), layer.to_dict(),
+                          f"segments.{name}[{i}]", device)
+            for i, layer in enumerate(layers)]
+    return LM(cfg, out)
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    return {k: _layer(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in stacked.items()}
+
+
+def lm_params_to_numpy(lm: LM) -> dict:
+    """The port's :class:`LM` → the reference's parameter layout as f32
+    numpy arrays, segment leaves stacked along a leading layer axis."""
+    def arrays(tree: dict) -> dict:
+        return {k: arrays(v) if isinstance(v, dict)
+                else v.detach().float().cpu().numpy()
+                for k, v in tree.items()}
+
+    def stack(trees: list) -> dict:
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k],
+                                                              dict)
+                else np.stack([t[k] for t in trees]) for k in trees[0]}
+    return {"embed": arrays(lm["embed"].to_dict()),
+            "ln_f": arrays(lm["ln_f"].to_dict()),
+            "segments": {name: stack([arrays(l.to_dict()) for l in layers])
+                         for name, layers in lm["segments"].items()}}

@@ -1,0 +1,167 @@
+"""Prefill and single-token decode (the serving path) for the ported
+families. Counterpart of ``repro.models.decode``.
+
+The cache keeps the reference's pytree (``cache_spec``):
+``{"seg0": {"attn": {"k", "v": [n, B, L, K·h]}}}`` for a dense GQA stack
+and ``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack.
+:func:`decode_step` updates the cache IN PLACE (the reference returns a
+new one) and returns the same dict; the tests hold the updated cache
+equal to the reference's new cache.
+
+Full-length GQA caches only: the sliding-window ring buffer (hymba) is
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .common import ModelConfig
+from .transformer import (backbone_forward, block_apply, plan_segments,
+                          rwkv_block_apply)
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
+
+def _kv_len(seq_len: int, window: int) -> int:
+    return seq_len if window <= 0 else min(window, seq_len)
+
+
+def block_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
+                     window: int) -> dict:
+    """{"attn": {"k", "v": ((batch, L, K·h), dtype)}} for a GQA block."""
+    if cfg.attn_kind != "gqa" or cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: only GQA block caches are ported; ROADMAP.md "
+            f"queue 1 item 12")
+    Lkv = _kv_len(seq_len, window)
+    kv = cfg.n_kv_heads * cfg.hd
+    return {"attn": {"k": ((batch, Lkv, kv), cfg.dtype),
+                     "v": ((batch, Lkv, kv), cfg.dtype)}}
+
+
+def _prepend(spec, n: int):
+    if isinstance(spec, tuple):
+        shape, dt = spec
+        return ((n, *shape), dt)
+    return {k: _prepend(v, n) for k, v in spec.items()}
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """Full cache spec: nested dicts of (shape, dtype) leaves."""
+    out = {}
+    for i, seg in enumerate(plan_segments(cfg)):
+        if seg["kind"] == "rwkv":
+            H = cfg.ssm_heads or cfg.n_heads
+            hd = cfg.d_model // H
+            leaf = {"state": ((seg["n"], batch, H * hd, hd), torch.float32)}
+        else:
+            leaf = _prepend(block_cache_spec(cfg, batch, seq_len,
+                                             seg["window"]), seg["n"])
+        out[f"seg{i}"] = leaf
+    return out
+
+
+def cache_zeros(spec, device=None) -> Any:
+    """Zero cache on ``device`` (default: the CUDA card; raises without
+    one)."""
+    dev = resolve_device(device)
+    if isinstance(spec, tuple):
+        return torch.zeros(spec[0], dtype=spec[1], device=dev)
+    return {k: cache_zeros(v, dev) for k, v in spec.items()}
+
+
+# ---------------------------------------------------------------------------
+# decode: one new token against a filled cache
+# ---------------------------------------------------------------------------
+
+def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, cache: dict, index: int, *,
+                 window: int):
+    """One block, one token, full-length cache. Returns (x, new_cache);
+    the cache is updated in place."""
+    W = cache["attn"]["k"].shape[1]
+    if not (window <= 0 or W > window):
+        raise NotImplementedError(
+            "the sliding-window ring-buffer cache is not ported: ROADMAP.md "
+            "queue 1 item 12")
+    return block_apply(p, cfg, x, positions, window=window, cache=cache,
+                       cache_index=index)
+
+
+def _check_device(params, t: torch.Tensor) -> None:
+    if t.device != params["embed"]["tok"].device:
+        raise ValueError(f"tokens on {t.device}, parameters on "
+                         f"{params['embed']['tok'].device}")
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
+    """batch: {"token": [B,1] int, "index": int position of the token}.
+    Returns (logits [B,V], cache) with the cache updated in place."""
+    index = int(batch["index"])
+    tokens = batch["token"]
+    _check_device(params, tokens)
+    x = L.embed_apply(params["embed"], tokens)
+    B = tokens.shape[0]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.full((B, 1), index, dtype=torch.int32,
+                               device=tokens.device)
+    for i, seg in enumerate(plan_segments(cfg)):
+        c = cache[f"seg{i}"]
+        layers = params["segments"][f"seg{i}"]
+        if seg["kind"] == "rwkv":
+            for n, lp in enumerate(layers):
+                x, nc = rwkv_block_apply(lp, cfg, x,
+                                         cache={"state": c["state"][n]})
+                c["state"][n].copy_(nc["state"])
+        else:
+            for n, lp in enumerate(layers):
+                layer_cache = {"attn": {"k": c["attn"]["k"][n],
+                                        "v": c["attn"]["v"][n]}}
+                x, _ = block_decode(lp, cfg, x, positions, layer_cache,
+                                    index, window=seg["window"])
+    hidden = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = L.logits_apply(params["embed"], hidden, cfg.tie_embeddings)
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
+    """batch: {"tokens": [B,S] int (, "positions": [B,S])}. Returns
+    (last-token logits [B,V], None): the reference's prefill runs the
+    full-sequence forward and fills no cache, and so does this one.
+
+    ``batch_chunks`` > 1 runs the batch in that many chunks, one after
+    the other (exact: every row is independent); 0 → 8 chunks for
+    B >= 16, 4 for B >= 8, else 1, as in the reference."""
+    tokens = batch["tokens"]
+    _check_device(params, tokens)
+    B, Sq = tokens.shape
+    if batch_chunks == 0:
+        batch_chunks = 8 if B >= 16 else (4 if B >= 8 else 1)
+    if batch_chunks > 1 and B % batch_chunks == 0:
+        n = B // batch_chunks
+        return torch.cat([
+            prefill(params, cfg, {k: v[c * n:(c + 1) * n]
+                                  for k, v in batch.items()},
+                    batch_chunks=1)[0]
+            for c in range(batch_chunks)]), None
+    x = L.embed_apply(params["embed"], tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    hidden = backbone_forward(params, cfg, x, positions)
+    logits = L.logits_apply(params["embed"], hidden[:, -1:],
+                            cfg.tie_embeddings)
+    return logits[:, 0], None

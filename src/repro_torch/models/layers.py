@@ -1,0 +1,192 @@
+"""Transformer building blocks of the serving path: RMSNorm, RoPE, GQA
+attention with its decode cache, the SwiGLU MLP, embeddings and the head.
+Counterpart of ``repro.models.layers`` (only what the ported families
+call; MLA and MoE are not ported yet).
+
+All shapes use: B batch, S sequence, D d_model, H heads, K kv heads,
+h head_dim, F ffn dim, V vocab.
+
+The full-sequence (prefill) branch of :func:`gqa_apply` calls the flash
+attention kernel through ``kernels.ops.attention`` at every S; the
+reference switches from the direct softmax to its blockwise form at
+S >= 1024, and both compute the same function. The decode branch stays
+plain PyTorch, as it is plain jnp in the reference.
+
+``repro.models.pconstraint`` (activation sharding constraints) has no
+counterpart: it is a no-op without a device mesh, and the port has none
+yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .common import ModelConfig, ParamFactory
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(pf: ParamFactory, d: int) -> dict:
+    return {"scale": pf.ones((d,))}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in f32; the full-width tensor stays in x.dtype."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard; M-RoPE is not ported)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: tuple = ()) -> torch.Tensor:
+    """x [B, S, N, h]; positions [B, S]. Rotates the two halves of the
+    head dim by position × frequency, in f32, and returns x.dtype."""
+    if positions.dim() == 3 or sections:
+        raise NotImplementedError(
+            "M-RoPE (3-D positions) is not ported: ROADMAP.md queue 1 "
+            "item 12")
+    h = x.shape[-1]
+    freqs = rope_freqs(h, theta, x.device)                    # [h/2]
+    ang = positions.float()[..., None] * freqs                # [B,S,h/2]
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, sliding window, qk-norm, decode cache)
+# ---------------------------------------------------------------------------
+
+def init_gqa(pf: ParamFactory, cfg: ModelConfig) -> dict:
+    """Weights stay 2-D with the head dims flattened (H·h etc.)."""
+    D, H, K, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": pf.leaf((D, H * h)), "wk": pf.leaf((D, K * h)),
+         "wv": pf.leaf((D, K * h)), "wo": pf.leaf((H * h, D))}
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": pf.ones((h,))}
+        p["k_norm"] = {"scale": pf.ones((h,))}
+    return p
+
+
+def _causal_window_mask(Sq: int, Skv: int, window: int, q_offset: int,
+                        device=None) -> torch.Tensor:
+    """bool[Sq, Skv]; True = attend. q_offset = absolute pos of query 0."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    kpos = torch.arange(Skv, device=device)
+    m = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > (qpos[:, None] - window)
+    return m
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """q [B,Sq,H,h], k/v [B,Skv,K,h], mask [Sq,Skv] or [B,1,Sq,Skv].
+    Scores, softmax and the weighted sum in f32, the output in v's dtype.
+    The reference rounds the probabilities to v's dtype before the
+    weighted sum; the port keeps them in f32, as its flash kernel (and
+    the TPU kernel) does, so that decode and prefill compute attention
+    with one arithmetic. In f32 the two are the same function."""
+    B, Sq, H, h = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, h)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    logits = logits / math.sqrt(h)
+    if mask.dim() == 2:
+        mask = mask[None, None, None]
+    else:                                   # [B,1,Sq,Skv] → [B,1,1,Sq,Skv]
+        mask = mask[:, :, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float()).to(v.dtype)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              *, window: int, cache: Optional[dict] = None,
+              cache_index: Optional[int] = None):
+    """Returns (out, new_cache). Prefill: cache None, full S, flash
+    attention kernel. Decode: x is [B,1,D] and ``cache`` holds k/v as
+    [B, L, K·h]; this step's k/v are written into it IN PLACE at
+    ``cache_index`` (a Python int), and the returned cache is the same
+    dict of the same tensors."""
+    B, S, D = x.shape
+    H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, h)
+    k = (x @ p["wk"]).reshape(B, S, K, h)
+    v = (x @ p["wv"]).reshape(B, S, K, h)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cache is None:
+        out = ops.attention(q, k, v, causal=True, window=window)
+        new_cache = None
+    else:
+        ck, cv = cache["k"], cache["v"]
+        ck[:, cache_index:cache_index + S] = k.reshape(B, S, K * h)
+        cv[:, cache_index:cache_index + S] = v.reshape(B, S, K * h)
+        Skv = ck.shape[1]
+        m = _causal_window_mask(S, Skv, window, cache_index, x.device)
+        out = attend(q, ck.reshape(B, Skv, K, h), cv.reshape(B, Skv, K, h),
+                     m)
+        new_cache = cache
+    y = out.reshape(B, S, H * h) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(pf: ParamFactory, d: int, f: int) -> dict:
+    return {"w_gate": pf.leaf((d, f)), "w_up": pf.leaf((d, f)),
+            "w_down": pf.leaf((f, d))}
+
+
+def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def init_embed(pf: ParamFactory, cfg: ModelConfig) -> dict:
+    p = {"tok": pf.leaf((cfg.vocab, cfg.d_model), scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["out"] = pf.leaf((cfg.d_model, cfg.vocab))
+    return p
+
+
+def embed_apply(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def logits_apply(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    if tie:
+        return torch.einsum("bsd,vd->bsv", x, p["tok"])
+    return x @ p["out"]

@@ -1,7 +1,9 @@
 """The port on a CUDA card: each CUDA kernel against its plain version
-(bit-exact, in place and out of place, launch counted), the entry points'
-default device, and a small engine run on the card against the same run
-on the CPU. Every test is marked ``gpu`` and skips without a card.
+(the engine kernels bit-exact, in place and out of place; the model
+kernels within the tolerances of tests/test_kernels.py), launches
+counted, the entry points' default device, a small engine run and the
+smoke models' serving path on the card against the same runs on the CPU.
+Every test is marked ``gpu`` and skips without a card.
 
 This file imports only torch, numpy and repro_torch, so it also runs on
 a machine without JAX:
@@ -16,8 +18,13 @@ import pytest
 torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.engine import api  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import dissem as kd  # noqa: E402
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import quorum as kq  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as kw  # noqa: E402
+from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 FAMILIES = ["plain", "recycled", "gated", "gated_recycled"]
@@ -110,3 +117,81 @@ def test_engine_on_card_matches_cpu(cuda, fam):
             return all(same(a[k], b[k]) for k in a)
         return (a is None and b is None) or np.array_equal(a, b)
     assert same(got, want)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", [
+    (2, 128, 128, 4, 4, 32, 32, True, -1), (2, 256, 256, 8, 4, 64, 64, True,
+                                            100),
+    (2, 128, 128, 4, 2, 48, 32, True, -1), (2, 100, 130, 4, 2, 64, 48, True,
+                                            -1),
+    (2, 128, 128, 4, 2, 32, 32, False, 40), (1, 300, 300, 8, 1, 128, 128,
+                                             True, -1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv, causal,
+                                    window, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(Sq + H + h)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
+               for s in ((B, Sq, H, h), (B, Skv, K, h), (B, Skv, K, hv)))
+    before = kf.KERNEL.launches
+    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    assert kf.KERNEL.launches == before + 1
+    want = kf.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    assert got.dtype == dt
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("B,S,H,hd,w_std", [
+    (2, 64, 2, 32, 1.0), (2, 128, 4, 64, 1.0), (2, 64, 1, 128, 1.0),
+    (2, 256, 4, 64, 0.3), (1, 37, 2, 32, 3.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, w_std, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + hd)
+    r, k, v = (torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
+               for _ in range(3))
+    wlog = -torch.nn.functional.softplus(
+        w_std * torch.randn((B, S, H, hd), generator=g, device=cuda)) - 1e-4
+    u = 0.1 * torch.randn((H, hd), generator=g, device=cuda)
+    before = kw.KERNEL.launches
+    got = kw.wkv6_chunked(r, k, v, wlog, u)
+    assert kw.KERNEL.launches == before + 1
+    want = kw.wkv6_chunked_plain(r, k, v, wlog, u, chunk=128)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) \
+        < 1e-5 * (float(want.abs().max()) + 1)
+
+
+@pytest.mark.parametrize("arch,kernel", [("yi-6b", kf.KERNEL),
+                                         ("rwkv6-3b", kw.KERNEL)])
+def test_smoke_model_on_card_matches_cpu(cuda, arch, kernel):
+    """The smoke config in f32 on one set of weights: prefill (one kernel
+    launch per layer) and four decode steps on the card equal the CPU's."""
+    from repro_torch import convert
+    cfg = registry.get_smoke(arch).replace(dtype=torch.float32)
+    lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    lm_dev = convert.lm_params_from_jax(convert.lm_params_to_numpy(lm_cpu),
+                                        cfg, cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 160))
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_dev, cuda)):
+        prompts = torch.from_numpy(toks).to(dev)
+        before = kernel.launches
+        logits, _ = D.prefill(lm, cfg, {"tokens": prompts})
+        assert kernel.launches - before == (cfg.n_layers if dev == cuda
+                                            else 0)
+        cache = D.cache_zeros(D.cache_spec(cfg, 2, 4), dev)
+        steps = [D.decode_step(lm, cfg, {"token": prompts[:, t:t + 1],
+                                         "index": t}, cache)[0]
+                 for t in range(4)]
+        outs.append(torch.stack([logits, *steps]).cpu())
+    assert float((outs[0] - outs[1]).abs().max()) < 1e-4
+
+
+def test_model_entry_points_default_to_the_card(cuda):
+    cfg = registry.get_smoke("rwkv6-3b")
+    lm = T.init_lm(cfg, torch.Generator(cuda).manual_seed(0))
+    assert all(p.is_cuda for p in lm.parameters())
+    cache = D.cache_zeros(D.cache_spec(cfg, 1, 4))
+    assert all(t.is_cuda for t in cache["seg0"].values())
