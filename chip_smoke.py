@@ -7,7 +7,9 @@ Usage, from the repository root on a machine with a CUDA card and nvcc:
 
 Phases, each of which must pass or the script exits non-zero:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (set-up);
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (set-up),
+   log each one's registers and spills, and check in the SASS of the
+   bf16 flash library that the tensor cores do its work (HMMA);
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-exact, at the engine's shapes, the edge shapes of the
    reference kernel tests, random words with bit 31 set, and in place;
@@ -27,14 +29,17 @@ Phases, each of which must pass or the script exits non-zero:
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
    heaviest kernels and PyTorch ops;
-6. model-kernel phase: the flash attention and WKV6 kernels against
-   their plain versions on the card, at the serving path's shapes, the
-   shapes of the reference kernel tests, sliding-window, non-causal,
-   ragged and hv != h cases (flash), and ragged lengths and decay
-   ranges where the reference's chunked form overflows (WKV6);
+6. model-kernel phase: the flash attention kernels (bf16 on the tensor
+   cores, f32 on the CUDA cores; each case must launch the kernel its
+   dtype selects) and WKV6 against their plain versions on the card, at
+   the serving path's shapes, the shapes of the reference kernel tests,
+   sliding-window, non-causal, ragged, G = 8 and hv != h cases (flash),
+   and ragged lengths and decay ranges where the reference's chunked
+   form overflows (WKV6);
 7. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
    width and depth in bf16 (weights from the port's initialiser, seed 0),
-   B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches),
+   B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches:
+   for yi-6b, of the bf16 flash kernel and none of the f32 one),
    teacher-forced ``decode_step`` over the prompt (no kernel launch),
    then 32 greedy ``decode_step``s; all logits finite. Both bf16 paths
    against the f32 forward of the same weights (neither more than 2x
@@ -47,8 +52,9 @@ Phases, each of which must pass or the script exits non-zero:
    decode against each other;
 9. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
    on the card;
-10. model-kernel timing at the serving path's shapes: kernel, plain
-   version and (flash) ``scaled_dot_product_attention``, with bounds.
+10. model-kernel timing at the serving path's shapes: kernel (and its
+   device time), plain version and (flash, in bf16 and in f32)
+   ``scaled_dot_product_attention``, with bounds.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -57,6 +63,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import json
 import subprocess
@@ -79,7 +86,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 rate of the CUDA cores
 WARMUP, REPS = 20, 200
+PROFILE_TRIES = 3
+PROFILE_RETRIES = []     # (symbol, launches seen) of each session traced again
 START = time.perf_counter()
 
 
@@ -133,12 +143,35 @@ def build_kernels() -> float:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build(["quorum.cu", "dissem.cu", "flash_attention.cu",
-                         "wkv6.cu"])
+                         "flash_attention_bf16.cu", "wkv6.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
         ptxas = [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
         log(build=source, ptxas=ptxas)
     log(phase="build", seconds=seconds)
+    # the tensor cores do the bf16 flash kernel's products: its SASS
+    # holds HMMA instructions (the f32 kernel's holds none)
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    hmma = {}
+    for source in ("flash_attention_bf16.cu", "flash_attention.cu"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(source))],
+            check=True, capture_output=True, text=True, timeout=120).stdout
+        hmma[source] = sum("HMMA" in ln for ln in sass.splitlines())
+    log(phase="build/sass", hmma=hmma)
+    check(hmma["flash_attention_bf16.cu"] > 0,
+          "flash_attention_bf16.cu: no HMMA instruction in its SASS")
+    # blocks per SM and shared memory per block of each bf16 instantiation
+    lib = ctypes.CDLL(str(_build.library_path("flash_attention_bf16.cu")))
+    occupancy = {}
+    for width in (32, 64, 128):
+        blocks, smem = ctypes.c_int(), ctypes.c_int()
+        err = lib.flash_attention_bf16_occupancy(
+            width, ctypes.byref(blocks), ctypes.byref(smem))
+        check(err == 0, f"flash_attention_bf16_occupancy({width}): {err}")
+        occupancy[width] = dict(blocks_per_sm=blocks.value,
+                                smem_bytes_per_block=smem.value)
+    log(phase="build/occupancy", flash_attention_bf16=occupancy)
     return seconds
 
 
@@ -226,7 +259,8 @@ def reset_counts() -> None:
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import quorum as kq
     from repro_torch.kernels import rwkv6_scan as kw
-    for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kw.KERNEL):
+    for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kf.KERNEL_BF16,
+                   kw.KERNEL):
         kernel.launches = 0
 
 
@@ -358,13 +392,13 @@ def time_kernels(dev, tiles_dev) -> list[dict]:
         # the kernel's own device time, without the host launch path
         symbol = "quorum_kernel" if "quorum" in name else "stability_kernel"
         found = [us for k, us in device_kernels(
-            lambda: fn(bits, upd, stable, majority=maj, inplace=True), 50)
-            if symbol in k]
+            lambda: fn(bits, upd, stable, majority=maj, inplace=True), 50,
+            symbol, 50) if symbol in k]
         check(len(found) == 50, f"{name}: profiler saw {len(found)} of 50 "
               "kernel launches")
         plain_dev = sum(us for _, us in device_kernels(
             lambda: plain(bits, upd, stable, majority=maj, inplace=True),
-            50)) / 50
+            50, want=1)) / 50
         rows.append(dict(name=name, shape=[g, w, words], ms=ms,
                          plain_ms=plain_ms, device_ms=sum(found) / 50e3,
                          plain_device_ms=plain_dev / 1e3,
@@ -411,18 +445,32 @@ def time_engine(tiles_dev, dev) -> dict:
     return res
 
 
-def device_kernels(fn, calls: int):
+def device_kernels(fn, calls: int, symbol: str = "", want: int = 0):
     """CUDA kernel events of ``calls`` calls of ``fn`` under
-    ``torch.profiler``: list of (name, microseconds)."""
+    ``torch.profiler``: list of (name, microseconds).
+
+    ``torch.profiler`` at times delivers a session without part or all of
+    its device activity (seen on the H100: a session of five flash calls
+    with no CUDA event at all, a prefill with 31 of its 32 WKV6
+    launches). A session with fewer than ``want`` CUDA events whose name
+    holds ``symbol`` (any event, for the empty symbol) is traced again, at
+    most PROFILE_TRIES times in all, and each retry is recorded in
+    PROFILE_RETRIES; the caller still checks the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        seen = sum(symbol in name for name, _ in events)
+        if seen >= want:
+            break
+        PROFILE_RETRIES.append((symbol, seen))
+    return events
 
 
 def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
@@ -499,7 +547,8 @@ def time_quorum_single(dev) -> list[dict]:
                 inplace=True)
         ms = time_cuda(kernel)
         plain_ms = time_cuda(plain)
-        found = [us for k, us in device_kernels(kernel, 50)
+        found = [us for k, us in device_kernels(kernel, 50, "quorum_kernel",
+                                                50)
                  if "quorum_kernel" in k]
         check(len(found) == 50, f"quorum_update: profiler saw {len(found)} "
               "of 50 kernel launches")
@@ -512,13 +561,19 @@ def time_quorum_single(dev) -> list[dict]:
 
 # -- model serving path -------------------------------------------------------
 
-# (arch, the kernel its prefill runs on every layer)
-SERVE_ARCHS = (("yi-6b", "flash_attention"), ("rwkv6-3b", "wkv6_chunked"))
+# (arch, the kernel its prefill runs on every layer in bf16, and in f32)
+SERVE_ARCHS = (("yi-6b", "flash_attention", "flash_attention_f32"),
+               ("rwkv6-3b", "wkv6_chunked", "wkv6_chunked"))
+# each kernel's symbol, as torch.profiler names its launches
+SYMBOLS = {"flash_attention": "flash_bf16_kernel",
+           "flash_attention_f32": "flash_f32_kernel",
+           "wkv6_chunked": "wkv6_kernel"}
 SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
 F32_LAYERS = 2
 CPU_B, CPU_P, CPU_STEPS = 2, 256, 8
 # kernel vs plain version on the same inputs. Flash: the tolerances of
-# tests/test_kernels.py (f32 arithmetic in both; bf16 output rounding).
+# tests/test_kernels.py (f32: f32 arithmetic in both; bf16: the output's
+# rounding and the kernel's P rounded to bf16 before P.V).
 # WKV6: both sides compute in f32 from the same values, so f32
 # reassociation only, relative to the output's size.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -554,6 +609,12 @@ FLASH_CASES = [  # (B, Sq, Skv, H, K, h, hv, causal, window, dtype)
     (2, 130, 100, 4, 4, 32, 32, True, -1, F32),         # Sq > Skv
     (2, 77, 77, 4, 2, 64, 64, True, 30, F32),           # ragged window
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
+    (2, 128, 128, 4, 2, 32, 32, False, -1, BF16),       # non-causal
+    (2, 128, 128, 4, 2, 32, 32, False, 40, BF16),       # non-causal window
+    (2, 100, 130, 4, 2, 64, 48, True, -1, BF16),        # ragged, hv != h
+    (2, 130, 100, 4, 4, 32, 32, True, -1, BF16),        # Sq > Skv
+    (2, 77, 77, 4, 2, 64, 64, True, 30, BF16),          # ragged window
+    (2, 256, 256, 16, 2, 128, 128, True, -1, BF16),     # G = 8
 ]
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
@@ -574,7 +635,8 @@ def model_kernel_modules():
 
 def model_counts() -> dict:
     kf, kw = model_kernel_modules()
-    return {"flash_attention": kf.KERNEL.launches,
+    return {"flash_attention": kf.KERNEL_BF16.launches,
+            "flash_attention_f32": kf.KERNEL.launches,
             "wkv6_chunked": kw.KERNEL.launches}
 
 
@@ -598,24 +660,31 @@ def model_kernel_phase(dev) -> dict:
     from repro_torch.kernels import ref
     kf, kw = model_kernel_modules()
     gen = torch.Generator(dev).manual_seed(SEED + 3)
-    worst = {"flash_attention": 0.0, "wkv6_chunked": 0.0}
+    worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0,
+             "wkv6_chunked": 0.0}
     cases = []
     for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in FLASH_CASES:
         q = randn(gen, (B, Sq, H, h), dev, dt)
         k = randn(gen, (B, Skv, K, h), dev, dt)
         v = randn(gen, (B, Skv, K, hv), dev, dt)
+        name = "flash_attention" if dt == BF16 else "flash_attention_f32"
+        before = model_counts()
         got = kf.flash_attention(q, k, v, causal=causal, window=window)
+        launched = {n: c - before[n] for n, c in model_counts().items()}
         want = kf.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
         torch.cuda.synchronize()
+        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
+        check(launched == {**dict.fromkeys(launched, 0), name: 1},
+              f"flash_attention {case} launched {launched}, expected one "
+              f"{name}")
         check(got.dtype == dt and got.shape == want.shape,
               f"flash: output {got.dtype}{tuple(got.shape)}")
         err = float((got.float() - want.float()).abs().max())
-        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
         check(err <= FLASH_TOL[dt], f"flash_attention {case}: max abs err "
               f"{err} > {FLASH_TOL[dt]}")
-        worst["flash_attention"] = max(worst["flash_attention"], err)
-        cases.append(dict(kernel="flash_attention", case=case, err=err,
+        worst[name] = max(worst[name], err)
+        cases.append(dict(kernel=name, case=case, err=err,
                           tol=FLASH_TOL[dt]))
     for (B, S, H, hd, dt, w_std) in WKV_CASES:
         r, k, v, wlog, u = wkv_inputs(gen, B, S, H, hd, dt, w_std, dev)
@@ -788,16 +857,21 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
 
     prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
                            reps=3, warmup=1)
-    symbol = "flash_kernel" if kernel == "flash_attention" else "wkv6_kernel"
-    prof = device_kernels(lambda: D.prefill(lm, cfg, {"tokens": prompts}), 1)
+    symbol = SYMBOLS[kernel]
+    prof = device_kernels(lambda: D.prefill(lm, cfg, {"tokens": prompts}), 1,
+                          symbol, cfg.n_layers)
     mine = [us for name, us in prof if symbol in name]
-    check(len(mine) == cfg.n_layers, f"{arch}: profiler saw {len(mine)} "
-          f"{symbol} launches in one prefill")
+    others = [name for name, _ in prof
+              if any(s in name for s in SYMBOLS.values() if s != symbol)]
+    check(len(mine) == cfg.n_layers and not others,
+          f"{arch}: profiler saw {len(mine)} {symbol} launches in one "
+          f"prefill, and {len(others)} of the other model kernels")
     dev_us = sum(us for _, us in prof)
     steps = 4
     t0 = time.perf_counter()
     prof_d = device_kernels(lambda: D.decode_step(
-        lm, cfg, {"token": tok, "index": SERVE_P + SERVE_NEW}, cache), steps)
+        lm, cfg, {"token": tok, "index": SERVE_P + SERVE_NEW}, cache), steps,
+        want=1)
     decode_wall_us = (time.perf_counter() - t0) * 1e6 / steps
     res = dict(arch=arch, params=n_params, batch=SERVE_B, prompt=SERVE_P,
                new_tokens=SERVE_NEW, init_seconds=init_s,
@@ -834,7 +908,7 @@ def serve_f32_phase(dev) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not run in TF32")
     out = {}
-    for arch, kernel in SERVE_ARCHS:
+    for arch, _, kernel in SERVE_ARCHS:
         cfg = registry.get(arch).replace(n_layers=F32_LAYERS, dtype=F32)
         lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
         prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P),
@@ -847,7 +921,8 @@ def serve_f32_phase(dev) -> dict:
         with plain_kernels():
             plain, _ = D.prefill(lm, cfg, {"tokens": prompts})
         torch.cuda.synchronize()
-        check(model_counts() == counts and counts[kernel] == F32_LAYERS,
+        check(model_counts() == counts and counts[kernel] == F32_LAYERS
+              and sum(counts.values()) == F32_LAYERS,
               f"serve/f32 {arch}: launches {counts} then {model_counts()}")
         cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, SERVE_P), dev)
         decoded = teacher_forced(lm, cfg, prompts, cache)
@@ -879,7 +954,7 @@ def serve_cpu_phase(dev) -> dict:
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     out = {}
-    for arch, _ in SERVE_ARCHS:
+    for arch, *_ in SERVE_ARCHS:
         cfg = registry.get_smoke(arch).replace(dtype=F32)
         lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
         lm_dev = convert.lm_params_from_jax(
@@ -908,20 +983,22 @@ def serve_cli(dev) -> None:
     """``python -m repro_torch.launch.serve`` at smoke size, on the card
     by default (no --device)."""
     from repro_torch.launch import serve
-    for arch, _ in SERVE_ARCHS:
+    for arch, *_ in SERVE_ARCHS:
         serve.main(["--arch", arch, "--prompt-len", "16", "--new-tokens",
                     "8"])
 
 
 def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize) -> dict:
     """Causal attention with Sq = Skv: the visible (query, key) pairs
-    need 2 h + 2 hv flops each at the bf16 tensor-core rate; q, k, v read
-    once and the output written once."""
+    need 2 h + 2 hv flops each, at the bf16 tensor-core rate (itemsize 2)
+    or the f32 rate of the CUDA cores (itemsize 4); q, k, v read once and
+    the output written once."""
     pairs = B * H * Sq * (Sq + 1) // 2
     flops = pairs * 2 * (h + hv)
     nbytes = itemsize * (B * Sq * H * h + B * Skv * K * (h + hv)
                          + B * Sq * H * hv)
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -940,8 +1017,10 @@ def wkv_bound(B, S, H, hd, itemsize) -> dict:
 
 
 def time_model_kernels(dev) -> dict:
-    """Each model kernel at its serving-path shape (bf16, B=4, S=1024):
-    per call (CUDA events), the plain version, and for flash one
+    """Each model kernel at its serving-path shape (B=4, S=1024; flash in
+    bf16 and in f32, WKV6 in bf16): per call (CUDA events over back-to-back
+    calls, each far longer than its launch, so the card never waits on the
+    host), the plain version, and for flash one
     ``scaled_dot_product_attention`` call on the same inputs; with the
     bound. The kernels' device times come from the serving phases'
     ``torch.profiler`` pass over a whole prefill."""
@@ -950,35 +1029,43 @@ def time_model_kernels(dev) -> dict:
     gen = torch.Generator(dev).manual_seed(SEED + 5)
     rows = {}
     B, S, H, K, h = SERVE_B, SERVE_P, 32, 4, 128
-    q = randn(gen, (B, S, H, h), dev, BF16)
-    k = randn(gen, (B, S, K, h), dev, BF16)
-    v = randn(gen, (B, S, K, h), dev, BF16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
-    if not gqa:          # no enable_gqa: k/v expanded over the group first
-        kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+    for name, dt in (("flash_attention", BF16), ("flash_attention_f32", F32)):
+        q = randn(gen, (B, S, H, h), dev, dt)
+        k = randn(gen, (B, S, K, h), dev, dt)
+        v = randn(gen, (B, S, K, h), dev, dt)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if not gqa:      # no enable_gqa: k/v expanded over the group first
+            kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, **({"enable_gqa": True} if gqa
-                                           else {}))
-    lib_err = float((sdpa().transpose(1, 2).float()
-                     - kf.flash_attention_plain(q, k, v).float())
-                    .abs().max())
-    check(lib_err <= FLASH_TOL[BF16], f"sdpa disagrees: {lib_err}")
-    rows["flash_attention"] = dict(
-        shape=[B, S, H, K, h], dtype="bfloat16",
-        ms=time_cuda(lambda: kf.flash_attention(q, k, v), reps=20, warmup=3),
-        plain_ms=time_cuda(lambda: kf.flash_attention_plain(q, k, v),
-                           reps=5, warmup=1),
-        library_ms=time_cuda(sdpa, reps=20, warmup=3),
-        library="torch.nn.functional.scaled_dot_product_attention"
-                "(is_causal=True" + (", enable_gqa=True)" if gqa
-                                     else ") on k/v expanded over G"),
-        library_vs_plain_err=lib_err,
-        **attention_bound(B, S, S, H, K, h, h, 2))
-    log(phase="timing/model_kernel", name="flash_attention",
-        **rows["flash_attention"])
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, **({"enable_gqa": True} if gqa
+                                               else {}))
+        plain = kf.flash_attention_plain(q, k, v).float()
+        lib_err = float((sdpa().transpose(1, 2).float() - plain).abs().max())
+        if dt == BF16:
+            check(lib_err <= FLASH_TOL[BF16], f"sdpa disagrees: {lib_err}")
+        del plain
+        before = model_counts()
+        ms = time_cuda(lambda: kf.flash_attention(q, k, v), reps=20,
+                       warmup=3)
+        check(model_counts()[name] - before[name] == 23,
+              f"{name}: timed calls did not launch its kernel")
+        rows[name] = dict(
+            shape=[B, S, H, K, h], dtype=str(dt).replace("torch.", ""),
+            ms=ms,
+            plain_ms=time_cuda(lambda: kf.flash_attention_plain(q, k, v),
+                               reps=5, warmup=1),
+            library_ms=time_cuda(sdpa, reps=20, warmup=3),
+            library="torch.nn.functional.scaled_dot_product_attention"
+                    "(is_causal=True" + (", enable_gqa=True)" if gqa
+                                         else ") on k/v expanded over G"),
+            library_vs_plain_err=lib_err,
+            **attention_bound(B, S, S, H, K, h, h, dt.itemsize))
+        rows[name]["tflops_per_s"] = rows[name]["flops"] / (ms * 1e9)
+        log(phase="timing/model_kernel", name=name, **rows[name])
+        del q, k, v, qt, kt, vt
     B, S, H, hd = SERVE_B, SERVE_P, 40, 64
     r, kk, vv, wlog, u = wkv_inputs(gen, B, S, H, hd, BF16, 0.3, dev)
     rows["wkv6_chunked"] = dict(
@@ -1048,8 +1135,8 @@ def main() -> int:
     # the model-serving path: each model's drive resets the counts first
     model_errors = model_kernel_phase(dev)
     serves = {kernel: serve_phase(arch, kernel, dev)
-              for arch, kernel in SERVE_ARCHS}
-    serve_f32_phase(dev)
+              for arch, kernel, _ in SERVE_ARCHS}
+    serves_f32 = serve_f32_phase(dev)
     serve_cpu_phase(dev)
     serve_cli(dev)
     model_timing = time_model_kernels(dev)
@@ -1084,16 +1171,16 @@ def main() -> int:
                                    "bound_ms", "bound_by", "bytes")}
                 for r in single]
         kernels.append(entry)
+    csrc = "src/repro_torch/kernels/csrc/"
     for name, src, replaces in (
-            ("flash_attention",
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+            ("flash_attention", csrc + "flash_attention_bf16.cu",
              "src/repro/kernels/flash_attention.py:92"),
-            ("wkv6_chunked", "src/repro_torch/kernels/csrc/wkv6.cu",
+            ("wkv6_chunked", csrc + "wkv6.cu",
              "src/repro/kernels/rwkv6_scan.py:66")):
         row, serve = model_timing[name], serves[name]
         launches = serve["launches"][name]
         check(launches > 0, f"{name} was not launched on its serving path")
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, path=f"serve/{serve['arch']} prefill",
             max_abs_err=model_errors[name], ms=row["ms"],
@@ -1101,13 +1188,32 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             library=row["library"],
             device_ms=serve["prefill_kernel_us"] / 1e3, shape=row["shape"],
-            dtype=row["dtype"]))
+            dtype=row["dtype"])
+        if name == "flash_attention":
+            # the f32 check path: its own kernel, launched by the f32
+            # prefill of serve/f32
+            f32, f32_src = model_timing["flash_attention_f32"], \
+                csrc + "flash_attention.cu"
+            f32_launches = serves_f32["yi-6b"]["launches"]
+            check(f32_launches > 0, "flash_attention_f32 was not launched "
+                  "on the f32 serving path")
+            entry.update(
+                sources=[src, f32_src],
+                launches_by_source={src: launches, f32_src: f32_launches},
+                f32=dict(source=f32_src, launches=f32_launches,
+                         path="serve/f32 yi-6b prefill",
+                         max_abs_err=model_errors["flash_attention_f32"],
+                         **{k: f32[k] for k in (
+                             "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "shape", "dtype")}))
+        kernels.append(entry)
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",
                                        "tick_loop_ticks_per_s",
                                        "generations_min")})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
-        for s in serves.values()}, seconds=time.perf_counter() - START)
+        for s in serves.values()}, profile_retries=PROFILE_RETRIES,
+        seconds=time.perf_counter() - START)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
-// Blockwise causal / sliding-window GQA attention with an online softmax.
+// Blockwise causal / sliding-window GQA attention with an online softmax,
+// in f32 on the CUDA cores: the port's f32 check path.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, body _flash_kernel):
+// (flash_attention, body _flash_kernel) for f32 inputs:
 //
 //     q [B, Sq, H, h], k [B, Skv, K, h], v [B, Skv, K, hv], H = K * G
 //     s[i, j]   = (q_i . k_j) / sqrt(h), or -1e30 where masked
 //                 (causal: j <= i; window w > 0: j > i - w)
-//     out[i, :] = sum_j softmax_j(s[i, :]) v_j           in q's dtype
+//     out[i, :] = sum_j softmax_j(s[i, :]) v_j           in f32
 //
 // The running max m, the running sum l and the accumulator are f32; the
-// output is acc / max(l, 1e-30), as in the TPU kernel.
+// output is acc / max(l, 1e-30), as in the TPU kernel. bf16 inputs go to
+// csrc/flash_attention_bf16.cu, on the tensor cores. f32 stays here, on
+// the CUDA cores, because the tensor cores would compute it as TF32 (a
+// 10-bit mantissa): that breaks the 2e-5 f32 tolerance against the plain
+// version and the full-depth f32 prefill-vs-decode check (1e-3) by which
+// the port proves its model arithmetic. f32 is a check path, not the
+// serving type.
 //
 // Design. One block per (query tile of 64 rows, head, batch). The block
 // reads k/v of kv head `head / G` in place (the TPU wrapper's jnp.repeat
@@ -27,18 +34,15 @@
 // (j < 8). The 16 lanes that share rows are one half-warp, so row max
 // and row sum are shuffle reductions and the probabilities they write to
 // shared memory are read back by the same half-warp (__syncwarp, no
-// block barrier). Tiles are staged in shared memory as f32 with a padded
-// row stride (h + 1), so the column-strided reads hit distinct banks.
+// block barrier). Tiles are staged in shared memory with a padded row
+// stride (h + 1), so the column-strided reads hit distinct banks.
 // Shared memory: (64 (h+1) * 2 + 64 hv + 64 * 65) * 4 bytes, 115,456 at
 // h = hv = 128, above the 48 KB default and set per launch.
 //
-// Bound on an H100: at the yi-6b prefill shape (q [4,1024,32,128] bf16,
-// causal) the work is ~34 GFLOP against ~75 MB of input and output, so
-// the bound is the tensor-core rate (~35 us at 989 TFLOP/s bf16). This
-// kernel multiplies in f32 on the CUDA cores (67 TFLOP/s peak) and is
-// limited by shared-memory reads, so it sits far from that bound. wgmma
-// tiles fed by TMA are the later step; correctness comes first.
-#include <cuda_bf16.h>
+// Bound on an H100: at the yi-6b prefill shape in f32 (q [4,1024,32,128],
+// causal) the work is ~34 GFLOP against ~151 MB of input and output, so
+// the bound is the f32 rate of the CUDA cores (~513 us at 67 TFLOP/s).
+// The kernel is limited by shared-memory reads and sits above that.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,21 +59,11 @@ constexpr int kColsO = kMaxHead / 16;  // output columns per thread
 constexpr int kPStride = kBK + 1;
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq,
-                 int Skv, int H, int KH, int h, int hv, int causal,
-                 int window, float scale) {
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int Sq, int Skv, int H, int KH, int h, int hv,
+                     int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int hs = h + 1;
   float* sq = smem;              // [kBQ][hs]
@@ -89,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < kBQ * h; i += kThreads) {
     const int r = i / h, d = i % h, qi = q0 + r;
     sq[r * hs + d] =
-        qi < Sq ? to_f32(q[((size_t)(b * (size_t)Sq + qi) * H + head) * h + d])
+        qi < Sq ? q[((size_t)(b * (size_t)Sq + qi) * H + head) * h + d]
                 : 0.f;
   }
 
@@ -114,14 +108,14 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / h, d = i % h, kj = k0 + r;
       sk[r * hs + d] =
           kj < Skv
-              ? to_f32(k[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * h + d])
+              ? k[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * h + d]
               : 0.f;
     }
     for (int i = tid; i < kBK * hv; i += kThreads) {
       const int r = i / hv, d = i % hv, kj = k0 + r;
       sv[r * hv + d] =
           kj < Skv
-              ? to_f32(v[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * hv + d])
+              ? v[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * hv + d]
               : 0.f;
     }
     __syncthreads();
@@ -205,53 +199,40 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + rg * kRows + i;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((size_t)(b * (size_t)Sq + qi) * H + head) * hv;
+    float* o = out + ((size_t)(b * (size_t)Sq + qi) * H + head) * hv;
 #pragma unroll
     for (int j = 0; j < kColsO; ++j) {
       const int col = cl + 16 * j;
-      if (col < hv) store(o + col, acc[i][j] / denom);
+      if (col < hv) o[col] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KH, int h, int hv, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kBQ * (h + 1) + (size_t)kBK * (h + 1) +
-                       (size_t)kBK * hv + (size_t)kBQ * kPStride);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, KH, h, hv,
-      causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
-// Returns a cudaError_t; 1001 for an unsupported argument.
+// q, k, v and out are f32. Returns a cudaError_t; 1001 for an unsupported
+// argument.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int H, int KH, int h, int hv,
                                       int causal, int window, float scale,
-                                      int dtype, void* stream) {
+                                      void* stream) {
   if (h < 1 || hv < 1 || h > kMaxHead || hv > kMaxHead || KH < 1 ||
       H % KH != 0)
     return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
+  const size_t smem =
+      sizeof(float) * ((size_t)kBQ * (h + 1) + (size_t)kBK * (h + 1) +
+                       (size_t)kBK * hv + (size_t)kBQ * kPStride);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
-                         window, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, h, hv,
-                                 causal, window, scale, s);
-  return 1001;
+  flash_f32_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH,
+      h, hv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,19 @@
-"""Flash attention kernel: blockwise causal / sliding-window GQA attention
-with an online softmax in f32.
+"""Flash attention kernels: blockwise causal / sliding-window GQA
+attention with an online softmax in f32.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention``. q is ``[B, Sq, H, h]``, k/v are ``[B, Skv, K, h|hv]``
-with H = K·G; the output is ``[B, Sq, H, hv]`` in q's dtype. On a CUDA
-tensor the wrapper launches ``csrc/flash_attention.cu``; on a CPU tensor
-it runs the plain version beside it (:func:`flash_attention_plain`);
-any other device raises.
+with H = K·G; the output is ``[B, Sq, H, hv]`` in q's dtype. The wrapper
+dispatches on the device, then on the dtype:
+
+- a bf16 CUDA tensor launches ``csrc/flash_attention_bf16.cu``
+  (:data:`KERNEL_BF16`, the tensor cores; h and hv multiples of 16 up to
+  128, anything else raises);
+- an f32 CUDA tensor launches ``csrc/flash_attention.cu``
+  (:data:`KERNEL`, the CUDA cores: the f32 check path, which TF32 tensor
+  cores would not keep within its tolerances);
+- a CPU tensor runs the plain version (:func:`flash_attention_plain`);
+  any other device raises.
 """
 from __future__ import annotations
 
@@ -18,17 +25,48 @@ import torch
 from ._build import CudaKernel
 from .ref import flash_attention_ref as flash_attention_plain
 
-__all__ = ["KERNEL", "flash_attention", "flash_attention_plain"]
+__all__ = ["KERNEL", "KERNEL_BF16", "bf16_head_width", "flash_attention",
+           "flash_attention_plain", "select_kernel"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
 KERNEL = CudaKernel("flash_attention.cu", "flash_attention_launch",
-                    [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _I, _P])
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+                    _ARGS + [_P])
+KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
+                         "flash_attention_bf16_launch", _ARGS + [_I, _P])
 MAX_HEAD = 128
+BF16_WIDTHS = (32, 64, 128)
+
+
+def bf16_head_width(h: int, hv: int) -> int:
+    """The padded head width the bf16 kernel runs q/k width h and v width
+    hv at: the least of 32, 64 and 128 that holds both. Raises
+    ValueError unless h and hv are multiples of 16 in [16, 128]."""
+    for n, name in ((h, "h"), (hv, "hv")):
+        if n < 16 or n > MAX_HEAD or n % 16:
+            raise ValueError(f"the bf16 kernel takes head dims that are "
+                             f"multiples of 16 up to {MAX_HEAD}, got "
+                             f"{name}={n}")
+    return next(w for w in BF16_WIDTHS if w >= max(h, hv))
+
+
+def select_kernel(dtype: torch.dtype, h: int, hv: int) -> CudaKernel:
+    """The kernel that a CUDA tensor of ``dtype`` launches: bf16 →
+    :data:`KERNEL_BF16` (raises for a head width it does not take; never
+    the f32 kernel), f32 → :data:`KERNEL`."""
+    if dtype == torch.bfloat16:
+        bf16_head_width(h, hv)
+        return KERNEL_BF16
+    if dtype == torch.float32:
+        if h > MAX_HEAD or hv > MAX_HEAD:
+            raise ValueError(f"the f32 kernel takes head dims up to "
+                             f"{MAX_HEAD}, got h={h}, hv={hv}")
+        return KERNEL
+    raise TypeError(f"no attention kernel for {dtype}")
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless q/k/v have the kernel's ranks, GQA shapes, one dtype
+    """Raise unless q/k/v have the kernels' ranks, GQA shapes, one dtype
     (f32 or bf16) and one device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"expected rank-4 q/k/v, got {tuple(q.shape)}, "
@@ -39,7 +77,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             or hk != h or K == 0 or H % K:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not GQA shapes")
-    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
+    if not q.dtype == k.dtype == v.dtype or \
+            q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
@@ -59,17 +98,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
-    if h > MAX_HEAD or hv > MAX_HEAD:
-        raise ValueError(f"the kernel takes head dims up to {MAX_HEAD}, got "
-                         f"h={h}, hv={hv}")
+    kernel = select_kernel(q.dtype, h, hv)
     if Skv == 0:
         raise ValueError("no keys to attend to")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     out = torch.empty((B, Sq, H, hv), dtype=q.dtype, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, K, h, hv, int(causal), int(window), 1.0 / math.sqrt(h)]
+    if kernel is KERNEL_BF16:
+        if any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("the bf16 kernel copies 16-byte chunks: q, k "
+                             "and v must start on 16-byte boundaries")
+        args.append(bf16_head_width(h, hv))
     with torch.cuda.device(q.device):
-        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Skv, H, K, h, hv, int(causal),
-                      int(window), 1.0 / math.sqrt(h), DTYPES[q.dtype],
-                      torch.cuda.current_stream().cuda_stream)
+        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out

@@ -100,11 +100,10 @@ def _causal_window_mask(Sq: int, Skv: int, window: int, q_offset: int,
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: torch.Tensor) -> torch.Tensor:
     """q [B,Sq,H,h], k/v [B,Skv,K,h], mask [Sq,Skv] or [B,1,Sq,Skv].
-    Scores, softmax and the weighted sum in f32, the output in v's dtype.
-    The reference rounds the probabilities to v's dtype before the
-    weighted sum; the port keeps them in f32, as its flash kernel (and
-    the TPU kernel) does, so that decode and prefill compute attention
-    with one arithmetic. In f32 the two are the same function."""
+    Scores and softmax in f32; the probabilities are rounded to v's dtype
+    before the weighted sum, as in the reference (and as the bf16 flash
+    kernel rounds its P before P·V); the sum is taken in f32 and the
+    output is in v's dtype. In f32 the rounding is the identity."""
     B, Sq, H, h = q.shape
     K = k.shape[2]
     G = H // K
@@ -117,6 +116,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask[:, :, None]
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
+    w = w.to(v.dtype).float()
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float()).to(v.dtype)
     return out.reshape(B, Sq, H, v.shape[-1])
 

@@ -125,21 +125,39 @@ def test_engine_on_card_matches_cpu(cuda, fam):
     (2, 128, 128, 4, 2, 48, 32, True, -1), (2, 100, 130, 4, 2, 64, 48, True,
                                             -1),
     (2, 128, 128, 4, 2, 32, 32, False, 40), (1, 300, 300, 8, 1, 128, 128,
-                                             True, -1)])
+                                             True, -1),
+    (2, 1000, 1000, 8, 2, 128, 128, True, -1),      # ragged, long
+    (2, 130, 100, 4, 4, 32, 32, True, -1),          # Sq > Skv
+    (2, 77, 77, 4, 2, 64, 64, True, 30),            # ragged window
+    (2, 128, 128, 4, 2, 32, 32, False, -1),         # non-causal
+    (2, 200, 200, 4, 2, 64, 64, False, 50),         # non-causal window
+    (1, 256, 256, 16, 2, 128, 128, True, -1)])      # G = 8
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv, causal,
                                     window, dtype):
+    """bf16 goes through the tensor-core kernel, f32 through the CUDA-core
+    one; each dtype advances its own kernel's count and not the other."""
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(Sq + H + h)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
                for s in ((B, Sq, H, h), (B, Skv, K, h), (B, Skv, K, hv)))
-    before = kf.KERNEL.launches
+    mine, other = ((kf.KERNEL_BF16, kf.KERNEL) if dt == torch.bfloat16
+                   else (kf.KERNEL, kf.KERNEL_BF16))
+    before = (mine.launches, other.launches)
     got = kf.flash_attention(q, k, v, causal=causal, window=window)
-    assert kf.KERNEL.launches == before + 1
+    assert (mine.launches, other.launches) == (before[0] + 1, before[1])
     want = kf.flash_attention_plain(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dt == torch.float32 else 2e-2
     assert got.dtype == dt
     assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_flash_bf16_rejects_other_head_widths(cuda):
+    q = torch.zeros((1, 64, 2, 40), dtype=torch.bfloat16, device=cuda)
+    before = (kf.KERNEL.launches, kf.KERNEL_BF16.launches)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kf.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert (kf.KERNEL.launches, kf.KERNEL_BF16.launches) == before
 
 
 @pytest.mark.parametrize("B,S,H,hd,w_std", [
@@ -163,7 +181,7 @@ def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, w_std, dtype):
         < 1e-5 * (float(want.abs().max()) + 1)
 
 
-@pytest.mark.parametrize("arch,kernel", [("yi-6b", kf.KERNEL),
+@pytest.mark.parametrize("arch,kernel", [("yi-6b", kf.KERNEL),   # f32
                                          ("rwkv6-3b", kw.KERNEL)])
 def test_smoke_model_on_card_matches_cpu(cuda, arch, kernel):
     """The smoke config in f32 on one set of weights: prefill (one kernel

@@ -9,9 +9,14 @@ tests/test_kernels.py, plus the cases the Pallas kernels do not take
 WKV6 kernel overflows. Tolerances are those of tests/test_kernels.py:
 f32 2e-5 (flash), 1e-5 × (max |out| + 1) (WKV6); bf16 2e-2 and
 3e-3 × (max |out| + 1). The CUDA kernels are checked in
-tests/test_torch_gpu.py.
+tests/test_torch_gpu.py; here, the wrapper's choice between them (and its
+shape rule for the bf16 kernel), and a plain emulation of the bf16
+kernel's arithmetic (P rounded to bf16 before P·V) against the Pallas
+kernel within the bf16 tolerance.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -126,6 +131,84 @@ def test_flash_wrapper_rejects_bad_inputs():
         fa.flash_attention(q, k[..., :8], v)            # h of k != h of q
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("h,hv,width", [(16, 16, 32), (32, 32, 32),
+                                         (48, 32, 64), (64, 64, 64),
+                                         (64, 48, 64), (32, 128, 128),
+                                         (128, 128, 128)])
+def test_bf16_kernel_takes_multiples_of_16(h, hv, width):
+    assert fa.bf16_head_width(h, hv) == width
+    assert fa.select_kernel(torch.bfloat16, h, hv) is fa.KERNEL_BF16
+    assert fa.select_kernel(torch.float32, h, hv) is fa.KERNEL
+
+
+@pytest.mark.parametrize("h,hv", [(40, 40), (160, 160), (8, 8), (64, 40),
+                                  (128, 144), (72, 64)])
+def test_bf16_kernel_rejects_other_head_widths(h, hv):
+    """A bf16 head width the tensor-core kernel does not take raises; it
+    is never routed to the f32 kernel."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.bf16_head_width(h, hv)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.select_kernel(torch.bfloat16, h, hv)
+
+
+def test_select_kernel_rejects_other_dtypes():
+    with pytest.raises(ValueError):
+        fa.select_kernel(torch.float32, 160, 64)
+    with pytest.raises(TypeError):
+        fa.select_kernel(torch.float16, 64, 64)
+
+
+def _bf16_kernel_arithmetic(q, k, v, *, causal=True, window=-1, tile=64):
+    """The bf16 CUDA kernel's arithmetic in plain PyTorch (a test helper,
+    on no path): kv tiles of ``tile`` keys with an online softmax in f32
+    in the log2 domain, the unnormalised P rounded to bf16 before P·V,
+    l summed from the unrounded P, out = acc / max(l, 1e-30) in bf16."""
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    qf = q.float().reshape(B, Sq, K, G, h)
+    scale = math.log2(math.e) / math.sqrt(h)
+    mask = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                              device=q.device)
+    m = torch.full((B, K, G, Sq), ref.MASKED)
+    l = torch.zeros((B, K, G, Sq))
+    acc = torch.zeros((B, K, G, Sq, hv))
+    for k0 in range(0, Skv, tile):
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf,
+                         k[:, k0:k0 + tile].float()) * scale
+        s = torch.where(mask[:, k0:k0 + tile], s,
+                        torch.full_like(s, ref.MASKED))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.to(torch.bfloat16).float(),
+            v[:, k0:k0 + tile].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv) \
+        .to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,H,K,h,hv,window", [
+    (128, 4, 4, 32, 32, -1), (256, 8, 4, 64, 64, 100),
+    (128, 4, 2, 48, 32, -1), (128, 8, 1, 128, 128, -1)])
+def test_bf16_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
+    """Rounding the unnormalised P to bf16 before P·V, as the tensor-core
+    kernel does, stays within the bf16 tolerance of the Pallas kernel
+    (which multiplies bf16 inputs in f32)."""
+    q, k, v = _qkv(S + H + h + 1, 2, S, S, H, K, h, hv)
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
+    got = _bf16_kernel_arithmetic(tq, tk, tv, window=window)
+    pallas = pl_flash(*(x.astype(jnp.bfloat16) for x in _j(q, k, v)),
+                      window=window, block_q=64, block_k=64, interpret=True)
+    assert _err(got.float().numpy(), pallas.astype(jnp.float32)) < 2e-2
+    plain = fa.flash_attention(tq, tk, tv, window=window)
+    assert _err(got.float().numpy(), plain.float().numpy()) < 2e-2
 
 
 # -- WKV6 ---------------------------------------------------------------------

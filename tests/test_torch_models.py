@@ -5,7 +5,9 @@ Both packages run the same weights: the reference's ``init_lm`` tree,
 carried to the port through ``convert.lm_params_from_jax``, and the same
 numpy-made inputs. Everything runs in f32 on the CPU, where the two agree
 to f32 rounding: layers to 2e-5, whole-model logits to 1e-4 (a few
-hundred f32 operations deep). The reference's chunked RWKV6 gives NaN for
+hundred f32 operations deep); decode attention is also held to the
+reference in bf16, where it rounds its probabilities as the reference
+does. The reference's chunked RWKV6 gives NaN for
 prompts of 128 tokens or more; the port's stays finite there and is held
 against the reference's sequential recurrence instead.
 """
@@ -227,6 +229,31 @@ def test_gqa_apply_decode_updates_cache_in_place(models):
     assert nc is cache and nc["k"].data_ptr() == ptr
     assert _err(got, want) < LAYER_TOL
     assert _err(nc["k"], jc["k"]) == 0 and _err(nc["v"], jc["v"]) == 0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h", [(2, 1, 40, 8, 2, 32),
+                                            (2, 3, 64, 4, 2, 16),
+                                            (1, 1, 300, 4, 1, 64)])
+def test_attend_bf16_rounds_probabilities_like_reference(B, Sq, Skv, H, K,
+                                                         h):
+    """Decode attention in bf16: the probabilities are rounded to v's
+    dtype before the weighted sum, as in the reference. Both sides then
+    sum the same bf16 products in f32, so fewer than 1 % of the bf16
+    outputs may differ (the two softmaxes may round a probability
+    differently), by at most one rounding step."""
+    rng = np.random.default_rng(B * Sq + Skv)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Sq, H, h), (B, Skv, K, h), (B, Skv, K, h)))
+    mask = np.tril(np.ones((Sq, Skv), bool), k=Skv - Sq)
+    want = np.asarray(JL.attend(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(mask)).astype(jnp.float32))
+    got = L.attend(*(torch.from_numpy(x).to(torch.bfloat16)
+                     for x in (q, k, v)), torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.mean(got != want) < 0.01
+    assert _err(got, want) <= 2.0 ** -7 * np.abs(want).max()
 
 
 def test_mlp_and_channel_mix(models):
