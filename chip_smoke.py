@@ -34,12 +34,14 @@ Phases, each of which must pass or the script exits non-zero:
    dtype selects) and WKV6 against their plain versions on the card, at
    the serving path's shapes, the shapes of the reference kernel tests,
    sliding-window, non-causal, ragged, G = 8 and hv != h cases (flash),
-   and ragged lengths and decay ranges where the reference's chunked
-   form overflows (WKV6);
+   and ragged lengths (one token, a chunk +- 1, 128 chunks), head dim
+   128 and decay ranges where the reference's chunked form overflows
+   (WKV6);
 7. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
    width and depth in bf16 (weights from the port's initialiser, seed 0),
    B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches:
-   for yi-6b, of the bf16 flash kernel and none of the f32 one),
+   for yi-6b, of the bf16 flash kernel and none of the f32 one; for
+   rwkv6-3b, of WKV6, each one call that runs three CUDA kernels),
    teacher-forced ``decode_step`` over the prompt (no kernel launch),
    then 32 greedy ``decode_step``s; all logits finite. Both bf16 paths
    against the f32 forward of the same weights (neither more than 2x
@@ -53,8 +55,9 @@ Phases, each of which must pass or the script exits non-zero:
 9. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
    on the card;
 10. model-kernel timing at the serving path's shapes: kernel (and its
-   device time), plain version and (flash, in bf16 and in f32)
-   ``scaled_dot_product_attention``, with bounds.
+   device time; for WKV6 each pass's, and its workspace), plain version
+   and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
+   bounds.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -146,7 +149,8 @@ def build_kernels() -> float:
                          "flash_attention_bf16.cu", "wkv6.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
-        ptxas = [ln.strip() for ln in text.splitlines() if "ptxas" in ln]
+        ptxas = [ln.strip() for ln in text.splitlines()
+                 if "ptxas" in ln or "spill" in ln]
         log(build=source, ptxas=ptxas)
     log(phase="build", seconds=seconds)
     # the tensor cores do the bf16 flash kernel's products: its SASS
@@ -171,7 +175,27 @@ def build_kernels() -> float:
         check(err == 0, f"flash_attention_bf16_occupancy({width}): {err}")
         occupancy[width] = dict(blocks_per_sm=blocks.value,
                                 smem_bytes_per_block=smem.value)
-    log(phase="build/occupancy", flash_attention_bf16=occupancy)
+    # the WKV6 passes: blocks per SM and shared memory per block; and the
+    # wrapper sizes the workspace as the kernel lays it out
+    from repro_torch.kernels import rwkv6_scan as kw
+    lib = ctypes.CDLL(str(_build.library_path("wkv6.cu")))
+    lib.wkv6_workspace_floats.restype = ctypes.c_longlong
+    for shape in ((4, 1024, 40, 64), (1, 4096, 8, 128), (2, 33, 2, 50),
+                  (2, 32, 3, 17), (1, 1, 1, 1)):
+        want = lib.wkv6_workspace_floats(*shape)
+        check(kw.workspace_floats(*shape) == want,
+              f"wkv6 workspace at {shape}: the wrapper allocates "
+              f"{kw.workspace_floats(*shape)} floats, the kernel takes {want}")
+    wkv = {}
+    for hd in (32, 64, 128):
+        for phase, name in enumerate(WKV_PHASES, start=1):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            err = lib.wkv6_occupancy(phase, hd, ctypes.byref(blocks),
+                                     ctypes.byref(smem))
+            check(err == 0, f"wkv6_occupancy({phase}, {hd}): {err}")
+            wkv[f"{name}/hd{hd}"] = dict(blocks_per_sm=blocks.value,
+                                         smem_bytes_per_block=smem.value)
+    log(phase="build/occupancy", flash_attention_bf16=occupancy, wkv6=wkv)
     return seconds
 
 
@@ -564,10 +588,16 @@ def time_quorum_single(dev) -> list[dict]:
 # (arch, the kernel its prefill runs on every layer in bf16, and in f32)
 SERVE_ARCHS = (("yi-6b", "flash_attention", "flash_attention_f32"),
                ("rwkv6-3b", "wkv6_chunked", "wkv6_chunked"))
-# each kernel's symbol, as torch.profiler names its launches
+# each kernel's symbol, as torch.profiler names its launches (for WKV6 the
+# prefix of its three passes' names, which no flash symbol shares), and the
+# CUDA kernels one call of the wrapper launches
 SYMBOLS = {"flash_attention": "flash_bf16_kernel",
            "flash_attention_f32": "flash_f32_kernel",
-           "wkv6_chunked": "wkv6_kernel"}
+           "wkv6_chunked": "wkv6_"}
+WKV_PHASES = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
+              "wkv6_output_kernel")
+EVENTS_PER_CALL = {"flash_attention": 1, "flash_attention_f32": 1,
+                   "wkv6_chunked": len(WKV_PHASES)}
 SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
 F32_LAYERS = 2
 CPU_B, CPU_P, CPU_STEPS = 2, 256, 8
@@ -624,6 +654,11 @@ WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (2, 256, 4, 64, F32, 0.3),     # the reference's overflow range
     (2, 300, 4, 64, F32, 3.0),     # ragged S, steep decay
     (1, 37, 2, 32, F32, 1.0),      # ragged, shorter than a chunk
+    (1, 4096, 8, 64, BF16, 1.0),   # 128 chunks: the scan's longest run
+    (2, 1, 2, 32, F32, 1.0),       # one token
+    (2, 31, 2, 64, F32, 1.0),      # one chunk less a token
+    (2, 33, 2, 64, BF16, 1.0),     # one chunk and a token
+    (1, 512, 4, 128, BF16, 1.0),   # the widest head the kernel takes
 ]
 
 
@@ -688,12 +723,16 @@ def model_kernel_phase(dev) -> dict:
                           tol=FLASH_TOL[dt]))
     for (B, S, H, hd, dt, w_std) in WKV_CASES:
         r, k, v, wlog, u = wkv_inputs(gen, B, S, H, hd, dt, w_std, dev)
+        before = model_counts()
         got = kw.wkv6_chunked(r, k, v, wlog, u)
+        launched = {n: c - before[n] for n, c in model_counts().items()}
         want = kw.wkv6_chunked_plain(r, k, v, wlog, u, chunk=128)
         torch.cuda.synchronize()
         scale = float(want.abs().max()) + 1.0
         err = float((got - want).abs().max())
         case = [B, S, H, hd, str(dt), w_std]
+        check(launched == {**dict.fromkeys(launched, 0), "wkv6_chunked": 1},
+              f"wkv6_chunked {case} launched {launched}, expected one call")
         check(bool(torch.isfinite(got).all()), f"wkv6 {case}: not finite")
         check(err <= WKV_TOL * scale, f"wkv6_chunked {case}: max abs err "
               f"{err} > {WKV_TOL} x {scale}")
@@ -754,6 +793,17 @@ def teacher_forced(lm, cfg, prompts, cache):
         logits, cache = D.decode_step(
             lm, cfg, {"token": prompts[:, t:t + 1], "index": t}, cache)
     return logits
+
+
+def wkv_workspace(cfg, kernel: str) -> dict:
+    """The WKV6 workspace of one prefill layer (B=SERVE_B, SERVE_P
+    tokens), for the rwkv6 path; nothing for the others."""
+    if kernel != "wkv6_chunked":
+        return {}
+    H = cfg.ssm_heads or cfg.n_heads
+    nbytes = 4 * model_kernel_modules()[1].workspace_floats(
+        SERVE_B, SERVE_P, H, cfg.d_model // H)
+    return {"wkv6_workspace_bytes": nbytes}
 
 
 def serve_phase(arch: str, kernel: str, dev) -> dict:
@@ -857,15 +907,20 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
 
     prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
                            reps=3, warmup=1)
-    symbol = SYMBOLS[kernel]
+    symbol, per_call = SYMBOLS[kernel], EVENTS_PER_CALL[kernel]
     prof = device_kernels(lambda: D.prefill(lm, cfg, {"tokens": prompts}), 1,
-                          symbol, cfg.n_layers)
+                          symbol, cfg.n_layers * per_call)
     mine = [us for name, us in prof if symbol in name]
     others = [name for name, _ in prof
               if any(s in name for s in SYMBOLS.values() if s != symbol)]
-    check(len(mine) == cfg.n_layers and not others,
-          f"{arch}: profiler saw {len(mine)} {symbol} launches in one "
-          f"prefill, and {len(others)} of the other model kernels")
+    check(len(mine) == cfg.n_layers * per_call and not others,
+          f"{arch}: profiler saw {len(mine)} {symbol} events in one "
+          f"prefill ({cfg.n_layers} x {per_call} expected), and "
+          f"{len(others)} of the other model kernels")
+    phase_us = ({p: sum(us for name, us in prof if p in name) / cfg.n_layers
+                 for p in WKV_PHASES} if kernel == "wkv6_chunked" else {})
+    check(all(phase_us.values()), f"{arch}: a WKV6 pass is missing from "
+          f"the profile: {phase_us}")
     dev_us = sum(us for _, us in prof)
     steps = 4
     t0 = time.perf_counter()
@@ -884,7 +939,8 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
                prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
                decode_ms_per_step=decode_ms,
                decode_tokens_per_s=SERVE_B / (decode_ms / 1e3),
-               prefill_kernel_us=sum(mine) / len(mine),
+               prefill_kernel_us=sum(mine) / cfg.n_layers,
+               prefill_kernel_phase_us=phase_us,
                prefill_kernel_share=sum(mine) / dev_us,
                prefill_device_ms=dev_us / 1e3,
                prefill_device_busy_share=dev_us / 1e3 / prefill_ms,
@@ -892,6 +948,7 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
                decode_device_us_per_step=sum(us for _, us in prof_d) / steps,
                decode_profiled_wall_us_per_step=decode_wall_us,
                peak_mem_bytes=peak_path,
+               **wkv_workspace(cfg, kernel),
                peak_mem_bytes_with_timing=torch.cuda.max_memory_allocated())
     log(phase=f"serve/{arch}", **res)
     del lm, cache
@@ -1068,6 +1125,14 @@ def time_model_kernels(dev) -> dict:
         del q, k, v, qt, kt, vt
     B, S, H, hd = SERVE_B, SERVE_P, 40, 64
     r, kk, vv, wlog, u = wkv_inputs(gen, B, S, H, hd, BF16, 0.3, dev)
+    calls = 5
+    prof = device_kernels(lambda: kw.wkv6_chunked(r, kk, vv, wlog, u), calls,
+                          SYMBOLS["wkv6_chunked"], calls * len(WKV_PHASES))
+    phase_us = {p: sum(us for name, us in prof if p in name) / calls
+                for p in WKV_PHASES}
+    check(sum(SYMBOLS["wkv6_chunked"] in name for name, _ in prof)
+          == calls * len(WKV_PHASES) and all(phase_us.values()),
+          f"wkv6_chunked: profiler saw {phase_us} over {calls} calls")
     rows["wkv6_chunked"] = dict(
         shape=[B, S, H, hd], dtype="bfloat16",
         ms=time_cuda(lambda: kw.wkv6_chunked(r, kk, vv, wlog, u), reps=20,
@@ -1076,6 +1141,8 @@ def time_model_kernels(dev) -> dict:
                            reps=3, warmup=1),
         library_ms=None,
         library="none: no single PyTorch call computes the WKV6 recurrence",
+        device_us=sum(phase_us.values()), phase_device_us=phase_us,
+        workspace_bytes=4 * kw.workspace_floats(B, S, H, hd),
         **wkv_bound(B, S, H, hd, 2))
     log(phase="timing/model_kernel", name="wkv6_chunked",
         **rows["wkv6_chunked"])
@@ -1189,6 +1256,15 @@ def main() -> int:
             library=row["library"],
             device_ms=serve["prefill_kernel_us"] / 1e3, shape=row["shape"],
             dtype=row["dtype"])
+        if name == "wkv6_chunked":
+            # one call runs three CUDA kernels: device time of each, per
+            # call, in the prefill and in the timing phase
+            entry.update(
+                phase_device_ms={p: us / 1e3 for p, us in
+                                 serve["prefill_kernel_phase_us"].items()},
+                timing_phase_device_ms={p: us / 1e3 for p, us in
+                                        row["phase_device_us"].items()},
+                workspace_bytes=row["workspace_bytes"])
         if name == "flash_attention":
             # the f32 check path: its own kernel, launched by the f32
             # prefill of serve/f32

@@ -4,12 +4,20 @@
 Replaces the Pallas TPU kernel ``repro.kernels.rwkv6_scan.wkv6_chunked``.
 r/k/v are ``[B, S, H, hd]`` (f32 or bf16), wlog is the f32 log decay of
 the same shape, u is the ``[H, hd]`` bonus; the output is f32
-``[B, S, H, hd]`` (before the gate). On a CUDA tensor the wrapper
-launches ``csrc/wkv6.cu``, which picks its own chunk length; on a CPU
-tensor it runs the plain chunked version beside it
-(:func:`wkv6_chunked_plain`) with the given ``chunk``. Both use the
-overflow-free pairwise intra-chunk decay, so they stay finite where the
-reference's factorised form gives NaN. Any other device raises.
+``[B, S, H, hd]`` (before the gate).
+
+On a CUDA tensor the wrapper makes one call of ``csrc/wkv6.cu``'s
+launcher, which runs the scan split over the sequence in chunks of
+:data:`CHUNK` tokens: a chunk-state pass (each chunk's own state
+contribution and decay, one block per chunk, head and batch), a state
+scan over the chunks (one thread per state element), and an output pass
+(one block per chunk, head and batch). The chunk states go through a
+workspace of :func:`workspace_floats` f32 values that the wrapper
+allocates with ``torch.empty`` on the inputs' device. On a CPU tensor it
+runs the plain chunked version beside it (:func:`wkv6_chunked_plain`)
+with the given ``chunk``. Both keep every decay exponent at or below
+zero, so they stay finite where the reference's factorised form gives
+NaN. Any other device raises.
 """
 from __future__ import annotations
 
@@ -20,13 +28,23 @@ import torch
 from ._build import CudaKernel
 from .ref import wkv6_chunked_ref as wkv6_chunked_plain
 
-__all__ = ["KERNEL", "wkv6_chunked", "wkv6_chunked_plain"]
+__all__ = ["CHUNK", "KERNEL", "wkv6_chunked", "wkv6_chunked_plain",
+           "workspace_floats"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("wkv6.cu", "wkv6_launch",
-                    [_P] * 6 + [_I] * 5 + [_P])
+                    [_P] * 7 + [_I] * 5 + [_P])
+CHUNK = 32          # tokens per chunk of the kernel (kC in csrc/wkv6.cu)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 128
+
+
+def workspace_floats(B: int, S: int, H: int, hd: int) -> int:
+    """f32 values of the kernel's workspace: one [W, W] state and its [W]
+    decay per (batch, head) and chunk but the last, W the padded head
+    width the kernel runs hd at (32, 64 or 128)."""
+    w = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    return B * H * max(-(-S // CHUNK) - 1, 0) * w * (w + 1)
 
 
 def check_inputs(r, k, v, wlog, u) -> None:
@@ -68,9 +86,11 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in (r, k, v, wlog, u)):
         raise ValueError("r, k, v, wlog and u must be contiguous")
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    ws = torch.empty((workspace_floats(B, S, H, hd),), dtype=torch.float32,
+                     device=r.device)
     with torch.cuda.device(r.device):
         KERNEL.launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      wlog.data_ptr(), u.data_ptr(), out.data_ptr(), B, S, H,
-                      hd, DTYPES[r.dtype],
+                      wlog.data_ptr(), u.data_ptr(), out.data_ptr(),
+                      ws.data_ptr(), B, S, H, hd, DTYPES[r.dtype],
                       torch.cuda.current_stream().cuda_stream)
     return out

@@ -162,7 +162,11 @@ def test_flash_bf16_rejects_other_head_widths(cuda):
 
 @pytest.mark.parametrize("B,S,H,hd,w_std", [
     (2, 64, 2, 32, 1.0), (2, 128, 4, 64, 1.0), (2, 64, 1, 128, 1.0),
-    (2, 256, 4, 64, 0.3), (1, 37, 2, 32, 3.0)])
+    (2, 256, 4, 64, 0.3), (1, 37, 2, 32, 3.0),
+    (1, 4096, 8, 64, 1.0),          # 128 chunks: the scan's longest run
+    (2, 1, 2, 32, 1.0),             # one token
+    (2, 31, 2, 64, 1.0), (2, 33, 2, 64, 1.0),   # a chunk of 32, +- 1
+    (1, 512, 4, 128, 1.0)])         # the widest head the kernel takes
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, w_std, dtype):
     dt = getattr(torch, dtype)

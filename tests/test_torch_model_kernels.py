@@ -10,9 +10,12 @@ WKV6 kernel overflows. Tolerances are those of tests/test_kernels.py:
 f32 2e-5 (flash), 1e-5 × (max |out| + 1) (WKV6); bf16 2e-2 and
 3e-3 × (max |out| + 1). The CUDA kernels are checked in
 tests/test_torch_gpu.py; here, the wrapper's choice between them (and its
-shape rule for the bf16 kernel), and a plain emulation of the bf16
-kernel's arithmetic (P rounded to bf16 before P·V) against the Pallas
-kernel within the bf16 tolerance.
+shape rule for the bf16 kernel), a plain emulation of the bf16 kernel's
+arithmetic (P rounded to bf16 before P·V) against the Pallas kernel
+within the bf16 tolerance, and a plain emulation of the WKV6 kernel's
+three passes (chunk states, the scan over chunks, the outputs with the
+kernel's factorised intra-chunk weights) against the sequential oracle
+and the plain chunked version within the f32 tolerance.
 """
 from __future__ import annotations
 
@@ -261,6 +264,124 @@ def test_wkv6_plain_bf16_matches_pallas():
     pallas = np.asarray(pl_wkv6(jr, jk, jv, *_j(wlog, u), chunk=16,
                                 interpret=True))
     assert _err(got, pallas) < 3e-3 * (np.abs(pallas).max() + 1.0)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _wkv6_split_arithmetic(r, k, v, wlog, u, *, chunk=ws.CHUNK):
+    """The CUDA kernel's three passes in plain PyTorch (a test helper, on
+    no path), in f32 on log2(e)-scaled cumulative decays:
+
+    1. chunk states: dS_c = (k ⊙ 2^(total - cum))^T v and the decay
+       2^total of every chunk but the last;
+    2. the scan S_{c+1} = 2^total_c ⊙ S_c + dS_c from S_0 = 0;
+    3. outputs: the intra-chunk weights a, then a·v + (r ⊙ 2^cum_ex)·S_c.
+       a is factorised as the kernel does: on two levels (blocks of the
+       chunk and of its halves), t in a block's right half and s in its
+       left half give a plain product of rows decayed through the left
+       half's last token m; inside leaves of a quarter chunk the pairs
+       s < t take one exp each, and the bonus u sits on the diagonal.
+
+    Asserts that no exponent it takes is positive."""
+    B, S, H, hd = r.shape
+    n, leaf = -(-S // chunk), chunk // 4
+
+    def chunks(x):              # [B,S,H,hd] -> [B,H,n,chunk,hd], zero-padded
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, n * chunk - S))
+        return x.reshape(B, n, chunk, H, hd).permute(0, 3, 1, 2, 4)
+
+    def exp2(e):
+        assert bool((e <= 0).all()), "a positive exponent"
+        return torch.exp2(e)
+    rf, kf, vf = chunks(r), chunks(k), chunks(v)
+    cum = torch.cumsum(chunks(wlog) * LOG2E, dim=3)
+    cum_ex = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                       dim=3)
+    total = cum[..., -1, :]                                 # [B,H,n,hd]
+    # 1. chunk states, all chunks but the last
+    d_state = (kf * exp2(total[..., None, :] - cum)).transpose(-1, -2) @ vf
+    decay = exp2(total)
+    # 2. the scan: states[:, :, c] is the state entering chunk c
+    state = torch.zeros((B, H, hd, hd))
+    states = [state]
+    for c in range(n - 1):
+        state = decay[:, :, c, :, None] * state + d_state[:, :, c]
+        states.append(state)
+    states = torch.stack(states, dim=2)
+    # 3. outputs
+    a = torch.zeros((B, H, n, chunk, chunk))
+    for half in (chunk // 2, chunk // 4):
+        for base in range(0, chunk, 2 * half):
+            left = slice(base, base + half)
+            right = slice(base + half, base + 2 * half)
+            m = cum[..., base + half - 1:base + half, :]
+            a[..., right, left] = (
+                (rf[..., right, :] * exp2(cum_ex[..., right, :] - m))
+                @ (kf[..., left, :] * exp2(m - cum[..., left, :]))
+                .transpose(-1, -2))
+    below = torch.tril(torch.ones((leaf, leaf), dtype=torch.bool),
+                       diagonal=-1)
+    for lo in range(0, chunk, leaf):
+        blk = slice(lo, lo + leaf)
+        expo = cum_ex[..., blk, None, :] - cum[..., None, blk, :]
+        dec = exp2(torch.where(below[..., None], expo,
+                               torch.full_like(expo, -math.inf)))
+        a[..., blk, blk] = (
+            torch.einsum("bhntd,bhnsd,bhntsd->bhnts", rf[..., blk, :],
+                         kf[..., blk, :], dec)
+            + torch.diag_embed((rf[..., blk, :] * u.float()[None, :, None,
+                                                            None, :]
+                                * kf[..., blk, :]).sum(-1)))
+    out = a @ vf + (rf * exp2(cum_ex)) @ states
+    return out.permute(0, 2, 3, 1, 4).reshape(B, n * chunk, H, hd)[:, :S]
+
+
+def _bf16_values(*arrays):
+    """The f32 values of the arrays rounded to bf16."""
+    return [x.to(torch.bfloat16).float().numpy() for x in _t(*arrays)]
+
+
+C = ws.CHUNK
+
+
+@pytest.mark.parametrize("S,hd,w_std", [
+    *[(S, hd, 1.0) for S in (1, C - 1, C, C + 1, 4 * C + 7)
+      for hd in (32, 64, 128)],
+    (256, 64, 0.3),      # the reference's overflow range
+    (300, 32, 3.0)])     # steep decay: the sequence's decay underflows
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_split_arithmetic_matches_oracles(S, hd, w_std, dtype):
+    """The kernel's three-pass split, in plain PyTorch, against JAX's
+    sequential oracle and the port's plain chunked version on the same
+    values (bf16: r/k/v rounded to bf16 for all three), within
+    1e-5 × (max |want| + 1)."""
+    r, k, v, wlog, u = _wkv_inputs(S + hd, 2, S, 2, hd, w_std=w_std)
+    if dtype == "bfloat16":
+        r, k, v = _bf16_values(r, k, v)
+    tr, tk, tv = (x.to(getattr(torch, dtype)) for x in _t(r, k, v))
+    got = _wkv6_split_arithmetic(tr, tk, tv, *_t(wlog, u)).numpy()
+    assert np.isfinite(got).all()
+    want = np.asarray(jref.wkv6_ref(*_j(r, k, v, wlog, u)))
+    tol = 1e-5 * (np.abs(want).max() + 1.0)
+    assert _err(got, want) < tol
+    plain = ws.wkv6_chunked_plain(tr, tk, tv, *_t(wlog, u)).numpy()
+    assert _err(got, plain) < 1e-5 * (np.abs(plain).max() + 1.0)
+    if w_std == 0.3:    # the Pallas kernel's exp(-cum) overflows here
+        assert np.isnan(np.asarray(pl_wkv6(*_j(r, k, v, wlog, u), chunk=128,
+                                           interpret=True))).any()
+    if w_std == 3.0:    # e^(sum of wlog) underflows to 0 within the run
+        assert (np.exp(np.cumsum(wlog, axis=1)) == 0).any()
+
+
+def test_wkv6_workspace_size():
+    """One [hd, hd] state and its [hd] decay per (batch, head) and chunk
+    but the last: none for S <= CHUNK; 82.5 MB at the rwkv6-3b prefill."""
+    assert ws.workspace_floats(2, 1, 2, 32) == 0
+    assert ws.workspace_floats(2, C, 2, 32) == 0
+    assert ws.workspace_floats(2, C + 1, 2, 32) == 2 * 2 * 32 * 33
+    assert 4 * ws.workspace_floats(4, 1024, 40, 64) \
+        == 4 * 40 * 31 * 64 * 65 * 4 == 82_534_400
 
 
 def test_wkv6_wrapper_rejects_bad_inputs():
