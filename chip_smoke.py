@@ -29,7 +29,22 @@ Phases, each of which must pass or the script exits non-zero:
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
    heaviest kernels and PyTorch ops;
-6. model-kernel phase: the flash attention kernels (bf16 on the tensor
+6. pipeline phase: the closed pipeline (``repro_torch.pipeline``) at the
+   same engine deployment with 8,000 clients (8 per lane), 1024-byte
+   requests, a byte budget of one lane-tick (8,292 B), seeded per-node
+   lags and arrivals at 0.045 per client-tick (~1.2x the ordering
+   budget): 288 ticks at epoch 0, a drain, a flip from 4 rows to 3
+   (``reconfigure_pipeline``), 96 ticks, a drain. The card's run equals
+   the CPU's (merged log sha256, count, committed length, the whole
+   state); the admission records equal the host twin
+   (``plan_admissions``); nothing overflowed or was dropped; each lane's
+   flushed bytes equal its batches' ``batch_bytes``; every admitted bid
+   is decoded exactly once; the flip moved nothing, sealed row 3 and
+   kept the committed prefix; launches are exactly 2 and 1 per tick.
+   Then segment A timed (pipeline ticks/s, committed batch ids/s and
+   requests/s, the ratio to the engine's ticks/s) and a profiler pass
+   over 32 pipeline ticks;
+7. model-kernel phase: the flash attention kernels (bf16 on the tensor
    cores, f32 on the CUDA cores; each case must launch the kernel its
    dtype selects) and WKV6 against their plain versions on the card, at
    the serving path's shapes, the shapes of the reference kernel tests,
@@ -37,7 +52,7 @@ Phases, each of which must pass or the script exits non-zero:
    and ragged lengths (one token, a chunk +- 1, 128 chunks), head dim
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
-7. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
+8. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
    width and depth in bf16 (weights from the port's initialiser, seed 0),
    B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches:
    for yi-6b, of the bf16 flash kernel and none of the f32 one; for
@@ -49,12 +64,12 @@ Phases, each of which must pass or the script exits non-zero:
    teacher-forced decode over 160 tokens within 1e-3 with equal greedy
    tokens. Prefill and decode tokens/s, each kernel's device time in
    the prefill, peak memory;
-8. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
+9. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
    the kernels, prefill with the plain versions and the teacher-forced
    decode against each other;
-9. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
+10. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
    on the card;
-10. model-kernel timing at the serving path's shapes: kernel (and its
+11. model-kernel timing at the serving path's shapes: kernel (and its
    device time; for WKV6 each pass's, and its workspace), plain version
    and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
    bounds.
@@ -299,16 +314,19 @@ def digest(merged, count) -> tuple[str, int]:
     return hashlib.sha256(head.tobytes()).hexdigest(), int(count)
 
 
+def trees_equal(a, b) -> bool:
+    """Nested dicts of numpy arrays: same keys, dtypes and values."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    if a is None or b is None:
+        return a is b
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def states_equal(a, b) -> bool:
     from repro_torch.convert import engine_state_to_numpy
-
-    def eq(x, y):
-        if isinstance(x, dict):
-            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
-        if x is None or y is None:
-            return x is y
-        return x.dtype == y.dtype and np.array_equal(x, y)
-    return eq(engine_state_to_numpy(a), engine_state_to_numpy(b))
+    return trees_equal(engine_state_to_numpy(a), engine_state_to_numpy(b))
 
 
 def run_family(family: str, tiles_cpu, tiles_dev, dev, *, host_ticks: bool):
@@ -499,24 +517,32 @@ def device_kernels(fn, calls: int, symbol: str = "", want: int = 0):
 
 def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
     """Device time per tick of host-driven ticks of the main path under
-    ``torch.profiler`` (after 8 warm-up ticks): kernels launched, their
-    summed time, the share of the tick's wall time, the heaviest kernels
-    and the heaviest PyTorch ops by the device time of the kernels they
-    launch. The profiler's overhead inflates the wall time, so the busy
-    share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` (after 8 warm-up ticks), as :func:`profile_loop`
+    reports it."""
     from repro_torch.engine.api import Engine
     eng = Engine.create(engine_config("gated_recycled"), device=dev)
+    return profile_loop(
+        lambda t: eng.tick(*(x[t] for x in tiles_dev)), ticks,
+        "profile/tick")
+
+
+def profile_loop(step, ticks: int, phase: str) -> dict:
+    """``step(t)`` for t in 0..7 (warm-up), then for ``ticks`` more under
+    ``torch.profiler``: kernels launched per tick, their summed time,
+    the share of the tick's wall time, the heaviest kernels and the
+    heaviest PyTorch ops by the device time of the kernels they launch.
+    The profiler's overhead inflates the wall time, so the busy share is
+    a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     for t in range(8):
-        eng.tick(*(x[t] for x in tiles_dev))
+        step(t)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(8, 8 + ticks):
-            eng.tick(*(x[t] for x in tiles_dev))
+            step(t)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
@@ -542,7 +568,7 @@ def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
                             for k, (n, us) in top],
                top_ops=[dict(op=e.key, us_per_tick=self_dev(e) / ticks,
                              calls_per_tick=e.count / ticks) for e in ops])
-    log(phase="profile/tick", **res)
+    log(phase=phase, **res)
     return res
 
 
@@ -581,6 +607,266 @@ def time_quorum_single(dev) -> list[dict]:
                          **kernel_bound(1, w, words, False)))
         log(phase="timing/kernel", **rows[-1])
     return rows
+
+
+# -- the closed pipeline ------------------------------------------------------
+
+# The engine's deployment behind client traffic: 8 clients per lane and
+# 1024-byte requests (the reference pipeline bench, benchmarks/run.py:
+# 537-549), a byte budget that fits a lane's full tick in one batch, and a
+# shrink from 4 rows to 3 after segment A. Each client arrives with
+# probability 0.045 per tick: 360 requests and ~308 batches offered per
+# tick, ~1.2x the ordering budget of G x 64, so the run is saturated.
+P_LANE_CLIENTS, P_REQ_BYTES, P_RATE = 8, 1024, 0.045
+P_SEG_B = 96          # ticks at epoch 1, after the segment A of T_MAIN
+P_DRAIN = 128         # most ticks a drain may take
+P_PROFILE = 32
+
+
+def pipeline_config():
+    from repro_torch.core.network import batch_bytes
+    from repro_torch.engine.api import (EngineConfig, GatingConfig,
+                                        RecyclingConfig)
+    from repro_torch.engine.epochs import EpochTable
+    from repro_torch.pipeline import PipelineConfig
+    rng = np.random.default_rng(SEED)
+    ecfg = EngineConfig(
+        groups=G, window=W, n_diss=N_DISS, n_seq=N_SEQ, order_budget=BUDGET,
+        merge_capacity=(T_MAIN + P_DRAIN + P_SEG_B + P_DRAIN + 1) * BUDGET,
+        recycling=RecyclingConfig(watermark=WATERMARK, id_stride=STRIDE),
+        gating=GatingConfig(n_diss_partition=PART, fresh_stable=False),
+        epochs=EpochTable((tuple(range(G)), tuple(range(G - 1))),
+                          n_rows=G))
+    return PipelineConfig(
+        engine=ecfg, n_clients=P_LANE_CLIENTS * N_DISS,
+        budget_bytes=batch_bytes(P_LANE_CLIENTS, P_REQ_BYTES),
+        ack_lag=tuple(rng.integers(1, 4, N_DISS).tolist()),
+        hold_lag=tuple(rng.integers(1, 4, PART).tolist()),
+        vote_lag=tuple(rng.integers(1, 3, N_SEQ).tolist()),
+        capacity=65536, seq_capacity=512)
+
+
+def pipeline_tree(state) -> dict:
+    """A pipeline state as nested numpy arrays (bitsets as uint32)."""
+    from repro_torch.convert import engine_state_to_numpy
+    return {f: engine_state_to_numpy(v) if f == "engine"
+            else pipeline_tree(v) if isinstance(v, tuple)
+            else v.cpu().numpy() for f, v in state._asdict().items()}
+
+
+def drain_pipeline(cfg, st, rt):
+    """Ticks with no arrivals until every admitted batch is committed;
+    returns (state, ticks, summed dropped). Fails after P_DRAIN ticks."""
+    from repro_torch import pipeline as P
+    C = cfg.n_clients
+    quiet = (torch.zeros(C, dtype=torch.bool, device=rt.device),
+             torch.zeros(C, dtype=torch.int32, device=rt.device))
+    dropped = torch.zeros((), dtype=torch.int32, device=rt.device)
+    for n in range(1, P_DRAIN + 1):
+        st, out = P.pipeline_tick(cfg, st, *quiet, rt, inplace=True)
+        dropped = dropped + out["dropped"]
+        if int(P.committed(cfg, st)[2]) == int(st.admit_count.sum()):
+            return st, n, dropped
+    fail(f"pipeline did not drain in {P_DRAIN} ticks")
+
+
+def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
+    """The main path of the pipeline phase on ``dev``: segment A at epoch
+    0, a drain, the flip to epoch 1, segment B, a drain."""
+    from repro_torch import pipeline as P
+    a, s = arrived.to(dev), sizes.to(dev)
+    rt0, rt1 = (x.to(dev) for x in rts)
+    st, oa = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:T_MAIN],
+                            s[:T_MAIN], rt0, inplace=True)
+    st, drain_a, da = drain_pipeline(cfg, st, rt0)
+    merged, _, com = P.committed(cfg, st)
+    pre = merged[:int(com)].cpu()
+    st, report = P.reconfigure_pipeline(cfg, st, 0, 1)
+    rs = st.engine.core.rs
+    sealed = (int(rs.retired[G - 1]), int(rs.q.next_instance[G - 1]))
+    st, ob = P.run_pipeline(cfg, st, a[T_MAIN:], s[T_MAIN:], rt1,
+                            inplace=True)
+    st, drain_b, db = drain_pipeline(cfg, st, rt1)
+    dropped = int(oa["dropped"].sum() + da + ob["dropped"].sum() + db)
+    return dict(state=st, pre=pre, report=report, sealed=sealed,
+                drains=(drain_a, drain_b), dropped=dropped,
+                ticks=T_MAIN + drain_a + P_SEG_B + drain_b)
+
+
+def lane_request_counts(arrived: np.ndarray) -> np.ndarray:
+    """Requests per lane per tick, int64[T, D] (client c is on lane
+    c mod D, so clients k*D + d are lane d's)."""
+    T = arrived.shape[0]
+    return arrived.reshape(T, P_LANE_CLIENTS, N_DISS).sum(1)
+
+
+def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
+    """The closed pipeline at the engine's deployment, on the card and on
+    the CPU, with the checks of the module docstring; then segment A
+    timed, and a profiler pass."""
+    from repro_torch import pipeline as P
+    from repro_torch.core.network import batch_bytes
+    start = time.perf_counter()
+    cfg = pipeline_config()
+    t0 = time.perf_counter()
+    rts = [torch.from_numpy(P.build_route_table(cfg, e)) for e in (0, 1)]
+    route_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 4)
+    arrived_np = rng.random((T_MAIN + P_SEG_B, cfg.n_clients)) < P_RATE
+    arrived = torch.from_numpy(arrived_np)
+    sizes = torch.where(arrived, P_REQ_BYTES, 0).to(torch.int32)
+    check(cfg.lane_slots == P_LANE_CLIENTS,
+          f"pipeline: {cfg.lane_slots} request slots per lane, expected "
+          f"{P_LANE_CLIENTS}")
+
+    t0 = time.perf_counter()
+    ref = drive_pipeline(cfg, arrived, sizes, rts, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = drive_pipeline(cfg, arrived, sizes, rts, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    st = got["state"]
+
+    # the card's run equals the CPU's, field by field
+    res = [P.committed(cfg, x["state"]) for x in (ref, got)]
+    want, have = (digest(m, c) + (int(k),) for m, c, k in res)
+    check(have == want, f"pipeline: card {have} != CPU {want}")
+    check(trees_equal(pipeline_tree(st), pipeline_tree(ref["state"])),
+          "pipeline: final state differs from the CPU run")
+    check(got["drains"] == ref["drains"] and got["report"] == ref["report"],
+          f"pipeline: drains/report {got['drains']} {got['report']} != "
+          f"CPU {ref['drains']} {ref['report']}")
+    ticks = got["ticks"]
+    check(launches == (2 * ticks, ticks),
+          f"pipeline: launches {launches}, expected {(2 * ticks, ticks)}")
+    check(not bool(st.overflowed) and got["dropped"] == 0,
+          f"pipeline: overflowed {bool(st.overflowed)}, dropped "
+          f"{got['dropped']}")
+    check(int(st.engine.merge.overflowed.sum()) == 0,
+          "pipeline: the merge log overflowed")
+    check(got["report"]["moved"] == 0 and got["report"]["removed"]
+          == (G - 1,), f"pipeline: flip report {got['report']}")
+    check(got["sealed"][0] == got["sealed"][1],
+          f"pipeline: row {G - 1} not sealed by the flip: retired, "
+          f"next_instance = {got['sealed']}")
+
+    # admission records against the host twin: segment A alone gives
+    # each lane's batches at epoch 0, which route by the epoch-0 table
+    t0 = time.perf_counter()
+    n_a = got["drains"][0]
+    twin_a = P.plan_admissions(cfg, P.Workload(arrived[:T_MAIN],
+                                               sizes[:T_MAIN]), rts[0])
+    seqs_a = np.zeros(N_DISS, np.int64)
+    for rows in twin_a.values():
+        for r in rows:
+            seqs_a[r["lane"]] = max(seqs_a[r["lane"]], r["seq"] + 1)
+    rt_ab = np.where(np.arange(cfg.seq_capacity)[None, :] < seqs_a[:, None],
+                     rts[0].numpy(), rts[1].numpy())
+    quiet = torch.zeros((n_a, cfg.n_clients), dtype=torch.bool)
+    twin = P.plan_admissions(cfg, P.Workload(
+        torch.cat([arrived[:T_MAIN], quiet, arrived[T_MAIN:]]),
+        torch.cat([sizes[:T_MAIN], quiet.int(), sizes[T_MAIN:]])), rt_ab)
+    twin_s = time.perf_counter() - t0
+    count = np.zeros(G, np.int32)
+    at = np.zeros((G, cfg.capacity), np.int32)
+    code = np.full((G, cfg.capacity), -1, np.int32)
+    for g, rows in twin.items():
+        count[g] = len(rows)
+        for r in rows:
+            at[g, r["rank"]] = r["tick"]
+            code[g, r["rank"]] = r["lane"] * cfg.seq_capacity + r["seq"]
+    for name, w in (("admit_count", count), ("admit_tick", at),
+                    ("bid_code", code)):
+        check(np.array_equal(getattr(st, name).cpu().numpy(), w),
+              f"pipeline: {name} differs from plan_admissions")
+
+    # byte accounting: every lane's tick of n > 0 requests is one batch
+    lane_n = lane_request_counts(arrived_np)
+    want_bytes = (batch_bytes(lane_n, P_REQ_BYTES) * (lane_n > 0)).sum(0)
+    check(np.array_equal(st.flushed_bytes.cpu().numpy(), want_bytes),
+          "pipeline: flushed_bytes differ from the sum of batch_bytes")
+    check(np.array_equal(st.n_flushed.cpu().numpy(), (lane_n > 0).sum(0)),
+          "pipeline: n_flushed differs from the lanes' non-empty ticks")
+
+    # every admitted bid exactly once; the pre-flip prefix kept
+    merged, _, com = res[1]
+    bids = P.decode_merged(cfg, st, merged, com)
+    want_bids = {P.lane_bid(r["lane"], r["seq"])
+                 for rows in twin.values() for r in rows}
+    check(len(bids) == len(set(bids)) == len(want_bids) == int(com)
+          and set(bids) == want_bids,
+          f"pipeline: {len(bids)} decoded bids ({len(set(bids))} distinct)"
+          f" against {len(want_bids)} admitted")
+    pre = got["pre"]
+    check(torch.equal(merged[:len(pre)].cpu(), pre) and len(pre) > 0,
+          "pipeline: the committed prefix before the flip is not a prefix "
+          "of the final one")
+    log(phase="pipeline", ticks=ticks, drains=got["drains"],
+        sha256=have[0], count=have[1], committed=have[2],
+        admitted=int(count.sum()), requests=int(arrived_np.sum()),
+        launches=launches, report={k: got["report"][k] for k in (
+            "epoch", "active", "removed", "moved", "marker_round")},
+        sealed_retired=got["sealed"][0], cpu_seconds=cpu_s,
+        card_first_seconds=card_s, route_table_seconds=route_s,
+        twin_seconds=twin_s)
+    timing = time_pipeline(cfg, arrived, sizes, rts[0], lane_n, dev,
+                           engine_ticks_per_s)
+    a, s, rt = arrived.to(dev), sizes.to(dev), rts[0].to(dev)
+    box = [P.init_pipeline(cfg, dev)]
+
+    def step(t):
+        box[0] = P.pipeline_tick(cfg, box[0], a[t], s[t], rt,
+                                 inplace=True)[0]
+    profile = profile_loop(step, P_PROFILE, "profile/pipeline")
+    log(phase="pipeline/seconds", seconds=time.perf_counter() - start)
+    return dict(launches=launches, ticks=ticks, timing=timing,
+                profile=profile, route_table_seconds=route_s)
+
+
+def time_pipeline(cfg, arrived, sizes, rt, lane_n, dev,
+                  engine_ticks_per_s: float) -> dict:
+    """Segment A through ``run_pipeline`` on the card, after one warm-up
+    run, timed by CUDA events: pipeline ticks/s, committed batch ids/s
+    and committed requests/s (each committed batch carries its lane's
+    requests of the tick that flushed it)."""
+    from repro_torch import pipeline as P
+    a, s, rt = (x.to(dev) for x in (arrived[:T_MAIN], sizes[:T_MAIN], rt))
+    P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a, s, rt, inplace=True)
+    st = P.init_pipeline(cfg, dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    st, _ = P.run_pipeline(cfg, st, a, s, rt, inplace=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_s = start.elapsed_time(end) / 1e3
+    merged, _, com = P.committed(cfg, st)
+    # requests of each lane's seq-th batch: its seq-th non-empty tick
+    n = lane_n[:T_MAIN]
+    seq = np.cumsum(n > 0, axis=0) - 1
+    per_batch = np.zeros((N_DISS, cfg.seq_capacity), np.int64)
+    t_idx, d_idx = np.nonzero(n)
+    per_batch[d_idx, seq[t_idx, d_idx]] = n[t_idx, d_idx]
+    ids = merged[:int(com)].cpu().numpy()
+    g, k = np.divmod(ids[ids >= 0], cfg.id_stride)
+    lane, bseq = np.divmod(st.bid_code.cpu().numpy()[g, k],
+                           cfg.seq_capacity)
+    requests = int(per_batch[lane, bseq].sum())
+    res = dict(ticks=T_MAIN, committed=int(com), committed_requests=requests,
+               run_seconds=run_s, run_wall_seconds=wall,
+               ticks_per_s=T_MAIN / run_s,
+               committed_ids_per_s=int(com) / run_s,
+               committed_requests_per_s=requests / run_s,
+               ratio_to_engine_ticks_per_s=T_MAIN / run_s
+               / engine_ticks_per_s)
+    log(phase="timing/pipeline", **res)
+    return res
 
 
 # -- model serving path -------------------------------------------------------
@@ -1197,6 +1483,8 @@ def main() -> int:
     engine = time_engine(tiles_dev, dev)
     profile_ticks(tiles_dev, dev)
     del tiles_dev
+    # the closed pipeline: its drive resets the counts first
+    pipe = pipeline_phase(dev, engine["ticks_per_s"])
     torch.cuda.empty_cache()
 
     # the model-serving path: each model's drive resets the counts first
@@ -1212,16 +1500,20 @@ def main() -> int:
     for row in timings:                  # first row per kernel: main shape
         by_name.setdefault(row["name"], row)
     kernels = []
-    for name, src, replaces, launches in (
+    for i, (name, src, replaces) in enumerate((
             ("quorum_update_grouped", "src/repro_torch/kernels/csrc/quorum.cu",
-             "src/repro/kernels/quorum.py:108", main_launches[0]),
+             "src/repro/kernels/quorum.py:108"),
             ("stability_update_grouped",
              "src/repro_torch/kernels/csrc/dissem.cu",
-             "src/repro/kernels/dissem.py:63", main_launches[1])):
-        row = by_name[name]
-        check(launches > 0, f"{name} was not launched on the main path")
+             "src/repro/kernels/dissem.py:63"))):
+        row, launches = by_name[name], main_launches[i]
+        check(launches > 0 and pipe["launches"][i] > 0,
+              f"{name} was not launched on the engine or pipeline path")
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=launches, max_abs_err=errors[name],
+                     launches=launches,
+                     launches_by_path={"engine": launches,
+                                       "pipeline": pipe["launches"][i]},
+                     max_abs_err=errors[name],
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=None, parity="bit-exact",
@@ -1285,7 +1577,10 @@ def main() -> int:
         kernels.append(entry)
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",
                                        "tick_loop_ticks_per_s",
-                                       "generations_min")})
+                                       "generations_min")},
+        pipeline={k: pipe["timing"][k] for k in (
+            "ticks_per_s", "committed_ids_per_s", "committed_requests_per_s",
+            "ratio_to_engine_ticks_per_s")})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
         for s in serves.values()}, profile_retries=PROFILE_RETRIES,

@@ -1,1 +1,2 @@
-"""Packed quorum/ordering windows of the port (``tilesim``)."""
+"""Packed quorum/ordering windows of the port (``tilesim``) and the
+wire-size constants (``network``)."""

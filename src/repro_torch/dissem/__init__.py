@@ -1,1 +1,2 @@
-"""Dissemination-stability engine of the port (``engine``)."""
+"""Dissemination-stability engine of the port (``engine``) and the
+byte-budget batch accumulator (``batcher``)."""

@@ -1,2 +1,3 @@
 """Engine layers of the port: the round-robin merge (``merge``), the four
-G-group engine families (``sharded``) and the ``Engine`` facade (``api``)."""
+G-group engine families (``sharded``), batch-id routing (``router``),
+epoch membership (``epochs``) and the ``Engine`` facade (``api``)."""

@@ -18,15 +18,17 @@ The family is implied by which sub-configs are present. Tiles are packed
 ``torch.int32`` bitsets on the state's device.
 
 Two layers: the functional ``create_state``/``tick``/``run``/
-``recycle``/``committed_prefix`` over an :class:`EngineState`, which
-modify no input unless called with ``inplace=True``; and :class:`Engine`,
-which owns its state and advances it in place (the kernels write their
-bitset outputs into the state's buffers, the counterpart of the
-reference's buffer donation).
+``recycle``/``reconfigure``/``committed_prefix`` over an
+:class:`EngineState`, which modify no input unless called with
+``inplace=True``; and :class:`Engine`, which owns its state and advances
+it in place (the kernels write their bitset outputs into the state's
+buffers, the counterpart of the reference's buffer donation).
 
-``EngineConfig``'s ``epochs``, ``adaptive`` and ``mesh`` fields exist for
-the reference's signature; setting one raises ``NotImplementedError``
-until its layer is ported.
+``EngineConfig.epochs`` takes an ``engine.epochs.EpochTable``
+(drain-then-switch membership: :func:`reconfigure`,
+:meth:`Engine.reconfigure`). ``adaptive`` and ``mesh`` exist for the
+reference's signature; setting one raises ``NotImplementedError`` until
+its layer is ported.
 """
 from __future__ import annotations
 
@@ -37,11 +39,12 @@ import torch
 
 from ..device import resolve_device
 from ..dissem.engine import init_dissem
+from . import epochs as epochs_mod
 from . import merge as merge_mod
 from . import sharded as sharded_mod
+from .epochs import EpochTable
 
 _NOT_PORTED = {
-    "epochs": "ROADMAP.md queue 1 item 6 (engine/epochs.py)",
     "adaptive": "ROADMAP.md queue 1 item 8 (engine/adaptive.py)",
     "mesh": "ROADMAP.md queue 1 item 10 (engine/meshed.py)",
 }
@@ -97,7 +100,7 @@ class EngineConfig:
     max_entries: int | None = None
     recycling: RecyclingConfig | None = None
     gating: GatingConfig | None = None
-    epochs: Any = None
+    epochs: EpochTable | None = None
     adaptive: Any = None
     mesh: Any = None
 
@@ -178,6 +181,11 @@ class EngineConfig:
                     f"[1, {part}]")
             norm("gating", GatingConfig(stab, part, bool(g.pre_stable),
                                         bool(g.fresh_stable)))
+        if self.epochs is not None and self.epochs.n_rows != self.groups:
+            raise ValueError(
+                f"EpochTable.n_rows={self.epochs.n_rows} must equal "
+                f"groups={self.groups}: physical rows are allocated once "
+                "and epochs activate subsets")
 
     @property
     def family(self) -> str:
@@ -354,6 +362,37 @@ def recycle(cfg: EngineConfig, state: EngineState)\
     return state._replace(core=core), n
 
 
+def reconfigure(cfg: EngineConfig, state: EngineState, old_epoch: int,
+                new_epoch: int) -> tuple[EngineState, dict]:
+    """Drain-then-switch epoch change (host-side control plane, between
+    ticking segments). Requires ``cfg.epochs``; dispatches to the
+    family's ``epochs.reconfigure_*``. Modifies no input. Returns
+    ``(state, report)``."""
+    if cfg.epochs is None:
+        raise ValueError("reconfigure() needs EngineConfig.epochs set")
+    fam = cfg.family
+    if fam == "plain":
+        core, sids, ms, report = epochs_mod.reconfigure_plain(
+            state.core, state.slot_ids, state.merge, cfg.epochs,
+            old_epoch, new_epoch)
+        return state._replace(core=core, slot_ids=sids, merge=ms), report
+    if fam == "recycled":
+        core, ms, report = epochs_mod.reconfigure_recycled(
+            state.core, state.merge, cfg.epochs, old_epoch, new_epoch,
+            id_stride=cfg.recycling.id_stride)
+        return state._replace(core=core, merge=ms), report
+    if fam == "gated_recycled":
+        core, ms, report = epochs_mod.reconfigure_gated_recycled(
+            state.core, state.merge, cfg.epochs, old_epoch, new_epoch,
+            id_stride=cfg.recycling.id_stride,
+            fresh_stable=cfg.gating.fresh_stable)
+        return state._replace(core=core, merge=ms), report
+    raise ValueError(
+        "reconfigure() is not defined for the gated non-recycled family "
+        "(no legacy reconfigure_* exists: sealing removed rows needs the "
+        "recycled retired-base commit gate) — add recycling")
+
+
 def committed_prefix(cfg: EngineConfig, state: EngineState)\
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(merged, merged_count, committed_count) of the current state,
@@ -369,18 +408,27 @@ class Engine:
     """Stateful facade: one engine instance, any family.
 
     ``Engine.create(cfg)`` builds fresh state; ``.tick()``/``.run()``
-    advance it in place and return the outputs; ``.recycle()`` is the
-    explicit compaction entry point."""
+    advance it in place and return the outputs; ``.recycle()`` and
+    ``.reconfigure()`` are the explicit control-plane entry points."""
 
-    def __init__(self, cfg: EngineConfig, state: EngineState) -> None:
+    def __init__(self, cfg: EngineConfig, state: EngineState,
+                 epoch: int = 0) -> None:
         self.cfg = cfg
         self.state = state
+        self.epoch = int(epoch)
 
     @classmethod
-    def create(cls, cfg: EngineConfig, *, device=None) -> "Engine":
+    def create(cls, cfg: EngineConfig, *, device=None,
+               epoch: int = 0) -> "Engine":
         """Build a fresh engine for ``cfg`` on ``device`` (default
-        ``cuda``; raises when there is no CUDA device)."""
-        return cls(cfg, create_state(cfg, device))
+        ``cuda``; raises when there is no CUDA device). ``epoch`` must
+        index ``cfg.epochs`` when an :class:`EpochTable` is
+        configured."""
+        if cfg.epochs is not None and \
+                not 0 <= int(epoch) < cfg.epochs.n_epochs:
+            raise ValueError(f"epoch {epoch} not in EpochTable "
+                             f"(n={cfg.epochs.n_epochs})")
+        return cls(cfg, create_state(cfg, device), epoch=epoch)
 
     def tick(self, acks, votes, holds=None) -> dict:
         """One engine step on packed tiles — ``acks`` int32[G, W,
@@ -407,6 +455,16 @@ class Engine:
         self.state, n = recycle(self.cfg, self.state)
         return n
 
+    def reconfigure(self, new_epoch: int) -> dict:
+        """Drain-then-switch to ``new_epoch`` (requires ``cfg.epochs``).
+        Rows leaving the active set must be drained (``ValueError``
+        otherwise). Appends one aligned RECONFIG marker round, seals
+        removed rows, re-homes in-flight ids. Returns the move report."""
+        self.state, report = reconfigure(self.cfg, self.state, self.epoch,
+                                         int(new_epoch))
+        self.epoch = int(new_epoch)
+        return report
+
     def committed(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(merged, merged_count, committed_count)`` for the current
         state — ``merged[:committed_count]`` is the executable prefix."""
@@ -424,4 +482,5 @@ class Engine:
 
     def __repr__(self) -> str:
         return (f"Engine(family={self.cfg.family!r}, "
-                f"groups={self.cfg.groups}, window={self.cfg.window})")
+                f"groups={self.cfg.groups}, window={self.cfg.window}, "
+                f"epoch={self.epoch})")

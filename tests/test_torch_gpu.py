@@ -217,3 +217,96 @@ def test_model_entry_points_default_to_the_card(cuda):
     assert all(p.is_cuda for p in lm.parameters())
     cache = D.cache_zeros(D.cache_spec(cfg, 1, 4))
     assert all(t.is_cuda for t in cache["seg0"].values())
+
+
+# -- epochs and the closed pipeline on the card --------------------------------
+
+def pipeline_tree(state):
+    """A pipeline state → nested numpy dicts (bitsets as uint32)."""
+    return {f: convert.engine_state_to_numpy(v) if f == "engine"
+            else pipeline_tree(v) if isinstance(v, tuple)
+            else v.cpu().numpy() for f, v in state._asdict().items()}
+
+
+def trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    return (a is None and b is None) or (a.dtype == b.dtype
+                                         and np.array_equal(a, b))
+
+
+def test_route_ids_on_card_match_cpu(cuda):
+    from repro_torch.engine import epochs, router
+    ids = np.random.default_rng(0).integers(0, 2**32, 4096, dtype=np.uint32)
+    ids[:2] = (2**31, 2**32 - 1)
+    host = torch.from_numpy(ids.view(np.int32))
+    for groups in (3, 4, 70000):
+        got = router.route_ids(host.to(cuda), groups)
+        assert got.is_cuda and torch.equal(got.cpu(),
+                                           router.route_ids(host, groups))
+    table = epochs.EpochTable(((0, 2), (0, 1, 2, 3)), n_rows=4)
+    for e in range(2):
+        assert torch.equal(epochs.route_ids_epoch(host.to(cuda), table,
+                                                  e).cpu(),
+                           epochs.route_ids_epoch(host, table, e))
+
+
+def test_workload_model_on_card_is_deterministic(cuda):
+    from repro_torch.pipeline import WorkloadModel
+    m = WorkloadModel(n_clients=64, arrival_rate=0.3,
+                      size_choices=(128, 1024), size_probs=(0.25, 0.75))
+    a, b = (m.draw(torch.Generator(cuda).manual_seed(4), 20)
+            for _ in range(2))
+    assert a.arrived.is_cuda and torch.equal(a.sizes, b.sizes)
+    assert torch.equal(a.arrived, b.arrived) and 0 < a.n_requests < 1280
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_pipeline_on_card_matches_cpu(cuda, inplace):
+    """G=3, D=5 with a shrink to rows (0, 1) after a drain: the run on
+    the card (2 quorum and 1 stability launch per tick) equals the CPU's,
+    state field by field, merged log and report."""
+    from repro_torch import pipeline as P
+    from repro_torch.engine.epochs import EpochTable
+    ecfg = api.EngineConfig(
+        groups=3, window=16, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=3 * 256,
+        recycling=api.RecyclingConfig(watermark=8, id_stride=4096),
+        gating=api.GatingConfig(),
+        epochs=EpochTable(((0, 1, 2), (0, 1)), n_rows=3))
+    cfg = P.PipelineConfig(engine=ecfg, n_clients=10, budget_bytes=2500,
+                           ack_lag=(0, 1, 1, 2, 2), hold_lag=(0, 0, 1, 1, 2),
+                           vote_lag=(1, 1, 2), capacity=128, seq_capacity=64)
+    rng = np.random.default_rng(2)
+    arrived = rng.random((40, 10)) < 0.4
+    sizes = np.where(arrived, rng.choice([200, 900, 1800], (40, 10)),
+                     0).astype(np.int32)
+    results = []
+    for dev in ("cpu", cuda):
+        a, s = (torch.from_numpy(x).to(dev) for x in (arrived, sizes))
+        quiet = (torch.zeros_like(a[0]), torch.zeros_like(s[0]))
+        rts = [torch.from_numpy(P.build_route_table(cfg, e)).to(dev)
+               for e in (0, 1)]
+        before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        st, o1 = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:20],
+                                s[:20], rts[0], inplace=inplace)
+        for _ in range(16):
+            st, _ = P.pipeline_tick(cfg, st, *quiet, rts[0], inplace=inplace)
+        st, report = P.reconfigure_pipeline(cfg, st, 0, 1)
+        st, o2 = P.run_pipeline(cfg, st, a[20:], s[20:], rts[1],
+                                inplace=inplace)
+        for _ in range(16):
+            st, _ = P.pipeline_tick(cfg, st, *quiet, rts[1], inplace=inplace)
+        launches = (kq.KERNEL.launches - before[0],
+                    kd.KERNEL.launches - before[1])
+        assert launches == ((2 * 72, 72) if dev == cuda else (0, 0))
+        merged, count, com = P.committed(cfg, st)
+        assert not bool(st.overflowed)
+        assert int(o1["dropped"].sum()) == int(o2["dropped"].sum()) == 0
+        assert int(com) == int(st.admit_count.sum()) > 0
+        results.append((pipeline_tree(st), merged.cpu(), int(count),
+                        int(com), report,
+                        P.decode_merged(cfg, st, merged, com)))
+    (t0, m0, *r0), (t1, m1, *r1) = results
+    assert trees_equal(t1, t0) and torch.equal(m1, m0) and r1 == r0
