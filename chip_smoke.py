@@ -44,7 +44,26 @@ Phases, each of which must pass or the script exits non-zero:
    Then segment A timed (pipeline ticks/s, committed batch ids/s and
    requests/s, the ratio to the engine's ticks/s) and a profiler pass
    over 32 pipeline ticks;
-7. model-kernel phase: the flash attention kernels (bf16 on the tensor
+7. adaptive phase: (a) ``adaptive/skew`` and ``adaptive/uniform``: the
+   engine's deployment with README's ``AdaptiveConfig(max_tiles_per_tick
+   =4, policy="backlog")`` over the engine phase's tiles pre-loaded with
+   ``queue_from_arrays`` (skew: group 0 holds 288 tiles, the others 72;
+   uniform: 72 each), ``Engine.adaptive_pass`` until R = 0. Each equals
+   the same passes on the CPU (merged log, the whole state and queue,
+   every R) and a lock-step ``Engine.run`` of ΣR ticks over the same
+   tiles on the card (the same merged prefix); nothing dropped; launches
+   exactly 2·ΣR and ΣR; lock-step and adaptive timed in turns, and a
+   profiler pass over 32 skew passes of R = 4. (b) ``pipeline/adaptive``:
+   the pipeline phase's drive in the subtick mode (K = 4, policy
+   "unstable"): card = CPU; against the lock-step run, the same admitted
+   count, all committed, the same bids in the same groups and each
+   lane's batches in admission order within a group; the flip sealed row
+   3; launches 2·ΣR and ΣR; segment A timed in both modes and a profiler
+   pass over 32 subtick ticks. (c)
+   ``dissem/bandwidth``: 2,000 batches of 8 x 1024 B over 1000
+   disseminators at G = 1, 2, 4, absorbed by one ``stability_tick`` on
+   the card: per-node bytes equal the CPU's and the closed form;
+8. model-kernel phase: the flash attention kernels (bf16 on the tensor
    cores, f32 on the CUDA cores; each case must launch the kernel its
    dtype selects) and WKV6 against their plain versions on the card, at
    the serving path's shapes, the shapes of the reference kernel tests,
@@ -52,7 +71,7 @@ Phases, each of which must pass or the script exits non-zero:
    and ragged lengths (one token, a chunk +- 1, 128 chunks), head dim
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
-8. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
+9. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
    width and depth in bf16 (weights from the port's initialiser, seed 0),
    B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches:
    for yi-6b, of the bf16 flash kernel and none of the f32 one; for
@@ -64,12 +83,12 @@ Phases, each of which must pass or the script exits non-zero:
    teacher-forced decode over 160 tokens within 1e-3 with equal greedy
    tokens. Prefill and decode tokens/s, each kernel's device time in
    the prefill, peak memory;
-9. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
+10. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
    the kernels, prefill with the plain versions and the teacher-forced
    decode against each other;
-10. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
+11. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
    on the card;
-11. model-kernel timing at the serving path's shapes: kernel (and its
+12. model-kernel timing at the serving path's shapes: kernel (and its
    device time; for WKV6 each pass's, and its workspace), plain version
    and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
    bounds.
@@ -106,7 +125,7 @@ INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 rate of the CUDA cores
 WARMUP, REPS = 20, 200
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 PROFILE_RETRIES = []     # (symbol, launches seen) of each session traced again
 START = time.perf_counter()
 
@@ -623,20 +642,24 @@ P_DRAIN = 128         # most ticks a drain may take
 P_PROFILE = 32
 
 
-def pipeline_config():
+def pipeline_config(adaptive=None):
+    """The pipeline phase's configuration; with an ``AdaptiveConfig``,
+    the subtick mode, whose merge log holds K rounds per tick."""
     from repro_torch.core.network import batch_bytes
     from repro_torch.engine.api import (EngineConfig, GatingConfig,
                                         RecyclingConfig)
     from repro_torch.engine.epochs import EpochTable
     from repro_torch.pipeline import PipelineConfig
     rng = np.random.default_rng(SEED)
+    rounds = 1 if adaptive is None else adaptive.max_tiles_per_tick
     ecfg = EngineConfig(
         groups=G, window=W, n_diss=N_DISS, n_seq=N_SEQ, order_budget=BUDGET,
-        merge_capacity=(T_MAIN + P_DRAIN + P_SEG_B + P_DRAIN + 1) * BUDGET,
+        merge_capacity=(T_MAIN + P_DRAIN + P_SEG_B + P_DRAIN + 1) * BUDGET
+        * rounds,
         recycling=RecyclingConfig(watermark=WATERMARK, id_stride=STRIDE),
         gating=GatingConfig(n_diss_partition=PART, fresh_stable=False),
         epochs=EpochTable((tuple(range(G)), tuple(range(G - 1))),
-                          n_rows=G))
+                          n_rows=G), adaptive=adaptive)
     return PipelineConfig(
         engine=ecfg, n_clients=P_LANE_CLIENTS * N_DISS,
         budget_bytes=batch_bytes(P_LANE_CLIENTS, P_REQ_BYTES),
@@ -656,17 +679,21 @@ def pipeline_tree(state) -> dict:
 
 def drain_pipeline(cfg, st, rt):
     """Ticks with no arrivals until every admitted batch is committed;
-    returns (state, ticks, summed dropped). Fails after P_DRAIN ticks."""
+    returns (state, ticks, summed dropped, each tick's rounds in the
+    subtick mode). Fails after P_DRAIN ticks."""
     from repro_torch import pipeline as P
     C = cfg.n_clients
     quiet = (torch.zeros(C, dtype=torch.bool, device=rt.device),
              torch.zeros(C, dtype=torch.int32, device=rt.device))
     dropped = torch.zeros((), dtype=torch.int32, device=rt.device)
+    rounds = []
     for n in range(1, P_DRAIN + 1):
         st, out = P.pipeline_tick(cfg, st, *quiet, rt, inplace=True)
         dropped = dropped + out["dropped"]
+        if "rounds" in out:
+            rounds.append(int(out["rounds"]))
         if int(P.committed(cfg, st)[2]) == int(st.admit_count.sum()):
-            return st, n, dropped
+            return st, n, dropped, rounds
     fail(f"pipeline did not drain in {P_DRAIN} ticks")
 
 
@@ -678,7 +705,7 @@ def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
     rt0, rt1 = (x.to(dev) for x in rts)
     st, oa = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:T_MAIN],
                             s[:T_MAIN], rt0, inplace=True)
-    st, drain_a, da = drain_pipeline(cfg, st, rt0)
+    st, drain_a, da, ra = drain_pipeline(cfg, st, rt0)
     merged, _, com = P.committed(cfg, st)
     pre = merged[:int(com)].cpu()
     st, report = P.reconfigure_pipeline(cfg, st, 0, 1)
@@ -686,11 +713,22 @@ def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
     sealed = (int(rs.retired[G - 1]), int(rs.q.next_instance[G - 1]))
     st, ob = P.run_pipeline(cfg, st, a[T_MAIN:], s[T_MAIN:], rt1,
                             inplace=True)
-    st, drain_b, db = drain_pipeline(cfg, st, rt1)
+    st, drain_b, db, rb = drain_pipeline(cfg, st, rt1)
     dropped = int(oa["dropped"].sum() + da + ob["dropped"].sum() + db)
+    # the subtick mode's R of every tick, in tick order
+    rounds = None if "rounds" not in oa else \
+        oa["rounds"].tolist() + ra + ob["rounds"].tolist() + rb
     return dict(state=st, pre=pre, report=report, sealed=sealed,
-                drains=(drain_a, drain_b), dropped=dropped,
+                drains=(drain_a, drain_b), dropped=dropped, rounds=rounds,
                 ticks=T_MAIN + drain_a + P_SEG_B + drain_b)
+
+
+def bid_groups(cfg, st, merged, com) -> list:
+    """The committed prefix as ((lane, seq), group) pairs, in order."""
+    from repro_torch import pipeline as P
+    ids = merged[:int(com)].cpu()
+    return list(zip(P.decode_merged(cfg, st, merged, com),
+                    (ids[ids >= 0] // cfg.id_stride).tolist()))
 
 
 def lane_request_counts(arrived: np.ndarray) -> np.ndarray:
@@ -824,11 +862,15 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
     profile = profile_loop(step, P_PROFILE, "profile/pipeline")
     log(phase="pipeline/seconds", seconds=time.perf_counter() - start)
     return dict(launches=launches, ticks=ticks, timing=timing,
-                profile=profile, route_table_seconds=route_s)
+                profile=profile, route_table_seconds=route_s,
+                arrived=arrived, sizes=sizes, rts=rts, lane_n=lane_n,
+                admitted=int(count.sum()), committed=have[2],
+                bid_groups=bid_groups(cfg, st, merged, com))
 
 
 def time_pipeline(cfg, arrived, sizes, rt, lane_n, dev,
-                  engine_ticks_per_s: float) -> dict:
+                  engine_ticks_per_s: float,
+                  phase: str = "timing/pipeline") -> dict:
     """Segment A through ``run_pipeline`` on the card, after one warm-up
     run, timed by CUDA events: pipeline ticks/s, committed batch ids/s
     and committed requests/s (each committed batch carries its lane's
@@ -865,8 +907,338 @@ def time_pipeline(cfg, arrived, sizes, rt, lane_n, dev,
                committed_requests_per_s=requests / run_s,
                ratio_to_engine_ticks_per_s=T_MAIN / run_s
                / engine_ticks_per_s)
-    log(phase="timing/pipeline", **res)
+    log(phase=phase, **res)
     return res
+
+
+# -- adaptive tick batching and bandwidth -------------------------------------
+
+# README's adaptive example (AdaptiveConfig(max_tiles_per_tick=4,
+# policy="backlog")) at the engine's deployment, over the engine phase's
+# tiles pre-loaded with queue_from_arrays. Skew: group 0 holds K times the
+# other groups' tiles, the reference bench's shape (benchmarks/run.py:
+# 723-767); uniform: every group holds the fast groups' count.
+A_K = 4
+A_FAST = T_MAIN // A_K
+A_SCENARIOS = (("skew", [T_MAIN] + [A_FAST] * (G - 1)),
+               ("uniform", [A_FAST] * G))
+A_PASSES = T_MAIN + P_DRAIN      # most passes a scenario may take
+# the reference's bench_dissem (benchmarks/run.py:646-689) at the
+# deployment's 1000 disseminators: 2,000 batches of the pipeline's shape
+BW_BATCHES = 2000
+
+
+def adaptive_config():
+    from repro_torch.engine.adaptive import AdaptiveConfig
+    from repro_torch.engine.api import (EngineConfig, GatingConfig,
+                                        RecyclingConfig)
+    return EngineConfig(
+        groups=G, window=W, n_diss=N_DISS, n_seq=N_SEQ,
+        order_budget=BUDGET, merge_capacity=A_PASSES * BUDGET,
+        recycling=RecyclingConfig(watermark=WATERMARK, id_stride=STRIDE),
+        gating=GatingConfig(n_diss_partition=PART, fresh_stable=False),
+        adaptive=AdaptiveConfig(max_tiles_per_tick=A_K, policy="backlog",
+                                threshold=1, queue_capacity=T_MAIN))
+
+
+def adaptive_engine(cfg, tiles, lens, dev):
+    """A fresh engine whose queue holds each group's first ``lens[g]``
+    tiles."""
+    from repro_torch.engine.adaptive import queue_from_arrays
+    from repro_torch.engine.api import Engine
+    eng = Engine.create(cfg, device=dev)
+    eng.queue = queue_from_arrays(cfg, *tiles, lengths=lens)
+    return eng
+
+
+def drain_adaptive(eng) -> tuple[list, int]:
+    """``Engine.adaptive_pass`` until R = 0: (each pass's R, summed merge
+    truncations). Fails after A_PASSES passes."""
+    dropped = torch.zeros((), dtype=torch.int32,
+                          device=eng.state.merge.logs.device)
+    rounds = []
+    for _ in range(A_PASSES):
+        out = eng.adaptive_pass()
+        dropped = dropped + out["dropped"]
+        r = int(out["rounds"])
+        if r == 0:
+            return rounds, int(dropped)
+        rounds.append(r)
+    fail(f"adaptive: no quiescence in {A_PASSES} passes")
+
+
+def lockstep_tiles(tiles, lens, ticks: int):
+    """The queue's traffic as lock-step input: group g's first lens[g]
+    tiles, then zero tiles up to ``ticks``."""
+    out = []
+    for x in tiles:
+        pad = torch.zeros((ticks,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for g, n in enumerate(lens):
+            pad[:n, g] = x[:n, g]
+        out.append(pad)
+    return out
+
+
+def timed(fn) -> tuple:
+    """(result, seconds by CUDA events, wall seconds) of one call."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3, time.perf_counter() - t0
+
+
+def adaptive_engine_phase(dev, tiles_cpu) -> dict:
+    """``adaptive/skew`` and ``adaptive/uniform``: adaptive passes to
+    quiescence on the card against the same passes on the CPU (merged
+    log, state, queue, every R) and against a lock-step ``Engine.run``
+    of ΣR ticks on the card (the same merged prefix); launches exactly
+    2·ΣR and ΣR; then lock-step and adaptive timed in turns (L, A, A,
+    L)."""
+    from repro_torch.convert import queue_to_numpy
+    from repro_torch.engine.api import Engine
+    cfg = adaptive_config()
+    tiles_dev = [x.to(dev) for x in tiles_cpu]
+    out = {}
+    for scenario, lens in A_SCENARIOS:
+        name = f"adaptive/{scenario}"
+        t0 = time.perf_counter()
+        ref = adaptive_engine(cfg, tiles_cpu, lens, torch.device("cpu"))
+        ref_rounds, _ = drain_adaptive(ref)
+        cpu_s = time.perf_counter() - t0
+        res = ref.committed()
+        want = digest(res[0], res[1]) + (int(res[2]),)
+
+        eng = adaptive_engine(cfg, tiles_dev, lens, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        (rounds, dropped), card_s, _ = timed(lambda: drain_adaptive(eng))
+        launches = read_counts()
+        n = sum(rounds)
+        res = eng.committed()
+        got = digest(res[0], res[1]) + (int(res[2]),)
+        check(got == want, f"{name}: card {got} != CPU {want}")
+        check(rounds == ref_rounds, f"{name}: rounds differ from the CPU's")
+        check(states_equal(eng.state, ref.state),
+              f"{name}: final state differs from the CPU run")
+        check(trees_equal(queue_to_numpy(eng.queue),
+                          queue_to_numpy(ref.queue)),
+              f"{name}: final queue differs from the CPU run")
+        check(launches == (2 * n, n),
+              f"{name}: launches {launches}, expected {(2 * n, n)}")
+        q = eng.queue
+        check(dropped == 0 and int(q.dropped.sum()) == 0
+              and int(eng.state.merge.overflowed.sum()) == 0,
+              f"{name}: dropped {dropped}, queue dropped "
+              f"{q.dropped.tolist()}, merge overflowed "
+              f"{eng.state.merge.overflowed.tolist()}")
+        check(torch.equal(q.head, q.tail)
+              and q.tail.tolist() == lens, f"{name}: queue not consumed: "
+              f"head {q.head.tolist()}, tail {q.tail.tolist()}")
+        check(got[2] > 0 and n >= max(lens),
+              f"{name}: committed {got[2]}, ΣR {n}")
+
+        # lock-step over the same tiles, drain-padded to ΣR ticks
+        lock_in = lockstep_tiles(tiles_dev, lens, n)
+        lock = Engine.create(cfg, device=dev)
+        m, c, k = lock.run(*lock_in)
+        lock_got = digest(m, c) + (int(k),)
+        check(lock_got == got, f"{name}: lock-step {lock_got} != adaptive "
+              f"{got}")
+
+        # timing in turns, each drive on a fresh engine
+        def run_lock():
+            e = Engine.create(cfg, device=dev)
+            torch.cuda.synchronize()
+            return timed(lambda: e.run(*lock_in))[1:]
+
+        def run_adaptive():
+            e = adaptive_engine(cfg, tiles_dev, lens, dev)
+            return timed(lambda: drain_adaptive(e))[1:]
+        turns = [("lockstep", run_lock()), ("adaptive", run_adaptive()),
+                 ("adaptive", run_adaptive()), ("lockstep", run_lock())]
+        secs = {k: [t for how, t in turns if how == k]
+                for k in ("lockstep", "adaptive")}
+        res = dict(
+            lens=lens, passes=len(rounds), rounds_sum=n,
+            rounds_hist={r: rounds.count(r) for r in sorted(set(rounds))},
+            sha256=got[0], count=got[1], committed=got[2],
+            launches=launches, cpu_seconds=cpu_s, card_first_seconds=card_s,
+            **{f"{k}_seconds": [t[0] for t in v] for k, v in secs.items()},
+            **{f"{k}_wall_seconds": [t[1] for t in v]
+               for k, v in secs.items()},
+            **{f"{k}_committed_ids_per_s": [got[2] / t[0] for t in v]
+               for k, v in secs.items()})
+        res["adaptive_over_lockstep_ids_per_s"] = \
+            sum(t[0] for t in secs["lockstep"]) \
+            / sum(t[0] for t in secs["adaptive"])
+        log(phase=name, **res)
+        out[scenario] = res
+        if scenario == "skew":
+            # passes 9-40 of the skew all run R = 4 rounds
+            e = adaptive_engine(cfg, tiles_dev, lens, dev)
+            profile_loop(lambda t: e.adaptive_pass(), 32,
+                         "profile/adaptive_skew")
+    return out
+
+
+def adaptive_pipeline_phase(dev, pipe: dict,
+                            engine_ticks_per_s: float) -> dict:
+    """``pipeline/adaptive``: the pipeline phase's whole drive in the
+    subtick mode (K = 4, policy "unstable"). The card's run equals the
+    CPU's; against the lock-step run of the pipeline phase the same
+    arrivals give the same admitted count, all committed, the same bid
+    multiset and equal per-lane suborders; nothing overflowed or was
+    dropped, the flip sealed row G-1, launches exactly 2·ΣR and ΣR.
+    Then segment A timed in the subtick mode and in lock-step.
+
+    Each lane's batches are held in admission order within each group,
+    in both runs, and each batch in the same group. Across groups the
+    two modes interleave differently (a lagging group's extra rounds
+    order its batches earlier), so a lane's whole suborder is logged
+    against lock-step's, not required to equal it."""
+    from repro_torch import pipeline as P
+    from repro_torch.engine.adaptive import AdaptiveConfig
+    cfg = pipeline_config(AdaptiveConfig(max_tiles_per_tick=A_K,
+                                         policy="unstable"))
+    arrived, sizes, rts = pipe["arrived"], pipe["sizes"], pipe["rts"]
+    t0 = time.perf_counter()
+    ref = drive_pipeline(cfg, arrived, sizes, rts, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = drive_pipeline(cfg, arrived, sizes, rts, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    st, rounds = got["state"], got["rounds"]
+    n = sum(rounds)
+
+    res = [P.committed(cfg, x["state"]) for x in (ref, got)]
+    want, have = (digest(m, c) + (int(k),) for m, c, k in res)
+    check(have == want, f"pipeline/adaptive: card {have} != CPU {want}")
+    check(trees_equal(pipeline_tree(st), pipeline_tree(ref["state"])),
+          "pipeline/adaptive: final state differs from the CPU run")
+    check(got["drains"] == ref["drains"] and got["report"] == ref["report"]
+          and rounds == ref["rounds"],
+          "pipeline/adaptive: drains, report or rounds differ from the CPU")
+    check(len(rounds) == got["ticks"] and min(rounds) >= 1,
+          f"pipeline/adaptive: {len(rounds)} rounds for {got['ticks']} "
+          "ticks")
+    check(launches == (2 * n, n),
+          f"pipeline/adaptive: launches {launches}, expected {(2 * n, n)}")
+    check(not bool(st.overflowed) and got["dropped"] == 0
+          and int(st.engine.merge.overflowed.sum()) == 0,
+          f"pipeline/adaptive: overflowed {bool(st.overflowed)}, dropped "
+          f"{got['dropped']}, merge overflowed "
+          f"{st.engine.merge.overflowed.tolist()}")
+    check(got["report"]["moved"] == 0
+          and got["report"]["removed"] == (G - 1,)
+          and got["sealed"][0] == got["sealed"][1],
+          f"pipeline/adaptive: flip report {got['report']}, sealed "
+          f"{got['sealed']}")
+
+    # against the lock-step run of the same arrivals
+    merged, _, com = res[1]
+    admitted = int(st.admit_count.sum())
+    check(admitted == pipe["admitted"] == int(com) == pipe["committed"],
+          f"pipeline/adaptive: admitted {admitted}, committed {int(com)}; "
+          f"lock-step {pipe['admitted']}, {pipe['committed']}")
+    pairs, lock_pairs = bid_groups(cfg, st, merged, com), pipe["bid_groups"]
+    check(sorted(pairs) == sorted(lock_pairs)
+          and len(set(b for b, _ in pairs)) == len(pairs),
+          "pipeline/adaptive: the bids or their groups differ from "
+          "lock-step's")
+
+    def suborders(ps, key):
+        out = {}
+        for (lane, seq), g in ps:
+            out.setdefault(key(lane, g), []).append(seq)
+        return out
+    for ps in (pairs, lock_pairs):
+        check(all(v == sorted(v) for v in suborders(
+                  ps, lambda lane, g: (lane, g)).values()),
+              "pipeline/adaptive: a lane's batches are out of admission "
+              "order within a group")
+    lanes, lock_lanes = (suborders(ps, lambda lane, g: lane)
+                         for ps in (pairs, lock_pairs))
+    same_lanes = sum(lanes[k] == lock_lanes[k] for k in lock_lanes)
+    pre = got["pre"]
+    check(torch.equal(merged[:len(pre)].cpu(), pre) and len(pre) > 0,
+          "pipeline/adaptive: the committed prefix before the flip is not "
+          "a prefix of the final one")
+    log(phase="pipeline/adaptive", ticks=got["ticks"], drains=got["drains"],
+        lockstep_ticks=pipe["ticks"], rounds_sum=n,
+        lanes=len(lock_lanes), lanes_same_suborder=same_lanes,
+        lanes_fifo=sum(v == sorted(v) for v in lanes.values()),
+        lockstep_lanes_fifo=sum(v == sorted(v) for v in lock_lanes.values()),
+        rounds_hist={r: rounds.count(r) for r in sorted(set(rounds))},
+        sha256=have[0], count=have[1], committed=have[2], launches=launches,
+        cpu_seconds=cpu_s, card_first_seconds=card_s)
+    timing = {
+        "adaptive": time_pipeline(cfg, arrived, sizes, rts[0],
+                                  pipe["lane_n"], dev, engine_ticks_per_s,
+                                  "timing/pipeline_adaptive"),
+        "lockstep": time_pipeline(pipeline_config(), arrived, sizes, rts[0],
+                                  pipe["lane_n"], dev, engine_ticks_per_s,
+                                  "timing/pipeline_lockstep")}
+    a, s, rt = arrived.to(dev), sizes.to(dev), rts[0].to(dev)
+    box = [P.init_pipeline(cfg, dev)]
+
+    def step(t):
+        box[0] = P.pipeline_tick(cfg, box[0], a[t], s[t], rt,
+                                 inplace=True)[0]
+    profile_loop(step, P_PROFILE, "profile/pipeline_adaptive")
+    return dict(launches=launches, rounds_sum=n, timing=timing)
+
+
+def bandwidth_phase(dev) -> list[dict]:
+    """``dissem/bandwidth``: uniform traffic of BW_BATCHES batches of the
+    pipeline's shape absorbed by one ``stability_tick`` on the card, at
+    G = 1, 2, 4 over N_DISS disseminators; per-node bytes equal the
+    CPU's and the closed form times slots per node."""
+    from repro_torch.convert import bits_from_numpy
+    from repro_torch.core.network import batch_bytes
+    from repro_torch.dissem import bandwidth as bw
+    from repro_torch.dissem.engine import init_dissem, stability_tick
+    nbytes = batch_bytes(P_LANE_CLIENTS, P_REQ_BYTES)
+    rows, base_in = [], None
+    for g in (1, 2, 4):
+        mp = bw.partition_size(N_DISS, g)
+        wg = BW_BATCHES // g
+        packed, owner, nb = bw.uniform_traffic(g, wg, mp,
+                                               batch_nbytes=nbytes)
+        per_dev = []
+        for d in (torch.device("cpu"), dev):
+            st, _ = stability_tick(init_dissem(g, wg, mp, device=d),
+                                   bits_from_numpy(packed, d),
+                                   majority=mp // 2 + 1)
+            check(bool(st.stable.all()), f"dissem/G={g}: not all stable")
+            per_dev.append(bw.per_node_bytes(st, owner, nb, mp))
+        (cin, cout), (din, dout) = per_dev
+        cf = bw.replication_bytes_per_node(P_LANE_CLIENTS, P_REQ_BYTES, mp)
+        slots = wg // mp
+        check(np.array_equal(din, cin) and np.array_equal(dout, cout),
+              f"dissem/G={g}: card bytes differ from the CPU's")
+        check((din == slots * cf["in"]).all()
+              and (dout == slots * cf["out"]).all(),
+              f"dissem/G={g}: bytes differ from the closed form")
+        node_in = int(din.max())
+        base_in = node_in if base_in is None else base_in
+        rows.append(dict(groups=g, n_diss_partition=mp, batches_per_group=wg,
+                         batch_wire_bytes=nbytes, per_node_in_bytes=node_in,
+                         per_node_out_bytes=int(dout.max()),
+                         closed_form_in=cf["in"], closed_form_out=cf["out"],
+                         in_reduction_vs_global=base_in / node_in))
+        log(phase=f"dissem/bandwidth/G={g}", **rows[-1])
+    check(rows[-1]["in_reduction_vs_global"] > 3.9,
+          "dissem/bandwidth: partitioning did not cut per-node bytes ~G")
+    return rows
 
 
 # -- model serving path -------------------------------------------------------
@@ -1485,6 +1857,13 @@ def main() -> int:
     del tiles_dev
     # the closed pipeline: its drive resets the counts first
     pipe = pipeline_phase(dev, engine["ticks_per_s"])
+    # adaptive batching and its subtick mode: each drive resets the
+    # counts first; then the bandwidth accounting
+    t0 = time.perf_counter()
+    adaptive = adaptive_engine_phase(dev, tiles_cpu)
+    pipe_adaptive = adaptive_pipeline_phase(dev, pipe, engine["ticks_per_s"])
+    bandwidth = bandwidth_phase(dev)
+    log(phase="adaptive/seconds", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
     # the model-serving path: each model's drive resets the counts first
@@ -1507,12 +1886,14 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/dissem.cu",
              "src/repro/kernels/dissem.py:63"))):
         row, launches = by_name[name], main_launches[i]
-        check(launches > 0 and pipe["launches"][i] > 0,
-              f"{name} was not launched on the engine or pipeline path")
+        by_path = {"engine": launches, "pipeline": pipe["launches"][i],
+                   **{f"adaptive/{k}": v["launches"][i]
+                      for k, v in adaptive.items()},
+                   "pipeline/adaptive": pipe_adaptive["launches"][i]}
+        check(all(v > 0 for v in by_path.values()),
+              f"{name} was not launched on every engine path: {by_path}")
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=launches,
-                     launches_by_path={"engine": launches,
-                                       "pipeline": pipe["launches"][i]},
+                     launches=launches, launches_by_path=by_path,
                      max_abs_err=errors[name],
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -1580,7 +1961,17 @@ def main() -> int:
                                        "generations_min")},
         pipeline={k: pipe["timing"][k] for k in (
             "ticks_per_s", "committed_ids_per_s", "committed_requests_per_s",
-            "ratio_to_engine_ticks_per_s")})
+            "ratio_to_engine_ticks_per_s")},
+        adaptive={k: {m: v[m] for m in (
+            "passes", "rounds_sum", "lockstep_committed_ids_per_s",
+            "adaptive_committed_ids_per_s",
+            "adaptive_over_lockstep_ids_per_s")}
+            for k, v in adaptive.items()},
+        pipeline_adaptive={k: {m: v[m] for m in (
+            "ticks_per_s", "committed_ids_per_s",
+            "committed_requests_per_s")}
+            for k, v in pipe_adaptive["timing"].items()},
+        bandwidth={r["groups"]: r["per_node_in_bytes"] for r in bandwidth})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
         for s in serves.values()}, profile_retries=PROFILE_RETRIES,

@@ -6,7 +6,9 @@ the reference's ``EngineState`` or any of its family states (QuorumState,
 RecycleState, GatedRecycleState, DissemState, MergeState), as NamedTuples
 with array leaves or as nested dicts. Bitset fields (``ack_bits``,
 ``vote_bits``, ``hold_bits``) cross as a ``uint32`` ↔ ``int32`` view with
-the same bits; every other field keeps its dtype (int32 or bool).
+the same bits; every other field keeps its dtype (int32 or bool). An
+adaptive ``TrafficQueue`` crosses the same way (:func:`queue_from_numpy`,
+:func:`queue_to_numpy`), its tile rings as bitsets.
 
 Model weights cross in the layout of the reference's ``init_lm``: nested
 dicts whose segment leaves are stacked along a leading layer axis
@@ -19,6 +21,7 @@ import torch
 
 from .core.tilesim import QuorumState
 from .dissem.engine import DissemState
+from .engine.adaptive import TrafficQueue, init_queue
 from .engine.api import EngineConfig, EngineState, create_state
 from .engine.merge import MergeState
 from .engine.sharded import GatedRecycleState, RecycleState
@@ -26,6 +29,7 @@ from .models.common import ModelConfig
 from .models.transformer import LM, init_lm
 
 BITSET_FIELDS = frozenset({"ack_bits", "vote_bits", "hold_bits"})
+QUEUE_RINGS = ("acks", "votes", "holds")
 # most specific first: each class is recognized by its field names
 _STATE_TYPES = (EngineState, GatedRecycleState, RecycleState, QuorumState,
                 DissemState, MergeState)
@@ -135,6 +139,31 @@ def engine_state_to_numpy(state):
         else:
             out[f] = v.detach().cpu().numpy()
     return out
+
+
+def queue_from_numpy(cfg: EngineConfig, tree, device) -> TrafficQueue:
+    """Build the port's ``TrafficQueue`` from a reference queue given as
+    numpy arrays (a NamedTuple or a dict under the reference's field
+    names; rings ``uint32``). Raises ``ValueError`` if its shapes or
+    dtypes do not fit ``cfg`` (with ``adaptive`` set) at the ring's own
+    capacity."""
+    fields = {}
+    for f in TrafficQueue._fields:
+        v = _get(tree, f)
+        fields[f] = None if v is None else bits_from_numpy(v, device) \
+            if f in QUEUE_RINGS else _leaf_from_numpy(f, v, device)
+    queue = TrafficQueue(**fields)
+    _check_like(queue, init_queue(cfg, capacity=queue.acks.shape[1],
+                                  device="meta"), "TrafficQueue")
+    return queue
+
+
+def queue_to_numpy(queue: TrafficQueue) -> dict:
+    """The port's ``TrafficQueue`` → a dict of numpy arrays under the
+    reference's field names, rings as ``uint32``."""
+    return {f: None if v is None else bits_to_numpy(v) if f in QUEUE_RINGS
+            else v.detach().cpu().numpy()
+            for f, v in queue._asdict().items()}
 
 
 # -- model weights ------------------------------------------------------------

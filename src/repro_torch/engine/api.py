@@ -26,9 +26,11 @@ buffers, the counterpart of the reference's buffer donation).
 
 ``EngineConfig.epochs`` takes an ``engine.epochs.EpochTable``
 (drain-then-switch membership: :func:`reconfigure`,
-:meth:`Engine.reconfigure`). ``adaptive`` and ``mesh`` exist for the
-reference's signature; setting one raises ``NotImplementedError`` until
-its layer is ported.
+:meth:`Engine.reconfigure`); ``adaptive`` takes an
+``engine.adaptive.AdaptiveConfig`` (adaptive tick batching:
+:meth:`Engine.enqueue`, :meth:`Engine.adaptive_pass`). ``mesh`` exists
+for the reference's signature; setting it raises
+``NotImplementedError`` until its layer is ported.
 """
 from __future__ import annotations
 
@@ -39,13 +41,14 @@ import torch
 
 from ..device import resolve_device
 from ..dissem.engine import init_dissem
+from . import adaptive as adaptive_mod
 from . import epochs as epochs_mod
 from . import merge as merge_mod
 from . import sharded as sharded_mod
+from .adaptive import AdaptiveConfig
 from .epochs import EpochTable
 
 _NOT_PORTED = {
-    "adaptive": "ROADMAP.md queue 1 item 8 (engine/adaptive.py)",
     "mesh": "ROADMAP.md queue 1 item 10 (engine/meshed.py)",
 }
 
@@ -101,7 +104,7 @@ class EngineConfig:
     recycling: RecyclingConfig | None = None
     gating: GatingConfig | None = None
     epochs: EpochTable | None = None
-    adaptive: Any = None
+    adaptive: AdaptiveConfig | None = None
     mesh: Any = None
 
     def __post_init__(self):
@@ -181,6 +184,11 @@ class EngineConfig:
                     f"[1, {part}]")
             norm("gating", GatingConfig(stab, part, bool(g.pre_stable),
                                         bool(g.fresh_stable)))
+        if self.adaptive is not None and \
+                not isinstance(self.adaptive, AdaptiveConfig):
+            raise ValueError(
+                f"EngineConfig.adaptive must be an AdaptiveConfig, got "
+                f"{type(self.adaptive).__name__}")
         if self.epochs is not None and self.epochs.n_rows != self.groups:
             raise ValueError(
                 f"EpochTable.n_rows={self.epochs.n_rows} must equal "
@@ -409,13 +417,16 @@ class Engine:
 
     ``Engine.create(cfg)`` builds fresh state; ``.tick()``/``.run()``
     advance it in place and return the outputs; ``.recycle()`` and
-    ``.reconfigure()`` are the explicit control-plane entry points."""
+    ``.reconfigure()`` are the explicit control-plane entry points;
+    ``.enqueue()``/``.adaptive_pass()`` drive adaptive tick batching
+    (``cfg.adaptive``) over :attr:`queue`, created on first use."""
 
     def __init__(self, cfg: EngineConfig, state: EngineState,
                  epoch: int = 0) -> None:
         self.cfg = cfg
         self.state = state
         self.epoch = int(epoch)
+        self.queue: adaptive_mod.TrafficQueue | None = None
 
     @classmethod
     def create(cls, cfg: EngineConfig, *, device=None,
@@ -469,6 +480,35 @@ class Engine:
         """``(merged, merged_count, committed_count)`` for the current
         state — ``merged[:committed_count]`` is the executable prefix."""
         return committed_prefix(self.cfg, self.state)
+
+    # -- adaptive tick batching (cfg.adaptive) -------------------------------
+
+    def _queue(self, what: str) -> adaptive_mod.TrafficQueue:
+        if self.cfg.adaptive is None:
+            raise ValueError(f"{what}() needs EngineConfig.adaptive set")
+        if self.queue is None:
+            self.queue = adaptive_mod.init_queue(
+                self.cfg, device=self.state.merge.logs.device)
+        return self.queue
+
+    def enqueue(self, acks, votes, holds=None, mask=None) -> None:
+        """Queue one pre-packed tile set per group (rows where ``mask``)
+        for adaptive passes, in place; a full ring counts the tile in
+        ``queue.dropped``."""
+        self.queue = adaptive_mod.enqueue(self._queue("enqueue"), acks,
+                                          votes, holds=holds, mask=mask,
+                                          inplace=True)
+
+    def adaptive_pass(self) -> dict:
+        """One adaptive merged pass over the queued traffic, in place:
+        lagging groups consume up to ``cfg.adaptive.max_tiles_per_tick``
+        tiles, caught-up groups one (or none, padded with SKIP rounds).
+        Returns ``rounds``/``consumed``/``dropped``; ``rounds == 0``
+        means the engine is drained."""
+        self.state, self.queue, out = adaptive_mod.adaptive_pass(
+            self.cfg, self.state, self._queue("adaptive_pass"),
+            inplace=True)
+        return out
 
     @property
     def slot_ids(self) -> torch.Tensor:

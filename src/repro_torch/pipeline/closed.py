@@ -21,7 +21,8 @@ One :func:`pipeline_tick` spans the four decoupled HT-Paxos stages
    slot→id map, so the model stays exact across window recycling
    (absorption is an idempotent OR);
 4. **ordering** — one ``engine.api.tick`` of the gated, epoch-aware
-   engine absorbs the tiles and appends to the merged log.
+   engine absorbs the tiles and appends to the merged log (with
+   ``EngineConfig.adaptive``, one ``engine.adaptive.subtick_pass``).
 
 Engine slots are addressed by **global rank**: group ``g``'s ``k``-th
 admitted batch is engine id ``g·stride + k`` (``stride`` = ``id_stride``
@@ -30,7 +31,8 @@ assigns in admission order. ``admit_tick[g, k]`` / ``bid_code[g, k]``
 record each rank's admission tick and batch identity;
 :func:`decode_merged` maps the merged log back to ``(lane, seq)`` bids.
 
-A tick does no host sync: ``overflowed`` and ``dropped`` stay device
+A lock-step tick does no host sync (the adaptive subtick mode reads its
+round count once per tick): ``overflowed`` and ``dropped`` stay device
 tensors for the caller to check once at the end of a run. The per-config
 constants a tick needs on the device (lane gather, lag masks) are built
 once per (config, device). A functional call modifies no input unless
@@ -53,6 +55,7 @@ import torch
 
 from ..device import resolve_device
 from ..dissem.batcher import BatchAccumulator, EMPTY_BATCH_BYTES
+from ..engine import adaptive as adaptive_mod
 from ..engine import api
 from ..engine.api import EngineConfig, EngineState
 from ..engine.epochs import EpochTable, route_id_epoch
@@ -293,12 +296,9 @@ def pipeline_tick(cfg: PipelineConfig, state: PipelineState,
     :func:`build_route_table` for the current epoch, as an int32 tensor
     on the state's device. Returns ``(state, out)``; ``out`` holds
     device scalars ``flushed``, ``admitted``, ``dropped`` and
-    ``overflowed``."""
-    if cfg.engine.adaptive is not None:
-        raise NotImplementedError(
-            "the pipeline's adaptive subtick mode is not ported to "
-            "repro_torch yet: see ROADMAP.md queue 1 item 8 "
-            "(engine/adaptive.py)")
+    ``overflowed``, and ``rounds`` (the subtick pass's R) when
+    ``cfg.engine.adaptive`` is set. Only the adaptive subtick mode reads
+    a value back to the host (its R)."""
     G, R = cfg.engine.groups, cfg.capacity
     c = _consts(cfg, arrived.device)
     lane_sizes = sizes[c.lane_idx].to(_I32)                 # [D, K]
@@ -345,14 +345,25 @@ def pipeline_tick(cfg: PipelineConfig, state: PipelineState,
     # stage 3b: delivery tiles from admission ages (live slot→id map)
     acks, votes, holds = _lag_tiles(cfg, state, c)
 
-    # stage 4: gated ordering + merge, through the facade
-    estate, eout = api.tick(cfg.engine, state.engine, acks, votes, holds,
-                            inplace=inplace)
+    # stage 4: gated ordering + merge, through the facade. With
+    # EngineConfig.adaptive set, the subtick variant re-absorbs the tick's
+    # tiles (idempotent OR, re-addressed after a recycle) for up to K-1
+    # extra masked assignment rounds, so a group whose lag has spread
+    # ahead of the others drains at R x order_budget ids per tick: size
+    # merge_capacity for up to K x max_entries appended entries per tick.
+    if cfg.engine.adaptive is not None:
+        estate, eout = adaptive_mod.subtick_pass(
+            cfg.engine, state.engine, acks, votes, holds, inplace=inplace)
+    else:
+        estate, eout = api.tick(cfg.engine, state.engine, acks, votes,
+                                holds, inplace=inplace)
     state = state._replace(engine=estate, tick=state.tick + 1)
     out = {"flushed": fvalid.sum(dtype=_I32),
            "admitted": admitted.sum(dtype=_I32),
            "dropped": eout["dropped"],
            "overflowed": overflowed}
+    if "rounds" in eout:
+        out["rounds"] = eout["rounds"]
     return state, out
 
 
@@ -362,14 +373,16 @@ def run_pipeline(cfg: PipelineConfig, state: PipelineState,
         -> tuple[PipelineState, dict]:
     """:func:`pipeline_tick` over whole workload arrays (bool[T, C] /
     int32[T, C]). Per-tick summaries come back stacked on the device
-    (int32[T] each): ``flushed``, ``admitted``, ``dropped``."""
+    (int32[T] each): ``flushed``, ``admitted``, ``dropped``, and
+    ``rounds`` in the adaptive subtick mode."""
     outs = []
     for a, s in zip(arrived, sizes):
         state, out = pipeline_tick(cfg, state, a, s, route_table,
                                    inplace=inplace)
         outs.append(out)
-    return state, {k: torch.stack([o[k] for o in outs])
-                   for k in ("flushed", "admitted", "dropped")}
+    keys = ("flushed", "admitted", "dropped") + \
+        (("rounds",) if cfg.engine.adaptive is not None else ())
+    return state, {k: torch.stack([o[k] for o in outs]) for k in keys}
 
 
 def committed(cfg: PipelineConfig, state: PipelineState)\

@@ -251,9 +251,9 @@ def test_config_normalization_matches_reference(kw):
     assert port.family == ref.family
 
 
-@pytest.mark.parametrize("field", ["adaptive", "mesh"])
+@pytest.mark.parametrize("field", ["mesh"])
 def test_unported_config_fields_raise(field):
-    item = {"adaptive": 8, "mesh": 10}[field]
+    item = {"mesh": 10}[field]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item} "):
         tapi.EngineConfig(**both_kw(**{field: object()}))

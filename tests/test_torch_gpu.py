@@ -310,3 +310,92 @@ def test_pipeline_on_card_matches_cpu(cuda, inplace):
                         P.decode_merged(cfg, st, merged, com)))
     (t0, m0, *r0), (t1, m1, *r1) = results
     assert trees_equal(t1, t0) and torch.equal(m1, m0) and r1 == r0
+
+
+# -- adaptive tick batching on the card ---------------------------------------
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_adaptive_on_card_matches_cpu(cuda, fam):
+    """A skewed queue (group 0 four times the others' tiles) drained by
+    Engine.adaptive_pass on the card equals the same passes on the CPU
+    (every pass's R, the whole state and queue, the merged log), with
+    exactly 2·ΣR quorum and ΣR stability launches (gated)."""
+    from repro_torch.engine import adaptive as ad
+    G, W, T = 3, 16, 12
+    cfg = api.EngineConfig(
+        groups=G, window=W, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=1024,
+        recycling=api.RecyclingConfig(watermark=W // 2, id_stride=4096)
+        if "recycled" in fam else None,
+        gating=api.GatingConfig(stab_majority=3) if "gated" in fam else None,
+        adaptive=ad.AdaptiveConfig(max_tiles_per_tick=4, queue_capacity=T))
+    rng = np.random.default_rng(10 + FAMILIES.index(fam))
+    tiles = [((rng.random((T, G, W, 1)) < p) * np.uint32(m)).astype(np.uint32)
+             for p, m in ((0.7, 0x1F), (0.6, 0x7), (0.8, 0x1F))]
+    if cfg.gating is None:
+        tiles = tiles[:2]
+    lens = [T, T // 4, T // 4]
+    runs = []
+    for dev in ("cpu", cuda):
+        eng = api.Engine.create(cfg, device=dev)
+        eng.queue = ad.queue_from_arrays(
+            cfg, *(convert.bits_from_numpy(x, dev) for x in tiles),
+            lengths=lens)
+        before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        rounds = []
+        while (r := int(eng.adaptive_pass()["rounds"])) > 0:
+            rounds.append(r)
+        launches = (kq.KERNEL.launches - before[0],
+                    kd.KERNEL.launches - before[1])
+        want = (2 * sum(rounds), sum(rounds) if cfg.gating else 0) \
+            if dev == cuda else (0, 0)
+        assert launches == want
+        merged, count, com = eng.committed()
+        runs.append((rounds, convert.engine_state_to_numpy(eng.state),
+                     convert.queue_to_numpy(eng.queue), merged.cpu(),
+                     int(count), int(com)))
+    (r0, s0, q0, m0, *c0), (r1, s1, q1, m1, *c1) = runs
+    assert r1 == r0 and max(r0) > 1 and c1 == c0 and c0[1] > 0
+    assert trees_equal(s1, s0) and trees_equal(q1, q0)
+    assert torch.equal(m1, m0)
+
+
+def test_pipeline_subtick_on_card_matches_cpu(cuda):
+    """The closed pipeline in its adaptive subtick mode, G=3, D=5: the
+    card's run equals the CPU's (state, merged log, every tick's R), with
+    2·ΣR quorum and ΣR stability launches."""
+    from repro_torch import pipeline as P
+    from repro_torch.engine.adaptive import AdaptiveConfig
+    ecfg = api.EngineConfig(
+        groups=3, window=16, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=3 * 1024,
+        recycling=api.RecyclingConfig(watermark=8, id_stride=4096),
+        gating=api.GatingConfig(),
+        adaptive=AdaptiveConfig(max_tiles_per_tick=3, policy="unstable"))
+    cfg = P.PipelineConfig(engine=ecfg, n_clients=10, budget_bytes=2500,
+                           ack_lag=(0, 1, 1, 2, 2), hold_lag=(0, 0, 1, 1, 2),
+                           vote_lag=(1, 2, 2), capacity=128, seq_capacity=64)
+    rng = np.random.default_rng(3)
+    arrived = np.concatenate([rng.random((25, 10)) < 0.6,
+                              np.zeros((15, 10), bool)])
+    sizes = np.where(arrived, rng.choice([100, 400], (40, 10)),
+                     0).astype(np.int32)
+    results = []
+    for dev in ("cpu", cuda):
+        a, s = (torch.from_numpy(x).to(dev) for x in (arrived, sizes))
+        rt = torch.from_numpy(P.build_route_table(cfg)).to(dev)
+        before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        st, outs = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a, s, rt,
+                                  inplace=True)
+        n = int(outs["rounds"].sum())
+        launches = (kq.KERNEL.launches - before[0],
+                    kd.KERNEL.launches - before[1])
+        assert launches == ((2 * n, n) if dev == cuda else (0, 0))
+        merged, count, com = P.committed(cfg, st)
+        assert int(outs["dropped"].sum()) == 0 and not bool(st.overflowed)
+        assert int(com) == int(st.admit_count.sum()) > 0
+        results.append((pipeline_tree(st), merged.cpu(), int(count),
+                        int(com), outs["rounds"].cpu()))
+    (t0, m0, *r0, k0), (t1, m1, *r1, k1) = results
+    assert int(k0.max()) > 1 and torch.equal(k1, k0)
+    assert trees_equal(t1, t0) and torch.equal(m1, m0) and r1 == r0

@@ -464,22 +464,6 @@ def test_overflow_is_flagged_like_reference():
     assert_tree_equal(port_tree(tst), ref_tree(jst))
 
 
-def test_adaptive_subtick_not_ported():
-    """EngineConfig.adaptive cannot be set yet (item 8); a tick of a
-    config that carried one raises rather than tick without it."""
-    cfg = gated_cfg(tapi)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.EngineConfig(groups=2, window=16, n_diss=5, n_seq=3,
-                          order_budget=4, merge_capacity=64,
-                          adaptive=object())
-    st = T.init_pipeline(cfg, "cpu")
-    object.__setattr__(cfg.engine, "adaptive", object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.pipeline_tick(cfg, st, torch.zeros(10, dtype=torch.bool),
-                        torch.zeros(10, dtype=torch.int32),
-                        torch.zeros((5, 64), dtype=torch.int32))
-
-
 # -- cross-validation against the DES ------------------------------------------
 
 def des_pipeline_cfg(G, D, *, table=None):
