@@ -12,7 +12,10 @@ Phases, each of which must pass or the script exits non-zero:
    bf16 flash library that the tensor cores do its work (HMMA);
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-exact, at the engine's shapes, the edge shapes of the
-   reference kernel tests, random words with bit 31 set, and in place;
+   reference kernel tests, the shapes where the lane mapping switches
+   (2, 3, 4, 5, 9, 33 and 64 words, W = 1, W = 129, W = 0, G = 9
+   clusters), random words with bit 31 set, with bitsets aligned and
+   misaligned (a storage offset of one int32), in and out of place;
 3. engine phase: the repo's documented deployment (G=4 ordering groups
    x W=2048 slots, 1000 disseminators in partitions of 250, 16
    sequencers, order budget 64, recycling watermark 1024, id stride
@@ -24,8 +27,11 @@ Phases, each of which must pass or the script exits non-zero:
    run once each at the same width, also against the CPU;
 4. timing with CUDA events: each kernel at the engine's shapes beside its
    bound and its plain version (plus each one's device time from
-   ``torch.profiler``), ``quorum_update`` at its test shape and a
-   main-path-sized tile, and the engine's ticks/s and ids/s;
+   ``torch.profiler``, where every device op of a call must be the
+   kernel, one per call: no fill, no memset; its floor, the device time at
+   a [1, 1, 1] tile; and the host's cost to enqueue a call, of the wrapper
+   and of a bare ``ctypes`` launch), ``quorum_update`` at its test shape
+   and a main-path-sized tile, and the engine's ticks/s and ids/s;
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
    heaviest kernels and PyTorch ops;
@@ -126,6 +132,8 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 rate of the CUDA cores
 WARMUP, REPS = 20, 200
 PROFILE_TRIES = 5
+PROFILE_LEAD_IN = 1024   # throwaway kernels that open a profiler session
+LEAD_IN_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
 PROFILE_RETRIES = []     # (symbol, launches seen) of each session traced again
 START = time.perf_counter()
 
@@ -245,19 +253,39 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one int32 past a
+    16-byte boundary, so the kernels take their 4-byte load path (an
+    empty tensor has no data to misalign)."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    check(t.numel() == 0 or view.data_ptr() % 16 == 4,
+          "misaligned view is 16-byte aligned")
+    return view
+
+
+# (G, W, n): the engine's ack, vote and hold tiles; the edge shapes of
+# tests/test_kernels.py (odd windows, word boundaries, D=1); then where
+# the lane mapping switches: 2, 3, 4, 5, 9, 33 and 64 words, W = 1 and
+# W = 129, G = 9 clusters (the hold row at the full window), and W = 0
+KERNEL_SHAPES = [(G, W, N_DISS), (G, W, N_SEQ), (G, W, PART), (2, 12, 32),
+                 (3, 20, 33), (1, 7, 31), (2, 36, 65), (4, 10, 1),
+                 (2, 24, 64), (2, 5, 64), (2, 6, 96), (3, 9, 128),
+                 (1, 1, 160), (2, 129, 288), (9, 17, 1056), (2, 3, 2048),
+                 (9, W, PART), (2, 0, 32)]
+
+
 def kernel_phase(dev) -> dict:
-    """Every kernel against its plain version on the card; returns the
-    worst error per kernel (0 = bit-exact)."""
+    """Every kernel against its plain version on the card, at every shape
+    of KERNEL_SHAPES, with aligned and misaligned bitsets, in and out of
+    place; returns the worst error per kernel (0 = bit-exact)."""
     from repro_torch.kernels import dissem as kd
     from repro_torch.kernels import quorum as kq
     rng = np.random.default_rng(SEED + 1)
-    # (G, W, n): the engine's ack, vote and hold tiles, then the edge
-    # shapes of tests/test_kernels.py (odd windows, word boundaries, D=1)
-    shapes = [(G, W, N_DISS), (G, W, N_SEQ), (G, W, PART), (2, 12, 32),
-              (3, 20, 33), (1, 7, 31), (2, 36, 65), (4, 10, 1), (2, 24, 64)]
     worst = {"quorum_update_grouped": 0, "stability_update_grouped": 0}
     cases = 0
-    for (g, w, n) in shapes:
+    for (g, w, n) in KERNEL_SHAPES:
         words = (n + 31) // 32
         for n_and in (1, 3):          # dense random words (bit 31 set
             #                           often) and sparse ones
@@ -268,24 +296,29 @@ def kernel_phase(dev) -> dict:
             stable = torch.from_numpy(rng.random((g, w)) < 0.3)
             bits, upd, stable = bits.to(dev), upd.to(dev), stable.to(dev)
             maj = n // 2 + 1
-            for name, fn, plain in (
-                    ("quorum_update_grouped", kq.quorum_update_grouped,
-                     kq.quorum_update_grouped_plain),
-                    ("stability_update_grouped",
-                     kd.stability_update_grouped,
-                     kd.stability_update_grouped_plain)):
-                want = plain(bits, upd, stable, majority=maj)
-                got = fn(bits, upd, stable, majority=maj)
-                buf = bits.clone()
-                got_in = fn(buf, upd, stable, majority=maj, inplace=True)
-                check(got_in[0].data_ptr() == buf.data_ptr(),
-                      f"{name}: in-place output is not the input buffer")
-                torch.cuda.synchronize()
-                err = max(max_abs_err(got, want), max_abs_err(got_in, want))
-                worst[name] = max(worst[name], err)
-                check(err == 0, f"{name} differs from its plain version "
-                      f"at {(g, w, n)}: max abs err {err}")
-                cases += 1
+            for offset in ("aligned", "misaligned"):
+                if offset == "misaligned":
+                    bits, upd = misaligned(bits), misaligned(upd)
+                for name, fn, plain in (
+                        ("quorum_update_grouped", kq.quorum_update_grouped,
+                         kq.quorum_update_grouped_plain),
+                        ("stability_update_grouped",
+                         kd.stability_update_grouped,
+                         kd.stability_update_grouped_plain)):
+                    want = plain(bits, upd, stable, majority=maj)
+                    got = fn(bits, upd, stable, majority=maj)
+                    buf = misaligned(bits) if offset == "misaligned" \
+                        else bits.clone()
+                    got_in = fn(buf, upd, stable, majority=maj, inplace=True)
+                    check(got_in[0].data_ptr() == buf.data_ptr(),
+                          f"{name}: in-place output is not the input buffer")
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(got, want),
+                              max_abs_err(got_in, want))
+                    worst[name] = max(worst[name], err)
+                    check(err == 0, f"{name} differs from its plain version "
+                          f"at {(g, w, n)}, {offset}: max abs err {err}")
+                    cases += 1
             if g == 1:                 # the single-group form (G=1 launch)
                 got = kq.quorum_update(bits[0], upd[0], stable[0],
                                        majority=maj)
@@ -428,9 +461,73 @@ def kernel_bound(g, w, words, stability: bool) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+ENQUEUE_CALLS = 1000
+
+
+def enqueue_us(fn, calls: int = ENQUEUE_CALLS) -> float:
+    """Host microseconds to enqueue one call: ``time.perf_counter`` over
+    ``calls`` back-to-back calls with no synchronisation, over ``calls``
+    (after a warm-up and a synchronise)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / calls
+
+
+def bare_launch(name, bits, upd, stable, maj):
+    """The kernel's ctypes launcher called with pointers, plan and stream
+    made once: what an enqueue costs without the wrapper (the wrapper's
+    launch counter is not touched)."""
+    from repro_torch.kernels import dissem as kd
+    from repro_torch.kernels import quorum as kq
+    g, w, words = bits.shape
+    counts = torch.empty((g, w), dtype=torch.int32, device=bits.device)
+    now = torch.empty((g, w), dtype=torch.bool, device=bits.device)
+    newly = torch.empty((g,), dtype=torch.int32, device=bits.device)
+    stability = name == "stability_update_grouped"
+    *_, plan = kq.tile_plan(bits, upd, bits, clustered=stability)
+    lg = plan.lanes.bit_length() - 1
+    stream = torch.cuda.current_stream().cuda_stream
+    if stability:
+        fn = kd.KERNEL._fn
+        args = (bits.data_ptr(), upd.data_ptr(), stable.data_ptr(),
+                bits.data_ptr(), counts.data_ptr(), now.data_ptr(),
+                newly.data_ptr(), g, w, words, maj, plan.vec, lg,
+                plan.cluster, stream)
+    else:
+        fn = kq.KERNEL._fn
+        args = (bits.data_ptr(), upd.data_ptr(), stable.data_ptr(),
+                bits.data_ptr(), counts.data_ptr(), now.data_ptr(), g * w,
+                words, maj, plan.vec, lg, plan.grid, stream)
+
+    def call():
+        check(fn(*args) == 0, f"{name}: bare launch failed")
+    return call
+
+
+def kernel_device_us(name, fn, calls: int = 50) -> float:
+    """Mean device microseconds of the kernel over ``calls`` calls under
+    ``torch.profiler``; checks that every device op of those calls is the
+    kernel, one per call (no fill, no memset)."""
+    symbol = "quorum_kernel" if "quorum" in name else "stability_kernel"
+    events = device_kernels(fn, calls, symbol, calls)
+    found = [us for k, us in events if symbol in k]
+    check(len(found) == calls == len(events),
+          f"{name}: profiler saw {len(found)} kernel launches and "
+          f"{len(events)} device ops for {calls} calls")
+    return sum(found) / calls
+
+
 def time_kernels(dev, tiles_dev) -> list[dict]:
     """Kernel and plain-version time at the engine's shapes, in place as
-    the engine calls them (inputs stay in the 50 MB L2 between calls)."""
+    the engine calls them (inputs stay in the 50 MB L2 between calls);
+    the kernel's device time there and at a [1, 1, 1] tile (its floor);
+    the host's enqueue cost of the wrapper and of a bare launch."""
     from repro_torch.kernels import dissem as kd
     from repro_torch.kernels import quorum as kq
     acks, votes, holds = (x[0] for x in tiles_dev)
@@ -446,22 +543,28 @@ def time_kernels(dev, tiles_dev) -> list[dict]:
         bits = torch.zeros_like(upd)
         stable = torch.zeros((g, w), dtype=torch.bool, device=dev)
         maj = n // 2 + 1
-        ms = time_cuda(lambda: fn(bits, upd, stable, majority=maj,
-                                  inplace=True))
+
+        def kernel():
+            return fn(bits, upd, stable, majority=maj, inplace=True)
+        ms = time_cuda(kernel)
         plain_ms = time_cuda(lambda: plain(bits, upd, stable, majority=maj,
                                            inplace=True))
         # the kernel's own device time, without the host launch path
-        symbol = "quorum_kernel" if "quorum" in name else "stability_kernel"
-        found = [us for k, us in device_kernels(
-            lambda: fn(bits, upd, stable, majority=maj, inplace=True), 50,
-            symbol, 50) if symbol in k]
-        check(len(found) == 50, f"{name}: profiler saw {len(found)} of 50 "
-              "kernel launches")
+        device_us = kernel_device_us(name, kernel)
+        one, one_upd = (torch.zeros((1, 1, 1), dtype=torch.int32,
+                                    device=dev) for _ in range(2))
+        one_stable = torch.zeros((1, 1), dtype=torch.bool, device=dev)
+        floor_us = kernel_device_us(name, lambda: fn(
+            one, one_upd, one_stable, majority=1, inplace=True))
+        wrapper_us = enqueue_us(kernel)
+        bare_us = enqueue_us(bare_launch(name, bits, upd, stable, maj))
         plain_dev = sum(us for _, us in device_kernels(
             lambda: plain(bits, upd, stable, majority=maj, inplace=True),
             50, want=1)) / 50
         rows.append(dict(name=name, shape=[g, w, words], ms=ms,
-                         plain_ms=plain_ms, device_ms=sum(found) / 50e3,
+                         plain_ms=plain_ms, device_ms=device_us / 1e3,
+                         floor_ms=floor_us / 1e3,
+                         enqueue_us=wrapper_us, bare_enqueue_us=bare_us,
                          plain_device_ms=plain_dev / 1e3,
                          **kernel_bound(g, w, words, "stability" in name)))
         log(phase="timing/kernel", **rows[-1])
@@ -506,27 +609,58 @@ def time_engine(tiles_dev, dev) -> dict:
     return res
 
 
-def device_kernels(fn, calls: int, symbol: str = "", want: int = 0):
-    """CUDA kernel events of ``calls`` calls of ``fn`` under
-    ``torch.profiler``: list of (name, microseconds).
+def traced(run):
+    """``run()`` under ``torch.profiler`` behind a lead-in; returns the
+    profile and its CUDA kernel events as (name, microseconds), the
+    lead-in's left out.
 
-    ``torch.profiler`` at times delivers a session without part or all of
-    its device activity (seen on the H100: a session of five flash calls
-    with no CUDA event at all, a prefill with 31 of its 32 WKV6
-    launches). A session with fewer than ``want`` CUDA events whose name
-    holds ``symbol`` (any event, for the empty symbol) is traced again, at
-    most PROFILE_TRIES times in all, and each retry is recorded in
-    PROFILE_RETRIES; the caller still checks the count."""
+    ``torch.profiler`` loses the first records of a session, the more of
+    them the more sessions the process has traced (seen on the H100 after
+    the data-plane phases: the first kernels of a prefill, one WKV6
+    launch among them, in every retry of one process). So a session opens
+    with PROFILE_LEAD_IN launches of ``torch.cuda._sleep(0)`` (its kernel
+    is LEAD_IN_KERNEL) and a synchronise, and the losses fall on them. A
+    session that kept none of them may have lost ``run``'s own first
+    kernels: it is traced again with twice the lead-in, at most
+    PROFILE_TRIES times in all (each retry recorded in PROFILE_RETRIES),
+    and then the script fails. ``run`` runs once per session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    lead = PROFILE_LEAD_IN
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
+            for _ in range(lead):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            run()
             torch.cuda.synchronize()
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
+        if any(LEAD_IN_KERNEL in name for name, _ in events):
+            return prof, [(name, us) for name, us in events
+                          if LEAD_IN_KERNEL not in name]
+        PROFILE_RETRIES.append(("lead-in", lead))
+        lead *= 2
+    fail(f"torch.profiler lost the whole lead-in of {PROFILE_TRIES} "
+         "sessions")
+
+
+def device_kernels(fn, calls: int, symbol: str = "", want: int = 0):
+    """CUDA kernel events of ``calls`` calls of ``fn`` under
+    ``torch.profiler`` (:func:`traced`): list of (name, microseconds).
+
+    ``torch.profiler`` at times delivers a session without part or all of
+    its device activity (seen on the H100: a session of five flash calls
+    with no CUDA event at all). A session with fewer than ``want`` CUDA
+    events whose name holds ``symbol`` (any event, for the empty symbol)
+    is traced again, at most PROFILE_TRIES times in all, and each retry is
+    recorded in PROFILE_RETRIES; the caller still checks the count."""
+    def run():
+        for _ in range(calls):
+            fn()
+    for _ in range(PROFILE_TRIES):
+        _, events = traced(run)
         seen = sum(symbol in name for name, _ in events)
         if seen >= want:
             break
@@ -551,24 +685,26 @@ def profile_loop(step, ticks: int, phase: str) -> dict:
     the share of the tick's wall time, the heaviest kernels and the
     heaviest PyTorch ops by the device time of the kernels they launch.
     The profiler's overhead inflates the wall time, so the busy share is
-    a lower bound."""
+    a lower bound. A session that :func:`traced` traces again runs the
+    ticks again, from the state the first one left."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for t in range(8):
         step(t)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    wall = {}
+
+    def run():
         t0 = time.perf_counter()
         for t in range(8, 8 + ticks):
             step(t)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall["us"] = (time.perf_counter() - t0) * 1e6
+    prof, events = traced(run)
+    wall_us = wall["us"]
     kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = kernels.get(e.name[:90], (0, 0.0))
-            kernels[e.name[:90]] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us in events:
+        n, total = kernels.get(name[:90], (0, 0.0))
+        kernels[name[:90]] = (n + 1, total + us)
     busy_us = sum(us for _, us in kernels.values())
 
     def self_dev(e):
@@ -1898,12 +2034,14 @@ def main() -> int:
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=None, parity="bit-exact",
-                     device_ms=row["device_ms"],
-                     shapes=[dict(shape=r["shape"], ms=r["ms"],
-                                  plain_ms=r["plain_ms"],
-                                  device_ms=r["device_ms"],
-                                  bound_ms=r["bound_ms"], bytes=r["bytes"])
-                             for r in timings if r["name"] == name])
+                     device_ms=row["device_ms"], floor_ms=row["floor_ms"],
+                     enqueue_us=row["enqueue_us"],
+                     bare_enqueue_us=row["bare_enqueue_us"],
+                     shapes=[{k: r[k] for k in (
+                         "shape", "ms", "plain_ms", "device_ms", "floor_ms",
+                         "enqueue_us", "bare_enqueue_us", "bound_ms",
+                         "bytes")}
+                         for r in timings if r["name"] == name])
         if name == "quorum_update_grouped":
             entry["also_replaces"] = "src/repro/kernels/quorum.py:72"
             entry["also_replaces_timing"] = [

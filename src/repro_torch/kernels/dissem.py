@@ -10,8 +10,10 @@ the batch. Over a window of W in-flight ids per group:
     stable'  = stable | (counts >= majority)
     newly[g] = Σ_w (stable' & ~stable)
 
-On a CUDA tensor the wrapper launches ``csrc/dissem.cu``; on a CPU tensor
-it runs the plain PyTorch version beside it; any other device raises.
+On a CUDA tensor the wrapper launches ``csrc/dissem.cu``, which writes
+``newly`` once from a cluster reduction, so a call is one device op; on a
+CPU tensor it runs the plain PyTorch version beside it; any other device
+raises.
 """
 from __future__ import annotations
 
@@ -20,11 +22,13 @@ import ctypes
 import torch
 
 from ._build import CudaKernel
-from .quorum import check_tiles, dispatch_device, quorum_update_grouped_plain
+from .quorum import (check_tiles, dispatch_device, launch,
+                     quorum_update_grouped_plain, tile_plan)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("dissem.cu", "stability_update_launch",
-                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P])
 
 
 def stability_update_grouped_plain(bits, update, stable, *, majority: int,
@@ -45,18 +49,19 @@ def stability_update_grouped(bits: torch.Tensor, update: torch.Tensor,
 
     ``inplace=True`` writes ``new_bits`` into ``bits``."""
     check_tiles(bits, update, stable, 3)
-    if dispatch_device(bits) == "cpu":
+    if not bits.is_cuda:
+        dispatch_device(bits)              # raises unless on the CPU
         return stability_update_grouped_plain(bits, update, stable,
                                               majority=majority,
                                               inplace=inplace)
-    G, W, words = bits.shape
     new = bits if inplace else torch.empty_like(bits)
-    counts = torch.empty((G, W), dtype=torch.int32, device=bits.device)
-    new_stable = torch.empty((G, W), dtype=torch.bool, device=bits.device)
-    newly = torch.zeros((G,), dtype=torch.int32, device=bits.device)
-    with torch.cuda.device(bits.device):
-        KERNEL.launch(bits.data_ptr(), update.data_ptr(), stable.data_ptr(),
-                      new.data_ptr(), counts.data_ptr(),
-                      new_stable.data_ptr(), newly.data_ptr(), G, W, words,
-                      int(majority), torch.cuda.current_stream().cuda_stream)
+    counts = torch.empty_like(stable, dtype=torch.int32)
+    new_stable = torch.empty_like(stable)
+    G, W, words = bits.shape
+    newly = torch.empty((G,), dtype=torch.int32, device=bits.device)
+    pb, pu, pn, plan = tile_plan(bits, update, new, clustered=True)
+    launch(KERNEL, bits.get_device(), pb, pu, stable.data_ptr(), pn,
+           counts.data_ptr(), new_stable.data_ptr(), newly.data_ptr(), G, W,
+           words, int(majority), plan.vec, plan.lanes.bit_length() - 1,
+           plan.cluster)
     return new, counts, new_stable, newly

@@ -15,7 +15,9 @@ version beside it. Any other device raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -23,7 +25,61 @@ from ._build import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quorum.cu", "quorum_update_launch",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+THREADS = 256        # threads a block, as csrc/quorum.cu and dissem.cu
+MAX_CLUSTER = 8      # blocks a cluster, the portable limit
+
+
+class LaunchPlan(NamedTuple):
+    """How the row-pass kernels (``csrc/quorum.cu``, ``csrc/dissem.cu``)
+    cover a ``[G, W, WORDS]`` tile."""
+    vec: int             # words a load: 4 (16 bytes) or 1
+    lanes: int           # lanes a row, a power of two <= 32
+    rows_per_block: int  # THREADS // lanes
+    cluster: int         # blocks a group (stability kernel); 1 for quorum
+    grid: int            # blocks in all
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(groups: int, window: int, words: int, aligned: bool, *,
+                clustered: bool) -> LaunchPlan:
+    """The lane mapping of a tile: 16-byte loads where ``words % 4 == 0``
+    and every bitset pointer is ``aligned`` to 16 bytes, the smallest
+    power-of-two segment that covers a row's vectors (at most a warp).
+    Unclustered (quorum): one grid over all G*W rows. Clustered
+    (stability): one cluster of ``cluster`` blocks per group, the power of
+    two >= the group's row blocks, at most 8. A pure function of its
+    arguments, so it is cached."""
+    vec = 4 if aligned and words % 4 == 0 else 1
+    lanes = min(32, 1 << max(0, -(-words // vec) - 1).bit_length())
+    rpb = THREADS // lanes
+    if not clustered:
+        return LaunchPlan(vec, lanes, rpb, 1, -(-groups * window // rpb))
+    blocks = -(-window // rpb)
+    cluster = min(MAX_CLUSTER, 1 << max(0, blocks - 1).bit_length())
+    return LaunchPlan(vec, lanes, rpb, cluster, groups * cluster)
+
+
+def tile_plan(bits: torch.Tensor, update: torch.Tensor, new: torch.Tensor,
+              *, clustered: bool):
+    """``(bits, update, new)``'s data pointers and the launch plan of the
+    ``[G, W, WORDS]`` tile: 16-byte loads only if all three pointers are
+    16-byte aligned (a view with a storage offset may not be)."""
+    pb, pu, pn = bits.data_ptr(), update.data_ptr(), new.data_ptr()
+    G, W, words = bits.shape
+    return pb, pu, pn, launch_plan(G, W, words, not (pb | pu | pn) & 15,
+                                   clustered=clustered)
+
+
+def launch(kernel: CudaKernel, dev: int, *args) -> None:
+    """``kernel.launch(*args, stream)`` on CUDA device ``dev`` and its
+    current stream; the device guard is entered only when ``dev`` is not
+    the current device."""
+    if dev == torch.cuda.current_device():
+        kernel.launch(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            kernel.launch(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def popcount_rows(bits: torch.Tensor) -> torch.Tensor:
@@ -91,19 +147,19 @@ def quorum_update_grouped(bits: torch.Tensor, update: torch.Tensor,
     ``inplace=True`` writes ``new_bits`` into ``bits`` (the counterpart of
     the reference's buffer donation); ``new_stable`` is always fresh."""
     check_tiles(bits, update, stable, 3)
-    if dispatch_device(bits) == "cpu":
+    if not bits.is_cuda:
+        dispatch_device(bits)              # raises unless on the CPU
         return quorum_update_grouped_plain(bits, update, stable,
                                            majority=majority,
                                            inplace=inplace)
-    G, W, words = bits.shape
     new = bits if inplace else torch.empty_like(bits)
-    counts = torch.empty((G, W), dtype=torch.int32, device=bits.device)
-    new_stable = torch.empty((G, W), dtype=torch.bool, device=bits.device)
-    with torch.cuda.device(bits.device):
-        KERNEL.launch(bits.data_ptr(), update.data_ptr(), stable.data_ptr(),
-                      new.data_ptr(), counts.data_ptr(),
-                      new_stable.data_ptr(), G * W, words, int(majority),
-                      torch.cuda.current_stream().cuda_stream)
+    counts = torch.empty_like(stable, dtype=torch.int32)
+    new_stable = torch.empty_like(stable)
+    pb, pu, pn, plan = tile_plan(bits, update, new, clustered=False)
+    G, W, words = bits.shape
+    launch(KERNEL, bits.get_device(), pb, pu, stable.data_ptr(), pn,
+           counts.data_ptr(), new_stable.data_ptr(), G * W, words,
+           int(majority), plan.vec, plan.lanes.bit_length() - 1, plan.grid)
     return new, counts, new_stable
 
 

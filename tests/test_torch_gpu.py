@@ -46,11 +46,30 @@ def inputs(seed, shape, dev):
             convert.bits_from_numpy(upd, dev), torch.from_numpy(stable).to(dev))
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts one int32 past a
+    16-byte boundary (the kernels then load 4 bytes a lane)."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    assert t.numel() == 0 or view.data_ptr() % 16 == 4
+    return view
+
+
+# the edge shapes of tests/test_kernels.py, the engine's ack tile, and
+# where the lane mapping switches: 2, 3, 4, 5, 9, 33 and 64 words, W = 1
+# and W = 129, G = 9 clusters, W = 0
 @pytest.mark.parametrize("G,W,D", [(2, 12, 32), (3, 20, 33), (1, 7, 31),
                                    (2, 36, 65), (4, 10, 1), (2, 24, 64),
-                                   (4, 2048, 1000)])
-def test_kernels_match_plain(cuda, G, W, D):
+                                   (4, 2048, 1000), (2, 5, 64), (2, 6, 96),
+                                   (3, 9, 128), (1, 1, 160), (2, 129, 288),
+                                   (9, 17, 1056), (2, 3, 2048),
+                                   (9, 2048, 250), (2, 0, 32)])
+@pytest.mark.parametrize("offset", ["aligned", "misaligned"])
+def test_kernels_match_plain(cuda, G, W, D, offset):
     args = inputs(G + W + D, (G, W, (D + 31) // 32), cuda)
+    if offset == "misaligned":
+        args = (misaligned(args[0]), misaligned(args[1]), args[2])
     maj = D // 2 + 1
     for kernel, fn, plain in (
             (kq.KERNEL, kq.quorum_update_grouped,
@@ -61,7 +80,8 @@ def test_kernels_match_plain(cuda, G, W, D):
         before = kernel.launches
         got = fn(*args, majority=maj)
         assert kernel.launches == before + 1
-        buf = args[0].clone()
+        buf = misaligned(args[0]) if offset == "misaligned" \
+            else args[0].clone()
         got_in = fn(buf, *args[1:], majority=maj, inplace=True)
         assert got_in[0].data_ptr() == buf.data_ptr()
         for g, g_in, w in zip(got, got_in, want):
@@ -72,6 +92,24 @@ def test_kernels_match_plain(cuda, G, W, D):
         want = kq.quorum_update_grouped_plain(*args, majority=maj)
         for g, w in zip(got, want):
             assert torch.equal(g, w[0])
+
+
+def test_stability_call_is_one_device_op(cuda):
+    """``newly`` comes from the cluster reduction, written once: a call
+    enqueues its kernel and nothing else (no fill, no memset)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = inputs(3, (4, 2048, 8), cuda)
+    kd.stability_update_grouped(*args, majority=126)    # build, warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kd.stability_update_grouped(*args, majority=126)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 10 and all("stability_kernel" in n for n in names)
 
 
 @pytest.mark.parametrize("fam", FAMILIES)
