@@ -8,8 +8,10 @@ Usage, from the repository root on a machine with a CUDA card and nvcc:
 Phases, each of which must pass or the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (set-up),
-   log each one's registers and spills, and check in the SASS of the
-   bf16 flash library that the tensor cores do its work (HMMA);
+   log each one's registers and spills, check in the SASS of the bf16
+   flash library that the tensor cores do its work (HMMA) and in the
+   f32 one's that they do none (no HMMA), and log blocks per SM and
+   shared memory per block of each flash and WKV6 instantiation;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-exact, at the engine's shapes, the edge shapes of the
    reference kernel tests, the shapes where the lane mapping switches
@@ -73,7 +75,9 @@ Phases, each of which must pass or the script exits non-zero:
    cores, f32 on the CUDA cores; each case must launch the kernel its
    dtype selects) and WKV6 against their plain versions on the card, at
    the serving path's shapes, the shapes of the reference kernel tests,
-   sliding-window, non-causal, ragged, G = 8 and hv != h cases (flash),
+   sliding-window, non-causal, ragged, G = 8 and hv != h cases (flash;
+   in f32 also h, hv not multiples of 4, q/k/v 4 bytes past a 16-byte
+   boundary, so that both copy paths run, and a long non-causal case),
    and ragged lengths (one token, a chunk +- 1, 128 chunks), head dim
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
@@ -87,11 +91,12 @@ Phases, each of which must pass or the script exits non-zero:
    against the f32 forward of the same weights (neither more than 2x
    further from it than the other), and in f32 at full depth prefill vs
    teacher-forced decode over 160 tokens within 1e-3 with equal greedy
-   tokens. Prefill and decode tokens/s, each kernel's device time in
+   tokens (the f32 forward traced: its kernel's launches and device time
+   per call). Prefill and decode tokens/s, each kernel's device time in
    the prefill, peak memory;
 10. ``serve/f32``: both models at full width, 2 layers, f32: prefill with
    the kernels, prefill with the plain versions and the teacher-forced
-   decode against each other;
+   decode against each other; the kernel's device time per call;
 11. ``serve/cpu``: the smoke configs on one set of weights, on the CPU and
    on the card;
 12. model-kernel timing at the serving path's shapes: kernel (and its
@@ -196,7 +201,8 @@ def build_kernels() -> float:
         log(build=source, ptxas=ptxas)
     log(phase="build", seconds=seconds)
     # the tensor cores do the bf16 flash kernel's products: its SASS
-    # holds HMMA instructions (the f32 kernel's holds none)
+    # holds HMMA instructions; the f32 kernel's must hold none (TF32
+    # would break its tolerance)
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     hmma = {}
     for source in ("flash_attention_bf16.cu", "flash_attention.cu"):
@@ -207,16 +213,24 @@ def build_kernels() -> float:
     log(phase="build/sass", hmma=hmma)
     check(hmma["flash_attention_bf16.cu"] > 0,
           "flash_attention_bf16.cu: no HMMA instruction in its SASS")
-    # blocks per SM and shared memory per block of each bf16 instantiation
-    lib = ctypes.CDLL(str(_build.library_path("flash_attention_bf16.cu")))
+    check(hmma["flash_attention.cu"] == 0,
+          f"flash_attention.cu: {hmma['flash_attention.cu']} HMMA "
+          "instructions in the f32 kernel's SASS")
+    # blocks per SM and shared memory per block of each flash
+    # instantiation (f32: its 16-byte copy path)
     occupancy = {}
-    for width in (32, 64, 128):
-        blocks, smem = ctypes.c_int(), ctypes.c_int()
-        err = lib.flash_attention_bf16_occupancy(
-            width, ctypes.byref(blocks), ctypes.byref(smem))
-        check(err == 0, f"flash_attention_bf16_occupancy({width}): {err}")
-        occupancy[width] = dict(blocks_per_sm=blocks.value,
-                                smem_bytes_per_block=smem.value)
+    for source, symbol in (("flash_attention_bf16.cu",
+                            "flash_attention_bf16_occupancy"),
+                           ("flash_attention.cu",
+                            "flash_attention_occupancy")):
+        fn = getattr(ctypes.CDLL(str(_build.library_path(source))), symbol)
+        occupancy[source] = {}
+        for width in (32, 64, 128):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            err = fn(width, ctypes.byref(blocks), ctypes.byref(smem))
+            check(err == 0, f"{symbol}({width}): {err}")
+            occupancy[source][width] = dict(blocks_per_sm=blocks.value,
+                                            smem_bytes_per_block=smem.value)
     # the WKV6 passes: blocks per SM and shared memory per block; and the
     # wrapper sizes the workspace as the kernel lays it out
     from repro_torch.kernels import rwkv6_scan as kw
@@ -237,7 +251,9 @@ def build_kernels() -> float:
             check(err == 0, f"wkv6_occupancy({phase}, {hd}): {err}")
             wkv[f"{name}/hd{hd}"] = dict(blocks_per_sm=blocks.value,
                                          smem_bytes_per_block=smem.value)
-    log(phase="build/occupancy", flash_attention_bf16=occupancy, wkv6=wkv)
+    log(phase="build/occupancy",
+        flash_attention_bf16=occupancy["flash_attention_bf16.cu"],
+        flash_attention_f32=occupancy["flash_attention.cu"], wkv6=wkv)
     return seconds
 
 
@@ -1418,7 +1434,10 @@ F32_P = 160                 # > 128: the reference's NaN region for rwkv6
 F32_LOGIT_TOL = 1e-3
 CPU_LOGIT_TOL = 1e-4
 BF16, F32 = torch.bfloat16, torch.float32
-FLASH_CASES = [  # (B, Sq, Skv, H, K, h, hv, causal, window, dtype)
+# (B, Sq, Skv, H, K, h, hv, causal, window, dtype[, misaligned]): with
+# "misaligned", q, k and v start 4 bytes past a 16-byte boundary (the f32
+# kernel's 4-byte copy path)
+FLASH_CASES = [
     (4, 1024, 1024, 32, 4, 128, 128, True, -1, BF16),   # yi-6b prefill
     (4, 1024, 1024, 32, 4, 128, 128, True, -1, F32),    # serve/f32
     *[(2, S, S, H, K, h, hv, True, w, dt) for dt in (F32, BF16)
@@ -1432,6 +1451,10 @@ FLASH_CASES = [  # (B, Sq, Skv, H, K, h, hv, causal, window, dtype)
     (2, 100, 130, 4, 2, 64, 48, True, -1, F32),         # ragged, hv != h
     (2, 130, 100, 4, 4, 32, 32, True, -1, F32),         # Sq > Skv
     (2, 77, 77, 4, 2, 64, 64, True, 30, F32),           # ragged window
+    (2, 200, 300, 4, 2, 50, 36, True, -1, F32),         # h, hv % 4 != 0
+    (2, 256, 256, 8, 2, 128, 128, True, -1, F32, "misaligned"),
+    (2, 100, 130, 4, 2, 64, 48, True, 40, F32, "misaligned"),
+    (1, 2048, 2048, 8, 2, 128, 128, False, -1, F32),    # non-causal, long
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
     (2, 128, 128, 4, 2, 32, 32, False, -1, BF16),       # non-causal
     (2, 128, 128, 4, 2, 32, 32, False, 40, BF16),       # non-causal window
@@ -1492,10 +1515,12 @@ def model_kernel_phase(dev) -> dict:
     worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0,
              "wkv6_chunked": 0.0}
     cases = []
-    for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in FLASH_CASES:
+    for (B, Sq, Skv, H, K, h, hv, causal, window, dt, *how) in FLASH_CASES:
         q = randn(gen, (B, Sq, H, h), dev, dt)
         k = randn(gen, (B, Skv, K, h), dev, dt)
         v = randn(gen, (B, Skv, K, hv), dev, dt)
+        if how:
+            q, k, v = misaligned(q), misaligned(k), misaligned(v)
         name = "flash_attention" if dt == BF16 else "flash_attention_f32"
         before = model_counts()
         got = kf.flash_attention(q, k, v, causal=causal, window=window)
@@ -1503,7 +1528,7 @@ def model_kernel_phase(dev) -> dict:
         want = kf.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
         torch.cuda.synchronize()
-        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
+        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt), *how]
         check(launched == {**dict.fromkeys(launched, 0), name: 1},
               f"flash_attention {case} launched {launched}, expected one "
               f"{name}")
@@ -1513,8 +1538,15 @@ def model_kernel_phase(dev) -> dict:
         check(err <= FLASH_TOL[dt], f"flash_attention {case}: max abs err "
               f"{err} > {FLASH_TOL[dt]}")
         worst[name] = max(worst[name], err)
+        extra = {}
+        if dt == F32:    # (padded width, 16-byte copies) of the f32 kernel
+            extra["plan"] = kf.f32_plan(h, hv, q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), got.data_ptr())
         cases.append(dict(kernel=name, case=case, err=err,
-                          tol=FLASH_TOL[dt]))
+                          tol=FLASH_TOL[dt], **extra))
+    paths = {c["plan"][1] for c in cases if "plan" in c}
+    check(paths == {0, 1}, f"the f32 flash cases ran copy paths {paths}, "
+          "not both the 16-byte and the 4-byte one")
     for (B, S, H, hd, dt, w_std) in WKV_CASES:
         r, k, v, wlog, u = wkv_inputs(gen, B, S, H, hd, dt, w_std, dev)
         before = model_counts()
@@ -1659,12 +1691,31 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
           f"{launches}")
     peak_path = torch.cuda.max_memory_allocated()
 
-    # the f32 forward of the same weights (after the counted run), and
-    # the f32 prefill vs teacher-forced decode at full depth
+    # the f32 forward of the same weights (after the counted run), traced:
+    # its kernel's launches and device time per call; and the f32 prefill
+    # vs teacher-forced decode at full depth
     lm32 = f32_copy(lm)
-    logits_f, _ = D.prefill(lm32, lm32.cfg, {"tokens": prompts})
+    kernel32 = next(k32 for a, _, k32 in SERVE_ARCHS if a == arch)
+    forwards, before = [], model_counts()[kernel32]
+    f32_us, f32_device_us = traced_kernel_us(
+        lambda: forwards.append(D.prefill(lm32, lm32.cfg,
+                                          {"tokens": prompts})[0]),
+        kernel32, cfg.n_layers)
+    launches32 = {"forward": (model_counts()[kernel32] - before)
+                  // len(forwards)}
+    logits_f = forwards[-1]
+    del forwards
     short = prompts[:, :F32_P]
+    before = model_counts()[kernel32]
     f32_prefill, _ = D.prefill(lm32, lm32.cfg, {"tokens": short})
+    launches32["prefill_short"] = model_counts()[kernel32] - before
+    check(launches32 == {"forward": cfg.n_layers,
+                         "prefill_short": cfg.n_layers},
+          f"{arch}: the f32 forward launched {launches32} x {kernel32}")
+    log(phase=f"serve/{arch}/f32_forward", kernel=kernel32,
+        launches=launches32, shapes={"forward": [SERVE_B, SERVE_P],
+                                     "prefill_short": [SERVE_B, F32_P]},
+        device_us_per_call=f32_us, forward_device_ms=f32_device_us / 1e3)
     f32_decode = teacher_forced(lm32, lm32.cfg, short, D.cache_zeros(
         D.cache_spec(lm32.cfg, SERVE_B, F32_P), dev))
     del lm32
@@ -1734,6 +1785,9 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
                decode_ms_per_step=decode_ms,
                decode_tokens_per_s=SERVE_B / (decode_ms / 1e3),
                prefill_kernel_us=sum(mine) / cfg.n_layers,
+               f32_forward_launches=launches32,
+               f32_forward_kernel_us=f32_us,
+               f32_forward_device_ms=f32_device_us / 1e3,
                prefill_kernel_phase_us=phase_us,
                prefill_kernel_share=sum(mine) / dev_us,
                prefill_device_ms=dev_us / 1e3,
@@ -1748,6 +1802,21 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
     del lm, cache
     torch.cuda.empty_cache()
     return res
+
+
+def traced_kernel_us(fn, kernel: str, calls: int) -> tuple[float, float]:
+    """``torch.profiler`` device time, in microseconds, of one call of
+    ``kernel`` (all its CUDA kernels, mean) in one run of ``fn``, which
+    launches it ``calls`` times, and of the whole run
+    (:func:`device_kernels`: traced behind the lead-in, again if the
+    profiler lost some)."""
+    symbol, per_call = SYMBOLS[kernel], EVENTS_PER_CALL[kernel]
+    events = device_kernels(fn, 1, symbol, calls * per_call)
+    mine = [us for name, us in events if symbol in name]
+    check(len(mine) == calls * per_call,
+          f"profiler saw {len(mine)} {symbol} events, expected "
+          f"{calls} x {per_call}")
+    return sum(mine) / calls, sum(us for _, us in events)
 
 
 def serve_f32_phase(dev) -> dict:
@@ -1775,6 +1844,9 @@ def serve_f32_phase(dev) -> dict:
         check(model_counts() == counts and counts[kernel] == F32_LAYERS
               and sum(counts.values()) == F32_LAYERS,
               f"serve/f32 {arch}: launches {counts} then {model_counts()}")
+        kernel_us, _ = traced_kernel_us(
+            lambda: D.prefill(lm, cfg, {"tokens": prompts}), kernel,
+            F32_LAYERS)
         cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, SERVE_P), dev)
         decoded = teacher_forced(lm, cfg, prompts, cache)
         errs = dict(kernel_vs_plain=float((with_kernel - plain).abs().max()),
@@ -1788,7 +1860,8 @@ def serve_f32_phase(dev) -> dict:
               and same_tokens and bool(torch.isfinite(with_kernel).all()),
               f"serve/f32 {arch}: {errs}, same greedy tokens {same_tokens}")
         out[arch] = dict(errs, logits_max_abs=float(with_kernel.abs().max()),
-                         tolerance=F32_LOGIT_TOL, launches=counts[kernel])
+                         tolerance=F32_LOGIT_TOL, launches=counts[kernel],
+                         kernel_device_us_per_call=kernel_us)
         del lm, cache
         torch.cuda.empty_cache()
     log(phase="serve/f32", layers=F32_LAYERS, batch=SERVE_B, prompt=SERVE_P,
@@ -1915,6 +1988,8 @@ def time_model_kernels(dev) -> dict:
             library_vs_plain_err=lib_err,
             **attention_bound(B, S, S, H, K, h, h, dt.itemsize))
         rows[name]["tflops_per_s"] = rows[name]["flops"] / (ms * 1e9)
+        rows[name]["device_us"], _ = traced_kernel_us(
+            lambda: [kf.flash_attention(q, k, v) for _ in range(5)], name, 5)
         log(phase="timing/model_kernel", name=name, **rows[name])
         del q, k, v, qt, kt, vt
     B, S, H, hd = SERVE_B, SERVE_P, 40, 64

@@ -18,221 +18,423 @@
 // the port proves its model arithmetic. f32 is a check path, not the
 // serving type.
 //
-// Design. One block per (query tile of 64 rows, head, batch). The block
-// reads k/v of kv head `head / G` in place (the TPU wrapper's jnp.repeat
-// of k/v over the group is its layout, not the function). It walks the kv
-// tiles of 64 rows that the query tile can reach and skips the others,
-// as pl.when(reachable) does: a tile is skipped only if every (query,
-// key) pair in it is masked, so the -1e30 fill never decides a row's
-// result (a row's first visible key resets m, and exp(-1e30 - m) = 0).
-// Keys past Skv (a ragged last tile) get probability exactly 0 and query
-// rows past Sq are not written, so neither length has to divide 64, and
-// hv may differ from h (both <= 128).
-//
-// 256 threads: thread t owns query rows 4 * (t / 16) .. + 3, score
-// columns (t % 16) + 16 j (j < 4) and output columns (t % 16) + 16 j
-// (j < 8). The 16 lanes that share rows are one half-warp, so row max
-// and row sum are shuffle reductions and the probabilities they write to
-// shared memory are read back by the same half-warp (__syncwarp, no
-// block barrier). Tiles are staged in shared memory with a padded row
-// stride (h + 1), so the column-strided reads hit distinct banks.
-// Shared memory: (64 (h+1) * 2 + 64 hv + 64 * 65) * 4 bytes, 115,456 at
-// h = hv = 128, above the 48 KB default and set per launch.
-//
 // Bound on an H100: at the yi-6b prefill shape in f32 (q [4,1024,32,128],
-// causal) the work is ~34 GFLOP against ~151 MB of input and output, so
-// the bound is the f32 rate of the CUDA cores (~513 us at 67 TFLOP/s).
-// The kernel is limited by shared-memory reads and sits above that.
+// causal) the visible pairs need 34.4 GFLOP against 151 MB of input and
+// output, so the bound is the f32 rate of the CUDA cores (513 us at 67
+// TFLOP/s). An FMA needs its operands from shared memory, which serves
+// one wavefront (128 bytes) a clock against four warp FMAs, so the design
+// is about FMAs per shared-memory load:
+//
+// - Grid (H, B, query tiles of 64 rows), 4 warps; each warp owns 16 whole
+//   query rows. Lane = 8 * ry + kx: a thread owns rows ry + 4 i (i < 4)
+//   of its warp's 16. The query tile is the slowest grid axis and runs in
+//   reverse, so the heaviest causal tiles start first. The block reads k
+//   and v of kv head `head / G` in place, with no repeat over the group.
+// - S = Q K^T on a 4 x 4 register tile a thread: rows ry + 4 i, keys
+//   kx + 8 j of a 32-key tile, read along d as float4 (LDS.128) from
+//   row-major tiles of stride D + 4 floats: 8 loads feed 64 FMAs. The 8
+//   lanes of a quarter-warp read 8 consecutive rows of K (their 16-byte
+//   chunks fall in 8 distinct bank groups) and one row of Q (a
+//   broadcast).
+// - P goes to shared memory transposed, [key][row] with the warp's rows
+//   ordered ry * 4 + i, so P.V reads a thread's 4 probabilities of a key
+//   as one float4 beside 4 float4 of V (columns 4 (kx + 8 j) .. + 3): 5
+//   loads feed 64 FMAs on a 4 x 16 output tile. A warp reads back only its
+//   own rows of P: __syncwarp, no block barrier.
+// - K and V come in 32-key tiles through a ring of 2 stages, filled with
+//   16-byte cp.async.cg copies: tile j + 1 is in flight while tile j is
+//   multiplied. One block barrier a tile: once tile j has landed and
+//   every warp is past tile j - 1, tile j + 1 is issued into the stage
+//   that j - 1 left. Q is copied once. A thread keeps one column of a
+//   tile and steps down its rows, so a copy costs an add and a compare.
+//   Where h or hv is not a multiple of 4 or a pointer is not 16-byte
+//   aligned, the same elements go into the same layout by 4-byte
+//   cp.async.ca copies (the kVec = false path, chosen by the wrapper's
+//   plan).
+// - Softmax in the log2 domain: the scale is log2(e)/sqrt(h) and the
+//   exponentials are exp2f. Row max by shuffles over the 8 lanes of a
+//   row; each lane keeps its part of l, summed once at the end.
+// - Tiles no query of the block can reach are never loaded, as
+//   pl.when(reachable) skips them; masks are applied only on tiles that
+//   cross the causal diagonal, the window's edge or the end of the keys.
+//   A masked key scores -1e30 (a row's first visible key resets m, and
+//   exp2(-1e30 - m) = 0), a key past Skv scores -inf so its probability
+//   is exactly 0, query rows past Sq are not written, and neither length
+//   has to divide a tile.
+//
+// Shapes: h, hv <= 128, any values; the kernel is instantiated at a
+// padded head width D of 32, 64 or 128 (zero-filled past h and hv).
+// Shared memory: (64 + 2 * 2 * 32) * (D + 4) * 4 + 32 * 68 * 4 bytes,
+// 110,080 at D = 128 (above the 48 KB default, set per launch): 2 blocks
+// per SM.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kThreads = 256;
-constexpr int kMaxHead = 128;  // largest h and hv
+constexpr int kBQ = 64;        // query rows per block, 16 per warp
+constexpr int kBK = 32;        // keys per K/V tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;     // K/V ring
 constexpr int kRows = 4;       // query rows per thread
-constexpr int kColsS = kBK / 16;       // score columns per thread
-constexpr int kColsO = kMaxHead / 16;  // output columns per thread
-constexpr int kPStride = kBK + 1;
+constexpr int kKeys = 4;       // keys per thread in S
+constexpr int kPStride = kBQ + 4;  // floats per key row of the P tile
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes = 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4-byte asynchronous copy; src_bytes = 0 writes a zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy kR rows of `width` floats from rows row0.. of a [n_rows,
+// row_stride] global matrix into shared rows of D + 4 floats, columns
+// 0 .. D - 1; rows past n_rows and columns past width are zero-filled.
+// kVec: 16-byte copies (width % 4 == 0, 16-byte aligned rows), else
+// 4-byte copies of the same elements.
+template <int D, int kR, bool kVec>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n_rows, int width,
+                                          size_t row_stride, int tid) {
+  constexpr int kS = D + 4;
+  constexpr int kPer = kVec ? 4 : 1;          // floats a copy
+  constexpr int kCols = D / kPer;             // copies a row
+  constexpr int kStep = kThreads / kCols;     // rows a round
+  static_assert(kThreads % kCols == 0 && kR % kStep == 0,
+                "whole rounds of copies");
+  const int c = kPer * (tid % kCols), r = tid / kCols;
+  const bool col_in = c < width;
+  size_t off = (size_t)(row0 + r) * row_stride + c;
+  uint32_t to = smem_addr(dst + r * kS + c);
+#pragma unroll
+  for (int it = 0; it < kR / kStep; ++it) {
+    const bool in = col_in && row0 + r + it * kStep < n_rows;
+    if constexpr (kVec)
+      cp_async16(to, in ? src + off : src, in ? 16 : 0);
+    else
+      cp_async4(to, in ? src + off : src, in ? 4 : 0);
+    off += kStep * row_stride;
+    to += kStep * kS * sizeof(float);
+  }
+}
+
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      int Sq, int Skv, int H, int KH, int h, int hv,
-                     int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int hs = h + 1;
-  float* sq = smem;              // [kBQ][hs]
-  float* sk = sq + kBQ * hs;     // [kBK][hs]
-  float* sv = sk + kBK * hs;     // [kBK][hv]
-  float* sp = sv + kBK * hv;     // [kBQ][kPStride] probabilities
+                     int causal, int window, float scale_log2) {
+  constexpr int kS = D + 4;           // floats per shared row
+  constexpr int kTile = kBK * kS;     // floats per K or V tile
+  constexpr int kChunksO = D / 32;    // float4 output chunks per row
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                          // [kBQ][kS]
+  float* skv = sq + kBQ * kS;                // kStages x (K tile, V tile)
+  float* sp = skv + kStages * 2 * kTile;     // [kBK][kPStride], P^T
 
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;       // rows rg * 4 .. rg * 4 + 3
-  const int cl = tid % 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ry = lane / 8, kx = lane % 8;
+  const int wrow = warp * 16;        // the warp's first row in the tile
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int kvh = head / (H / KH);
   const int q_last = min(q0 + kBQ, Sq) - 1;
 
-  for (int i = tid; i < kBQ * h; i += kThreads) {
-    const int r = i / h, d = i % h, qi = q0 + r;
-    sq[r * hs + d] =
-        qi < Sq ? q[((size_t)(b * (size_t)Sq + qi) * H + head) * h + d]
-                : 0.f;
-  }
+  // kv tiles some query of this block can reach, as pl.when(reachable)
+  const int n_kv = (Skv + kBK - 1) / kBK;
+  int kt_end = n_kv - 1;
+  if (causal) kt_end = min(kt_end, q_last / kBK);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kBK;
 
-  float m[kRows], l[kRows], acc[kRows][kColsO];
+  const size_t q_rs = (size_t)H * h, k_rs = (size_t)KH * h,
+               v_rs = (size_t)KH * hv;
+  const float* qg = q + ((size_t)b * Sq * H + head) * h;
+  const float* kg = k + ((size_t)b * Skv * KH + kvh) * h;
+  const float* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
+
+  load_rows<D, kBQ, kVec>(sq, qg, q0, Sq, h, q_rs, tid);
+  if (kt_begin <= kt_end) {
+    load_rows<D, kBK, kVec>(skv, kg, kt_begin * kBK, Skv, h, k_rs, tid);
+    load_rows<D, kBK, kVec>(skv + kTile, vg, kt_begin * kBK, Skv, hv, v_rs,
+                            tid);
+  }
+  cp_async_commit();
+
+  float acc[kRows][4 * kChunksO];
+  float m_run[kRows], l_run[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
+    m_run[i] = kMasked;
+    l_run[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kColsO; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 4 * kChunksO; ++c) acc[i][c] = 0.f;
   }
+  const float* sq_t = sq + (wrow + ry) * kS;         // row ry; + 4 i rows
+  float* sp_t = sp + wrow + 4 * ry;                  // P^T column of row 0
 
-  const int n_kv = (Skv + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kv; ++kt) {
+  int stage = 0;
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    cp_async_wait_all();  // this tile (and Q) has landed for this thread,
+    __syncthreads();      // for every thread, and no warp still reads the
+                          // other stage
+    if (kt < kt_end) {    // the next tile into the other stage
+      float* nk = skv + (stage ^ 1) * 2 * kTile;
+      load_rows<D, kBK, kVec>(nk, kg, (kt + 1) * kBK, Skv, h, k_rs, tid);
+      load_rows<D, kBK, kVec>(nk + kTile, vg, (kt + 1) * kBK, Skv, hv, v_rs,
+                              tid);
+    }
+    cp_async_commit();
+    const float* sk = skv + stage * 2 * kTile;
+    const float* sv = sk + kTile;
     const int k0 = kt * kBK;
-    // tile-level reachability, uniform over the block
-    if (causal && k0 > q_last) break;
-    if (window > 0 && k0 + kBK - 1 <= q0 - window) continue;
 
-    __syncthreads();  // the previous tile's reads of sk / sv are done
-    for (int i = tid; i < kBK * h; i += kThreads) {
-      const int r = i / h, d = i % h, kj = k0 + r;
-      sk[r * hs + d] =
-          kj < Skv
-              ? k[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * h + d]
-              : 0.f;
-    }
-    for (int i = tid; i < kBK * hv; i += kThreads) {
-      const int r = i / hv, d = i % hv, kj = k0 + r;
-      sv[r * hv + d] =
-          kj < Skv
-              ? v[((size_t)(b * (size_t)Skv + kj) * KH + kvh) * hv + d]
-              : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows][kColsS];
+    // S = Q K^T: rows ry + 4 i, keys kx + 8 j
+    float s[kRows][kKeys];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kColsS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < h; ++d) {
-      float qv[kRows], kv[kColsS];
+      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[kRows], kv[kKeys];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sq[(rg * kRows + i) * hs + d];
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(sq_t + 4 * i * kS + d);
 #pragma unroll
-      for (int j = 0; j < kColsS; ++j) kv[j] = sk[(cl + 16 * j) * hs + d];
+      for (int j = 0; j < kKeys; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(sk + (kx + 8 * j) * kS + d);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kColsS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < kKeys; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
     }
 
+    const bool edge = (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kBQ - 1 - window) ||
+                      k0 + kBK > Skv;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + rg * kRows + i;
-      float row_max = -INFINITY;
+      const int row = q0 + wrow + ry + 4 * i;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kColsS; ++j) {
-        const int kj = k0 + cl + 16 * j;
-        const bool visible = (!causal || kj <= qi) &&
-                             (window <= 0 || kj > qi - window);
-        // a masked key scores -1e30 as in the TPU kernel; a key past Skv
-        // does not exist and gets -inf, so its probability is exactly 0
-        const float x = kj >= Skv ? -INFINITY
-                                  : (visible ? s[i][j] * scale : kMasked);
+      for (int j = 0; j < kKeys; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int key = k0 + kx + 8 * j;
+          const bool visible = (!causal || key <= row) &&
+                               (window <= 0 || key > row - window);
+          // a masked key scores -1e30 as in the TPU kernel; a key past
+          // Skv does not exist and gets -inf, so its probability is 0
+          x = key >= Skv ? -INFINITY : (visible ? x : kMasked);
+        }
         s[i][j] = x;
-        row_max = fmaxf(row_max, x);
+        mx = fmaxf(mx, x);
       }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float corr = exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float sum = 0.f;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsS; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        sp[(rg * kRows + i) * kPStride + cl + 16 * j] = p;
+      for (int j = 0; j < kKeys; ++j) {
+        s[i][j] = exp2f(s[i][j] - m_new);
+        sum += s[i][j];
       }
+      l_run[i] = l_run[i] * corr + sum;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kColsO; ++j) acc[i][j] *= corr;
+      for (int c = 0; c < 4 * kChunksO; ++c) acc[i][c] *= corr;
     }
-    __syncwarp();  // this half-warp's probabilities are in sp
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      *reinterpret_cast<float4*>(sp_t + (kx + 8 * j) * kPStride) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();  // this warp's probabilities are in sp; it alone reads
+                   // them, before it writes the next tile's
 
-#pragma unroll 2
+    // O += P V: per key, 4 probabilities and 4 * kChunksO columns
+#pragma unroll 8
     for (int c = 0; c < kBK; ++c) {
-      float p[kRows];
+      const float4 p = *reinterpret_cast<const float4*>(sp_t + c * kPStride);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = sp[(rg * kRows + i) * kPStride + c];
+      for (int jj = 0; jj < kChunksO; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            sv + c * kS + 4 * (kx + 8 * jj));
+        const float pr[kRows] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-      for (int j = 0; j < kColsO; ++j) {
-        const int col = cl + 16 * j;
-        if (col < hv) {
-          const float vv = sv[c * hv + col];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][4 * jj + 0] = fmaf(pr[i], vv.x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(pr[i], vv.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(pr[i], vv.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(pr[i], vv.w, acc[i][4 * jj + 3]);
         }
       }
     }
-    __syncwarp();  // sp is rewritten by the next tile
+    stage ^= 1;
   }
+  cp_async_wait_all();  // no copy outlives the block
 
+  // whole-row sums, then acc / max(l, 1e-30)
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + rg * kRows + i;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* o = out + ((size_t)(b * (size_t)Sq + qi) * H + head) * hv;
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const float denom = fmaxf(l, 1e-30f);
+    const int row = q0 + wrow + ry + 4 * i;
+    if (row >= Sq) continue;
+    float* o = out + ((size_t)b * Sq + row) * H * hv + (size_t)head * hv;
 #pragma unroll
-    for (int j = 0; j < kColsO; ++j) {
-      const int col = cl + 16 * j;
-      if (col < hv) o[col] = acc[i][j] / denom;
+    for (int jj = 0; jj < kChunksO; ++jj) {
+      const int col = 4 * (kx + 8 * jj);
+      const float4 r = make_float4(
+          acc[i][4 * jj] / denom, acc[i][4 * jj + 1] / denom,
+          acc[i][4 * jj + 2] / denom, acc[i][4 * jj + 3] / denom);
+      if (kVec) {
+        if (col < hv) *reinterpret_cast<float4*>(o + col) = r;
+      } else {
+        const float rr[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < hv) o[col + e] = rr[e];
+      }
     }
   }
 }
 
+// Dynamic shared memory of one block: the Q tile, the K/V ring and P^T.
+template <int D>
+constexpr int smem_bytes() {
+  return sizeof(float) *
+         ((kBQ + 2 * kStages * kBK) * (D + 4) + kBK * kPStride);
+}
+
+template <int D, bool kVec>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(flash_f32_kernel<D, kVec>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<D>());
+}
+
+template <int D, bool kVec>
+int occupancy(int* blocks, int* smem) {
+  cudaError_t err = allow_smem<D, kVec>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = smem_bytes<D>();
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, flash_f32_kernel<D, kVec>, kThreads, smem_bytes<D>()));
+}
+
+template <int D, bool kVec>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Skv, int H, int KH, int h, int hv, int causal,
+           int window, float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem<D, kVec>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  flash_f32_kernel<D, kVec><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH,
+      h, hv, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_width(int width, const void* q, const void* k, const void* v,
+                 void* out, int B, int Sq, int Skv, int H, int KH, int h,
+                 int hv, int causal, int window, float scale,
+                 cudaStream_t s) {
+  switch (width) {
+    case 32:
+      return launch<32, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
+                              window, scale, s);
+    case 64:
+      return launch<64, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
+                              window, scale, s);
+    case 128:
+      return launch<128, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv,
+                               causal, window, scale, s);
+    default:
+      return 1001;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
-// q, k, v and out are f32. Returns a cudaError_t; 1001 for an unsupported
-// argument.
+// q, k, v and out are f32; width is the padded head width (32, 64 or 128)
+// that holds h and hv; vec = 1 takes 16-byte copies and needs h and hv
+// multiples of 4 and all four pointers 16-byte aligned, vec = 0 takes
+// 4-byte copies of any shape. Returns a cudaError_t; 1001 for an
+// unsupported argument.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int H, int KH, int h, int hv,
                                       int causal, int window, float scale,
-                                      void* stream) {
-  if (h < 1 || hv < 1 || h > kMaxHead || hv > kMaxHead || KH < 1 ||
-      H % KH != 0)
+                                      int width, int vec, void* stream) {
+  if (h < 1 || hv < 1 || h > width || hv > width || KH < 1 ||
+      H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
+      (vec != 0 && vec != 1))
+    return 1001;
+  if (vec && (h % 4 || hv % 4 || !aligned16(q) || !aligned16(k) ||
+              !aligned16(v) || !aligned16(out)))
     return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
-  const size_t smem =
-      sizeof(float) * ((size_t)kBQ * (h + 1) + (size_t)kBK * (h + 1) +
-                       (size_t)kBK * hv + (size_t)kBQ * kPStride);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  flash_f32_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH,
-      h, hv, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  return vec ? launch_width<true>(width, q, k, v, out, B, Sq, Skv, H, KH, h,
+                                  hv, causal, window, scale, s)
+             : launch_width<false>(width, q, k, v, out, B, Sq, Skv, H, KH, h,
+                                   hv, causal, window, scale, s);
+}
+
+// The blocks of the kernel at padded head width `width` (16-byte copies)
+// that one SM holds at once, and its dynamic shared memory per block.
+// Returns a cudaError_t; 1001 for an unsupported width.
+extern "C" int flash_attention_occupancy(int width, int* blocks, int* smem) {
+  switch (width) {
+    case 32:
+      return occupancy<32, true>(blocks, smem);
+    case 64:
+      return occupancy<64, true>(blocks, smem);
+    case 128:
+      return occupancy<128, true>(blocks, smem);
+    default:
+      return 1001;
+  }
 }

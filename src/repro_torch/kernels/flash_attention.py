@@ -11,7 +11,11 @@ dispatches on the device, then on the dtype:
   128, anything else raises);
 - an f32 CUDA tensor launches ``csrc/flash_attention.cu``
   (:data:`KERNEL`, the CUDA cores: the f32 check path, which TF32 tensor
-  cores would not keep within its tolerances);
+  cores would not keep within its tolerances). Any h, hv <= 128: the
+  kernel runs at a padded width of 32, 64 or 128 and copies its tiles
+  with 16-byte ``cp.async`` where h and hv are multiples of 4 and every
+  pointer is 16-byte aligned, else with 4-byte copies into the same
+  layout (:func:`f32_plan`);
 - a CPU tensor runs the plain version (:func:`flash_attention_plain`);
   any other device raises.
 """
@@ -25,17 +29,20 @@ import torch
 from ._build import CudaKernel
 from .ref import flash_attention_ref as flash_attention_plain
 
-__all__ = ["KERNEL", "KERNEL_BF16", "bf16_head_width", "flash_attention",
-           "flash_attention_plain", "select_kernel"]
+__all__ = ["KERNEL", "KERNEL_BF16", "bf16_head_width", "f32_plan",
+           "flash_attention", "flash_attention_plain", "select_kernel"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
 KERNEL = CudaKernel("flash_attention.cu", "flash_attention_launch",
-                    _ARGS + [_P])
+                    _ARGS + [_I, _I, _P])
 KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
                          "flash_attention_bf16_launch", _ARGS + [_I, _P])
 MAX_HEAD = 128
-BF16_WIDTHS = (32, 64, 128)
+WIDTHS = (32, 64, 128)   # the padded head widths both kernels are built at
+# the f32 kernel's tiling, as csrc/flash_attention.cu: query rows per
+# block, keys per K/V tile, threads per block
+F32_BLOCK_Q, F32_BLOCK_K, F32_THREADS = 64, 32, 128
 
 
 def bf16_head_width(h: int, hv: int) -> int:
@@ -47,7 +54,20 @@ def bf16_head_width(h: int, hv: int) -> int:
             raise ValueError(f"the bf16 kernel takes head dims that are "
                              f"multiples of 16 up to {MAX_HEAD}, got "
                              f"{name}={n}")
-    return next(w for w in BF16_WIDTHS if w >= max(h, hv))
+    return next(w for w in WIDTHS if w >= max(h, hv))
+
+
+def f32_plan(h: int, hv: int, *ptrs: int) -> tuple[int, int]:
+    """``(width, vec)`` of the f32 kernel: the least of 32, 64 and 128
+    that holds h and hv, and 1 (16-byte copies) where h and hv are
+    multiples of 4 and every pointer in ``ptrs`` (q, k, v, out) is 16-byte
+    aligned, else 0 (4-byte copies)."""
+    if max(h, hv) > MAX_HEAD:
+        raise ValueError(f"the f32 kernel takes head dims up to {MAX_HEAD}, "
+                         f"got h={h}, hv={hv}")
+    width = next(w for w in WIDTHS if w >= max(h, hv))
+    vec = int(h % 4 == 0 and hv % 4 == 0 and not any(p % 16 for p in ptrs))
+    return width, vec
 
 
 def select_kernel(dtype: torch.dtype, h: int, hv: int) -> CudaKernel:
@@ -58,9 +78,7 @@ def select_kernel(dtype: torch.dtype, h: int, hv: int) -> CudaKernel:
         bf16_head_width(h, hv)
         return KERNEL_BF16
     if dtype == torch.float32:
-        if h > MAX_HEAD or hv > MAX_HEAD:
-            raise ValueError(f"the f32 kernel takes head dims up to "
-                             f"{MAX_HEAD}, got h={h}, hv={hv}")
+        f32_plan(h, hv)
         return KERNEL
     raise TypeError(f"no attention kernel for {dtype}")
 
@@ -111,6 +129,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("the bf16 kernel copies 16-byte chunks: q, k "
                              "and v must start on 16-byte boundaries")
         args.append(bf16_head_width(h, hv))
+    else:
+        args.extend(f32_plan(h, hv, *args[:4]))
     with torch.cuda.device(q.device):
         kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out

@@ -157,7 +157,7 @@ def test_engine_on_card_matches_cpu(cuda, fam):
     assert same(got, want)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", [
+FLASH_CASES = [
     (2, 128, 128, 4, 4, 32, 32, True, -1), (2, 256, 256, 8, 4, 64, 64, True,
                                             100),
     (2, 128, 128, 4, 2, 48, 32, True, -1), (2, 100, 130, 4, 2, 64, 48, True,
@@ -169,16 +169,31 @@ def test_engine_on_card_matches_cpu(cuda, fam):
     (2, 77, 77, 4, 2, 64, 64, True, 30),            # ragged window
     (2, 128, 128, 4, 2, 32, 32, False, -1),         # non-causal
     (2, 200, 200, 4, 2, 64, 64, False, 50),         # non-causal window
-    (1, 256, 256, 16, 2, 128, 128, True, -1)])      # G = 8
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    (1, 256, 256, 16, 2, 128, 128, True, -1)]       # G = 8
+# f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
+# of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
+# a long non-causal case
+F32_CASES = [(2, 200, 300, 4, 2, 50, 36, True, -1, "aligned"),
+             (2, 130, 170, 3, 1, 7, 5, False, 40, "aligned"),
+             (2, 256, 256, 8, 2, 128, 128, True, -1, "misaligned"),
+             (2, 100, 130, 4, 2, 64, 48, True, 40, "misaligned"),
+             (1, 2048, 2048, 8, 2, 128, 128, False, -1, "aligned")]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window,offset,dtype", [
+    *[(*c, "aligned", dt) for c in FLASH_CASES
+      for dt in ("float32", "bfloat16")],
+    *[(*c, "float32") for c in F32_CASES]])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv, causal,
-                                    window, dtype):
+                                    window, offset, dtype):
     """bf16 goes through the tensor-core kernel, f32 through the CUDA-core
     one; each dtype advances its own kernel's count and not the other."""
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(Sq + H + h)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
                for s in ((B, Sq, H, h), (B, Skv, K, h), (B, Skv, K, hv)))
+    if offset == "misaligned":
+        q, k, v = misaligned(q), misaligned(k), misaligned(v)
     mine, other = ((kf.KERNEL_BF16, kf.KERNEL) if dt == torch.bfloat16
                    else (kf.KERNEL, kf.KERNEL_BF16))
     before = (mine.launches, other.launches)

@@ -214,6 +214,316 @@ def test_bf16_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
     assert _err(got.float().numpy(), plain.float().numpy()) < 2e-2
 
 
+# -- the f32 kernel's maps and arithmetic, emulated ---------------------------
+
+# (B, Sq, Skv, H, K, h, hv, causal, window): the f32 cases of chip_smoke.py's
+# FLASH_CASES, with ragged lengths, hv != h and h % 4 != 0
+F32_CASES = [(4, 1024, 1024, 32, 4, 128, 128, True, -1),
+             (2, 128, 128, 4, 4, 32, 32, True, -1),
+             (2, 256, 256, 8, 4, 64, 64, True, 100),
+             (2, 128, 128, 4, 2, 48, 32, True, -1),
+             (2, 128, 128, 4, 2, 32, 32, False, 40),
+             (2, 100, 130, 4, 2, 64, 48, True, -1),
+             (2, 130, 100, 4, 4, 32, 32, True, -1),
+             (2, 77, 77, 4, 2, 64, 64, True, 30),
+             (2, 200, 300, 4, 2, 50, 36, True, -1),
+             (2, 200, 300, 4, 2, 50, 36, False, 70),
+             (1, 2048, 2048, 8, 2, 128, 128, False, -1),
+             (1, 33, 45, 3, 1, 7, 5, False, -1)]
+BQ, BK, THREADS = fa.F32_BLOCK_Q, fa.F32_BLOCK_K, fa.F32_THREADS
+P_STRIDE = BQ + 4
+
+
+def _f32_lanes(width):
+    """The kernel's thread map (``flash_f32_kernel``), per thread of a
+    block: its 4 query rows of the tile, its 4 keys of S, its output
+    columns, and the float offsets into the transposed P tile where it
+    stores P[row i, key j] (``[t, i, j]``) and reads P[row i, key c]
+    (``[t, i, c]``)."""
+    tid = np.arange(THREADS)
+    warp, ry, kx = tid // 32, tid % 32 // 8, tid % 8
+    i4 = np.arange(4)
+    rows = (warp * 16 + ry)[:, None] + 4 * i4
+    keys = kx[:, None] + 8 * i4
+    cols = ((4 * (kx[:, None] + 8 * np.arange(width // 32)))[:, :, None]
+            + i4).reshape(THREADS, -1)
+    p_col = (warp * 16 + 4 * ry)[:, None] + i4                    # [t, i]
+    p_store = keys[:, None, :] * P_STRIDE + p_col[:, :, None]
+    p_load = np.arange(BK)[None, None, :] * P_STRIDE + p_col[:, :, None]
+    return rows, keys, cols, p_store, p_load
+
+
+def _kv_tiles(q0, Sq, Skv, causal, window):
+    """The kv tiles a query tile at q0 visits, as the kernel computes
+    them, and which of those it masks (``edge``)."""
+    q_last = min(q0 + BQ, Sq) - 1
+    end = -(-Skv // BK) - 1
+    if causal:
+        end = min(end, q_last // BK)
+    begin = (q0 - window + 1) // BK if window > 0 and q0 - window + 1 > 0 \
+        else 0
+    tiles = list(range(begin, end + 1))
+    edge = {kt: (causal and kt * BK + BK - 1 > q0)
+            or (window > 0 and kt * BK <= q0 + BQ - 1 - window)
+            or kt * BK + BK > Skv for kt in tiles}
+    return tiles, edge
+
+
+def _copy(src, row0, n_tile, width, vec):
+    """``load_rows``: a [n_tile, width + 4] shared tile filled from rows
+    row0.. of ``src`` [n_rows, w] (thread t copies column chunk t % cols
+    of rows t // cols + step * it); NaN where no copy wrote. Returns the
+    tile and how often each element was written."""
+    n_rows, w = src.shape
+    dst = np.full((n_tile, width + 4), np.nan, np.float32)
+    hits = np.zeros(dst.shape, np.int64)
+    tid = np.arange(THREADS)
+    per = 4 if vec else 1
+    cols = width // per
+    step = THREADS // cols
+    assert THREADS % cols == 0 and n_tile % step == 0
+    c0, r = per * (tid % cols), tid // cols
+    for it in range(n_tile // step):
+        row = r + it * step
+        inside = (c0 < w) & (row0 + row < n_rows)
+        for e in range(per):
+            if vec:   # a 16-byte chunk is whole or zero: w % 4 == 0
+                assert not (inside & (c0 + e >= w)).any()
+            val = src[np.minimum(row0 + row, n_rows - 1),
+                      np.minimum(c0 + e, w - 1)]
+            dst[row, c0 + e] = np.where(inside, val, 0.0)
+            np.add.at(hits, (row, c0 + e), 1)
+    return dst, hits
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_CASES)
+def test_f32_thread_map_covers_every_element_once(B, Sq, Skv, H, K, h, hv,
+                                                  causal, window):
+    """Each score of a 64 x 32 tile and each output element of a 64 x D
+    tile belongs to one thread; over the query tiles each output element
+    of [Sq, hv] has one writer; P goes through the transposed tile and
+    comes back to the same (row, key), in the warp that wrote it."""
+    width, _ = fa.f32_plan(h, hv)
+    rows, keys, cols, p_store, p_load = _f32_lanes(width)
+    s_hits = np.zeros((BQ, BK), np.int64)
+    np.add.at(s_hits, (rows[:, :, None], keys[:, None, :]), 1)
+    assert (s_hits == 1).all()
+    o_hits = np.zeros((BQ, width), np.int64)
+    np.add.at(o_hits, (rows[:, :, None], cols[:, None, :]), 1)
+    assert (o_hits == 1).all()
+    writers = np.zeros((Sq, hv), np.int64)
+    for q0 in range(0, Sq, BQ):
+        r, c = q0 + rows[:, :, None], cols[:, None, :]
+        live = (r < Sq) & (c < hv)
+        np.add.at(writers, (np.broadcast_to(r, live.shape)[live],
+                            np.broadcast_to(c, live.shape)[live]), 1)
+    assert (writers == 1).all()
+    owner = np.full(BK * P_STRIDE, -1)
+    what = np.full((BK * P_STRIDE, 2), -1)
+    for t in range(THREADS):
+        for i in range(4):
+            for j in range(4):
+                pos = p_store[t, i, j]
+                assert owner[pos] == -1           # one store per slot
+                owner[pos], what[pos] = t, (rows[t, i], keys[t, j])
+    for t in range(THREADS):
+        for i in range(4):
+            for c in range(BK):
+                pos = p_load[t, i, c]
+                assert tuple(what[pos]) == (rows[t, i], c)
+                assert owner[pos] // 32 == t // 32   # __syncwarp suffices
+
+
+def _bank_groups_distinct(addr, lanes):
+    """A float4 shared access by ``lanes``: its distinct 16-byte chunks
+    fall in distinct groups of 4 banks (no bank conflict)."""
+    chunks = np.unique(np.asarray(addr)[lanes] // 4)
+    return len(np.unique(chunks % 8)) == len(chunks)
+
+
+@pytest.mark.parametrize("width", fa.WIDTHS)
+def test_f32_shared_accesses_are_conflict_free(width):
+    """Every float4 shared access of the kernel's products, per warp: a
+    load touches at most 8 distinct 16-byte chunks in 8 distinct bank
+    groups (one 128-byte wavefront, the rest broadcast), a store of P is
+    conflict-free within each quarter-warp; at least 8 FMAs per float4
+    load in both products."""
+    rows, keys, cols, p_store, p_load = _f32_lanes(width)
+    stride = width + 4
+    for w in range(4):
+        warp = np.arange(32 * w, 32 * w + 32)
+        loads = [rows[:, i] * stride + d for i in range(4)
+                 for d in range(0, width, 4)]
+        loads += [keys[:, j] * stride + d for j in range(4)
+                  for d in range(0, width, 4)]
+        loads += [c * stride + cols[:, 4 * jj] for c in range(BK)
+                  for jj in range(width // 32)]
+        loads += [p_load[:, 0, c] for c in range(BK)]
+        for addr in loads:
+            assert (np.asarray(addr) % 4 == 0).all()
+            assert _bank_groups_distinct(addr, warp)
+        for j in range(4):
+            for qw in range(4):
+                assert _bank_groups_distinct(p_store[:, 0, j],
+                                             warp[8 * qw:8 * qw + 8])
+    n_rows, n_keys, n_cols = rows.shape[1], keys.shape[1], cols.shape[1]
+    assert n_rows * n_keys * 4 / (n_rows + n_keys) >= 8   # S, per d4 step
+    assert n_rows * n_cols / (1 + n_cols // 4) >= 8       # P V, per key
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window,vec", [
+    (*c, vec) for c in F32_CASES for vec in (1, 0)
+    if vec == 0 or (c[5] % 4 == 0 and c[6] % 4 == 0)])
+def test_f32_copy_map_fills_each_tile_once(B, Sq, Skv, H, K, h, hv, causal,
+                                           window, vec):
+    """The Q tile and every visited K and V tile of one (batch, head):
+    each element of the padded shared tile written once, equal to the
+    input inside [rows, h | hv] and zero outside, the 4 padding floats of
+    a row never written; 16-byte copies only where h and hv are multiples
+    of 4 (the plan's choice for aligned pointers)."""
+    width, plan_vec = fa.f32_plan(h, hv, 0, 16, 32, 48)
+    assert plan_vec == int(h % 4 == 0 and hv % 4 == 0)
+    assert fa.f32_plan(h, hv, 0, 4, 32, 48)[1] == 0       # misaligned k
+    q, k, v = _qkv(Sq + Skv + h, 1, Sq, Skv, 1, 1, h, hv)
+    q, k, v = q[0, :, 0], k[0, :, 0], v[0, :, 0]
+    for q0 in range(0, Sq, BQ):
+        got, hits = _copy(q, q0, BQ, width, vec)
+        want = np.zeros((BQ, width), np.float32)
+        n = min(BQ, Sq - q0)
+        want[:n, :h] = q[q0:q0 + n]
+        assert (hits[:, :width] == 1).all() and (hits[:, width:] == 0).all()
+        assert np.array_equal(got[:, :width], want)
+        for kt in _kv_tiles(q0, Sq, Skv, causal, window)[0]:
+            for src, w in ((k, h), (v, hv)):
+                got, hits = _copy(src, kt * BK, BK, width, vec)
+                want = np.zeros((BK, width), np.float32)
+                n = min(BK, Skv - kt * BK)
+                want[:n, :w] = src[kt * BK:kt * BK + n]
+                assert (hits[:, :width] == 1).all()
+                assert (hits[:, width:] == 0).all()
+                assert np.array_equal(got[:, :width], want)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_CASES)
+def test_f32_tile_skips_drop_only_masked_tiles(B, Sq, Skv, H, K, h, hv,
+                                               causal, window):
+    """A kv tile the kernel skips holds no visible pair for the query
+    tile's rows; one it visits unmasked holds only visible pairs; where
+    every row sees a key, each visited tile holds a visible pair."""
+    mask = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                              device="cpu").numpy()
+    for q0 in range(0, Sq, BQ):
+        tiles, edge = _kv_tiles(q0, Sq, Skv, causal, window)
+        rows = mask[q0:q0 + BQ]
+        for kt in range(-(-Skv // BK)):
+            blk = rows[:, kt * BK:(kt + 1) * BK]
+            if kt not in tiles:
+                assert not blk.any()
+            elif not edge[kt]:
+                assert blk.all() and blk.shape == (min(BQ, Sq - q0), BK)
+            elif rows.any(axis=1).all():
+                assert blk.any()
+
+
+def _f32_kernel_arithmetic(q, k, v, *, causal=True, window=-1):
+    """The f32 CUDA kernel's arithmetic in plain PyTorch (a test helper,
+    on no path): per query tile of 64 rows, the kv tiles of 32 keys it
+    visits, an online softmax in f32 in the log2 domain (scale
+    log2(e)/sqrt(h), exp2), masked scores -1e30 and keys past Skv -inf on
+    the tiles it masks, out = acc / max(l, 1e-30)."""
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    qf = q.float().reshape(B, Sq, K, G, h)
+    scale = math.log2(math.e) / math.sqrt(h)
+    out = torch.zeros((B, K, G, Sq, hv))
+    for q0 in range(0, Sq, BQ):
+        n = min(BQ, Sq - q0)
+        m = torch.full((B, K, G, n), ref.MASKED)
+        l = torch.zeros((B, K, G, n))
+        acc = torch.zeros((B, K, G, n, hv))
+        tiles, edge = _kv_tiles(q0, Sq, Skv, causal, window)
+        for kt in tiles:
+            k0 = kt * BK
+            s = torch.einsum("bqkgh,bskh->bkgqs", qf[:, q0:q0 + n],
+                             k[:, k0:k0 + BK].float()) * scale
+            if edge[kt]:
+                vis = ref.attention_mask(Sq, Skv, causal=causal,
+                                         window=window, device="cpu")
+                s = torch.where(vis[q0:q0 + n, k0:k0 + BK], s,
+                                torch.full_like(s, ref.MASKED))
+            pad = BK - s.shape[-1]          # keys past Skv: -inf
+            s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1)
+            vt = torch.nn.functional.pad(v[:, k0:k0 + BK].float(),
+                                         (0, 0, 0, 0, 0, pad))
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                       p, vt)
+            m = m_new
+        out[:, :, :, q0:q0 + n] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv)
+
+
+@pytest.mark.parametrize("S,H,K,h,hv,window", [
+    *FLASH_SHAPES, (128, 8, 1, 128, 128, -1), (128, 4, 2, 50, 36, -1),
+    (192, 4, 2, 50, 36, 70)])
+def test_f32_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
+    """The kernel's tiling (32-key tiles, a query tile's visited tiles
+    only) and log2-domain softmax stay within 2e-5 of the Pallas kernel
+    in interpret mode and of the port's plain version."""
+    q, k, v = _qkv(S + H + h + 2, 2, S, S, H, K, h, hv)
+    got = _f32_kernel_arithmetic(*_t(q, k, v), window=window).numpy()
+    pallas = pl_flash(*_j(q, k, v), window=window, block_q=64, block_k=64,
+                      interpret=True)
+    assert _err(got, pallas) < 2e-5
+    plain = fa.flash_attention(*_t(q, k, v), window=window).numpy()
+    assert _err(got, plain) < 2e-5
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window",
+                         [c for c in F32_CASES if c[1] * c[2] <= 300 * 300])
+def test_f32_kernel_arithmetic_ragged_matches_oracle(B, Sq, Skv, H, K, h, hv,
+                                                     causal, window):
+    """Lengths no tile divides, hv != h, h % 4 != 0, without the causal
+    mask: the emulation against the port's plain version and, where it
+    applies the same mask (the JAX oracle drops a window without the
+    causal mask), the JAX oracle, within 2e-5. Rows that see no key have
+    no defined output and are left out."""
+    q, k, v = _qkv(Sq * 3 + Skv + h, B, Sq, Skv, H, K, h, hv)
+    got = _f32_kernel_arithmetic(*_t(q, k, v), causal=causal,
+                                 window=window).numpy()
+    seen = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                              device="cpu").any(1).numpy()
+    assert seen.any()
+    plain = fa.flash_attention(*_t(q, k, v), causal=causal,
+                               window=window).numpy()
+    assert _err(got[:, seen], plain[:, seen]) < 2e-5
+    if causal or window <= 0:
+        want = np.asarray(jref.flash_attention_ref(
+            *_j(q, k, v), causal=causal, window=window))
+        assert _err(got[:, seen], want[:, seen]) < 2e-5
+
+
+@pytest.mark.parametrize("h,hv,ptrs,want", [
+    (128, 128, (0, 256, 512, 768), (128, 1)),
+    (128, 128, (4, 256, 512, 768), (128, 0)),
+    (64, 48, (0, 16, 32, 48), (64, 1)),
+    (50, 36, (0, 16, 32, 48), (64, 0)),
+    (7, 5, (0, 16, 32, 48), (32, 0)),
+    (32, 33, (0, 16, 32, 48), (64, 0)),
+    (16, 128, (0, 16, 32, 52), (128, 0))])
+def test_f32_plan(h, hv, ptrs, want):
+    assert fa.f32_plan(h, hv, *ptrs) == want
+
+
+def test_f32_plan_rejects_wide_heads():
+    with pytest.raises(ValueError):
+        fa.f32_plan(129, 64)
+
+
 # -- WKV6 ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("S,H,hd,chunk", WKV_SHAPES)
