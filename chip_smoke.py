@@ -71,6 +71,19 @@ Phases, each of which must pass or the script exits non-zero:
    ``dissem/bandwidth``: 2,000 batches of 8 x 1024 B over 1000
    disseminators at G = 1, 2, 4, absorbed by one ``stability_tick`` on
    the card: per-node bytes equal the CPU's and the closed form;
+   (d) the mesh phase (``EngineConfig(mesh=MeshConfig())``, the engine
+   cell's deployment): each world's ranks run as children of this
+   script (``--mesh-child``), one process per rank with a deadline.
+   NCCL at ``min(cards, 4)`` ranks (rank r on cuda:r): ``Engine.run``
+   and 288 x ``Engine.tick``; gloo at 2, 3 and 4 ranks sharing cuda:0
+   (at 3, G = 4 pads to 6 rows and rank 2 holds pad rows only):
+   ``Engine.run``, and at 2 ranks also adaptive/skew and the pipeline
+   cell with its flip. Every rank's merged sha256, count, committed
+   length and gathered state equal the unmeshed card and CPU runs of
+   this call; every rank launches exactly 2T and T per run (2·ΣR, ΣR
+   adaptive; 2 and 1 per pipeline tick) on its card; meshed NCCL
+   ticks/s against unmeshed in one process (turns U, M, M, U) and the
+   gather's host cost; each gloo rank's ticks/s;
 8. model-kernel phase: the flash attention kernels (bf16 on the tensor
    cores, f32 on the CUDA cores; each case must launch the kernel its
    dtype selects) and WKV6 against their plain versions on the card, at
@@ -112,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -392,9 +406,32 @@ def trees_equal(a, b) -> bool:
     return a.dtype == b.dtype and np.array_equal(a, b)
 
 
-def states_equal(a, b) -> bool:
+def state_tree(state, cfg=None) -> dict:
+    """An engine state as nested numpy arrays; a meshed one gathered."""
     from repro_torch.convert import engine_state_to_numpy
-    return trees_equal(engine_state_to_numpy(a), engine_state_to_numpy(b))
+    return engine_state_to_numpy(state, cfg)
+
+
+def states_equal(a, b) -> bool:
+    return trees_equal(state_tree(a), state_tree(b))
+
+
+def tree_digest(tree) -> str:
+    """sha256 of nested dicts of numpy arrays: keys, dtypes, shapes and
+    bytes (two trees have one digest iff they are equal)."""
+    h = hashlib.sha256()
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{path}.{k}")
+        elif x is None:
+            h.update(f"{path}=None;".encode())
+        else:
+            h.update(f"{path}:{x.dtype}{x.shape};".encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+    walk(tree, "")
+    return h.hexdigest()
 
 
 def run_family(family: str, tiles_cpu, tiles_dev, dev, *, host_ticks: bool):
@@ -821,12 +858,20 @@ def pipeline_config(adaptive=None):
         capacity=65536, seq_capacity=512)
 
 
-def pipeline_tree(state) -> dict:
-    """A pipeline state as nested numpy arrays (bitsets as uint32)."""
+def pipeline_tree(state, ecfg=None) -> dict:
+    """A pipeline state as nested numpy arrays (bitsets as uint32); a
+    meshed engine (``ecfg.mesh``) as its gathered logical state."""
     from repro_torch.convert import engine_state_to_numpy
-    return {f: engine_state_to_numpy(v) if f == "engine"
+    return {f: engine_state_to_numpy(v, ecfg) if f == "engine"
             else pipeline_tree(v) if isinstance(v, tuple)
             else v.cpu().numpy() for f, v in state._asdict().items()}
+
+
+def logical_engine(ecfg, state):
+    """The engine state as the unmeshed engine holds it (gathered from
+    every rank under a mesh)."""
+    from repro_torch.engine import meshed
+    return state if ecfg.mesh is None else meshed.gather_state(ecfg, state)
 
 
 def drain_pipeline(cfg, st, rt):
@@ -861,7 +906,7 @@ def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
     merged, _, com = P.committed(cfg, st)
     pre = merged[:int(com)].cpu()
     st, report = P.reconfigure_pipeline(cfg, st, 0, 1)
-    rs = st.engine.core.rs
+    rs = logical_engine(cfg.engine, st.engine).core.rs
     sealed = (int(rs.retired[G - 1]), int(rs.q.next_instance[G - 1]))
     st, ob = P.run_pipeline(cfg, st, a[T_MAIN:], s[T_MAIN:], rt1,
                             inplace=True)
@@ -1017,7 +1062,9 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
                 profile=profile, route_table_seconds=route_s,
                 arrived=arrived, sizes=sizes, rts=rts, lane_n=lane_n,
                 admitted=int(count.sum()), committed=have[2],
-                bid_groups=bid_groups(cfg, st, merged, com))
+                bid_groups=bid_groups(cfg, st, merged, com),
+                sha256=have[0], count=have[1], drains=got["drains"],
+                report=got["report"], tree_sha=tree_digest(pipeline_tree(st)))
 
 
 def time_pipeline(cfg, arrived, sizes, rt, lane_n, dev,
@@ -1229,7 +1276,8 @@ def adaptive_engine_phase(dev, tiles_cpu) -> dict:
             sum(t[0] for t in secs["lockstep"]) \
             / sum(t[0] for t in secs["adaptive"])
         log(phase=name, **res)
-        out[scenario] = res
+        out[scenario] = dict(res, rounds=rounds,
+                             state_sha=tree_digest(state_tree(eng.state)))
         if scenario == "skew":
             # passes 9-40 of the skew all run R = 4 rounds
             e = adaptive_engine(cfg, tiles_dev, lens, dev)
@@ -1391,6 +1439,298 @@ def bandwidth_phase(dev) -> list[dict]:
     check(rows[-1]["in_reduction_vs_global"] > 3.9,
           "dissem/bandwidth: partitioning did not cut per-node bytes ~G")
     return rows
+
+
+# -- the meshed engine --------------------------------------------------------
+
+# The engine cell's deployment with EngineConfig.mesh: one process per
+# rank. NCCL (rank r on cuda:r) at min(cards, 4) ranks; gloo, every rank
+# on cuda:0, at 2, 3 and 4 ranks (at 3, G = 4 pads to 6 rows and rank 2
+# holds pad rows only); gloo at 2 ranks also runs adaptive/skew and the
+# pipeline cell with its flip.
+MESH_GLOO_WORLDS = (2, 3, 4)
+MESH_DEADLINE_S = 240          # per world, its children's start included
+MESH_COLLECTIVE_CALLS = 1000
+
+
+def mesh_device(backend: str, rank: int) -> torch.device:
+    """The card of a rank: its own under NCCL, cuda:0 under gloo."""
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def meshed_config(cfg):
+    from repro_torch.engine.api import MeshConfig
+    return dataclasses.replace(cfg, mesh=MeshConfig())
+
+
+def mesh_child(tag: str, rank: int, world: int, backend: str,
+               d: Path) -> int:
+    """One rank of a mesh world (``--mesh-child``): joins the process
+    group, drives its paths on the rank's card and writes what it saw to
+    ``d/<tag>_r<rank>.json``."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import pipeline as P
+    from repro_torch.engine import meshed
+    from repro_torch.engine.api import Engine
+    from repro_torch.launch import mesh as launch_mesh
+    torch.set_num_threads(1)
+    dev = mesh_device(backend, rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{d}/{tag}.init",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    tiles = [torch.from_numpy(np.load(d / f"tiles{i}.npy").view(np.int32))
+             .to(dev) for i in range(3)]
+    cfg = meshed_config(engine_config("gated_recycled"))
+    mesh = meshed.mesh_for(cfg)
+    out = dict(tag=tag, rank=rank, world=world, backend=mesh.backend,
+               mesh=dict(size=mesh.size, rank=mesh.rank, rows=mesh.rows,
+                         pad=mesh.pad, first=mesh.first))
+
+    def result(merged, count, committed):
+        return digest(merged, count) + (int(committed),)
+
+    def drive(name, make, fn):
+        """``fn(engine)`` on a fresh engine from ``make()``, the counts
+        reset just before and read just after, timed by CUDA events."""
+        eng = make()
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        res, secs, wall = timed(lambda: fn(eng))
+        out[name] = dict(launches=read_counts(), seconds=secs,
+                         wall_seconds=wall)
+        return eng, res
+
+    # Engine.run
+    eng, res = drive("run", lambda: Engine.create(cfg, device=dev),
+                     lambda e: e.run(*tiles))
+    out["run"].update(result=result(*res), ticks_per_s=T_MAIN / out["run"][
+        "seconds"], state_sha=tree_digest(state_tree(eng.state, cfg)),
+        device=str(eng.state.core.rs.q.ack_bits.device))
+    if backend == "nccl":
+        # 288 x Engine.tick, the host time inside the collective counted
+        inside = [0.0]
+        gather = launch_mesh.all_gather_rows
+
+        def counted(x, m):
+            t0 = time.perf_counter()
+            y = gather(x, m)
+            inside[0] += time.perf_counter() - t0
+            return y
+        launch_mesh.all_gather_rows = counted
+
+        def by_tick(e):
+            for t in range(T_MAIN):
+                e.tick(*(x[t] for x in tiles))
+            return e.committed()
+        eng, res = drive("tick", lambda: Engine.create(cfg, device=dev),
+                         by_tick)
+        launch_mesh.all_gather_rows = gather
+        out["tick"].update(result=result(*res),
+                           state_sha=tree_digest(state_tree(eng.state, cfg)))
+        # meshed against unmeshed Engine.run, in turns (U, M, M, U)
+        base = meshed.unmeshed(cfg)
+        turns = []
+        for c in (base, cfg, cfg, base):
+            e = Engine.create(c, device=dev)
+            torch.cuda.synchronize()
+            dist.barrier()
+            turns.append((c.mesh is not None,
+                          timed(lambda: e.run(*tiles))[1]))
+        out["timing"] = dict(
+            unmeshed_ticks_per_s=[T_MAIN / s for m, s in turns if not m],
+            meshed_ticks_per_s=[T_MAIN / s for m, s in turns if m],
+            tick_collective_host_us=inside[0] / T_MAIN * 1e6)
+        # a profiler pass over 32 host-driven meshed ticks, as
+        # profile_ticks does for the unmeshed engine
+        e = Engine.create(cfg, device=dev)
+        prof = profile_loop(lambda t: e.tick(*(x[t] for x in tiles)), 32,
+                            "profile/mesh_tick")
+        out["timing"]["profile"] = {k: prof[k] for k in (
+            "wall_us_per_tick", "kernels_per_tick", "device_us_per_tick",
+            "device_busy_share")}
+        # the tick's collective alone: host enqueue and round trip
+        buf = torch.zeros((mesh.rows, cfg.max_entries + 1),
+                          dtype=torch.int32, device=dev)
+        for _ in range(20):
+            launch_mesh.all_gather_rows(buf, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_COLLECTIVE_CALLS):
+            launch_mesh.all_gather_rows(buf, mesh)
+        enqueue = (time.perf_counter() - t0) / MESH_COLLECTIVE_CALLS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_COLLECTIVE_CALLS):
+            launch_mesh.all_gather_rows(buf, mesh)
+            torch.cuda.synchronize()
+        rtt = (time.perf_counter() - t0) / MESH_COLLECTIVE_CALLS
+        out["timing"].update(collective_enqueue_us=enqueue * 1e6,
+                             collective_round_trip_us=rtt * 1e6,
+                             collective_bytes_per_rank=buf.nbytes)
+    if tag == f"gloo{MESH_GLOO_WORLDS[0]}":
+        # adaptive/skew
+        acfg = meshed_config(adaptive_config())
+        lens = dict(A_SCENARIOS)["skew"]
+        eng, (rounds, dropped) = drive(
+            "adaptive", lambda: adaptive_engine(acfg, tiles, lens, dev),
+            drain_adaptive)
+        out["adaptive"].update(
+            result=result(*eng.committed()), rounds=rounds,
+            dropped=dropped,
+            state_sha=tree_digest(state_tree(eng.state, acfg)))
+        # the pipeline cell, its flip included
+        pcfg = pipeline_config()
+        pcfg = dataclasses.replace(pcfg, engine=meshed_config(pcfg.engine))
+        arrived = torch.from_numpy(np.load(d / "arrived.npy"))
+        sizes = torch.where(arrived, P_REQ_BYTES, 0).to(torch.int32)
+        rts = [torch.from_numpy(np.load(d / f"route{e}.npy"))
+               for e in (0, 1)]
+        _, got = drive("pipeline", lambda: None, lambda _: drive_pipeline(
+            pcfg, arrived, sizes, rts, dev))
+        st = got["state"]
+        out["pipeline"].update(
+            result=result(*P.committed(pcfg, st)), ticks=got["ticks"],
+            drains=list(got["drains"]), dropped=got["dropped"],
+            sealed=list(got["sealed"]),
+            report={k: got["report"][k] for k in (
+                "epoch", "active", "removed", "moved", "marker_round")},
+            overflowed=bool(st.overflowed),
+            tree_sha=tree_digest(pipeline_tree(st, pcfg.engine)))
+    dist.barrier()
+    dist.destroy_process_group()
+    (d / f"{tag}_r{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def mesh_world(tag: str, backend: str, world: int, d: Path) -> list:
+    """Run one world's ranks as children of this script, with a deadline;
+    a child that fails, hangs or exits non-zero fails the phase (every
+    child is stopped first). Returns each rank's record."""
+    logs = [open(d / f"{tag}_r{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", tag,
+         str(r), str(world), backend, str(d)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    end = time.monotonic() + MESH_DEADLINE_S
+    failed = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "deadline"
+            if rc != 0:
+                failed.append((r, rc))
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if failed:
+        r, rc = failed[0]
+        tail = (d / f"{tag}_r{r}.log").read_text()[-4000:]
+        fail(f"mesh/{tag}: rank {r} ended with {rc}:\n{tail}")
+    return [json.loads((d / f"{tag}_r{r}.json").read_text())
+            for r in range(world)]
+
+
+def mesh_phase(dev, tiles_np, main_want, main_state, adaptive: dict,
+               pipe: dict) -> dict:
+    """The meshed engine: each world's ranks against the unmeshed card
+    and CPU runs of this call (merged sha256, count, committed length,
+    gathered state), exact launches on every rank (2T and T per
+    ``Engine.run``), each rank's kernels on its card; adaptive/skew and
+    the pipeline with its flip at 2 gloo ranks; timing."""
+    import tempfile
+    start = time.perf_counter()
+    n_nccl = min(torch.cuda.device_count(), 4)
+    want_state = tree_digest(state_tree(main_state))
+    skew = adaptive["skew"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for i, x in enumerate(tiles_np):
+            np.save(d / f"tiles{i}.npy", x)
+        np.save(d / "arrived.npy", pipe["arrived"].numpy())
+        for e, rt in enumerate(pipe["rts"]):
+            np.save(d / f"route{e}.npy", rt.numpy())
+        for backend, world in [("nccl", n_nccl)] + [
+                ("gloo", n) for n in MESH_GLOO_WORLDS]:
+            tag = f"{backend}{world}"
+            t0 = time.perf_counter()
+            ranks = mesh_world(tag, backend, world, d)
+            seconds = time.perf_counter() - t0
+            for r, rec in enumerate(ranks):
+                name = f"mesh/{tag}/rank{r}"
+                check(rec["backend"] == backend and rec["mesh"]["rank"] == r
+                      and rec["mesh"]["size"] == min(world, G),
+                      f"{name}: mesh {rec['backend']} {rec['mesh']}")
+                want_dev = str(mesh_device(backend, r))
+                paths = ["run"] + (["tick"] if backend == "nccl" else [])
+                for path in paths:
+                    got = rec[path]
+                    check(tuple(got["result"]) == main_want,
+                          f"{name}/{path}: {got['result']} != the unmeshed "
+                          f"card and CPU runs' {main_want}")
+                    check(got["state_sha"] == want_state,
+                          f"{name}/{path}: gathered state differs from the "
+                          "unmeshed run's")
+                    check(tuple(got["launches"]) == (2 * T_MAIN, T_MAIN),
+                          f"{name}/{path}: launches {got['launches']}, "
+                          f"expected {(2 * T_MAIN, T_MAIN)}")
+                check(rec["run"]["device"] == want_dev,
+                      f"{name}: kernels on {rec['run']['device']}, expected "
+                      f"{want_dev}")
+                if "adaptive" in rec:
+                    a = rec["adaptive"]
+                    n = sum(a["rounds"])
+                    check(tuple(a["result"]) == (skew["sha256"],
+                                                 skew["count"],
+                                                 skew["committed"])
+                          and a["rounds"] == skew["rounds"]
+                          and a["state_sha"] == skew["state_sha"]
+                          and a["dropped"] == 0,
+                          f"{name}/adaptive: differs from the unmeshed "
+                          "adaptive/skew run")
+                    check(tuple(a["launches"]) == (2 * n, n),
+                          f"{name}/adaptive: launches {a['launches']}, "
+                          f"expected {(2 * n, n)}")
+                if "pipeline" in rec:
+                    p = rec["pipeline"]
+                    check(tuple(p["result"]) == (pipe["sha256"], pipe["count"],
+                                                 pipe["committed"])
+                          and p["tree_sha"] == pipe["tree_sha"]
+                          and tuple(p["drains"]) == tuple(pipe["drains"])
+                          and p["ticks"] == pipe["ticks"],
+                          f"{name}/pipeline: differs from the unmeshed "
+                          "pipeline run")
+                    check(p["report"]["moved"] == 0
+                          and tuple(p["report"]["removed"]) == (G - 1,)
+                          and p["sealed"][0] == p["sealed"][1]
+                          and p["dropped"] == 0 and not p["overflowed"],
+                          f"{name}/pipeline: flip {p['report']}, sealed "
+                          f"{p['sealed']}, dropped {p['dropped']}")
+                    check(tuple(p["launches"]) == (2 * p["ticks"],
+                                                    p["ticks"]),
+                          f"{name}/pipeline: launches {p['launches']}")
+            out[tag] = ranks
+            log(phase=f"mesh/{tag}", seconds=seconds, ranks=[dict(
+                rank=rec["rank"], mesh=rec["mesh"],
+                **{path: {k: rec[path][k] for k in (
+                    "launches", "seconds", "wall_seconds")}
+                   for path in ("run", "tick", "adaptive", "pipeline")
+                   if path in rec},
+                run_ticks_per_s=rec["run"]["ticks_per_s"],
+                timing=rec.get("timing")) for rec in ranks])
+    log(phase="mesh/seconds", seconds=time.perf_counter() - start)
+    return out
 
 
 # -- model serving path -------------------------------------------------------
@@ -2027,6 +2367,9 @@ def nvidia_smi() -> str:
 
 
 def main() -> int:
+    if len(sys.argv) == 7 and sys.argv[1] == "--mesh-child":
+        tag, rank, world, backend, d = sys.argv[2:]
+        return mesh_child(tag, int(rank), int(world), backend, Path(d))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2052,8 +2395,8 @@ def main() -> int:
         bytes=sum(x.nbytes for x in tiles_np))
 
     # the main path: counts are reset right before each drive of it
-    _, main = run_family("gated_recycled", tiles_cpu, tiles_dev, dev,
-                         host_ticks=True)
+    main_want, main = run_family("gated_recycled", tiles_cpu, tiles_dev,
+                                 dev, host_ticks=True)
     main_launches = main["run"]["launches"]
     retired = main["run"]["engine"].state.core.rs.retired
     check(int(retired.min()) >= 6 * W,
@@ -2075,6 +2418,11 @@ def main() -> int:
     pipe_adaptive = adaptive_pipeline_phase(dev, pipe, engine["ticks_per_s"])
     bandwidth = bandwidth_phase(dev)
     log(phase="adaptive/seconds", seconds=time.perf_counter() - t0)
+    # the meshed engine: each world's children reset their counts
+    # before each drive
+    mesh = mesh_phase(dev, tiles_np, main_want, main["run"]["engine"].state,
+                      adaptive, pipe)
+    del tiles_np
     torch.cuda.empty_cache()
 
     # the model-serving path: each model's drive resets the counts first
@@ -2086,6 +2434,7 @@ def main() -> int:
     serve_cli(dev)
     model_timing = time_model_kernels(dev)
 
+    cells = f"gloo{MESH_GLOO_WORLDS[0]}"    # the mesh's adaptive, pipeline
     by_name = {}
     for row in timings:                  # first row per kernel: main shape
         by_name.setdefault(row["name"], row)
@@ -2100,7 +2449,13 @@ def main() -> int:
         by_path = {"engine": launches, "pipeline": pipe["launches"][i],
                    **{f"adaptive/{k}": v["launches"][i]
                       for k, v in adaptive.items()},
-                   "pipeline/adaptive": pipe_adaptive["launches"][i]}
+                   "pipeline/adaptive": pipe_adaptive["launches"][i],
+                   **{f"engine/mesh/{tag}": sum(r["run"]["launches"][i]
+                                                for r in ranks)
+                      for tag, ranks in mesh.items()},
+                   **{f"{path}/mesh": sum(r[path]["launches"][i]
+                                          for r in mesh[cells])
+                      for path in ("adaptive", "pipeline")}}
         check(all(v > 0 for v in by_path.values()),
               f"{name} was not launched on every engine path: {by_path}")
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2184,7 +2539,11 @@ def main() -> int:
             "ticks_per_s", "committed_ids_per_s",
             "committed_requests_per_s")}
             for k, v in pipe_adaptive["timing"].items()},
-        bandwidth={r["groups"]: r["per_node_in_bytes"] for r in bandwidth})
+        bandwidth={r["groups"]: r["per_node_in_bytes"] for r in bandwidth},
+        mesh={tag: dict(run_ticks_per_s=[r["run"]["ticks_per_s"]
+                                         for r in ranks],
+                        **ranks[0].get("timing", {}))
+              for tag, ranks in mesh.items()})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
         for s in serves.values()}, profile_retries=PROFILE_RETRIES,

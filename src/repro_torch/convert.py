@@ -8,7 +8,10 @@ with array leaves or as nested dicts. Bitset fields (``ack_bits``,
 ``vote_bits``, ``hold_bits``) cross as a ``uint32`` ↔ ``int32`` view with
 the same bits; every other field keeps its dtype (int32 or bool). An
 adaptive ``TrafficQueue`` crosses the same way (:func:`queue_from_numpy`,
-:func:`queue_to_numpy`), its tile rings as bitsets.
+:func:`queue_to_numpy`), its tile rings as bitsets. A meshed
+``EngineState`` (``EngineConfig.mesh``) crosses as the logical state:
+gathered from every rank on the way out, each rank's rows taken on the
+way in (``engine.meshed.gather_state`` / ``shard_state``).
 
 Model weights cross in the layout of the reference's ``init_lm``: nested
 dicts whose segment leaves are stacked along a leading layer axis
@@ -22,6 +25,7 @@ import torch
 from .core.tilesim import QuorumState
 from .dissem.engine import DissemState
 from .engine.adaptive import TrafficQueue, init_queue
+from .engine import meshed
 from .engine.api import EngineConfig, EngineState, create_state
 from .engine.merge import MergeState
 from .engine.sharded import GatedRecycleState, RecycleState
@@ -115,20 +119,30 @@ def engine_state_from_numpy(cfg: EngineConfig, tree, device):
     """Build the port's state from a reference state given as numpy
     arrays under the reference's field names: an ``EngineState`` gives an
     :class:`EngineState`, a family state gives the port's family state.
-    Raises ``ValueError`` if its shapes or dtypes do not fit ``cfg``."""
+    Raises ``ValueError`` if its shapes or dtypes do not fit ``cfg``.
+    Under ``cfg.mesh`` the tree is the logical state, and an
+    ``EngineState`` comes back as this rank's meshed state."""
     state = _from_tree(tree, device)
-    tmpl = _find(create_state(cfg, "meta"), type(state))
+    logical = cfg if cfg.mesh is None else meshed.unmeshed(cfg)
+    tmpl = _find(create_state(logical, "meta"), type(state))
     if tmpl is None:
         raise ValueError(f"{type(state).__name__} is not part of a "
                          f"{cfg.family!r} engine state")
     _check_like(state, tmpl, type(state).__name__)
+    if cfg.mesh is not None and isinstance(state, EngineState):
+        return meshed.shard_state(cfg, state)
     return state
 
 
-def engine_state_to_numpy(state):
+def engine_state_to_numpy(state, cfg: EngineConfig | None = None):
     """The port's state (an ``EngineState`` or any family state) → nested
     dicts of numpy arrays under the reference's field names, bitsets as
-    ``uint32``."""
+    ``uint32``. A meshed ``EngineState`` needs its ``cfg``: it is
+    gathered to the logical state first (a collective: every rank of
+    the mesh calls it)."""
+    if cfg is not None and cfg.mesh is not None and \
+            isinstance(state, EngineState):
+        state = meshed.gather_state(cfg, state)
     out = {}
     for f in state._fields:
         v = getattr(state, f)
@@ -146,21 +160,31 @@ def queue_from_numpy(cfg: EngineConfig, tree, device) -> TrafficQueue:
     numpy arrays (a NamedTuple or a dict under the reference's field
     names; rings ``uint32``). Raises ``ValueError`` if its shapes or
     dtypes do not fit ``cfg`` (with ``adaptive`` set) at the ring's own
-    capacity."""
+    capacity. Under ``cfg.mesh`` the tree is the logical queue, and the
+    queue of this rank's rows comes back."""
     fields = {}
     for f in TrafficQueue._fields:
         v = _get(tree, f)
         fields[f] = None if v is None else bits_from_numpy(v, device) \
             if f in QUEUE_RINGS else _leaf_from_numpy(f, v, device)
     queue = TrafficQueue(**fields)
-    _check_like(queue, init_queue(cfg, capacity=queue.acks.shape[1],
+    logical = cfg if cfg.mesh is None else meshed.unmeshed(cfg)
+    _check_like(queue, init_queue(logical, capacity=queue.acks.shape[1],
                                   device="meta"), "TrafficQueue")
+    if cfg.mesh is not None:
+        queue = TrafficQueue(*(meshed.local_rows(cfg, v) for v in queue))
     return queue
 
 
-def queue_to_numpy(queue: TrafficQueue) -> dict:
+def queue_to_numpy(queue: TrafficQueue,
+                   cfg: EngineConfig | None = None) -> dict:
     """The port's ``TrafficQueue`` → a dict of numpy arrays under the
-    reference's field names, rings as ``uint32``."""
+    reference's field names, rings as ``uint32``. A meshed queue needs
+    its ``cfg`` and is gathered to the logical queue first."""
+    if cfg is not None and cfg.mesh is not None:
+        queue = TrafficQueue(*(None if v is None
+                               else meshed.gather_rows(cfg, v)
+                               for v in queue))
     return {f: None if v is None else bits_to_numpy(v) if f in QUEUE_RINGS
             else v.detach().cpu().numpy()
             for f, v in queue._asdict().items()}

@@ -38,7 +38,11 @@ Entry points: :func:`init_queue` / :func:`enqueue` /
 :func:`queue_from_arrays` (the per-group ring of pre-packed tiles),
 :func:`plan_rounds` (the policy), :func:`adaptive_pass`,
 :func:`run_adaptive` and :func:`subtick_pass` (the queue-less variant
-the closed pipeline wires in).
+the closed pipeline wires in). All of them run under
+``EngineConfig.mesh`` too, as the reference's ``meshed`` twins do: the
+queue holds the rank's rows, R comes from the gathered lag, the rounds
+run on the rank's rows and one gather feeds the merge replica
+(``engine.meshed``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from ..core.tilesim import QuorumState, _words, admitted_mask
 from ..device import resolve_device
 from ..dissem.engine import unstable_backlog
 from . import merge as merge_mod
+from . import meshed as meshed_mod
 from . import sharded as sharded_mod
 
 POLICIES = ("backlog", "undecided", "unstable")
@@ -112,12 +117,15 @@ def init_queue(cfg, capacity: int | None = None,
                device=None) -> TrafficQueue:
     """Empty :class:`TrafficQueue` shaped for ``cfg`` (an ``EngineConfig``
     with ``adaptive`` set) on ``device`` (default ``cuda``); ``capacity``
-    overrides ``cfg.adaptive.queue_capacity``."""
+    overrides ``cfg.adaptive.queue_capacity``. Under a mesh, the queue
+    of the rank's rows."""
     if cfg.adaptive is None:
         raise ValueError("init_queue() needs EngineConfig.adaptive set")
     dev = resolve_device(device)
     C = int(cfg.adaptive.queue_capacity if capacity is None else capacity)
     G, W = cfg.groups, cfg.window
+    if cfg.mesh is not None:
+        G = meshed_mod.member_mesh(cfg).rows
 
     def ring(n):
         return torch.zeros((G, C, W, _words(n)), dtype=_I32, device=dev)
@@ -142,7 +150,8 @@ def enqueue(queue: TrafficQueue, acks: torch.Tensor, votes: torch.Tensor,
     """Append one tile set per group (rows where ``mask``, default all).
 
     acks int32[G, W, WORDS_D], votes int32[G, W, WORDS_S], holds required
-    exactly when the queue carries them. A full ring rejects the tile
+    exactly when the queue carries them; under a mesh, the rank's rows
+    (``meshed.local_rows``). A full ring rejects the tile
     and counts it in ``queue.dropped`` (dropping traffic is lossy:
     callers size ``queue_capacity`` for the worst burst and check
     ``dropped``). ``inplace`` writes the tiles into the queue's own
@@ -185,7 +194,8 @@ def queue_from_arrays(cfg, acks_seq: torch.Tensor, votes_seq: torch.Tensor,
     gives each group's true tile count (≤ T; default T for all): tiles
     past a group's length are never consumed, which is how a skewed
     workload is expressed. Pre-loading is the regime in which adaptive
-    pacing is bit-identical to lock-step."""
+    pacing is bit-identical to lock-step. Under a mesh the tensors are
+    logical and the queue holds the rank's rows (pad rows empty)."""
     if (cfg.gating is not None) != (holds_seq is not None):
         raise ValueError(
             "hold traffic is required exactly when gating is configured: "
@@ -195,6 +205,12 @@ def queue_from_arrays(cfg, acks_seq: torch.Tensor, votes_seq: torch.Tensor,
     dev = acks_seq.device
     tail = torch.full((G,), T, dtype=_I32, device=dev) if lengths is None \
         else torch.as_tensor(lengths, dtype=_I32).to(dev)
+    if cfg.mesh is not None:
+        acks_seq, votes_seq, holds_seq = (
+            meshed_mod.local_rows(cfg, x, 1)
+            for x in (acks_seq, votes_seq, holds_seq))
+        tail = meshed_mod.local_rows(cfg, tail)
+        G = tail.shape[0]
 
     def ring(x):
         return None if x is None else x.transpose(0, 1).contiguous()
@@ -263,13 +279,20 @@ def plan_rounds(cfg, state, queue: TrafficQueue)\
     ``R ∈ {0..K}`` is the round count of the next pass (0 iff every
     group is drained and has no assignable backlog: a no-op pass);
     ``k = min(R, backlog)`` is how many queued tiles each group
-    consumes."""
+    consumes. Under a mesh, the lag and need of every rank's rows are
+    gathered first (pad rows sliced off, so they cannot distort the
+    spread): R is the same on every rank, ``k`` covers the rank's
+    rows."""
     ad = cfg.adaptive
     rem = backlog(queue)
     lag = rem if ad.policy == "backlog" \
         else _state_lag(cfg, state.core, state.dissem, ad.policy)
-    R = _rounds_from_spread(ad, lag)
     need = (rem > 0) | (_assignable(_quorum(cfg, state.core)) > 0)
+    if cfg.mesh is not None:
+        got = meshed_mod.gather_rows(cfg, torch.stack(
+            [lag.to(_I32), need.to(_I32)], dim=1))
+        lag, need = got[:, 0], got[:, 1].bool()
+    R = _rounds_from_spread(ad, lag)
     R = torch.where(need.any(), R, 0).to(_I32)
     return R, torch.minimum(R, rem).to(_I32)
 
@@ -288,14 +311,20 @@ def _select_groups(mask: torch.Tensor, new, old, inplace: bool):
         else torch.where(m, new, old)
 
 
-def _family_tick(cfg, core, dissem, slot_ids, acks, votes, holds):
-    """One functional engine tick of all groups, any family: absorb →
-    assign → vote (→ recycle). Returns (core', dissem', assigned int32[G,
-    W], sids int32[G, W] — the slot→id map at assignment time, before
-    any recycle, which is what merge entries snapshot)."""
+def _family_tick(cfg, core, dissem, slot_ids, acks, votes, holds,
+                 id_base=None, inplace: bool = False):
+    """One engine tick of all rows, any family: absorb → assign → vote
+    (→ recycle). Returns (core', dissem', assigned int32[G, W], sids
+    int32[G, W] — the slot→id map at assignment time, before any
+    recycle, which is what merge entries snapshot).
+
+    Any number of leading rows; ``id_base`` is the recycled families'
+    fresh-id range override (``sharded.recycle_groups``), which the
+    meshed engine sets to its rows' logical group offsets. ``inplace``
+    lets the kernels write the bitsets into the state's buffers."""
     fam = cfg.family
     kw = dict(diss_majority=cfg.diss_majority, seq_majority=cfg.seq_majority,
-              order_budget=cfg.order_budget)
+              order_budget=cfg.order_budget, inplace=inplace)
     if fam == "plain":
         q, out = sharded_mod.sharded_tick(core, acks, votes, **kw)
         return q, None, out["assigned"], slot_ids
@@ -311,7 +340,8 @@ def _family_tick(cfg, core, dissem, slot_ids, acks, votes, holds):
         rs, _ = sharded_mod.recycle_groups(
             sharded_mod.RecycleState(q=q, slot_ids=sids,
                                      retired=core.retired),
-            watermark=rc.watermark, id_stride=rc.id_stride)
+            watermark=rc.watermark, id_stride=rc.id_stride,
+            id_base=id_base)
         return rs, None, out["assigned"], sids
     q, d, out = sharded_mod.gated_tick(
         core.rs.q, core.d, acks, holds, votes,
@@ -322,41 +352,55 @@ def _family_tick(cfg, core, dissem, slot_ids, acks, votes, holds):
             rs=sharded_mod.RecycleState(q=q, slot_ids=sids,
                                         retired=core.rs.retired), d=d),
         watermark=rc.watermark, id_stride=rc.id_stride,
-        fresh_stable=cfg.gating.fresh_stable)
+        fresh_stable=cfg.gating.fresh_stable, id_base=id_base)
     return gs, None, out["assigned"], sids
 
 
 def _masked_rounds(cfg, state, R: torch.Tensor, n_rounds: int, tile_fn,
-                   consume_of, inplace: bool):
+                   consume_of, inplace: bool, extra=None):
     """The rounds of one pass (``n_rounds`` = ``int(R)``), then one wide
     merge append of ``R·rw`` entries per group.
 
-    Round j ticks exactly the groups ``consume_of(j) | assignable``,
-    masked per group, over ``tile_fn(j, consume, core)`` (``core`` is
-    the live family state), and writes its fixed-width entries into a
-    SKIP-initialized [G, K·rw] buffer. Returns ``(state, dropped)``."""
+    Round j ticks exactly the rows ``consume_of(j) | assignable``,
+    masked per row, over ``tile_fn(j, consume, core)`` (``core`` is the
+    live family state), and writes its fixed-width entries into a
+    SKIP-initialized [rows, K·rw] buffer. The rows are all G groups, or
+    under a mesh the rank's rows: those mint fresh ids from their
+    logical groups' ranges, and the buffer reaches the merge replica
+    through ``meshed.append_rounds``. Returns ``(state, dropped,
+    extra)``, ``extra`` (int32[rows] or None) gathered to [G] under a
+    mesh."""
     rw = cfg.max_entries
     core, dissem = state.core, state.dissem
+    rows = _quorum(cfg, core).decided.shape[0]
     dev = state.merge.logs.device
-    buf = torch.full((cfg.groups, cfg.adaptive.max_tiles_per_tick * rw),
+    id_base = None
+    if cfg.mesh is not None:
+        id_base = meshed_mod.local_id_base(cfg, dev)
+    buf = torch.full((rows, cfg.adaptive.max_tiles_per_tick * rw),
                      merge_mod.SKIP, dtype=_I32, device=dev)
-    dropped = torch.zeros((), dtype=_I32, device=dev)
+    dropped = torch.zeros((rows,), dtype=_I32, device=dev)
     for j in range(n_rounds):
-        consume = consume_of(j)                               # bool[G]
+        consume = consume_of(j)                               # bool[rows]
         active = consume | (_assignable(_quorum(cfg, core)) > 0)
         acks, votes, holds = tile_fn(j, consume, core)
         ncore, ndissem, assigned, sids = _family_tick(
-            cfg, core, dissem, state.slot_ids, acks, votes, holds)
+            cfg, core, dissem, state.slot_ids, acks, votes, holds,
+            id_base=id_base)
         assigned = torch.where(active[:, None], assigned, -1)
         entries, _, drop_g = merge_mod.round_entries(assigned, sids, rw)
         buf[:, j * rw:(j + 1) * rw] = entries
-        dropped = dropped + torch.where(active, drop_g, 0).sum(dtype=_I32)
+        dropped = dropped + torch.where(active, drop_g, 0)
         core = _select_groups(active, ncore, core, inplace)
         if dissem is not None:
             dissem = _select_groups(active, ndissem, dissem, inplace)
+    state = state._replace(core=core, dissem=dissem)
+    if cfg.mesh is not None:
+        return meshed_mod.append_rounds(cfg, state, buf, R, n_rounds,
+                                        dropped, extra)
     counts = (R * rw).to(_I32).expand(cfg.groups)
     ms = merge_mod.append_entries(state.merge, buf, counts)
-    return state._replace(core=core, dissem=dissem, merge=ms), dropped
+    return state._replace(merge=ms), dropped.sum(dtype=_I32), extra
 
 
 def _check_adaptive(cfg, what: str) -> None:
@@ -382,7 +426,7 @@ def adaptive_pass(cfg, state, queue: TrafficQueue, *,
             f"configured: family={cfg.family!r}")
     C = queue.acks.shape[1]
     R, k = plan_rounds(cfg, state, queue)
-    g = torch.arange(cfg.groups, device=queue.acks.device)
+    g = torch.arange(queue.acks.shape[0], device=queue.acks.device)
 
     def tile_fn(j, consume, core):
         slot = ((queue.head + j) % C).long()
@@ -393,10 +437,11 @@ def adaptive_pass(cfg, state, queue: TrafficQueue, *,
         return (take(queue.acks), take(queue.votes),
                 None if queue.holds is None else take(queue.holds))
 
-    state, dropped = _masked_rounds(cfg, state, R, int(R), tile_fn,
-                                    lambda j: j < k, inplace)
+    state, dropped, consumed = _masked_rounds(
+        cfg, state, R, int(R), tile_fn, lambda j: j < k, inplace, extra=k)
     queue = queue._replace(head=queue.head + k)
-    return state, queue, {"rounds": R, "consumed": k, "dropped": dropped}
+    return state, queue, {"rounds": R, "consumed": consumed,
+                          "dropped": dropped}
 
 
 def run_adaptive(cfg, state, queue: TrafficQueue, *, n_passes: int,
@@ -465,13 +510,32 @@ def subtick_pass(cfg, state, acks: torch.Tensor, votes: torch.Tensor,
     re-absorbs them by position instead, which hands a surviving slot's
     bits to the fresh ids a recycle refilled it with, so that
     never-admitted ids are ordered (ROADMAP queue 3); the two agree
-    bit for bit wherever no round follows a recycle."""
+    bit for bit wherever no round follows a recycle.
+
+    Under a mesh the tiles are logical, every rank passes the same, and
+    the pass runs on the rank's rows (:func:`subtick_rows`)."""
+    _check_adaptive(cfg, "subtick_pass")
+    if cfg.mesh is not None:
+        acks, votes, holds = (meshed_mod.local_rows(cfg, x)
+                              for x in (acks, votes, holds))
+    return subtick_rows(cfg, state, acks, votes, holds, inplace=inplace)
+
+
+def subtick_rows(cfg, state, acks: torch.Tensor, votes: torch.Tensor,
+                 holds: torch.Tensor | None = None, *,
+                 inplace: bool = False) -> tuple[Any, dict]:
+    """:func:`subtick_pass` over tiles of the state's own rows: all G
+    groups, or under a mesh the rank's rows (the closed pipeline builds
+    only those). Under a mesh the lag is gathered before R, so every
+    rank reads the same R once."""
     _check_adaptive(cfg, "subtick_pass")
     policy = "undecided" if cfg.adaptive.policy == "backlog" \
         else cfg.adaptive.policy
-    R = _rounds_from_spread(
-        cfg.adaptive, _state_lag(cfg, state.core, state.dissem, policy))
-    first = torch.ones((cfg.groups,), dtype=torch.bool,
+    lag = _state_lag(cfg, state.core, state.dissem, policy)
+    if cfg.mesh is not None:
+        lag = meshed_mod.gather_rows(cfg, lag)
+    R = _rounds_from_spread(cfg.adaptive, lag)
+    first = torch.ones((acks.shape[0],), dtype=torch.bool,
                        device=state.merge.logs.device)
     from . import api as api_mod   # api imports this module
     tiles = (acks, votes, holds)
@@ -490,6 +554,6 @@ def subtick_pass(cfg, state, acks: torch.Tensor, votes: torch.Tensor,
         return _readdress(tiles, sids0,
                           api_mod.slot_ids(state._replace(core=core)))
 
-    state, dropped = _masked_rounds(cfg, state, R, n_rounds, tile_fn,
-                                    consume_of, inplace)
+    state, dropped, _ = _masked_rounds(cfg, state, R, n_rounds, tile_fn,
+                                       consume_of, inplace)
     return state, {"rounds": R, "dropped": dropped}

@@ -28,9 +28,10 @@ buffers, the counterpart of the reference's buffer donation).
 (drain-then-switch membership: :func:`reconfigure`,
 :meth:`Engine.reconfigure`); ``adaptive`` takes an
 ``engine.adaptive.AdaptiveConfig`` (adaptive tick batching:
-:meth:`Engine.enqueue`, :meth:`Engine.adaptive_pass`). ``mesh`` exists
-for the reference's signature; setting it raises
-``NotImplementedError`` until its layer is ported.
+:meth:`Engine.enqueue`, :meth:`Engine.adaptive_pass`); ``mesh`` takes a
+:class:`MeshConfig` (the group rows spread over ``torch.distributed``
+ranks, ``engine.meshed``): every verb then runs on the rank's rows and
+gives the unmeshed results bit for bit, the same on every rank.
 """
 from __future__ import annotations
 
@@ -44,13 +45,10 @@ from ..dissem.engine import init_dissem
 from . import adaptive as adaptive_mod
 from . import epochs as epochs_mod
 from . import merge as merge_mod
+from . import meshed as meshed_mod
 from . import sharded as sharded_mod
 from .adaptive import AdaptiveConfig
 from .epochs import EpochTable
-
-_NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1 item 10 (engine/meshed.py)",
-}
 
 
 @dataclass(frozen=True)
@@ -80,6 +78,27 @@ class GatingConfig:
     fresh_stable: bool = False
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-sharded group execution knobs (``engine.meshed``).
+
+    When set on :class:`EngineConfig`, every verb partitions the G group
+    rows across the ranks of the initialised default process group
+    (one process per rank; ``launch.mesh.make_group_mesh``): per-group
+    quorum, stability and adaptive work runs on each rank's own rows,
+    and only the round-robin merge crosses ranks (one gather of
+    fixed-width entry rows per tick or pass). The merged learner log is
+    bit-identical to the unmeshed path for any world size. Without a
+    process group the mesh is one rank.
+
+    ``n_devices``: mesh size; ``None`` → the world size. Clamped at
+    first use to the world size and to ``groups`` (when the clamped size
+    does not divide ``groups``, inert pad rows are added and sliced off
+    before the merge). ``axis_name``: the mesh axis name."""
+    n_devices: int | None = None
+    axis_name: str = "group"
+
+
 def _majority(n: int) -> int:
     return n // 2 + 1
 
@@ -105,17 +124,12 @@ class EngineConfig:
     gating: GatingConfig | None = None
     epochs: EpochTable | None = None
     adaptive: AdaptiveConfig | None = None
-    mesh: Any = None
+    mesh: MeshConfig | None = None
 
     def __post_init__(self):
         def norm(field, value):
             object.__setattr__(self, field, value)
 
-        for f, item in _NOT_PORTED.items():
-            if getattr(self, f) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{f} is not ported to repro_torch yet: "
-                    f"see {item}")
         for f in ("groups", "window", "n_diss", "n_seq", "order_budget",
                   "merge_capacity"):
             if int(getattr(self, f)) < 1:
@@ -189,6 +203,19 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.adaptive must be an AdaptiveConfig, got "
                 f"{type(self.adaptive).__name__}")
+        if self.mesh is not None:
+            m = self.mesh
+            if not isinstance(m, MeshConfig):
+                raise ValueError(
+                    f"EngineConfig.mesh must be a MeshConfig, got "
+                    f"{type(m).__name__}")
+            if m.n_devices is not None and int(m.n_devices) < 1:
+                raise ValueError(
+                    f"MeshConfig.n_devices must be >= 1, got "
+                    f"{m.n_devices}")
+            norm("mesh", MeshConfig(
+                None if m.n_devices is None else int(m.n_devices),
+                str(m.axis_name)))
         if self.epochs is not None and self.epochs.n_rows != self.groups:
             raise ValueError(
                 f"EpochTable.n_rows={self.epochs.n_rows} must equal "
@@ -211,7 +238,11 @@ class EngineState(NamedTuple):
     GatedRecycleState); ``dissem`` the DissemState of the non-recycled
     gated family (``None`` otherwise); ``slot_ids`` the slot→id map of
     the non-recycled families (``None`` otherwise — it lives in
-    RecycleState); ``merge`` the deterministic merge log."""
+    RecycleState); ``merge`` the deterministic merge log.
+
+    Under a mesh, ``core``, ``dissem`` and ``slot_ids`` hold the rank's
+    rows (pad rows included) and ``merge`` is the full replica;
+    ``meshed.gather_state`` gives the logical state."""
     core: Any
     dissem: Any
     slot_ids: Any
@@ -220,9 +251,16 @@ class EngineState(NamedTuple):
 
 def create_state(cfg: EngineConfig, device=None) -> EngineState:
     """Fresh engine state for a validated config, on ``device`` (default
-    ``cuda``; raises when there is no CUDA device)."""
+    ``cuda``, the current CUDA device; raises when there is none). Under
+    a mesh, the rank's rows and a full merge replica."""
     dev = resolve_device(device)
     ms = merge_mod.init_merge(cfg.groups, cfg.merge_capacity, dev)
+    if cfg.mesh is not None:
+        mesh = meshed_mod.member_mesh(cfg)
+        core, dissem, sids = meshed_mod.fresh_rows(cfg, mesh.rows,
+                                                   mesh.first, dev)
+        return EngineState(core=core, dissem=dissem, slot_ids=sids,
+                           merge=ms)
     if cfg.family in ("plain", "gated"):
         dissem = None if cfg.gating is None else init_dissem(
             cfg.groups, cfg.window, cfg.gating.n_diss_partition,
@@ -248,7 +286,8 @@ def create_state(cfg: EngineConfig, device=None) -> EngineState:
 
 
 def slot_ids(state: EngineState) -> torch.Tensor:
-    """Live slot→global-id map, whichever family holds it."""
+    """Live slot→global-id map, whichever family holds it (under a mesh,
+    the rank's rows)."""
     if state.slot_ids is not None:
         return state.slot_ids
     core = state.core
@@ -284,8 +323,12 @@ def tick(cfg: EngineConfig, state: EngineState, acks: torch.Tensor,
     """One merge-appended engine step (recycled families also recycle).
     The host-driven entry point for id-addressed traffic: re-read
     :func:`slot_ids` between calls. Returns ``(state, out)`` with the
-    family tick's outputs plus ``out["dropped"]``."""
+    family tick's outputs plus ``out["dropped"]``; under a mesh, the
+    reduced ``{"assigned", "dropped"}`` (``meshed.tick``)."""
     _need_holds(cfg, holds)
+    if cfg.mesh is not None:
+        return meshed_mod.tick(cfg, state, acks, votes, holds,
+                               inplace=inplace)
     fam = cfg.family
     kw = _family_kw(cfg)
     if fam == "recycled":
@@ -319,8 +362,12 @@ def run(cfg: EngineConfig, state: EngineState, acks_seq: torch.Tensor,
     """Multi-tick hot loop over [T, G, W, WORDS] tile sequences through
     the family's ``run_*_ticks_merged``. Returns ``(state, merged,
     merged_count, committed_count)``; recycled families need
-    position-uniform traffic inside a run."""
+    position-uniform traffic inside a run. Under a mesh, ``meshed.run``
+    over the same logical traffic."""
     _need_holds(cfg, holds_seq)
+    if cfg.mesh is not None:
+        return meshed_mod.run(cfg, state, acks_seq, votes_seq, holds_seq,
+                              inplace=inplace)
     fam = cfg.family
     kw = dict(_family_kw(cfg), inplace=inplace)
     if fam == "plain":
@@ -353,20 +400,25 @@ def recycle(cfg: EngineConfig, state: EngineState)\
         -> tuple[EngineState, torch.Tensor]:
     """Explicit watermark-gated compaction pass (normally implicit in
     :func:`tick`/:func:`run` for recycled families). Returns
-    ``(state, n_retired int32[G])``."""
+    ``(state, n_retired int32[G])`` (under a mesh, gathered)."""
     if cfg.recycling is None:
         raise ValueError(
             f"recycle() needs recycling configured (family={cfg.family!r}"
             " has a single-use window)")
+    id_base = None
+    if cfg.mesh is not None:
+        id_base = meshed_mod.local_id_base(cfg, state.merge.logs.device)
     if cfg.family == "gated_recycled":
         core, n = sharded_mod.gated_recycle_groups(
             state.core, watermark=cfg.recycling.watermark,
             id_stride=cfg.recycling.id_stride,
-            fresh_stable=cfg.gating.fresh_stable)
+            fresh_stable=cfg.gating.fresh_stable, id_base=id_base)
     else:
         core, n = sharded_mod.recycle_groups(
             state.core, watermark=cfg.recycling.watermark,
-            id_stride=cfg.recycling.id_stride)
+            id_stride=cfg.recycling.id_stride, id_base=id_base)
+    if cfg.mesh is not None:
+        n = meshed_mod.gather_rows(cfg, n)
     return state._replace(core=core), n
 
 
@@ -375,9 +427,16 @@ def reconfigure(cfg: EngineConfig, state: EngineState, old_epoch: int,
     """Drain-then-switch epoch change (host-side control plane, between
     ticking segments). Requires ``cfg.epochs``; dispatches to the
     family's ``epochs.reconfigure_*``. Modifies no input. Returns
-    ``(state, report)``."""
+    ``(state, report)``. Under a mesh every rank gathers the logical
+    state, switches it as the unmeshed engine does, and takes its rows
+    back: the reference's host gather and re-shard."""
     if cfg.epochs is None:
         raise ValueError("reconfigure() needs EngineConfig.epochs set")
+    if cfg.mesh is not None:
+        logical, report = reconfigure(
+            meshed_mod.unmeshed(cfg), meshed_mod.gather_state(cfg, state),
+            old_epoch, new_epoch)
+        return meshed_mod.shard_state(cfg, logical), report
     fam = cfg.family
     if fam == "plain":
         core, sids, ms, report = epochs_mod.reconfigure_plain(
@@ -405,6 +464,8 @@ def committed_prefix(cfg: EngineConfig, state: EngineState)\
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(merged, merged_count, committed_count) of the current state,
     without ticking — recycle-aware for recycled families."""
+    if cfg.mesh is not None:
+        return meshed_mod.committed_prefix(cfg, state)
     if cfg.recycling is not None:
         rs = state.core.rs if cfg.family == "gated_recycled" \
             else state.core
@@ -494,10 +555,18 @@ class Engine:
     def enqueue(self, acks, votes, holds=None, mask=None) -> None:
         """Queue one pre-packed tile set per group (rows where ``mask``)
         for adaptive passes, in place; a full ring counts the tile in
-        ``queue.dropped``."""
-        self.queue = adaptive_mod.enqueue(self._queue("enqueue"), acks,
-                                          votes, holds=holds, mask=mask,
-                                          inplace=True)
+        ``queue.dropped``. Under a mesh the tiles are logical and the
+        rank queues its rows."""
+        queue = self._queue("enqueue")
+        if self.cfg.mesh is not None:
+            if mask is None:       # pad rows stay empty
+                mask = torch.ones((self.cfg.groups,), dtype=torch.bool,
+                                  device=acks.device)
+            acks, votes, holds, mask = (
+                meshed_mod.local_rows(self.cfg, x)
+                for x in (acks, votes, holds, mask))
+        self.queue = adaptive_mod.enqueue(queue, acks, votes, holds=holds,
+                                          mask=mask, inplace=True)
 
     def adaptive_pass(self) -> dict:
         """One adaptive merged pass over the queued traffic, in place:
@@ -512,7 +581,8 @@ class Engine:
 
     @property
     def slot_ids(self) -> torch.Tensor:
-        """Live slot→id map int32[G, W] (re-read between ticks)."""
+        """Live slot→id map int32[G, W] (re-read between ticks; under
+        a mesh, the rank's rows)."""
         return slot_ids(self.state)
 
     @property

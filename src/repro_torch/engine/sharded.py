@@ -199,26 +199,36 @@ def init_recycled(groups: int, window: int, n_diss: int, n_seq: int, *,
                                             device=dev))
 
 
-def _recycle_plan_inputs(rs: RecycleState, watermark: int, id_stride: int):
+def _recycle_plan_inputs(rs: RecycleState, watermark: int, id_stride: int,
+                         id_base: torch.Tensor | None = None):
     """(enable bool[G], id_base int32[G]): a group recycles when fewer
     than ``watermark`` of its slots are undecided and the slot holding
-    its frontier instance is decided."""
+    its frontier instance is decided. ``id_base`` defaults to row index
+    × ``id_stride``."""
     q = rs.q
     free = (~q.decided).sum(dim=1, dtype=_I32)
     head_retirable = ((q.instance == rs.retired[:, None])
                       & q.decided).any(dim=1)
-    G = rs.slot_ids.shape[0]
-    id_base = torch.arange(G, dtype=_I32, device=q.decided.device) \
-        * id_stride
+    if id_base is None:
+        G = rs.slot_ids.shape[0]
+        id_base = torch.arange(G, dtype=_I32, device=q.decided.device) \
+            * id_stride
     return (free < watermark) & head_retirable, id_base
 
 
-def recycle_groups(rs: RecycleState, *, watermark: int, id_stride: int)\
+def recycle_groups(rs: RecycleState, *, watermark: int, id_stride: int,
+                   id_base: torch.Tensor | None = None)\
         -> tuple[RecycleState, torch.Tensor]:
     """Per-group watermark-gated compaction and refill. The masked pass
     runs for every group (a disabled group is an exact no-op), so no host
-    sync decides whether to run it. Returns (state', n_retired int32[G])."""
-    enable, id_base = _recycle_plan_inputs(rs, watermark, id_stride)
+    sync decides whether to run it. Returns (state', n_retired int32[G]).
+
+    ``id_base`` int32[rows] overrides each row's fresh-id range base
+    (default: row index × ``id_stride``). The meshed engine passes its
+    rows' logical group offsets: a rank's local row 0 is not logical
+    group 0, and fresh ids must come from the logical group's range."""
+    enable, id_base = _recycle_plan_inputs(rs, watermark, id_stride,
+                                           id_base)
     q, ids, retired, n_ret = tilesim.compact_and_refill_packed(
         rs.q, rs.slot_ids, rs.retired, id_base, enable)
     return RecycleState(q=q, slot_ids=ids, retired=retired), n_ret
@@ -374,12 +384,15 @@ def init_gated_recycled(groups: int, window: int, n_diss: int, n_seq: int,
 
 
 def gated_recycle_groups(gs: GatedRecycleState, *, watermark: int,
-                         id_stride: int, fresh_stable: bool = False)\
+                         id_stride: int, fresh_stable: bool = False,
+                         id_base: torch.Tensor | None = None)\
         -> tuple[GatedRecycleState, torch.Tensor]:
     """:func:`recycle_groups` for the gated engine: one shared per-group
     plan moves the quorum and dissemination windows; freed slots are born
-    with empty holds and ``stable=fresh_stable``."""
-    enable, id_base = _recycle_plan_inputs(gs.rs, watermark, id_stride)
+    with empty holds and ``stable=fresh_stable``. ``id_base`` as in
+    :func:`recycle_groups`."""
+    enable, id_base = _recycle_plan_inputs(gs.rs, watermark, id_stride,
+                                           id_base)
     plan = tilesim.compaction_plan(gs.rs.q, gs.rs.retired, enable)
     q, ids, retired, n_ret = tilesim.compact_and_refill_packed(
         gs.rs.q, gs.rs.slot_ids, gs.rs.retired, id_base, plan=plan)

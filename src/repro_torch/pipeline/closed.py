@@ -23,6 +23,10 @@ One :func:`pipeline_tick` spans the four decoupled HT-Paxos stages
 4. **ordering** — one ``engine.api.tick`` of the gated, epoch-aware
    engine absorbs the tiles and appends to the merged log (with
    ``EngineConfig.adaptive``, one ``engine.adaptive.subtick_pass``).
+   With ``EngineConfig.mesh``, stages 1–3a run replicated on every rank
+   (the same inputs give the same tables), stage 3b builds the tiles of
+   the rank's group rows only, and the meshed tick or subtick pass
+   orders them (``engine.meshed``).
 
 Engine slots are addressed by **global rank**: group ``g``'s ``k``-th
 admitted batch is engine id ``g·stride + k`` (``stride`` = ``id_stride``
@@ -57,6 +61,7 @@ from ..device import resolve_device
 from ..dissem.batcher import BatchAccumulator, EMPTY_BATCH_BYTES
 from ..engine import adaptive as adaptive_mod
 from ..engine import api
+from ..engine import meshed
 from ..engine.api import EngineConfig, EngineState
 from ..engine.epochs import EpochTable, route_id_epoch
 from .vbatch import BatchState, init_batch_state, tick_flushes
@@ -259,12 +264,20 @@ def _consts(cfg: PipelineConfig, device: torch.device) -> _Consts:
 def _lag_tiles(cfg: PipelineConfig, state: PipelineState, c: _Consts)\
         -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recompute (acks, votes, holds) packed tiles from admission ages
-    against the engine's live slot→id map."""
+    against the engine's live slot→id map. Under a mesh, the tiles of
+    the rank's rows only: the admission record (replicated on every
+    rank) is sliced to them, and pad rows, with nothing admitted, get
+    zero tiles."""
     sids = api.slot_ids(state.engine)                       # int32[G, W]
-    rank = sids - c.id_base[:, None]
-    admitted = rank < state.admit_count[:, None]
-    at = torch.gather(state.admit_tick, 1,
-                      rank.clamp(0, cfg.capacity - 1).long())
+    admit_count, admit_tick, id_base = (state.admit_count,
+                                        state.admit_tick, c.id_base)
+    if cfg.engine.mesh is not None:
+        admit_count, admit_tick, id_base = (
+            meshed.local_rows(cfg.engine, x)
+            for x in (admit_count, admit_tick, id_base))
+    rank = sids - id_base[:, None]
+    admitted = rank < admit_count[:, None]
+    at = torch.gather(admit_tick, 1, rank.clamp(0, cfg.capacity - 1).long())
     age = state.tick - at                                   # int32[G, W]
 
     def tiles(lags):
@@ -351,9 +364,14 @@ def pipeline_tick(cfg: PipelineConfig, state: PipelineState,
     # extra masked assignment rounds, so a group whose lag has spread
     # ahead of the others drains at R x order_budget ids per tick: size
     # merge_capacity for up to K x max_entries appended entries per tick.
+    # Under a mesh the tiles are the rank's rows, which the ``*_rows``
+    # verbs take (the batcher and admission run replicated).
     if cfg.engine.adaptive is not None:
-        estate, eout = adaptive_mod.subtick_pass(
+        estate, eout = adaptive_mod.subtick_rows(
             cfg.engine, state.engine, acks, votes, holds, inplace=inplace)
+    elif cfg.engine.mesh is not None:
+        estate, eout = meshed.tick_rows(cfg.engine, state.engine, acks,
+                                        votes, holds, inplace=inplace)
     else:
         estate, eout = api.tick(cfg.engine, state.engine, acks, votes,
                                 holds, inplace=inplace)

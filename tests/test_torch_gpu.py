@@ -12,6 +12,8 @@ a machine without JAX:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -155,6 +157,50 @@ def test_engine_on_card_matches_cpu(cuda, fam):
             return all(same(a[k], b[k]) for k in a)
         return (a is None and b is None) or np.array_equal(a, b)
     assert same(got, want)
+
+
+def test_meshed_engine_on_card_matches_unmeshed_and_cpu(cuda, tmp_path):
+    """A meshed Engine.run over NCCL at world size 1 (rank 0 on cuda:0)
+    equals the unmeshed card run and the CPU run: merged log, count,
+    committed length and the gathered state; launches exactly 2T and
+    T."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.engine import meshed
+    G, W, T = 4, 16, 12
+    base = api.EngineConfig(
+        groups=G, window=W, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=T * 4,
+        recycling=api.RecyclingConfig(watermark=W // 2, id_stride=4096),
+        gating=api.GatingConfig(stab_majority=3))
+    cfg = dataclasses.replace(base, mesh=api.MeshConfig())
+    rng = np.random.default_rng(7)
+    tiles = [((rng.random((T, G, W, 1)) < p) * np.uint32(m)).astype(np.uint32)
+             for p, m in ((0.7, 0x1F), (0.6, 0x7), (0.8, 0x1F))]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        assert meshed.mesh_for(cfg).backend == "nccl"
+        before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        st, *res = api.run(cfg, api.create_state(cfg), *(
+            convert.bits_from_numpy(x, cuda) for x in tiles))
+        torch.cuda.synchronize()
+        launches = (kq.KERNEL.launches - before[0],
+                    kd.KERNEL.launches - before[1])
+        got = convert.engine_state_to_numpy(st, cfg)
+    finally:
+        dist.destroy_process_group()
+    assert st.merge.logs.device == torch.device("cuda", 0)
+    assert launches == (2 * T, T)
+    for dev in (cuda, "cpu"):
+        ust, *ures = api.run(base, api.create_state(base, dev), *(
+            convert.bits_from_numpy(x, dev) for x in tiles))
+        assert [int(x) for x in res[1:]] == [int(x) for x in ures[1:]]
+        assert torch.equal(res[0].cpu(), ures[0].cpu())
+        assert trees_equal(got, convert.engine_state_to_numpy(ust))
+    assert int(res[2]) > 0
 
 
 FLASH_CASES = [
