@@ -115,7 +115,34 @@ Phases, each of which must pass or the script exits non-zero:
 12. model-kernel timing at the serving path's shapes: kernel (and its
    device time; for WKV6 each pass's, and its workspace), plain version
    and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
-   bounds.
+   bounds;
+13. flash backward kernel phase: ``flash_attention_bwd`` against its
+   plain version on the card in f32 and bf16 (causal and not, windows,
+   Sq != Skv, G = 1 and 8, h 16 / 64 / 128, hv != h, ragged lengths, the
+   train cell's and the serving shape), one launch a call, two launches
+   at the train shape byte-equal; registers, spills, shared memory and
+   blocks per SM of its three CUDA kernels;
+14. ``train/yi-6b``: full width and depth, bf16, 2 x 4096 tokens a step
+   (the reference's train_4k cell with its batch cut to 2), 2
+   microbatches, Adafactor, through ``make_train_step`` inside a
+   ``TrainerStateMachine`` fed by a two-group ``MergedCommandLog``: 1
+   warm-up and 3 timed steps (CUDA events), each with exactly 128 forward
+   and 64 backward flash launches and a finite loss and grad_norm;
+   tokens/s and peak memory; a second pod fed the same decisions in
+   another order ends equal leaf for leaf (``torch.equal`` on the card);
+   one more step traced for each kernel's device time;
+15. ``train/f32``: yi-6b at 2 layers, full width, f32, one AdamW step on
+   the card against the same step on the CPU from one set of weights:
+   loss, grad_norm, every gradient leaf, the parameters after;
+   ``train/checkpoint``: at the same cut in bf16, a checkpoint saved by
+   the CKPT command with one node failed (committed by majority), pods
+   fed two interleavings on equal ``tree_digest``s, and a pod restored
+   into other weights that replays the rest of the log and ends on the
+   same digest; ``train/rwkv6-3b-refused``: RWKV6 training on the card
+   raises ``NotImplementedError`` (no WKV6 backward kernel yet);
+16. backward timing at the train cell's shape and the serving shape:
+   kernel, plain version, the backward of
+   ``scaled_dot_product_attention``, with the bound of its five products.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -207,7 +234,8 @@ def build_kernels() -> float:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build(["quorum.cu", "dissem.cu", "flash_attention.cu",
-                         "flash_attention_bf16.cu", "wkv6.cu"])
+                         "flash_attention_bf16.cu", "flash_attention_bwd.cu",
+                         "wkv6.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
         ptxas = [ln.strip() for ln in text.splitlines()
@@ -381,7 +409,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import quorum as kq
     from repro_torch.kernels import rwkv6_scan as kw
     for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kf.KERNEL_BF16,
-                   kw.KERNEL):
+                   kf.KERNEL_BWD, kw.KERNEL):
         kernel.launches = 0
 
 
@@ -1829,6 +1857,7 @@ def model_counts() -> dict:
     kf, kw = model_kernel_modules()
     return {"flash_attention": kf.KERNEL_BF16.launches,
             "flash_attention_f32": kf.KERNEL.launches,
+            "flash_attention_bwd": kf.KERNEL_BWD.launches,
             "wkv6_chunked": kw.KERNEL.launches}
 
 
@@ -2252,15 +2281,19 @@ def serve_cli(dev) -> None:
                     "8"])
 
 
-def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize) -> dict:
+def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize,
+                    backward=False) -> dict:
     """Causal attention with Sq = Skv: the visible (query, key) pairs
-    need 2 h + 2 hv flops each, at the bf16 tensor-core rate (itemsize 2)
-    or the f32 rate of the CUDA cores (itemsize 4); q, k, v read once and
-    the output written once."""
+    need 2 h + 2 hv flops each (S = Q K^T, P V), at the bf16 tensor-core
+    rate (itemsize 2) or the f32 rate of the CUDA cores (itemsize 4); q,
+    k, v read once and the output written once. ``backward``: the five
+    products S, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q, 6 h
+    + 4 hv flops a pair; q, k, v, o and do read once, dq, dk and dv
+    written once."""
     pairs = B * H * Sq * (Sq + 1) // 2
-    flops = pairs * 2 * (h + hv)
-    nbytes = itemsize * (B * Sq * H * h + B * Skv * K * (h + hv)
-                         + B * Sq * H * hv)
+    flops = pairs * ((6 * h + 4 * hv) if backward else 2 * (h + hv))
+    elems = (B * Sq * H * h + B * Skv * K * (h + hv) + B * Sq * H * hv)
+    nbytes = itemsize * elems * (2 if backward else 1)
     rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
@@ -2358,6 +2391,545 @@ def time_model_kernels(dev) -> dict:
     return rows
 
 
+# -- the training path ---------------------------------------------------------
+
+TRAIN_ARCH = "yi-6b"
+# the reference's train_4k cell (seq 4096, global batch 256) with the batch
+# cut to 2 for one card's memory and the run's time limit; its
+# microbatches (2) from configs/yi_6b.py; Adafactor, as the reference's
+# --full picks it (choose_optimizer(1e12))
+TRAIN_B, TRAIN_S = 2, 4096
+TRAIN_STEPS = 4               # 1 warm-up + 3 timed, each one STEP command
+TRAIN_LR = 1e-4
+F32_TRAIN_LAYERS, F32_TRAIN_B, F32_TRAIN_S = 2, 1, 256
+CKPT_B, CKPT_S = 2, 512       # the 2-layer checkpoint round trip
+REFUSE_S = 64
+# the f32 step, card vs CPU, from one set of weights: f32 rounding in
+# another summation order through 2 layers (cuBLAS against the host's
+# BLAS): loss 1e-5 and grad_norm 1e-4 relative, each gradient leaf 1e-3
+# of its largest magnitude; parameters after the AdamW step within
+# 2 lr + 1e-6 (its first step is lr sign(g), which a near-zero gradient
+# may flip)
+F32_STEP_TOL = dict(loss=1e-5, grad_norm=1e-4, grad=1e-3)
+# backward kernel vs its plain version: the forward's tolerances
+# (FLASH_TOL) times max(1, the gradient's largest magnitude)
+BWD_CASES = [
+    (1, 4096, 4096, 32, 4, 128, 128, True, -1, BF16),   # train/yi-6b
+    (4, 1024, 1024, 32, 4, 128, 128, True, -1, F32),    # serve shape, f32
+    (2, 256, 256, 8, 4, 64, 64, True, 100, F32),        # window
+    (2, 128, 128, 4, 2, 32, 32, False, -1, F32),        # non-causal
+    (2, 128, 128, 4, 2, 32, 32, False, 40, BF16),       # non-causal window
+    (2, 100, 130, 4, 2, 64, 48, True, -1, F32),         # Sq < Skv, hv != h
+    (2, 130, 100, 4, 4, 16, 16, True, -1, F32),         # Sq > Skv, G = 1
+    (2, 77, 77, 8, 8, 16, 16, True, 30, BF16),          # ragged window, G=1
+    (2, 256, 256, 16, 2, 128, 128, True, -1, BF16),     # G = 8
+    (2, 200, 300, 4, 2, 50, 36, True, -1, F32),         # odd widths
+    (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
+    (2, 100, 130, 4, 2, 64, 48, True, 40, BF16),        # window, hv != h
+]
+BWD_KERNELS = ("flash_bwd_rowstats_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
+
+
+def bwd_kernel_info() -> dict:
+    """Registers a thread, spill (local) bytes a thread, dynamic shared
+    bytes a block and blocks an SM of the three backward kernels at each
+    padded width and dtype (``flash_attention_bwd_info``)."""
+    from repro_torch.kernels import _build
+    fn = ctypes.CDLL(str(_build.library_path(
+        "flash_attention_bwd.cu"))).flash_attention_bwd_info
+    out = {}
+    for dtype, dname in ((0, "f32"), (1, "bf16")):
+        for width in (32, 64, 128):
+            for which, name in enumerate(BWD_KERNELS, start=1):
+                vals = [ctypes.c_int() for _ in range(4)]
+                err = fn(which, width, dtype, *map(ctypes.byref, vals))
+                check(err == 0, f"flash_attention_bwd_info({which}, {width},"
+                      f" {dtype}): {err}")
+                out[f"{name}/{dname}/{width}"] = dict(zip(
+                    ("registers", "spill_bytes", "smem_bytes_per_block",
+                     "blocks_per_sm"), (v.value for v in vals)))
+    return out
+
+
+def bwd_kernel_phase(dev) -> dict:
+    """The flash backward kernel against its plain version on the card in
+    every case of BWD_CASES (each call one launch of KERNEL_BWD and no
+    other kernel); two launches at the train shape give the same bytes.
+    The forward output ``o`` that the backward takes is held against the
+    plain forward too (FLASH_TOL), so the train shape's forward is
+    checked on the card. Returns the worst absolute error and the worst
+    error over its tolerance's scale of the backward, and the forward's
+    worst absolute error by kernel name."""
+    kf, _ = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    worst, worst_abs, cases = 0.0, 0.0, []
+    fwd_worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0}
+    for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in BWD_CASES:
+        q = randn(gen, (B, Sq, H, h), dev, dt)
+        k = randn(gen, (B, Skv, K, h), dev, dt)
+        v = randn(gen, (B, Skv, K, hv), dev, dt)
+        do = randn(gen, (B, Sq, H, hv), dev, dt)
+        o = kf.flash_attention(q, k, v, causal=causal, window=window)
+        o_want = kf.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window)
+        before = model_counts()
+        got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
+        check(o.dtype == dt and o.shape == o_want.shape,
+              f"flash_attention {case}: output {o.dtype}{tuple(o.shape)}")
+        o_err = float((o.float() - o_want.float()).abs().max())
+        check(o_err <= FLASH_TOL[dt], f"flash_attention {case} (forward of "
+              f"the backward case): max abs err {o_err} > {FLASH_TOL[dt]}")
+        fwd = "flash_attention" if dt == BF16 else "flash_attention_f32"
+        fwd_worst[fwd] = max(fwd_worst[fwd], o_err)
+        del o_want
+        check(launched == {**dict.fromkeys(launched, 0),
+                           "flash_attention_bwd": 1},
+              f"flash_attention_bwd {case} launched {launched}")
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.dtype == dt and a.shape == b.shape,
+                  f"flash_attention_bwd {case}: {name} {a.dtype}"
+                  f"{tuple(a.shape)}")
+            scale = max(1.0, float(b.float().abs().max()))
+            err = float((a.float() - b.float()).abs().max())
+            check(err <= FLASH_TOL[dt] * scale, f"flash_attention_bwd "
+                  f"{case}: {name} max abs err {err} > {FLASH_TOL[dt]} x "
+                  f"{scale}")
+            errs[name] = dict(err=err, scale=scale)
+            worst = max(worst, err / scale)
+            worst_abs = max(worst_abs, err)
+        extra = {}
+        if Sq == 4096:      # the train shape: byte-equal on a second launch
+            again = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                           window=window)
+            extra["same_bytes_twice"] = all(
+                torch.equal(a, b) for a, b in zip(got, again))
+            check(extra["same_bytes_twice"], f"flash_attention_bwd {case}: "
+                  "two launches on the same inputs differ")
+        cases.append(dict(case=case, tol=FLASH_TOL[dt], o_err=o_err,
+                          **errs, **extra))
+        del q, k, v, do, o, got, want
+    torch.cuda.empty_cache()
+    info = bwd_kernel_info()
+    log(phase="kernels/flash_bwd", cases=cases, worst_err_over_scale=worst,
+        max_abs_err=worst_abs, forward_max_abs_err=fwd_worst, info=info)
+    return dict(max_abs_err=worst_abs, worst_err_over_scale=worst,
+                info=info, forward_max_abs_err=fwd_worst)
+
+
+def leaves_equal(a, b) -> tuple[bool, int]:
+    """Two states leaf for leaf with ``torch.equal`` on the card; and the
+    number of tensors compared."""
+    from repro_torch.models.common import reference_leaves
+    la, lb = reference_leaves(a), reference_leaves(b)
+    if [p for p, _, _ in la] != [p for p, _, _ in lb]:
+        return False, 0
+    n, same = 0, True
+    for (_, ta, _), (_, tb, _) in zip(la, lb):
+        for x, y in zip(ta, tb):
+            same &= bool(torch.equal(x, y))
+            n += 1
+    return same, n
+
+
+def train_decisions(steps: int, noop: bool = False) -> list:
+    """(group, instance, command) of two ordering groups deciding STEP
+    b_0 .. b_{steps-1} in turn (group 0 the even ones), with a NOOP in
+    group 1's first slot when ``noop``."""
+    from repro_torch.runtime.statemachine import Command
+    cmds = [Command("STEP", f"b_{i}") for i in range(steps)]
+    if noop:
+        cmds.insert(1, Command("NOOP"))
+    return [(i % 2, i // 2, c) for i, c in enumerate(cmds)]
+
+
+def train_phase(dev) -> dict:
+    """train/yi-6b: full width and depth in bf16, TRAIN_B x TRAIN_S tokens
+    a step in 2 microbatches, Adafactor. Pod 0 applies TRAIN_STEPS STEP
+    commands (a MergedCommandLog of 2 groups) through make_train_step,
+    each timed with CUDA events, with exactly 2 L m forward (forward and
+    recompute) and L m backward flash launches a step; pod 1 applies the
+    same decisions fed in the reverse order and must end equal, leaf for
+    leaf. Then one more step of pod 0 under torch.profiler."""
+    from repro_torch.configs import registry
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.runtime.statemachine import (MergedCommandLog,
+                                                  TrainerStateMachine)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    kf, _ = model_kernel_modules()
+    cfg = registry.get(TRAIN_ARCH)
+    micro = registry.microbatches(TRAIN_ARCH, "train_4k")
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    src = ShardedBatchSource(cfg.vocab, TRAIN_B, TRAIN_S, seed=SEED,
+                             device=dev)
+    store = {f"b_{i}": src.batch(i) for i in range(TRAIN_STEPS)}
+    decided = train_decisions(TRAIN_STEPS)
+    want = {"flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_bwd": cfg.n_layers * micro}
+
+    def pod(name):
+        return TrainerStateMachine(name, step_fn, TR.make_state(
+            cfg, opt, torch.Generator(dev).manual_seed(SEED), dev), store)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = pod("pod0")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+
+    def timed_apply(cmd):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        a.apply(cmd)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                          launches=launched, **a.metrics_log[-1]))
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train step {len(steps)} launched {launched}, expected "
+              f"{want}")
+        check(all(np.isfinite(a.metrics_log[-1][k])
+                  for k in ("loss", "grad_norm")),
+              f"train step {len(steps)}: {a.metrics_log[-1]}")
+
+    # the main path: counts set to 0 right before, read right after
+    reset_counts()
+    log_a = MergedCommandLog(2, apply=timed_apply)
+    for g, i, cmd in decided:
+        log_a.feed(g, i, cmd)
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(a.step == TRAIN_STEPS and log_a.audit() == []
+          and counts["flash_attention_bwd"] == TRAIN_STEPS
+          * want["flash_attention_bwd"], f"train: step {a.step}, counts "
+          f"{counts}")
+    timed = steps[1:]
+    sec = sum(s["seconds"] for s in timed) / len(timed)
+
+    # the replica: the same decisions in the reverse feed order
+    b = pod("pod1")
+    log_b = MergedCommandLog(2, apply=b.apply)
+    for g, i, cmd in decided[::-1]:
+        log_b.feed(g, i, cmd)
+    same, n_tensors = leaves_equal(a.state, b.state)
+    check(same and log_b.audit() == [] and log_a.merged == log_b.merged
+          and a.metrics_log == b.metrics_log,
+          f"train: pods differ (leaves equal {same}, merged logs equal "
+          f"{log_a.merged == log_b.merged})")
+    del b, log_b
+    torch.cuda.empty_cache()
+
+    # one more step of pod 0, traced: device time of each kernel
+    wall = {}
+
+    def one_step():
+        t1 = time.perf_counter()
+        step_fn(a.state, store["b_0"])
+        torch.cuda.synchronize()
+        wall["us"] = (time.perf_counter() - t1) * 1e6
+    events = device_kernels(one_step, 1, "flash_bwd_",
+                            len(BWD_KERNELS) * want["flash_attention_bwd"])
+    fwd_us = [us for name, us in events if SYMBOLS["flash_attention"] in name]
+    bwd_us = {k: [us for name, us in events if k in name]
+              for k in BWD_KERNELS}
+    check(len(fwd_us) == want["flash_attention"]
+          and all(len(v) == want["flash_attention_bwd"]
+                  for v in bwd_us.values()),
+          f"train profile: {len(fwd_us)} forward and "
+          f"{ {k: len(v) for k, v in bwd_us.items()} } backward events")
+    busy = sum(us for _, us in events)
+    res = dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S,
+        microbatches=micro, optimizer=opt.kind, lr=opt.lr,
+        init_seconds=init_s, steps=steps, seconds_per_step=sec,
+        tokens_per_s=TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
+        launches_per_step=want, launches=counts,
+        replica_leaves_compared=n_tensors,
+        profiled_step=dict(
+            wall_us=wall["us"], device_us=busy,
+            device_busy_share=busy / wall["us"],
+            flash_fwd_us_per_call=sum(fwd_us) / len(fwd_us),
+            flash_bwd_us_per_call=sum(sum(v) for v in bwd_us.values())
+            / want["flash_attention_bwd"],
+            flash_bwd_kernel_us_per_call={
+                k: sum(v) / len(v) for k, v in bwd_us.items()},
+            flash_fwd_share=sum(fwd_us) / busy,
+            flash_bwd_share=sum(sum(v) for v in bwd_us.values()) / busy))
+    log(phase="train/yi-6b", **res)
+    del a, log_a, store
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_f32_phase(dev) -> dict:
+    """yi-6b at F32_TRAIN_LAYERS layers, full width, f32, one AdamW step
+    of F32_TRAIN_B x F32_TRAIN_S tokens on the card and on the CPU from
+    one set of weights (drawn on the host): loss, grad_norm, every
+    gradient leaf and the parameters after the step."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models.common import reference_leaves
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = registry.get(TRAIN_ARCH).replace(n_layers=F32_TRAIN_LAYERS,
+                                           dtype=F32)
+    opt = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    cpu = TR.make_state(cfg, opt, torch.Generator().manual_seed(SEED), "cpu")
+    card = convert.train_state_from_jax(convert.train_state_to_numpy(cpu),
+                                        cfg, dev)
+    tokens = ShardedBatchSource(cfg.vocab, F32_TRAIN_B, F32_TRAIN_S,
+                                seed=SEED + 7, device="cpu").batch(0)
+    grads_of = TR.make_grad_fn(cfg, global_batch=F32_TRAIN_B)
+    out = {}
+    for name, state in (("card", card), ("cpu", cpu)):
+        d = state["step"].device
+        before = model_counts()
+        with TR.deterministic(d):
+            grads, loss = grads_of(state["params"],
+                                   {"tokens": tokens["tokens"].to(d)})
+            norm = TR._global_norm(grads)
+            O.apply_opt(opt, state["params"], grads, state["opt"],
+                        state["step"])
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        out[name] = dict(loss=float(loss), grad_norm=float(norm),
+                         grads=[[g.cpu() for g in leaf] for leaf in grads],
+                         launched=launched)
+        del grads
+    check(out["card"]["launched"]["flash_attention_f32"]
+          == 2 * F32_TRAIN_LAYERS and out["card"]["launched"]
+          ["flash_attention_bwd"] == F32_TRAIN_LAYERS,
+          f"train/f32: launches {out['card']['launched']}")
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    grad_err = 0.0
+    for lc, lg in zip(out["cpu"]["grads"], out["card"]["grads"]):
+        for a, b in zip(lc, lg):
+            grad_err = max(grad_err, float((a - b).abs().max())
+                           / max(float(a.abs().max()), 1e-30))
+    param_err = 0.0
+    for (_, tc, _), (_, tg, _) in zip(reference_leaves(cpu["params"]),
+                                      reference_leaves(card["params"])):
+        for a, b in zip(tc, tg):
+            param_err = max(param_err,
+                            float((a - b.cpu()).detach().abs().max()))
+    ok = (rel["loss"] <= F32_STEP_TOL["loss"]
+          and rel["grad_norm"] <= F32_STEP_TOL["grad_norm"]
+          and grad_err <= F32_STEP_TOL["grad"]
+          and param_err <= 2 * TRAIN_LR + 1e-6)
+    res = dict(layers=F32_TRAIN_LAYERS, batch=F32_TRAIN_B, seq=F32_TRAIN_S,
+               loss=out["card"]["loss"], grad_norm=out["card"]["grad_norm"],
+               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+               grad_leaf_rel_err=grad_err, param_err=param_err,
+               tolerance=dict(F32_STEP_TOL, params=2 * TRAIN_LR + 1e-6),
+               launches=out["card"]["launched"])
+    log(phase="train/f32", **res)
+    check(ok, f"train/f32: card vs CPU {res}")
+    del cpu, card, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def checkpoint_phase(dev) -> dict:
+    """At the 2-layer cut (full width, bf16, Adafactor): pod P applies
+    STEP, NOOP, STEP, STEP, CKPT(3), STEP from two groups; its CKPT saves
+    with node 1 failed (commit by majority) into a temporary directory
+    that is deleted after. Pod Q applies the same decisions in reverse
+    feed order: equal tree_digest. Pod R, restored from the checkpoint
+    into a state drawn from another seed, replays the log after the CKPT
+    and ends on P's digest."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.runtime.statemachine import (
+        Command, MergedCommandLog, TrainerStateMachine, tree_digest)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    cfg = registry.get(TRAIN_ARCH).replace(n_layers=F32_TRAIN_LAYERS)
+    opt = O.OptConfig(kind="adafactor", lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=2,
+                                 global_batch=CKPT_B)
+    src = ShardedBatchSource(cfg.vocab, CKPT_B, CKPT_S, seed=SEED + 8,
+                             device=dev)
+    store = {f"b_{i}": src.batch(i) for i in range(4)}
+    decided = train_decisions(3, noop=True)
+    decided += [(0, 2, Command("CKPT", 3)), (1, 2, Command("STEP", "b_3"))]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    manifests = []
+
+    def on_ckpt(sm, n):
+        t0 = time.perf_counter()
+        m = ckpt.save_sharded(sm.state, directory, n, fail_shards={1})
+        m["seconds"] = time.perf_counter() - t0
+        manifests.append(m)
+
+    def pod(name, seed, hook=None):
+        return TrainerStateMachine(name, step_fn, TR.make_state(
+            cfg, opt, torch.Generator(dev).manual_seed(seed), dev), store,
+            on_ckpt=hook)
+    try:
+        p = pod("P", SEED, on_ckpt)
+        log_p = MergedCommandLog(2, apply=p.apply)
+        for g, i, cmd in decided:
+            log_p.feed(g, i, cmd)
+        q = pod("Q", SEED)
+        log_q = MergedCommandLog(2, apply=q.apply)
+        for g, i, cmd in decided[::-1]:
+            log_q.feed(g, i, cmd)
+        check(p.step == q.step == 4 and log_p.audit() == log_q.audit() == []
+              and p.digest() == q.digest()
+              and tree_digest(p.state) == tree_digest(q.state),
+              f"checkpoint phase: pods P and Q differ ({p.digest()}, "
+              f"{q.digest()})")
+        check(len(manifests) == 1 and manifests[0]["committed"]
+              and manifests[0]["acked_nodes"] == [0, 2, 3],
+              f"checkpoint phase: manifest {manifests}")
+        t0 = time.perf_counter()
+        restored, man = ckpt.restore_sharded(
+            TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(
+                SEED + 1), dev), directory)
+        restore_s = time.perf_counter() - t0
+        check(int(restored["step"]) == 3 and tree_digest(
+            restored["params"]) == man["digest"],
+              f"checkpoint phase: restored step {int(restored['step'])}")
+        r = TrainerStateMachine("R", step_fn, restored, store)
+        cut = p.applied.index(("CKPT", 3))
+        for enc in p.applied[cut + 1:]:
+            r.apply(Command.decode(enc))
+        check(r.step == 4 and r.digest() == p.digest()
+              and tree_digest(r.state) == tree_digest(p.state),
+              f"checkpoint phase: restored pod ends on {r.digest()}, "
+              f"P on {p.digest()}")
+        res = dict(layers=cfg.n_layers, batch=CKPT_B, seq=CKPT_S,
+                   digest=p.digest(), state_digest=tree_digest(p.state),
+                   manifest_digest=man["digest"],
+                   acked_nodes=manifests[0]["acked_nodes"],
+                   save_seconds=manifests[0]["seconds"],
+                   restore_seconds=restore_s,
+                   leaves=manifests[0]["n_leaves"])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    check(not Path(directory).exists(), f"{directory} was not deleted")
+    log(phase="train/checkpoint", **res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_refusal_phase(dev) -> dict:
+    """rwkv6-3b (full width, one layer) refuses to train on the card: the
+    WKV6 kernel runs the forward, and the backward raises
+    NotImplementedError before any parameter changes."""
+    from repro_torch.configs import registry
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    _, kw = model_kernel_modules()
+    cfg = registry.get("rwkv6-3b").replace(n_layers=1)
+    opt = O.OptConfig(kind="adafactor", lr=TRAIN_LR)
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    before = state["params"]["ln_f"]["scale"].clone()
+    step_fn = TR.make_train_step(cfg, opt, global_batch=1)
+    tokens = torch.randint(0, cfg.vocab, (1, REFUSE_S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    launches = kw.KERNEL.launches
+    try:
+        step_fn(state, {"tokens": tokens})
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    res = dict(raised=raised, wkv6_launches=kw.KERNEL.launches - launches,
+               step=int(state["step"]))
+    log(phase="train/rwkv6-3b-refused", **res)
+    check("WKV6 backward kernel" in raised and res["wkv6_launches"] >= 1
+          and res["step"] == 0
+          and torch.equal(before, state["params"]["ln_f"]["scale"]),
+          f"rwkv6-3b training on the card did not refuse: {res}")
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_bwd_kernel(dev) -> dict:
+    """The backward kernel at the train cell's shape (a microbatch: q
+    [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
+    ([4, 1024, 32, 128], bf16 and f32): CUDA events over back-to-back
+    calls, the plain version, and the backward of one
+    scaled_dot_product_attention(is_causal=True, enable_gqa=True) on the
+    same inputs (its forward run once outside the timed calls; each timed
+    call is one autograd.grad of that output, retain_graph=True), with
+    the bound of the five products."""
+    import torch.nn.functional as F
+    kf, _ = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    rows = {}
+    for tag, (B, S, dt) in (("train", (1, TRAIN_S, BF16)),
+                            ("serve", (SERVE_B, SERVE_P, BF16)),
+                            ("serve_f32", (SERVE_B, SERVE_P, F32))):
+        H, K, h = 32, 4, 128
+        q = randn(gen, (B, S, H, h), dev, dt)
+        k = randn(gen, (B, S, K, h), dev, dt)
+        v = randn(gen, (B, S, K, h), dev, dt)
+        do = randn(gen, (B, S, H, h), dev, dt)
+        o = kf.flash_attention(q, k, v)
+        before = kf.KERNEL_BWD.launches
+        reps = 10 if tag != "serve_f32" else 5
+        ms = time_cuda(lambda: kf.flash_attention_bwd(q, k, v, o, do),
+                       reps=reps, warmup=2)
+        check(kf.KERNEL_BWD.launches - before == reps + 2,
+              f"flash_attention_bwd {tag}: timed calls did not launch it")
+        plain_ms = time_cuda(lambda: kf.flash_attention_bwd_plain(
+            q, k, v, o, do), reps=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dout = do.transpose(1, 2)
+        lib_grads = torch.autograd.grad(out, (qt, kt, vt), dout,
+                                        retain_graph=True)
+        want = kf.flash_attention_bwd_plain(q, k, v, o, do)
+        lib_err = max(float((g.transpose(1, 2).float() - w.float())
+                            .abs().max()) / max(1.0, float(
+                                w.float().abs().max()))
+                      for g, w in zip(lib_grads, want))
+        library_ms = time_cuda(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dout, retain_graph=True), reps=reps,
+            warmup=2)
+        _, events = traced(lambda: kf.flash_attention_bwd(q, k, v, o, do))
+        dev_us = {name: sum(us for n, us in events if name in n)
+                  for name in BWD_KERNELS}
+        rows[tag] = dict(
+            shape=[B, S, H, K, h], dtype=str(dt).replace("torch.", ""),
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library="torch.autograd.grad of scaled_dot_product_attention("
+                    "is_causal=True, enable_gqa=True)",
+            library_vs_plain_rel_err=lib_err, device_us=dev_us,
+            **attention_bound(B, S, S, H, K, h, h, dt.itemsize,
+                              backward=True))
+        rows[tag]["tflops_per_s"] = rows[tag]["flops"] / (ms * 1e9)
+        log(phase="timing/flash_bwd", name=tag, **rows[tag])
+        del q, k, v, do, o, qt, kt, vt, out, lib_grads, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2378,6 +2950,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the train phases run in PyTorch's deterministic mode, which asks for
+    # this cuBLAS setting before the process's first matrix product
+    from repro_torch.train.trainer import set_cublas_workspace
+    set_cublas_workspace()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2433,6 +3009,16 @@ def main() -> int:
     serve_cpu_phase(dev)
     serve_cli(dev)
     model_timing = time_model_kernels(dev)
+
+    # the training path: the train cell's drive resets the counts first
+    bwd_check = bwd_kernel_phase(dev)
+    for name, err in bwd_check["forward_max_abs_err"].items():
+        model_errors[name] = max(model_errors[name], err)
+    train = train_phase(dev)
+    train_f32_phase(dev)
+    checkpoint_phase(dev)
+    train_refusal_phase(dev)
+    bwd_timing = time_bwd_kernel(dev)
 
     cells = f"gloo{MESH_GLOO_WORLDS[0]}"    # the mesh's adaptive, pipeline
     by_name = {}
@@ -2515,6 +3101,10 @@ def main() -> int:
             check(f32_launches > 0, "flash_attention_f32 was not launched "
                   "on the f32 serving path")
             entry.update(
+                train_launches=train["launches"][name],
+                train_path=f"train/{train['arch']} ({TRAIN_STEPS} steps)",
+                train_device_ms_per_call=train["profiled_step"]
+                ["flash_fwd_us_per_call"] / 1e3,
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
@@ -2524,6 +3114,35 @@ def main() -> int:
                              "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms", "shape", "dtype")}))
         kernels.append(entry)
+    # the backward kernel: no Pallas counterpart, it replaces jax.vjp
+    # through the jnp flash_attend
+    row = bwd_timing["train"]
+    launches = train["launches"]["flash_attention_bwd"]
+    check(launches > 0, "flash_attention_bwd was not launched on the "
+          "train path")
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source=csrc + "flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:111",
+        pallas_counterpart=None,
+        replaces_what="no Pallas kernel: jax.vjp through "
+                      "models/layers.py::flash_attend",
+        launches=launches, path=f"train/{train['arch']} ({TRAIN_STEPS} "
+                                f"steps)",
+        max_abs_err=bwd_check["max_abs_err"],
+        max_err_over_scale=bwd_check["worst_err_over_scale"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        library=row["library"],
+        device_ms=train["profiled_step"]["flash_bwd_us_per_call"] / 1e3,
+        shape=row["shape"], dtype=row["dtype"],
+        other_shapes={k: {m: r[m] for m in (
+            "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for k, r in bwd_timing.items() if k != "train"},
+        kernel_info={k: v for k, v in bwd_check["info"].items()
+                     if k.endswith("/128")}))
+    log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
+                                     "peak_mem_bytes")})
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",
                                        "tick_loop_ticks_per_s",
                                        "generations_min")},

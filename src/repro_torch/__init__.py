@@ -6,7 +6,9 @@ windows), ``dissem.engine`` (dissemination stability), ``engine.merge``
 families), ``engine.epochs`` (epoch membership), ``engine.api`` (the
 ``Engine`` facade), ``pipeline`` (the closed pipeline: workload →
 batcher → stability → ordering), ``kernels`` (the hand-written CUDA
-kernels and their plain versions) and ``convert`` (state carried to and
-from numpy). State is created on the CUDA device unless the caller
+kernels and their plain versions), ``models`` and ``train`` (serving and
+training the model zoo), ``runtime`` (the trainer as a replicated state
+machine, its checkpoints and data feed) and ``convert`` (state carried
+to and from numpy). State is created on the CUDA device unless the caller
 passes ``device="cpu"``.
 """

@@ -1,8 +1,10 @@
 """Architecture registry: ``get(arch)`` → full config, ``get_smoke(arch)``
-→ the reduced config of the CPU tests.
+→ the reduced config of the CPU tests, ``microbatches(arch, shape)`` →
+the gradient-accumulation default of a shape cell.
 
-The port has the serving path of two architectures, ``yi-6b`` (dense
-GQA) and ``rwkv6-3b`` (RWKV6). Every other architecture of the reference
+The port has the dense GQA architectures ``yi-6b``, ``yi-34b``,
+``internlm2-1.8b`` and ``qwen3-14b`` (qk-norm) and the RWKV6 ``rwkv6-3b``,
+for serving and training. Every other architecture of the reference
 registry raises ``NotImplementedError`` naming the ROADMAP.md item that
 ports it.
 """
@@ -10,13 +12,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["yi-6b", "rwkv6-3b"]
+ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "rwkv6-3b"]
 
 # the reference's other architectures → the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "qwen3-14b": "queue 1 item 12 (dense GQA with qk-norm: config copy)",
-    "internlm2-1.8b": "queue 1 item 12 (dense GQA: config copy)",
-    "yi-34b": "queue 1 item 12 (dense GQA: config copy)",
     "deepseek-v3-671b": "queue 1 item 12 (MLA and MoE)",
     "llama4-maverick-400b-a17b": "queue 1 item 12 (MoE)",
     "hymba-1.5b": "queue 1 item 12 (hybrid with Mamba, ring-buffer cache)",
@@ -42,3 +41,7 @@ def get(arch: str):
 
 def get_smoke(arch: str):
     return _mod(arch).SMOKE
+
+
+def microbatches(arch: str, shape_name: str) -> int:
+    return getattr(_mod(arch), "MICROBATCHES", {}).get(shape_name, 1)

@@ -14,3 +14,5 @@ SMOKE = CONFIG.replace(
     name="rwkv6-smoke", n_layers=3, d_model=128, n_heads=4, n_kv_heads=4,
     head_dim=32, d_ff=256, vocab=512, ssm_heads=4,
 )
+
+MICROBATCHES = {"train_4k": 4}

@@ -13,3 +13,5 @@ SMOKE = CONFIG.replace(
     name="yi6b-smoke", n_layers=3, d_model=128, n_heads=8, n_kv_heads=4,
     head_dim=16, d_ff=256, vocab=512,
 )
+
+MICROBATCHES = {"train_4k": 2}

@@ -15,7 +15,13 @@ way in (``engine.meshed.gather_state`` / ``shard_state``).
 
 Model weights cross in the layout of the reference's ``init_lm``: nested
 dicts whose segment leaves are stacked along a leading layer axis
-(:func:`lm_params_from_jax`, :func:`lm_params_to_numpy`).
+(:func:`lm_params_from_jax`, :func:`lm_params_to_numpy`). A train state
+(``{"params", "opt", "step"}`` of ``train.trainer.make_state``) crosses
+the same way (:func:`train_state_from_jax`, :func:`train_state_to_numpy`):
+the optimizer state keeps the reference's stacked layout in the port too.
+bf16 arrays cross by their 2-byte pattern: a JAX bf16 array
+(``ml_dtypes.bfloat16``) or numpy void ``|V2`` (what ``np.savez`` stores)
+on the way in, ``|V2`` on the way out with ``native=True``.
 """
 from __future__ import annotations
 
@@ -201,12 +207,42 @@ def _weights_like(tree, tmpl: dict, path: str, device) -> dict:
         if isinstance(want, dict):
             out[k] = _weights_like(tree[k], want, f"{path}.{k}", device)
             continue
-        a = np.array(tree[k], dtype=np.float32)
-        if a.shape != tuple(want.shape):
-            raise ValueError(f"{path}.{k}: expected {tuple(want.shape)}, "
-                             f"got {a.shape}")
-        out[k] = torch.from_numpy(a).to(device=device, dtype=want.dtype)
+        out[k] = tensor_from_numpy(tree[k], want.dtype, device,
+                                   tuple(want.shape), f"{path}.{k}")
     return out
+
+
+def tensor_from_numpy(a, dtype: torch.dtype, device, shape=None,
+                      name: str = "array") -> torch.Tensor:
+    """A numpy (or JAX) array → a tensor of ``dtype`` on ``device``. A
+    bf16 array (``ml_dtypes.bfloat16`` or void ``|V2``) is taken by its
+    bits; any other goes through f32 (exact for the types here) or, for
+    an integer ``dtype``, as it is. Raises if ``shape`` is given and
+    differs."""
+    a = np.asarray(a)
+    if shape is not None and a.shape != tuple(shape):
+        raise ValueError(f"{name}: expected {tuple(shape)}, got {a.shape}")
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise TypeError(f"{name}: a {a.dtype} array is not bf16")
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()) \
+            .view(torch.bfloat16)
+    elif dtype.is_floating_point:
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def tensor_to_numpy(t: torch.Tensor, native: bool = False) -> np.ndarray:
+    """A tensor → numpy: floats as f32, or with ``native`` in their own
+    dtype, bf16 as void ``|V2`` (its bits)."""
+    t = t.detach().cpu()
+    if not native and t.dtype.is_floating_point:
+        return t.float().numpy()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
@@ -239,12 +275,13 @@ def _layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
-def lm_params_to_numpy(lm: LM) -> dict:
-    """The port's :class:`LM` → the reference's parameter layout as f32
-    numpy arrays, segment leaves stacked along a leading layer axis."""
+def lm_params_to_numpy(lm: LM, native: bool = False) -> dict:
+    """The port's :class:`LM` → the reference's parameter layout as numpy
+    arrays, segment leaves stacked along a leading layer axis: f32, or
+    with ``native`` each leaf in its own dtype (bf16 as ``|V2``)."""
     def arrays(tree: dict) -> dict:
         return {k: arrays(v) if isinstance(v, dict)
-                else v.detach().float().cpu().numpy()
+                else tensor_to_numpy(v, native)
                 for k, v in tree.items()}
 
     def stack(trees: list) -> dict:
@@ -255,3 +292,29 @@ def lm_params_to_numpy(lm: LM) -> dict:
             "ln_f": arrays(lm["ln_f"].to_dict()),
             "segments": {name: stack([arrays(l.to_dict()) for l in layers])
                          for name, layers in lm["segments"].items()}}
+
+
+# -- train state --------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def train_state_from_jax(tree, cfg: ModelConfig, device) -> dict:
+    """The reference's train state (``make_state``'s first result: params,
+    opt and step, as nested numpy arrays) → the port's, on ``device``. The
+    optimizer state stays in the reference's stacked layout, in f32."""
+    return {"params": lm_params_from_jax(tree["params"], cfg, device),
+            "opt": _tree_map(lambda a: tensor_from_numpy(
+                a, torch.float32, device), tree["opt"]),
+            "step": tensor_from_numpy(tree["step"], torch.int32, device)}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state → the reference's layout as numpy arrays in
+    their native dtypes (bf16 as ``|V2``; the step as an int32 scalar)."""
+    return {"params": lm_params_to_numpy(state["params"], native=True),
+            "opt": _tree_map(lambda t: tensor_to_numpy(t, True),
+                             state["opt"]),
+            "step": tensor_to_numpy(state["step"], True)}

@@ -18,6 +18,16 @@ dispatches on the device, then on the dtype:
   layout (:func:`f32_plan`);
 - a CPU tensor runs the plain version (:func:`flash_attention_plain`);
   any other device raises.
+
+:func:`flash_attention` is a ``torch.autograd.Function``
+(:class:`FlashAttention`): its backward is :func:`flash_attention_bwd`,
+which on a CUDA tensor launches ``csrc/flash_attention_bwd.cu``
+(:data:`KERNEL_BWD`, both dtypes, f32 arithmetic on the CUDA cores; one
+count a call, which runs three CUDA kernels over an f32 workspace of
+:func:`bwd_workspace_floats` values) and on a CPU tensor runs
+:func:`flash_attention_bwd_plain`. The JAX package has no backward
+kernel: it takes ``jax.vjp`` through ``repro.models.layers.flash_attend``.
+A failed build or launch raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -27,10 +37,14 @@ import math
 import torch
 
 from ._build import CudaKernel
+from .ref import flash_attention_bwd_plain
 from .ref import flash_attention_ref as flash_attention_plain
 
-__all__ = ["KERNEL", "KERNEL_BF16", "bf16_head_width", "f32_plan",
-           "flash_attention", "flash_attention_plain", "select_kernel"]
+__all__ = ["KERNEL", "KERNEL_BF16", "KERNEL_BWD", "FlashAttention",
+           "bf16_head_width", "bwd_workspace_floats", "f32_plan",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
+           "select_kernel"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
@@ -38,6 +52,11 @@ KERNEL = CudaKernel("flash_attention.cu", "flash_attention_launch",
                     _ARGS + [_I, _I, _P])
 KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
                          "flash_attention_bf16_launch", _ARGS + [_I, _P])
+# q, k, v, o, do, dq, dk, dv, workspace; B, Sq, Skv, H, K, h, hv, causal,
+# window; scale; padded width, dtype (0 f32, 1 bf16); stream
+KERNEL_BWD = CudaKernel("flash_attention_bwd.cu",
+                        "flash_attention_bwd_launch",
+                        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P])
 MAX_HEAD = 128
 WIDTHS = (32, 64, 128)   # the padded head widths both kernels are built at
 # the f32 kernel's tiling, as csrc/flash_attention.cu: query rows per
@@ -106,11 +125,10 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"no attention path for device {q.device}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = -1) -> torch.Tensor:
-    """q [B,Sq,H,h], k [B,Skv,K,h], v [B,Skv,K,hv] → [B,Sq,H,hv] in q's
-    dtype. Query i and key j sit at positions i and j; causal masks j > i,
-    a window w > 0 masks j <= i - w."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: int) -> torch.Tensor:
+    """The forward kernel of q's dtype on a CUDA tensor, the plain version
+    on a CPU tensor; no autograd."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -134,3 +152,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def bwd_workspace_floats(B: int, Sq: int, H: int) -> int:
+    """f32 values of the backward kernel's workspace: each query row's
+    log-sum-exp and its D = do . o."""
+    return 2 * B * Sq * H
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = -1):
+    """The gradient of :func:`flash_attention` at (q, k, v): ``o`` is its
+    output and ``do`` the output's gradient, both [B,Sq,H,hv] in q's
+    dtype. Returns (dq, dk, dv) in q's dtype: the kernel on a CUDA
+    tensor, :func:`flash_attention_bwd_plain` on a CPU tensor."""
+    check_inputs(q, k, v)
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, Sq, H, hv) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} [B,Sq,H,hv] = "
+                             f"{(B, Sq, H, hv)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    if max(h, hv) > MAX_HEAD:
+        raise ValueError(f"the backward kernel takes head dims up to "
+                         f"{MAX_HEAD}, got h={h}, hv={hv}")
+    if Skv == 0:
+        raise ValueError("no keys to attend to")
+    if not all(t.is_contiguous() for t in (q, k, v, o, do)):
+        raise ValueError("q, k, v, o and do must be contiguous")
+    width = next(w for w in WIDTHS if w >= max(h, hv))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ws = torch.empty((bwd_workspace_floats(B, Sq, H),), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        KERNEL_BWD.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ws.data_ptr(), B, Sq, Skv, H, K, h, hv, int(causal), int(window),
+            1.0 / math.sqrt(h), width, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the forward kernel (or the plain
+    version on the CPU) and whose backward is :func:`flash_attention_bwd`.
+    Saves q, k, v and the output for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = _forward(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = -1) -> torch.Tensor:
+    """q [B,Sq,H,h], k [B,Skv,K,h], v [B,Skv,K,hv] → [B,Sq,H,hv] in q's
+    dtype. Query i and key j sit at positions i and j; causal masks j > i,
+    a window w > 0 masks j <= i - w. Differentiable: it runs
+    :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -3,7 +3,10 @@
 Each dispatches on the device of the tensors it is given: a CUDA tensor
 launches the hand-written kernel, a CPU tensor runs its plain version
 (the counterpart of ``repro.kernels.ops``, which dispatches on the
-backend instead).
+backend instead). Both are differentiable: attention through the
+``FlashAttention`` autograd function (its backward is the backward
+kernel on the card), WKV6 through autograd on the CPU and, on the card,
+a function whose backward raises until the WKV6 backward kernel exists.
 """
 from __future__ import annotations
 

@@ -3,6 +3,10 @@
 - :func:`flash_attention_ref`: masked softmax attention computed in f32,
   as the TPU kernel computes it, cast to q's dtype. It is the plain
   version that ``flash_attention`` runs on a CPU tensor.
+- :func:`flash_attention_bwd_plain`: the gradient of that function, from
+  explicit formulas (not autograd), in f32. It is the plain version of
+  the backward kernel, which the JAX package does not have (it takes
+  ``jax.vjp`` through ``repro.models.layers.flash_attend``).
 - :func:`wkv6_ref`: the sequential WKV6 recurrence, token by token (the
   exact oracle, as ``repro.kernels.ref.wkv6_ref``).
 - :func:`wkv6_chunked_ref`: the chunked WKV6 form that ``wkv6_chunked``
@@ -54,6 +58,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hv).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: int = -1):
+    """The gradient of :func:`flash_attention_ref` at (q, k, v), given its
+    output ``o`` and the output's gradient ``do`` [B,Sq,H,hv]. Returns
+    (dq, dk, dv) in q's dtype. In f32, with s the scaled, masked scores:
+
+        P = softmax(s),  D_i = do_i . o_i,  dS = P (do v^T - D)
+        dq = dS k / sqrt(h),  dk = dS^T q / sqrt(h),  dv = P^T do
+
+    (dk and dv summed over the G query heads of each kv head)."""
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    scale = 1.0 / math.sqrt(h)
+    qf = q.float().reshape(B, Sq, K, G, h)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, K, G, hv)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) / math.sqrt(h)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          device=q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, MASKED))
+    p = torch.softmax(logits, dim=-1)                        # [B,K,G,Sq,Skv]
+    d = (dof * o.float().reshape(B, Sq, K, G, hv)).sum(-1)   # [B,Sq,K,G]
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    return (dq.reshape(B, Sq, H, h).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def wkv6_ref(r, k, v, wlog, u) -> torch.Tensor:

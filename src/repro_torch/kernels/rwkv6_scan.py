@@ -18,6 +18,13 @@ runs the plain chunked version beside it (:func:`wkv6_chunked_plain`)
 with the given ``chunk``. Both keep every decay exponent at or below
 zero, so they stay finite where the reference's factorised form gives
 NaN. Any other device raises.
+
+Training: on a CPU tensor autograd differentiates the plain version. On a
+CUDA tensor the call goes through :class:`WKV6`, whose backward raises
+``NotImplementedError``: there is no WKV6 backward kernel yet (ROADMAP.md
+queue 2, "WKV6 backward kernel"), and the kernel's output would otherwise
+leave the autograd graph and train with missing gradients. Nothing falls
+back to the plain version on the card.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 from ._build import CudaKernel
 from .ref import wkv6_chunked_ref as wkv6_chunked_plain
 
-__all__ = ["CHUNK", "KERNEL", "wkv6_chunked", "wkv6_chunked_plain",
+__all__ = ["CHUNK", "KERNEL", "WKV6", "wkv6_chunked", "wkv6_chunked_plain",
            "workspace_floats"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -70,15 +77,8 @@ def check_inputs(r, k, v, wlog, u) -> None:
         raise ValueError(f"no wkv6 path for device {r.device}")
 
 
-def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 wlog: torch.Tensor, u: torch.Tensor, *,
-                 chunk: int = 128) -> torch.Tensor:
-    """r/k/v/wlog [B,S,H,hd], u [H,hd] → f32 [B,S,H,hd] WKV output.
-    ``chunk`` sets the plain version's chunk length; the result does not
-    depend on it beyond f32 rounding."""
-    check_inputs(r, k, v, wlog, u)
-    if r.device.type == "cpu":
-        return wkv6_chunked_plain(r, k, v, wlog, u, chunk=chunk)
+def _forward(r, k, v, wlog, u) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; no autograd."""
     B, S, H, hd = r.shape
     if hd > MAX_HEAD:
         raise ValueError(f"the kernel takes head dims up to {MAX_HEAD}, "
@@ -94,3 +94,31 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ws.data_ptr(), B, S, H, hd, DTYPES[r.dtype],
                       torch.cuda.current_stream().cuda_stream)
     return out
+
+
+class WKV6(torch.autograd.Function):
+    """The kernel's forward on CUDA tensors; its backward raises, since
+    the WKV6 backward kernel does not exist yet."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, wlog, u):
+        return _forward(r, k, v, wlog, u)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            "no WKV6 backward kernel yet: RWKV6 does not train on the CUDA "
+            "card (ROADMAP.md queue 2, \"WKV6 backward kernel\"); train it "
+            "on the CPU, where autograd differentiates the plain version")
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 wlog: torch.Tensor, u: torch.Tensor, *,
+                 chunk: int = 128) -> torch.Tensor:
+    """r/k/v/wlog [B,S,H,hd], u [H,hd] → f32 [B,S,H,hd] WKV output.
+    ``chunk`` sets the plain version's chunk length; the result does not
+    depend on it beyond f32 rounding."""
+    check_inputs(r, k, v, wlog, u)
+    if r.device.type == "cpu":
+        return wkv6_chunked_plain(r, k, v, wlog, u, chunk=chunk)
+    return WKV6.apply(r, k, v, wlog, u)

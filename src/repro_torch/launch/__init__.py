@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (``serve``)."""
+"""Command-line entry points of the port (``serve``, ``train``)."""

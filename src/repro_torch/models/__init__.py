@@ -1,4 +1,6 @@
 """The model zoo's serving path in PyTorch: configurations and parameter
 initialisation (``common``), layer math (``layers``, ``ssm``), block and
 stack assembly (``transformer``) and prefill / single-token decode
-(``decode``). Ported families: dense GQA (yi-6b) and RWKV6 (rwkv6-3b)."""
+(``decode``), and the training losses (``transformer``). Ported
+families: dense GQA (yi-6b, yi-34b, internlm2-1.8b, qwen3-14b) and RWKV6
+(rwkv6-3b)."""

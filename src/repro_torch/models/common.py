@@ -11,7 +11,9 @@ The reference builds a logical-sharding spec beside every leaf and has an
 ``abstract`` mode (shapes without arrays) for its dry-run; the port has no
 mesh and no dry-run, so neither has a counterpart. Shapes without arrays
 come from ``device="meta"``. :class:`ParamTree` holds a parameter tree as
-an ``nn.Module`` that also indexes like the reference's nested dicts.
+an ``nn.Module`` that also indexes like the reference's nested dicts; its
+parameters are trainable (``requires_grad``), and the serving entry
+points run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -110,9 +112,10 @@ class ParamFactory:
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as an ``nn.Module``: leaves become frozen
-    parameters, dicts become child trees, and ``tree["key"]`` indexes
-    both, so layer functions take a ParamTree or a plain dict alike."""
+    """A nested dict of tensors as an ``nn.Module``: leaves become
+    trainable parameters, dicts become child trees, and ``tree["key"]``
+    indexes both, so layer functions take a ParamTree or a plain dict
+    alike."""
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
@@ -120,8 +123,7 @@ class ParamTree(nn.Module):
             if isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
             else:
-                self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(val))
 
     def __getitem__(self, key: str):
         try:
@@ -136,3 +138,33 @@ class ParamTree(nn.Module):
         """The tree as nested dicts of the parameter tensors."""
         return {k: (self[k].to_dict() if isinstance(self[k], ParamTree)
                     else self[k].data) for k in self.keys()}
+
+
+def param_count(tree: nn.Module) -> int:
+    """Number of parameter elements in ``tree`` (an ``LM`` or any
+    module)."""
+    return sum(p.numel() for p in tree.parameters())
+
+
+def reference_leaves(tree, path: tuple = ()) -> list:
+    """The leaves of the reference's layout of ``tree``, in the order
+    ``jax.tree.flatten`` visits them (dict keys sorted), as ``(path,
+    tensors, stacked)``: ``tensors`` are the port's tensors whose bytes,
+    one after the other, are the reference leaf's bytes.
+
+    ``tree`` is a mapping (a dict, a ``ParamTree``, an ``LM``, an
+    ``nn.ModuleDict``: anything with ``keys()`` and ``[key]``), a list of
+    per-layer trees (an ``nn.ModuleList``), which the reference stacks
+    along a leading layer axis: each of its leaves is one leaf, made of
+    one tensor per layer, with ``stacked`` True; or a leaf (a tensor or
+    an array)."""
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        layers = [reference_leaves(layer, path) for layer in tree]
+        return [(p, [layer[j][1][0] for layer in layers], True)
+                for j, (p, _, _) in enumerate(layers[0])]
+    if not hasattr(tree, "keys"):
+        return [(path, [tree], False)]
+    out = []
+    for key in sorted(tree.keys()):
+        out += reference_leaves(tree[key], path + (key,))
+    return out

@@ -6,13 +6,23 @@ The reference stacks each homogeneous segment's parameters along a
 leading layer axis and runs it under ``lax.scan``; the port keeps one
 parameter tree per layer (an ``nn.ModuleList`` per segment) and loops over
 the layers in Python. MLA, MoE, the hybrid (hymba) and encoder-decoder
-(whisper) families, ``lm_loss`` and the training path are not ported
-yet (ROADMAP.md queue 1 items 12-13).
+(whisper) families are not ported yet (ROADMAP.md queue 1 item 12).
+
+Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
+the reference's for the dense and RWKV6 families. The reference saves
+nothing inside a layer (``REMAT_POLICY = nothing_saveable`` on each
+scanned block); the port runs each block under non-reentrant
+``torch.utils.checkpoint`` whenever grad is enabled, so the backward
+recomputes the block's forward (flash kernel included) from the block's
+input, and the loss runs each 512-token chunk of the head and
+log-softmax under its own checkpoint, never holding the [B,S,V] f32
+logits.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -127,6 +137,9 @@ class LM(nn.Module):
             raise KeyError(key)
         return getattr(self, key)
 
+    def keys(self) -> list:
+        return ["embed", "ln_f", "segments"]
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, Sq = tokens.shape
@@ -153,15 +166,112 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
+def remat(fn, *args):
+    """``fn(*args)``; under non-reentrant activation checkpointing when
+    grad is enabled (the counterpart of ``jax.checkpoint`` with
+    ``nothing_saveable``). The functions it wraps draw no random numbers,
+    so the RNG state is not saved."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def backbone_forward(params, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
     """x [B,S,D] (after the embedding) → final-normed hidden [B,S,D]. The
-    reference also returns the summed MoE auxiliary loss (0 here)."""
+    reference also returns the summed MoE auxiliary loss (0 here). With
+    grad enabled each block runs under :func:`remat`."""
     for i, seg in enumerate(plan_segments(cfg)):
         for lp in params["segments"][f"seg{i}"]:
             if seg["kind"] == "rwkv":
-                x, _ = rwkv_block_apply(lp, cfg, x)
+                def body(h, lp=lp):
+                    return rwkv_block_apply(lp, cfg, h)[0]
             else:
-                x, _ = block_apply(lp, cfg, x, positions,
-                                   window=seg["window"])
+                def body(h, lp=lp, window=seg["window"]):
+                    return block_apply(lp, cfg, h, positions,
+                                       window=window)[0]
+            x = remat(body, x)
     return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+            weights: torch.Tensor | None = None) -> torch.Tensor:
+    """logits [B,S,V] (any float dtype), targets int [B,S] → mean
+    next-token negative log-likelihood in f32 (weighted mean with
+    ``weights``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - gold
+    if weights is None:
+        return nll.mean()
+    w = weights.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _chunk_nll(embed_params, tie: bool, h_c, t_c, w_c):
+    logits = L.logits_apply(embed_params, h_c, tie).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t_c[..., None])[..., 0]
+    return ((lse - gold) * w_c).sum()
+
+
+def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
+                     targets: torch.Tensor, tie: bool,
+                     weights: torch.Tensor | None = None, shift: int = 1,
+                     chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked next-token CE: predicts token t + ``shift`` from
+    hidden [B,S,D]. Each ``chunk`` of positions computes its [B,chunk,V]
+    logits, reduces them and (with grad enabled) drops them: the backward
+    recomputes each chunk (:func:`remat`). S not a multiple of ``chunk``
+    runs as one chunk, as in the reference."""
+    B, S, _ = hidden.shape
+    pad = torch.zeros((B, shift), dtype=targets.dtype, device=targets.device)
+    tgt = torch.cat([targets[:, shift:], pad], dim=1)
+    w = torch.cat([torch.ones((B, S - shift), device=hidden.device),
+                   torch.zeros((B, shift), device=hidden.device)], dim=1)
+    if weights is not None:
+        w = w * weights.float()
+    if S % chunk != 0:
+        chunk = S
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        tot = tot + remat(lambda h_c, t_c, w_c: _chunk_nll(
+            embed_params, tie, h_c, t_c, w_c), hidden[:, sl], tgt[:, sl],
+            w[:, sl])
+        cnt = cnt + w[:, sl].sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict):
+    """Next-token loss of the dense and RWKV6 families. batch: tokens
+    [B,S] (optional positions [B,S], labels, loss_weights). Returns (loss,
+    metrics) with metrics ``ce`` and ``aux`` (the MoE auxiliary loss,
+    always 0 here). The vision-language, hybrid, encoder-decoder and MTP
+    branches of the reference raise."""
+    if cfg.is_encoder_decoder or cfg.family in ("vlm", "hybrid") \
+            or cfg.mtp or "embeds" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: lm_loss of the {cfg.family} family (encoder-"
+            f"decoder, vision stub, hybrid or MTP) is not ported: "
+            f"ROADMAP.md queue 1 item 12")
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    x = L.embed_apply(params["embed"], tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    hidden = backbone_forward(params, cfg, x, positions)
+    targets = batch.get("labels", tokens)
+    loss = ce_loss_seqchunk(params["embed"], hidden, targets,
+                            cfg.tie_embeddings,
+                            weights=batch.get("loss_weights"), shift=1)
+    aux = torch.zeros((), device=hidden.device)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -1,0 +1,3 @@
+"""The trainer as a replicated state machine (``statemachine``), its
+quorum-committed checkpoints (``checkpoint``), the ordered data feed
+(``data``) and the membership and straggler bookkeeping."""

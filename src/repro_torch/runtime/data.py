@@ -1,0 +1,89 @@
+"""Exactly-once, totally-ordered data pipeline over the HT-Paxos log.
+Counterpart of ``repro.runtime.data``.
+
+Ingest frontends (the paper's clients) submit batch *metadata*; payloads
+are replicated by the dissemination layer (f+1 copies before ordering —
+§4.1 stability); the ordering layer fixes the global consumption order.
+Every pod consumes the same batch sequence exactly once, across retries,
+duplicate submissions, and pod restarts — the training-data analogue of
+"agents discard duplicate messages / learners discard duplicate
+proposals" (§3).
+
+``ShardedBatchSource`` is the deterministic synthetic-data generator:
+batch content is a pure function of (seed, batch index), so a restarted
+pod regenerates byte-identical payloads. The content comes from a
+``torch.Generator`` on the host seeded from (seed, index), the same on
+every device; it differs from the reference's, which draws from a
+``jax.random`` key that torch cannot reproduce. The exactly-once and
+ordering semantics of ``OrderedDataFeed`` are the reference's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+@dataclass
+class ShardedBatchSource:
+    """Deterministic token batches: content = f(seed, index), on
+    ``device`` (default the CUDA card; raises without one). The
+    reference's stub-frontend fields (``d_model``, ``family``,
+    ``encoder_len``: vision embeddings, encoder frames) wait for those
+    families (ROADMAP.md queue 1 item 12)."""
+    vocab: int
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+    device: Optional[str] = None
+
+    def batch(self, index: int) -> dict:
+        seed = int(np.random.SeedSequence([self.seed, index])
+                   .generate_state(1, np.uint64)[0])
+        gen = torch.Generator().manual_seed(seed)
+        tokens = torch.randint(0, self.vocab,
+                               (self.global_batch, self.seq_len),
+                               generator=gen)
+        return {"tokens": tokens.to(resolve_device(self.device))}
+
+
+class OrderedDataFeed:
+    """Per-pod view of the decided batch log: exactly-once iteration.
+
+    ``offer(batch_id)`` records a decided id in log order (driven by the
+    pod's executed command stream); ``take()`` yields each id once. A
+    restart replays ``offer``s from the log; consumed ids before the
+    checkpoint step are skipped via ``fast_forward``."""
+
+    def __init__(self, source: ShardedBatchSource) -> None:
+        self.source = source
+        self._log: list[str] = []
+        self._consumed = 0
+        self._seen: set = set()
+
+    def offer(self, batch_id: str) -> None:
+        if batch_id in self._seen:       # duplicate decision replay
+            return
+        self._seen.add(batch_id)
+        self._log.append(batch_id)
+
+    def take(self) -> Optional[tuple[str, dict]]:
+        if self._consumed >= len(self._log):
+            return None
+        bid = self._log[self._consumed]
+        self._consumed += 1
+        index = int(bid.rsplit("_", 1)[-1]) if "_" in bid else \
+            int("".join(c for c in bid if c.isdigit()) or 0)
+        return bid, self.source.batch(index)
+
+    def fast_forward(self, n: int) -> None:
+        """Skip the first n batches (already folded into a checkpoint)."""
+        self._consumed = min(n, len(self._log))
+
+    @property
+    def position(self) -> int:
+        return self._consumed

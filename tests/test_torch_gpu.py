@@ -1,8 +1,11 @@
 """The port on a CUDA card: each CUDA kernel against its plain version
 (the engine kernels bit-exact, in place and out of place; the model
-kernels within the tolerances of tests/test_kernels.py), launches
-counted, the entry points' default device, a small engine run and the
-smoke models' serving path on the card against the same runs on the CPU.
+kernels within the tolerances of tests/test_kernels.py; the flash
+backward kernel within the same tolerances relative to the gradient's
+size, and byte-equal across two launches), launches counted, the entry
+points' default device, a small engine run, the smoke models' serving
+path and train step on the card against the same runs on the CPU, and
+two trainer pods on the card ending bitwise equal.
 Every test is marked ``gpu`` and skips without a card.
 
 This file imports only torch, numpy and repro_torch, so it also runs on
@@ -13,6 +16,7 @@ a machine without JAX:
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -27,9 +31,24 @@ from repro_torch.kernels import quorum as kq  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as kw  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.runtime.statemachine import (  # noqa: E402
+    Command, MergedCommandLog, TrainerStateMachine)
+from repro_torch.train import optimizer as O  # noqa: E402
+from repro_torch.train import trainer as TR  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 FAMILIES = ["plain", "recycled", "gated", "gated_recycled"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cublas_workspace():
+    """The cuBLAS setting that the trainer's deterministic mode asks for,
+    set before this module's first matrix product on the card."""
+    was = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    TR.set_cublas_workspace()
+    yield
+    if was is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 @pytest.fixture
@@ -498,3 +517,131 @@ def test_pipeline_subtick_on_card_matches_cpu(cuda):
     (t0, m0, *r0, k0), (t1, m1, *r1, k1) = results
     assert int(k0.max()) > 1 and torch.equal(k1, k0)
     assert trees_equal(t1, t0) and torch.equal(m1, m0) and r1 == r0
+
+
+# (B, Sq, Skv, H, K, h, hv, causal, window): causal and not, windows,
+# Sq != Skv, G = 1 and 8, h 16 / 64 / 128, hv != h, lengths off the tiles
+BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
+             (2, 128, 128, 4, 2, 32, 32, False, -1),
+             (2, 128, 128, 4, 2, 32, 32, False, 40),
+             (2, 100, 130, 4, 2, 64, 48, True, -1),
+             (2, 130, 100, 4, 4, 16, 16, True, -1),
+             (2, 77, 77, 8, 8, 16, 16, True, 30),
+             (2, 256, 256, 16, 2, 128, 128, True, -1),
+             (2, 200, 300, 4, 2, 50, 36, True, -1),
+             (1, 1000, 1000, 8, 2, 128, 128, True, -1)]
+
+
+def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
+               for s in ((B, Sq, H, h), (B, Skv, K, h), (B, Skv, K, hv)))
+    do = torch.randn((B, Sq, H, hv), generator=g, device=dev).to(dt)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
+                                        causal, window, dtype):
+    """dq, dk, dv of one kernel call against the plain formulas on the
+    same inputs (o from the plain forward): the forward's tolerances (f32
+    2e-5, bf16 2e-2) times max(1, the gradient's largest magnitude)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = bwd_inputs(Sq + H + h, B, Sq, Skv, H, K, h, hv, dt, cuda)
+    o = kf.flash_attention_plain(q, k, v, causal=causal,
+                                 window=window).contiguous()
+    before = kf.KERNEL_BWD.launches
+    got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                 window=window)
+    assert kf.KERNEL_BWD.launches == before + 1
+    want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        window=window)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        scale = max(1.0, float(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale, \
+            name
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bytes."""
+    q, k, v, do = bwd_inputs(7, 2, 512, 512, 16, 2, 128, 128,
+                             torch.bfloat16, cuda)
+    o = kf.flash_attention(q, k, v)
+    first = kf.flash_attention_bwd(q, k, v, o, do)
+    second = kf.flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    """Autograd through the kernels (forward and backward launched once
+    each) against autograd through the plain version on the CPU."""
+    q, k, v, do = bwd_inputs(3, 2, 96, 96, 8, 2, 32, 32, torch.float32,
+                             cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = kf.KERNEL_BWD.launches
+        out = kf.flash_attention(*xs, window=50)
+        out.backward(do.to(dev))
+        assert kf.KERNEL_BWD.launches == before + (dev.type == "cuda")
+        grads.append([x.grad.cpu() for x in xs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 2e-5 * max(
+            1.0, float(b.abs().max()))
+
+
+def test_wkv6_backward_on_card_raises(cuda):
+    r, k, v = (torch.randn((1, 8, 2, 32), device=cuda, requires_grad=True)
+               for _ in range(3))
+    wlog = -torch.ones((1, 8, 2, 32), device=cuda)
+    u = torch.zeros((2, 32), device=cuda)
+    out = kw.wkv6_chunked(r, k, v, wlog, u)
+    with pytest.raises(NotImplementedError, match="WKV6 backward kernel"):
+        out.sum().backward()
+
+
+def test_smoke_train_step_on_card_matches_cpu(cuda):
+    """yi-6b's smoke config in f32, AdamW, two microbatches: loss,
+    grad_norm and every gradient leaf on the card against the CPU (f32
+    rounding in a different order: 1e-4 relative)."""
+    cfg = registry.get_smoke("yi-6b").replace(dtype=torch.float32)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (4, 128))
+    out = []
+    for dev in ("cpu", cuda):
+        lm = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        lm = convert.lm_params_from_jax(convert.lm_params_to_numpy(lm), cfg,
+                                        dev)
+        grads_of = TR.make_grad_fn(cfg, microbatches=2, global_batch=4)
+        grads, loss = grads_of(lm, {"tokens": torch.from_numpy(toks).to(dev)})
+        out.append((float(loss), [g.cpu() for leaf in grads for g in leaf]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4 * abs(out[0][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1e-3, float(a.abs().max()))
+
+
+def test_pods_on_card_end_bitwise_equal(cuda):
+    """Two pods of yi-6b's smoke config (bf16, Adafactor) apply one merged
+    log fed in two interleavings: equal digests, and equal to a third run
+    of the same steps."""
+    cfg = registry.get_smoke("yi-6b")
+    opt = O.OptConfig(kind="adafactor", lr=1e-3)
+    step = TR.make_train_step(cfg, opt, microbatches=2, global_batch=4)
+    store = {f"b_{i}": {"tokens": torch.from_numpy(
+        np.random.default_rng(i).integers(0, cfg.vocab, (4, 64))).to(cuda)}
+        for i in range(3)}
+    decided = [(0, 0, Command("STEP", "b_0")), (1, 0, Command("NOOP")),
+               (0, 1, Command("STEP", "b_1")), (1, 1, Command("STEP", "b_2"))]
+    pods = []
+    for order in (decided, decided[::-1]):
+        sm = TrainerStateMachine("pod", step, TR.make_state(
+            cfg, opt, torch.Generator(cuda).manual_seed(0), cuda), store)
+        log = MergedCommandLog(2, apply=sm.apply)
+        for g, i, cmd in order:
+            log.feed(g, i, cmd)
+        assert log.audit() == [] and sm.step == 3
+        pods.append(sm)
+    assert pods[0].digest() == pods[1].digest()

@@ -711,3 +711,229 @@ def test_ops_dispatch_to_plain_versions_on_cpu():
     r, kk, vv, wlog, u = _t(*_wkv_inputs(2, 2, 64, 2, 16))
     assert torch.equal(ops.wkv6(r, kk, vv, wlog, u, chunk=32),
                        ws.wkv6_chunked_plain(r, kk, vv, wlog, u, chunk=32))
+
+
+# -- flash attention backward -------------------------------------------------
+# (B, Sq, Skv, H, K, h, hv, causal, window): causal and not, a window,
+# Sq != Skv, G = 1 and G = 8, h in {16, 64, 128}, hv != h, and lengths
+# that are not tile multiples
+BWD_CASES = [(2, 64, 64, 4, 4, 16, 16, True, -1),
+             (2, 128, 128, 8, 4, 64, 64, True, 40),
+             (1, 96, 96, 16, 2, 128, 128, True, -1),
+             (2, 100, 130, 4, 2, 64, 48, True, -1),
+             (2, 130, 100, 8, 1, 16, 16, True, -1),
+             (2, 77, 77, 4, 2, 64, 64, True, 30),
+             (2, 80, 80, 4, 2, 32, 32, False, -1),
+             (2, 70, 90, 4, 2, 50, 36, False, -1)]
+BWD_TOL = 2e-5     # f32, times max(1, the gradient's largest magnitude)
+
+
+def _bwd_inputs(seed, B, Sq, Skv, H, K, h, hv):
+    q, k, v = _qkv(seed, B, Sq, Skv, H, K, h, hv)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, H, hv)).astype(np.float32)
+    return q, k, v, do
+
+
+def _close(got, want, tol=BWD_TOL):
+    want = np.asarray(want, np.float32)
+    return _err(got, want) <= tol * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", BWD_CASES)
+def test_flash_bwd_plain_matches_autograd_and_jax_vjp(B, Sq, Skv, H, K, h,
+                                                      hv, causal, window):
+    """The plain backward's explicit formulas against torch autograd
+    through ``flash_attention_ref`` and against ``jax.vjp`` through the
+    reference's ``flash_attention_ref``, in f32."""
+    import jax
+    q, k, v, do = _bwd_inputs(Sq + h, B, Sq, Skv, H, K, h, hv)
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v))
+    o = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    auto = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do))
+    got = ref.flash_attention_bwd_plain(*_t(q, k, v), o.detach(),
+                                        torch.from_numpy(do), causal=causal,
+                                        window=window)
+    for a, b in zip(got, auto):
+        assert a.dtype == torch.float32 and _close(a, b)
+    _, vjp = jax.vjp(lambda *x: jref.flash_attention_ref(
+        *x, causal=causal, window=window), *_j(q, k, v))
+    for a, b in zip(got, vjp(jnp.asarray(do))):
+        assert _close(a, b)
+
+
+def test_flash_bwd_noncausal_window_matches_autograd():
+    """The reference ignores the window without causality; the port
+    applies it, so this case is held against torch autograd only."""
+    q, k, v, do = _bwd_inputs(11, 2, 96, 96, 4, 2, 32, 32)
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v))
+    o = ref.flash_attention_ref(qt, kt, vt, causal=False, window=40)
+    auto = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do))
+    got = ref.flash_attention_bwd_plain(*_t(q, k, v), o.detach(),
+                                        torch.from_numpy(do), causal=False,
+                                        window=40)
+    assert all(_close(a, b) for a, b in zip(got, auto))
+
+
+def test_flash_bwd_plain_bf16_is_f32_math_rounded():
+    """bf16 inputs: the same f32 formulas on the bf16 values, each
+    gradient rounded once to bf16."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _bwd_inputs(4, 2, 64, 64, 8, 4, 32, 32))
+    o = ref.flash_attention_ref(q, k, v)
+    got = ref.flash_attention_bwd_plain(q, k, v, o, do)
+    want = ref.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         o.float(), do.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+def test_flash_wrapper_is_differentiable_on_cpu():
+    """``flash_attention`` goes through the autograd Function: its
+    gradient is the plain backward's, equal to autograd through the plain
+    forward; without grad it returns the plain forward."""
+    q, k, v, do = _bwd_inputs(5, 2, 64, 80, 8, 2, 32, 32)
+    want_o = fa.flash_attention_plain(*_t(q, k, v), window=20)
+    assert torch.equal(fa.flash_attention(*_t(q, k, v), window=20), want_o)
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v))
+    out = ops.attention(qt, kt, vt, window=20)
+    assert out.grad_fn is not None and torch.equal(out.detach(), want_o)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    q2, k2, v2 = (x.requires_grad_() for x in _t(q, k, v))
+    auto = torch.autograd.grad(ref.flash_attention_ref(q2, k2, v2,
+                                                       window=20),
+                               (q2, k2, v2), torch.from_numpy(do))
+    assert all(_close(a, b) for a, b in zip(got, auto))
+
+
+def _bwd_kernel_arithmetic(q, k, v, o, do, *, causal, window):
+    """A plain emulation of csrc/flash_attention_bwd.cu's three kernels:
+    the tiles each block visits (row stats and dq: 64-row query tiles
+    over the key tiles of 32 they reach; dk/dv: 32-key tiles over the G
+    heads and the 32-row query tiles that reach them), the log2-domain
+    row log-sum-exp with masked keys at -1e30 and keys past Skv at -inf,
+    and P = exp2(s log2(e)/sqrt(h) - lse2), zero where masked."""
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    sl2 = math.log2(math.e) / math.sqrt(h)
+    qf, kf, vf, of, dof = (x.double() for x in (q, k, v, o, do))
+
+    def visible(rows, keys):
+        m = (rows[:, None] < Sq) & (keys[None, :] < Skv)
+        if causal:
+            m &= keys[None, :] <= rows[:, None]
+        if window > 0:
+            m &= keys[None, :] > rows[:, None] - window
+        return m
+
+    def key_tiles(q0, q_last):
+        end = (Skv + 31) // 32 - 1
+        if causal:
+            end = min(end, q_last // 32)
+        begin = (q0 - window + 1) // 32 if window > 0 and \
+            q0 - window + 1 > 0 else 0
+        return range(begin, end + 1)
+
+    lse2 = torch.full((B, H, Sq), float("nan"), dtype=torch.float64)
+    dvec = (dof * of).sum(-1).permute(0, 2, 1)
+    dq = torch.zeros_like(qf)
+    for b in range(B):
+        for hh in range(H):
+            kv = hh // G
+            for q0 in range(0, Sq, 64):
+                rows = torch.arange(q0, q0 + 64)
+                live = rows < Sq
+                qt = qf[b, rows[live], hh]
+                x_all = []
+                for kt in key_tiles(q0, min(q0 + 64, Sq) - 1):
+                    keys = torch.arange(kt * 32, kt * 32 + 32)
+                    kin = keys < Skv
+                    s = torch.full((int(live.sum()), 32), -math.inf,
+                                   dtype=torch.float64)
+                    s[:, kin] = qt @ kf[b, keys[kin], kv].T * sl2
+                    vis = visible(rows[live], keys)
+                    s = torch.where(vis | ~kin[None], s,
+                                    torch.tensor(-1e30, dtype=s.dtype))
+                    x_all.append(s)
+                x = torch.cat(x_all, 1)
+                m = torch.clamp(x.max(1).values, min=-1e30)
+                lse2[b, hh, rows[live]] = m + torch.log2(
+                    torch.exp2(x - m[:, None]).sum(1))
+    for b in range(B):
+        for hh in range(H):
+            kv = hh // G
+            for q0 in range(0, Sq, 64):
+                rows = torch.arange(q0, min(q0 + 64, Sq))
+                for kt in key_tiles(q0, rows[-1].item()):
+                    keys = torch.arange(kt * 32, min(kt * 32 + 32, Skv))
+                    s = qf[b, rows, hh] @ kf[b, keys, kv].T * sl2
+                    p = torch.where(visible(rows, keys),
+                                    torch.exp2(s - lse2[b, hh, rows, None]),
+                                    torch.zeros((), dtype=s.dtype))
+                    dp = dof[b, rows, hh] @ vf[b, keys, kv].T
+                    ds = p * (dp - dvec[b, hh, rows, None])
+                    dq[b, rows, hh] += ds @ kf[b, keys, kv] / math.sqrt(h)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    nq = (Sq + 31) // 32
+    for b in range(B):
+        for kv in range(K):
+            for k0 in range(0, Skv, 32):
+                keys = torch.arange(k0, min(k0 + 32, Skv))
+                k_last = keys[-1].item()
+                qt_end = nq - 1
+                if window > 0:
+                    qt_end = min(qt_end, (k_last + window - 1) // 32)
+                for g in range(G):
+                    hh = kv * G + g
+                    for qt in range((k0 // 32) if causal else 0, qt_end + 1):
+                        rows = torch.arange(qt * 32, min(qt * 32 + 32, Sq))
+                        s = qf[b, rows, hh] @ kf[b, keys, kv].T * sl2
+                        p = torch.where(
+                            visible(rows, keys),
+                            torch.exp2(s - lse2[b, hh, rows, None]),
+                            torch.zeros((), dtype=s.dtype))
+                        dp = dof[b, rows, hh] @ vf[b, keys, kv].T
+                        ds = p * (dp - dvec[b, hh, rows, None])
+                        dv[b, keys, kv] += p.T @ dof[b, rows, hh]
+                        dk[b, keys, kv] += ds.T @ qf[b, rows, hh] \
+                            / math.sqrt(h)
+    return dq.float(), dk.float(), dv.float()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", [
+    *BWD_CASES, (1, 96, 96, 4, 2, 32, 32, False, 40),
+    (1, 150, 40, 2, 1, 16, 16, True, -1)])
+def test_flash_bwd_kernel_tiles_match_plain(B, Sq, Skv, H, K, h, hv, causal,
+                                            window):
+    """The backward kernel's tile loops, masks and log2-domain softmax
+    (emulated in f64) give the plain backward's gradients: every tile a
+    visible (query, key) pair lies in is visited, by the row-stats, the
+    dq and the dk/dv kernels alike."""
+    q, k, v, do = _t(*_bwd_inputs(Sq + 2 * h, B, Sq, Skv, H, K, h, hv))
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = _bwd_kernel_arithmetic(q, k, v, o, do, causal=causal,
+                                 window=window)
+    want = ref.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    assert all(_close(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_wrapper_checks_inputs():
+    q, k, v, do = _t(*_bwd_inputs(6, 1, 32, 32, 2, 1, 16, 16))
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_attention_bwd(q, k, v, do, do[:, :16])
+    with pytest.raises(ValueError, match="o must be"):
+        fa.flash_attention_bwd(q, k, v, do.double(), do)
+    assert fa.bwd_workspace_floats(2, 100, 8) == 2 * 2 * 100 * 8
+
+
+def test_wkv6_trains_on_cpu():
+    """On a CPU tensor autograd differentiates the plain WKV6 version."""
+    r, k, v, wlog, u = (x.requires_grad_() for x in _t(*_wkv_inputs(
+        8, 1, 40, 2, 16)))
+    out = ws.wkv6_chunked(r, k, v, wlog, u, chunk=16)
+    grads = torch.autograd.grad(out.square().sum(), (r, k, v, wlog, u))
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grads)

@@ -119,7 +119,7 @@ def test_configs_copy_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in jregistry.ARCHS
-                                  if a not in ARCHS])
+                                  if a not in registry.ARCHS])
 def test_registry_raises_for_unported_archs(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         registry.get(arch)
