@@ -9,9 +9,10 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (set-up),
    log each one's registers and spills, check in the SASS of the bf16
-   flash library that the tensor cores do its work (HMMA) and in the
-   f32 one's that they do none (no HMMA), and log blocks per SM and
-   shared memory per block of each flash and WKV6 instantiation;
+   flash libraries (forward and backward) that the tensor cores do their
+   work (HMMA) and in the f32 ones' (forward and backward) that they do
+   none (no HMMA), and log blocks per SM and shared memory per block of
+   each flash and WKV6 instantiation;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-exact, at the engine's shapes, the edge shapes of the
    reference kernel tests, the shapes where the lane mapping switches
@@ -117,32 +118,40 @@ Phases, each of which must pass or the script exits non-zero:
    and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
    bounds;
 13. flash backward kernel phase: ``flash_attention_bwd`` against its
-   plain version on the card in f32 and bf16 (causal and not, windows,
-   Sq != Skv, G = 1 and 8, h 16 / 64 / 128, hv != h, ragged lengths, the
-   train cell's and the serving shape), one launch a call, two launches
-   at the train shape byte-equal; registers, spills, shared memory and
-   blocks per SM of its three CUDA kernels;
+   plain version on the card (causal and not, windows, Sq != Skv, G = 1
+   and 8, h 16 / 64 / 128, hv != h, ragged lengths, the train cell's and
+   the serving shape): bf16 through the tensor-core kernel with the LSE
+   of ``flash_attention_fwd_lse`` (held against the plain log2-domain
+   logsumexp; the forward's output bytes equal with and without the LSE;
+   without it the backward raises), f32 through the CUDA-core kernel;
+   one launch of the dtype's kernel a call, two launches at the train
+   shape byte-equal; registers, spills, shared memory and blocks per SM
+   of both kernels' three CUDA kernels;
 14. ``train/yi-6b``: full width and depth, bf16, 2 x 4096 tokens a step
    (the reference's train_4k cell with its batch cut to 2), 2
    microbatches, Adafactor, through ``make_train_step`` inside a
    ``TrainerStateMachine`` fed by a two-group ``MergedCommandLog``: 1
    warm-up and 3 timed steps (CUDA events), each with exactly 128 forward
-   and 64 backward flash launches and a finite loss and grad_norm;
-   tokens/s and peak memory; a second pod fed the same decisions in
-   another order ends equal leaf for leaf (``torch.equal`` on the card);
-   one more step traced for each kernel's device time;
+   and 64 bf16 backward flash launches (no f32 one) and a finite loss
+   and grad_norm; tokens/s and peak memory; a second pod fed the same
+   decisions in another order ends equal leaf for leaf (``torch.equal``
+   on the card); one more step traced for each kernel's device time
+   (each backward pass's);
 15. ``train/f32``: yi-6b at 2 layers, full width, f32, one AdamW step on
-   the card against the same step on the CPU from one set of weights:
-   loss, grad_norm, every gradient leaf, the parameters after;
+   the card against the same step on the CPU from one set of weights (2
+   f32 backward launches, no bf16 one): loss, grad_norm, every gradient
+   leaf, the parameters after;
    ``train/checkpoint``: at the same cut in bf16, a checkpoint saved by
    the CKPT command with one node failed (committed by majority), pods
    fed two interleavings on equal ``tree_digest``s, and a pod restored
    into other weights that replays the rest of the log and ends on the
    same digest; ``train/rwkv6-3b-refused``: RWKV6 training on the card
    raises ``NotImplementedError`` (no WKV6 backward kernel yet);
-16. backward timing at the train cell's shape and the serving shape:
-   kernel, plain version, the backward of
-   ``scaled_dot_product_attention``, with the bound of its five products.
+16. backward timing at the train cell's shape and the serving shape in
+   bf16 (the tensor-core kernel) and at the serving shape in f32 (the
+   CUDA-core kernel): kernel, its device time per pass, plain version,
+   the backward of ``scaled_dot_product_attention``, with the bound of
+   its five products.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -235,29 +244,32 @@ def build_kernels() -> float:
     t0 = time.perf_counter()
     logs = _build.build(["quorum.cu", "dissem.cu", "flash_attention.cu",
                          "flash_attention_bf16.cu", "flash_attention_bwd.cu",
-                         "wkv6.cu"])
+                         "flash_attention_bwd_bf16.cu", "wkv6.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
         ptxas = [ln.strip() for ln in text.splitlines()
                  if "ptxas" in ln or "spill" in ln]
         log(build=source, ptxas=ptxas)
     log(phase="build", seconds=seconds)
-    # the tensor cores do the bf16 flash kernel's products: its SASS
-    # holds HMMA instructions; the f32 kernel's must hold none (TF32
-    # would break its tolerance)
+    # the tensor cores do the bf16 flash kernels' products (forward and
+    # backward): their SASS holds HMMA instructions; the f32 kernels'
+    # must hold none (TF32 would break their tolerance)
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     hmma = {}
-    for source in ("flash_attention_bf16.cu", "flash_attention.cu"):
+    tensor_core = ("flash_attention_bf16.cu", "flash_attention_bwd_bf16.cu")
+    for source in (*tensor_core, "flash_attention.cu",
+                   "flash_attention_bwd.cu"):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(source))],
             check=True, capture_output=True, text=True, timeout=120).stdout
         hmma[source] = sum("HMMA" in ln for ln in sass.splitlines())
     log(phase="build/sass", hmma=hmma)
-    check(hmma["flash_attention_bf16.cu"] > 0,
-          "flash_attention_bf16.cu: no HMMA instruction in its SASS")
-    check(hmma["flash_attention.cu"] == 0,
-          f"flash_attention.cu: {hmma['flash_attention.cu']} HMMA "
-          "instructions in the f32 kernel's SASS")
+    for source, n in hmma.items():
+        if source in tensor_core:
+            check(n > 0, f"{source}: no HMMA instruction in its SASS")
+        else:
+            check(n == 0, f"{source}: {n} HMMA instructions in the f32 "
+                  "kernel's SASS")
     # blocks per SM and shared memory per block of each flash
     # instantiation (f32: its 16-byte copy path)
     occupancy = {}
@@ -409,7 +421,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import quorum as kq
     from repro_torch.kernels import rwkv6_scan as kw
     for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kf.KERNEL_BF16,
-                   kf.KERNEL_BWD, kw.KERNEL):
+                   kf.KERNEL_BWD, kf.KERNEL_BWD_BF16, kw.KERNEL):
         kernel.launches = 0
 
 
@@ -1857,7 +1869,8 @@ def model_counts() -> dict:
     kf, kw = model_kernel_modules()
     return {"flash_attention": kf.KERNEL_BF16.launches,
             "flash_attention_f32": kf.KERNEL.launches,
-            "flash_attention_bwd": kf.KERNEL_BWD.launches,
+            "flash_attention_bwd": kf.KERNEL_BWD_BF16.launches,
+            "flash_attention_bwd_f32": kf.KERNEL_BWD.launches,
             "wkv6_chunked": kw.KERNEL.launches}
 
 
@@ -2427,60 +2440,117 @@ BWD_CASES = [
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
     (2, 100, 130, 4, 2, 64, 48, True, 40, BF16),        # window, hv != h
 ]
-BWD_KERNELS = ("flash_bwd_rowstats_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+# each backward route's three CUDA kernels, as torch.profiler names them
+# (no name holds another's), and its library and info export; the bf16
+# route's names share BWD_BF16_PREFIX
+BWD_KERNELS = {
+    "flash_attention_bwd": ("flash_bwd_bf16_dot_kernel",
+                            "flash_bwd_bf16_dkdv_kernel",
+                            "flash_bwd_bf16_dq_kernel"),
+    "flash_attention_bwd_f32": ("flash_bwd_rowstats_kernel",
+                                "flash_bwd_dkdv_kernel",
+                                "flash_bwd_dq_kernel")}
+BWD_BF16_PREFIX = "flash_bwd_bf16_"
+BWD_LIBS = {
+    "flash_attention_bwd": ("flash_attention_bwd_bf16.cu",
+                            "flash_attention_bwd_bf16_info"),
+    "flash_attention_bwd_f32": ("flash_attention_bwd.cu",
+                                "flash_attention_bwd_info")}
+# the bf16 forward's LSE (log2 units) against the plain logsumexp of the
+# same scores: the two sum the exponentials in another order; 1e-3 is a
+# relative error of 0.07 % in P, below a bf16 ulp of it
+LSE_TOL = 1e-3
+
+
+def bwd_route(dt) -> str:
+    return "flash_attention_bwd" if dt == BF16 else "flash_attention_bwd_f32"
 
 
 def bwd_kernel_info() -> dict:
     """Registers a thread, spill (local) bytes a thread, dynamic shared
-    bytes a block and blocks an SM of the three backward kernels at each
-    padded width and dtype (``flash_attention_bwd_info``)."""
+    bytes a block and blocks an SM of each backward route's three CUDA
+    kernels at each padded width (``flash_attention_bwd_bf16_info``,
+    ``flash_attention_bwd_info``). The bf16 kernels must not spill."""
     from repro_torch.kernels import _build
-    fn = ctypes.CDLL(str(_build.library_path(
-        "flash_attention_bwd.cu"))).flash_attention_bwd_info
     out = {}
-    for dtype, dname in ((0, "f32"), (1, "bf16")):
+    for route, (source, symbol) in BWD_LIBS.items():
+        fn = getattr(ctypes.CDLL(str(_build.library_path(source))), symbol)
         for width in (32, 64, 128):
-            for which, name in enumerate(BWD_KERNELS, start=1):
+            for which, name in enumerate(BWD_KERNELS[route], start=1):
                 vals = [ctypes.c_int() for _ in range(4)]
-                err = fn(which, width, dtype, *map(ctypes.byref, vals))
-                check(err == 0, f"flash_attention_bwd_info({which}, {width},"
-                      f" {dtype}): {err}")
-                out[f"{name}/{dname}/{width}"] = dict(zip(
+                err = fn(which, width, *map(ctypes.byref, vals))
+                check(err == 0, f"{symbol}({which}, {width}): {err}")
+                out[f"{name}/{width}"] = info = dict(zip(
                     ("registers", "spill_bytes", "smem_bytes_per_block",
                      "blocks_per_sm"), (v.value for v in vals)))
+                check(route != "flash_attention_bwd"
+                      or info["spill_bytes"] == 0,
+                      f"{name} at width {width} spills: {info}")
     return out
 
 
 def bwd_kernel_phase(dev) -> dict:
-    """The flash backward kernel against its plain version on the card in
-    every case of BWD_CASES (each call one launch of KERNEL_BWD and no
-    other kernel); two launches at the train shape give the same bytes.
-    The forward output ``o`` that the backward takes is held against the
-    plain forward too (FLASH_TOL), so the train shape's forward is
-    checked on the card. Returns the worst absolute error and the worst
-    error over its tolerance's scale of the backward, and the forward's
-    worst absolute error by kernel name."""
+    """The flash backward kernels against their plain version on the card
+    in every case of BWD_CASES: bf16 through the tensor-core kernel with
+    the LSE of ``flash_attention_fwd_lse``, f32 through the CUDA-core
+    kernel (each call one launch of its dtype's kernel and no other); two
+    launches at the train shape give the same bytes. The forward output
+    ``o`` that the backward takes is held against the plain forward too
+    (FLASH_TOL), so the train shape's forward is checked on the card. In
+    bf16 the forward's LSE is held against the plain log2-domain
+    logsumexp (LSE_TOL), its output bytes must equal a launch without the
+    LSE, and the backward without the LSE must raise. Returns, by route,
+    the worst absolute error and the worst error over its tolerance's
+    scale of the backward; the forward's worst absolute error by kernel
+    name and the LSE's worst error."""
     kf, _ = model_kernel_modules()
     gen = torch.Generator(dev).manual_seed(SEED + 6)
-    worst, worst_abs, cases = 0.0, 0.0, []
+    worst = dict.fromkeys(BWD_KERNELS, 0.0)
+    worst_abs = dict.fromkeys(BWD_KERNELS, 0.0)
+    cases, lse_worst = [], 0.0
     fwd_worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0}
     for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in BWD_CASES:
         q = randn(gen, (B, Sq, H, h), dev, dt)
         k = randn(gen, (B, Skv, K, h), dev, dt)
         v = randn(gen, (B, Skv, K, hv), dev, dt)
         do = randn(gen, (B, Sq, H, hv), dev, dt)
-        o = kf.flash_attention(q, k, v, causal=causal, window=window)
+        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
+        route, extra = bwd_route(dt), {}
+        if dt == BF16:
+            o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                                window=window)
+            o_bare = kf.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            extra["same_bytes_without_lse"] = torch.equal(o, o_bare)
+            check(extra["same_bytes_without_lse"], f"flash_attention "
+                  f"{case}: the output differs with and without the LSE")
+            lse_want = kf.flash_attention_lse_plain(q, k, causal=causal,
+                                                    window=window)
+            extra["lse_err"] = float((lse - lse_want).abs().max())
+            check(extra["lse_err"] <= LSE_TOL, f"flash_attention {case}: "
+                  f"LSE max abs err {extra['lse_err']} > {LSE_TOL}")
+            lse_worst = max(lse_worst, extra["lse_err"])
+            del o_bare, lse_want
+            try:
+                kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window)
+                extra["raised_without_lse"] = False
+            except ValueError:
+                extra["raised_without_lse"] = True
+            check(extra["raised_without_lse"], f"flash_attention_bwd "
+                  f"{case}: a bf16 backward without the LSE did not raise")
+        else:
+            o, lse = kf.flash_attention(q, k, v, causal=causal,
+                                        window=window), None
         o_want = kf.flash_attention_plain(q, k, v, causal=causal,
                                           window=window)
         before = model_counts()
         got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                     window=window)
+                                     window=window, lse=lse)
         launched = {n: c - before[n] for n, c in model_counts().items()}
         want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                             window=window)
         torch.cuda.synchronize()
-        case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
         check(o.dtype == dt and o.shape == o_want.shape,
               f"flash_attention {case}: output {o.dtype}{tuple(o.shape)}")
         o_err = float((o.float() - o_want.float()).abs().max())
@@ -2489,9 +2559,9 @@ def bwd_kernel_phase(dev) -> dict:
         fwd = "flash_attention" if dt == BF16 else "flash_attention_f32"
         fwd_worst[fwd] = max(fwd_worst[fwd], o_err)
         del o_want
-        check(launched == {**dict.fromkeys(launched, 0),
-                           "flash_attention_bwd": 1},
-              f"flash_attention_bwd {case} launched {launched}")
+        check(launched == {**dict.fromkeys(launched, 0), route: 1},
+              f"flash_attention_bwd {case} launched {launched}, expected "
+              f"one {route}")
         errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             check(a.dtype == dt and a.shape == b.shape,
@@ -2503,25 +2573,26 @@ def bwd_kernel_phase(dev) -> dict:
                   f"{case}: {name} max abs err {err} > {FLASH_TOL[dt]} x "
                   f"{scale}")
             errs[name] = dict(err=err, scale=scale)
-            worst = max(worst, err / scale)
-            worst_abs = max(worst_abs, err)
-        extra = {}
+            worst[route] = max(worst[route], err / scale)
+            worst_abs[route] = max(worst_abs[route], err)
         if Sq == 4096:      # the train shape: byte-equal on a second launch
             again = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                           window=window)
+                                           window=window, lse=lse)
             extra["same_bytes_twice"] = all(
                 torch.equal(a, b) for a, b in zip(got, again))
             check(extra["same_bytes_twice"], f"flash_attention_bwd {case}: "
                   "two launches on the same inputs differ")
-        cases.append(dict(case=case, tol=FLASH_TOL[dt], o_err=o_err,
-                          **errs, **extra))
-        del q, k, v, do, o, got, want
+        cases.append(dict(case=case, kernel=route, tol=FLASH_TOL[dt],
+                          o_err=o_err, **errs, **extra))
+        del q, k, v, do, o, lse, got, want
     torch.cuda.empty_cache()
     info = bwd_kernel_info()
     log(phase="kernels/flash_bwd", cases=cases, worst_err_over_scale=worst,
-        max_abs_err=worst_abs, forward_max_abs_err=fwd_worst, info=info)
+        max_abs_err=worst_abs, forward_max_abs_err=fwd_worst,
+        lse_max_abs_err=lse_worst, info=info)
     return dict(max_abs_err=worst_abs, worst_err_over_scale=worst,
-                info=info, forward_max_abs_err=fwd_worst)
+                info=info, forward_max_abs_err=fwd_worst,
+                lse_max_abs_err=lse_worst)
 
 
 def leaves_equal(a, b) -> tuple[bool, int]:
@@ -2641,11 +2712,11 @@ def train_phase(dev) -> dict:
         step_fn(a.state, store["b_0"])
         torch.cuda.synchronize()
         wall["us"] = (time.perf_counter() - t1) * 1e6
-    events = device_kernels(one_step, 1, "flash_bwd_",
-                            len(BWD_KERNELS) * want["flash_attention_bwd"])
+    names = BWD_KERNELS["flash_attention_bwd"]
+    events = device_kernels(one_step, 1, BWD_BF16_PREFIX,
+                            len(names) * want["flash_attention_bwd"])
     fwd_us = [us for name, us in events if SYMBOLS["flash_attention"] in name]
-    bwd_us = {k: [us for name, us in events if k in name]
-              for k in BWD_KERNELS}
+    bwd_us = {k: [us for name, us in events if k in name] for k in names}
     check(len(fwd_us) == want["flash_attention"]
           and all(len(v) == want["flash_attention_bwd"]
                   for v in bwd_us.values()),
@@ -2712,10 +2783,11 @@ def train_f32_phase(dev) -> dict:
                          grads=[[g.cpu() for g in leaf] for leaf in grads],
                          launched=launched)
         del grads
-    check(out["card"]["launched"]["flash_attention_f32"]
-          == 2 * F32_TRAIN_LAYERS and out["card"]["launched"]
-          ["flash_attention_bwd"] == F32_TRAIN_LAYERS,
-          f"train/f32: launches {out['card']['launched']}")
+    card_launched = out["card"]["launched"]
+    check(card_launched == {**dict.fromkeys(card_launched, 0),
+                            "flash_attention_f32": 2 * F32_TRAIN_LAYERS,
+                            "flash_attention_bwd_f32": F32_TRAIN_LAYERS},
+          f"train/f32: launches {card_launched}")
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
     grad_err = 0.0
@@ -2867,15 +2939,20 @@ def train_refusal_phase(dev) -> dict:
     return res
 
 
-def time_bwd_kernel(dev) -> dict:
-    """The backward kernel at the train cell's shape (a microbatch: q
+def time_bwd_kernel(dev, info: dict) -> dict:
+    """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
-    ([4, 1024, 32, 128], bf16 and f32): CUDA events over back-to-back
-    calls, the plain version, and the backward of one
+    ([4, 1024, 32, 128], bf16 and f32; bf16 runs the tensor-core kernel
+    with the LSE of ``flash_attention_fwd_lse``, f32 the CUDA-core
+    kernel; in bf16 also the forward without and with the LSE, in turns
+    W, L, L, W): CUDA events over back-to-back calls, each pass's device time
+    (``torch.profiler``), the plain version, and the backward of one
     scaled_dot_product_attention(is_causal=True, enable_gqa=True) on the
     same inputs (its forward run once outside the timed calls; each timed
     call is one autograd.grad of that output, retain_graph=True), with
-    the bound of the five products."""
+    the bound of the five products and each pass's registers, spills,
+    shared memory and blocks per SM (``info``, from
+    :func:`bwd_kernel_info`) at width 128."""
     import torch.nn.functional as F
     kf, _ = model_kernel_modules()
     gen = torch.Generator(dev).manual_seed(SEED + 9)
@@ -2884,17 +2961,22 @@ def time_bwd_kernel(dev) -> dict:
                             ("serve", (SERVE_B, SERVE_P, BF16)),
                             ("serve_f32", (SERVE_B, SERVE_P, F32))):
         H, K, h = 32, 4, 128
+        route = bwd_route(dt)
+        kernel = kf.KERNEL_BWD_BF16 if dt == BF16 else kf.KERNEL_BWD
         q = randn(gen, (B, S, H, h), dev, dt)
         k = randn(gen, (B, S, K, h), dev, dt)
         v = randn(gen, (B, S, K, h), dev, dt)
         do = randn(gen, (B, S, H, h), dev, dt)
-        o = kf.flash_attention(q, k, v)
-        before = kf.KERNEL_BWD.launches
+        o, lse = (kf.flash_attention_fwd_lse(q, k, v) if dt == BF16
+                  else (kf.flash_attention(q, k, v), None))
+
+        def bwd():
+            return kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        before = kernel.launches
         reps = 10 if tag != "serve_f32" else 5
-        ms = time_cuda(lambda: kf.flash_attention_bwd(q, k, v, o, do),
-                       reps=reps, warmup=2)
-        check(kf.KERNEL_BWD.launches - before == reps + 2,
-              f"flash_attention_bwd {tag}: timed calls did not launch it")
+        ms = time_cuda(bwd, reps=reps, warmup=2)
+        check(kernel.launches - before == reps + 2,
+              f"{route} {tag}: timed calls did not launch it")
         plain_ms = time_cuda(lambda: kf.flash_attention_bwd_plain(
             q, k, v, o, do), reps=2, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -2912,20 +2994,32 @@ def time_bwd_kernel(dev) -> dict:
         library_ms = time_cuda(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dout, retain_graph=True), reps=reps,
             warmup=2)
-        _, events = traced(lambda: kf.flash_attention_bwd(q, k, v, o, do))
+        _, events = traced(bwd)
         dev_us = {name: sum(us for n, us in events if name in n)
-                  for name in BWD_KERNELS}
+                  for name in BWD_KERNELS[route]}
+        check(all(dev_us.values()), f"{route} {tag}: profiler saw {dev_us}")
         rows[tag] = dict(
-            shape=[B, S, H, K, h], dtype=str(dt).replace("torch.", ""),
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            kernel=route, shape=[B, S, H, K, h],
+            dtype=str(dt).replace("torch.", ""), ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms,
             library="torch.autograd.grad of scaled_dot_product_attention("
                     "is_causal=True, enable_gqa=True)",
             library_vs_plain_rel_err=lib_err, device_us=dev_us,
+            kernel_info={n: info[f"{n}/128"] for n in BWD_KERNELS[route]},
             **attention_bound(B, S, S, H, K, h, h, dt.itemsize,
                               backward=True))
         rows[tag]["tflops_per_s"] = rows[tag]["flops"] / (ms * 1e9)
+        rows[tag]["over_bound"] = ms / rows[tag]["bound_ms"]
+        rows[tag]["over_library"] = ms / library_ms
+        if dt == BF16:   # the forward without and with its LSE, in turns
+            fwd = [lambda: kf.flash_attention(q, k, v),
+                   lambda: kf.flash_attention_fwd_lse(q, k, v)]
+            turns = [time_cuda(fwd[i], reps=10, warmup=2)
+                     for i in (0, 1, 1, 0)]
+            rows[tag]["forward_ms"] = dict(without_lse=turns[::3],
+                                           with_lse=turns[1:3])
         log(phase="timing/flash_bwd", name=tag, **rows[tag])
-        del q, k, v, do, o, qt, kt, vt, out, lib_grads, want
+        del q, k, v, do, o, lse, qt, kt, vt, out, lib_grads, want
         torch.cuda.empty_cache()
     return rows
 
@@ -3015,10 +3109,10 @@ def main() -> int:
     for name, err in bwd_check["forward_max_abs_err"].items():
         model_errors[name] = max(model_errors[name], err)
     train = train_phase(dev)
-    train_f32_phase(dev)
+    train_f32 = train_f32_phase(dev)
     checkpoint_phase(dev)
     train_refusal_phase(dev)
-    bwd_timing = time_bwd_kernel(dev)
+    bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
 
     cells = f"gloo{MESH_GLOO_WORLDS[0]}"    # the mesh's adaptive, pipeline
     by_name = {}
@@ -3114,23 +3208,29 @@ def main() -> int:
                              "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms", "shape", "dtype")}))
         kernels.append(entry)
-    # the backward kernel: no Pallas counterpart, it replaces jax.vjp
-    # through the jnp flash_attend
-    row = bwd_timing["train"]
+    # the backward kernels: no Pallas counterpart, they replace jax.vjp
+    # through the jnp flash_attend; bf16 (the train path) on the tensor
+    # cores, the f32 check path (train/f32) on the CUDA cores
+    row, f32_row = bwd_timing["train"], bwd_timing["serve_f32"]
     launches = train["launches"]["flash_attention_bwd"]
-    check(launches > 0, "flash_attention_bwd was not launched on the "
-          "train path")
+    f32_launches = train_f32["launches"]["flash_attention_bwd_f32"]
+    check(launches > 0 and f32_launches > 0, "a flash backward kernel was "
+          f"not launched on its train path: bf16 {launches}, f32 "
+          f"{f32_launches}")
+    bwd_src, bwd_f32_src = (csrc + "flash_attention_bwd_bf16.cu",
+                            csrc + "flash_attention_bwd.cu")
     kernels.append(dict(
-        name="flash_attention_bwd", route="cuda",
-        source=csrc + "flash_attention_bwd.cu",
+        name="flash_attention_bwd", route="cuda", source=bwd_src,
         replaces="src/repro/models/layers.py:111",
         pallas_counterpart=None,
         replaces_what="no Pallas kernel: jax.vjp through "
                       "models/layers.py::flash_attend",
         launches=launches, path=f"train/{train['arch']} ({TRAIN_STEPS} "
                                 f"steps)",
-        max_abs_err=bwd_check["max_abs_err"],
-        max_err_over_scale=bwd_check["worst_err_over_scale"],
+        max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
+        max_err_over_scale=bwd_check["worst_err_over_scale"]
+        ["flash_attention_bwd"],
+        lse_max_abs_err=bwd_check["lse_max_abs_err"],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         library=row["library"],
@@ -3138,9 +3238,21 @@ def main() -> int:
         shape=row["shape"], dtype=row["dtype"],
         other_shapes={k: {m: r[m] for m in (
             "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for k, r in bwd_timing.items() if k != "train"},
-        kernel_info={k: v for k, v in bwd_check["info"].items()
-                     if k.endswith("/128")}))
+            "library_ms")} for k, r in bwd_timing.items()
+            if r["kernel"] == "flash_attention_bwd" and k != "train"},
+        kernel_info=row["kernel_info"],
+        sources=[bwd_src, bwd_f32_src],
+        launches_by_source={bwd_src: launches, bwd_f32_src: f32_launches},
+        f32=dict(source=bwd_f32_src, launches=f32_launches,
+                 path=f"train/f32 (one step, {F32_TRAIN_LAYERS} layers)",
+                 max_abs_err=bwd_check["max_abs_err"]
+                 ["flash_attention_bwd_f32"],
+                 max_err_over_scale=bwd_check["worst_err_over_scale"]
+                 ["flash_attention_bwd_f32"],
+                 kernel_info=f32_row["kernel_info"],
+                 **{k: f32_row[k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "shape", "dtype")})))
     log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
                                      "peak_mem_bytes")})
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",

@@ -47,6 +47,11 @@
 //   m16n8k16, so P is rounded to bf16 in registers and used directly;
 //   V fragments come by ldmatrix.trans. O stays in f32 registers and
 //   leaves through shared memory as 16-byte rows.
+// - Optionally, each query row's log2-domain log-sum-exp m + log2(l) (the
+//   scaled scores' running max and sum) goes to an f32 [B, H, Sq] output
+//   for the backward kernel (csrc/flash_attention_bwd_bf16.cu). With a
+//   null pointer nothing is written; the output's arithmetic is the same
+//   either way, so its bytes do not depend on it.
 //
 // Shapes: h and hv multiples of 16 up to 128; the kernel is instantiated
 // at a padded head width D of 32, 64 or 128, zero-filled past h and hv.
@@ -150,8 +155,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int Sq, int Skv, int H, int KH, int h, int hv,
-                      int causal, int window, float scale_log2) {
+                      float* __restrict__ lse, int Sq, int Skv, int H,
+                      int KH, int h, int hv, int causal, int window,
+                      float scale_log2) {
   constexpr int kStride = D + 8;         // bf16 per shared row (+16 bytes)
   constexpr int kTile = kBK * kStride;   // bf16 per K or V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -314,6 +320,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     l_run[r] = fmaxf(l_run[r], 1e-30f);
   }
+  if (lse != nullptr && tg == 0) {  // one lane of each quad, both its rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Sq)
+        lse[((size_t)b * H + head) * Sq + row0 + 8 * r] =
+            m_run[r] + log2f(l_run[r]);
+  }
   bf16* so = sq + warp * 16 * kStride;
 #pragma unroll
   for (int t = 0; t < D / 8; ++t) {
@@ -357,44 +370,47 @@ int occupancy(int* blocks, int* smem) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KH, int h, int hv, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int KH, int h, int hv,
+           int causal, int window, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_bf16_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KH, h,
-      hv, causal, window, scale * kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Skv, H,
+      KH, h, hv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v and out are bf16; width is the padded head width (32, 64 or
-// 128) that holds h and hv, both multiples of 16. Pointers must be 16-byte
-// aligned. Returns a cudaError_t; 1001 for an unsupported argument.
+// 128) that holds h and hv, both multiples of 16. lse is null or an f32
+// [B, H, Sq] output for each row's log2-domain log-sum-exp. Pointers must
+// be 16-byte aligned. Returns a cudaError_t; 1001 for an unsupported
+// argument.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int Sq, int Skv, int H, int KH,
                                            int h, int hv, int causal,
                                            int window, float scale, int width,
-                                           void* stream) {
+                                           void* lse, void* stream) {
   if (h < 16 || hv < 16 || h % 16 || hv % 16 || h > width || hv > width ||
       KH < 1 || H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535)
     return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (width) {
     case 32:
-      return launch<32>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
+      return launch<32>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
                         window, scale, s);
     case 64:
-      return launch<64>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
+      return launch<64>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
                         window, scale, s);
     case 128:
-      return launch<128>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
+      return launch<128>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
                          window, scale, s);
     default:
       return 1001;

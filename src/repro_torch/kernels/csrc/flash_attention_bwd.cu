@@ -1,11 +1,12 @@
 // The gradient of blockwise causal / sliding-window GQA attention, in f32
-// arithmetic on the CUDA cores, for f32 and bf16 inputs.
+// arithmetic on the CUDA cores, for f32 inputs: the f32 check path. bf16
+// inputs go to csrc/flash_attention_bwd_bf16.cu (the tensor cores, the
+// forward's LSE).
 //
 // The JAX package has no backward kernel: it differentiates the jnp
 // flash_attend (src/repro/models/layers.py, under jax.checkpoint) with
-// jax.vjp. This kernel computes the gradient of the function the forward
-// kernels (csrc/flash_attention.cu, csrc/flash_attention_bf16.cu)
-// compute:
+// jax.vjp. This kernel computes the gradient of the function the f32
+// forward kernel (csrc/flash_attention.cu) computes:
 //
 //     q [B, Sq, H, h], k [B, Skv, K, h], v [B, Skv, K, hv], H = K * G
 //     s[i, j] = (q_i . k_j) / sqrt(h), or -1e30 where masked
@@ -25,7 +26,7 @@
 // 1. flash_bwd_rowstats_kernel, grid (H, B, query tiles of 64): the log2
 //    log-sum-exp of each query row over the keys it can reach (online max
 //    and sum, as the forward) and D_i, into an f32 workspace of 2 B H Sq
-//    values that the wrapper allocates. The forward kernels emit no LSE.
+//    values that the wrapper allocates. The f32 forward emits no LSE.
 // 2. flash_bwd_dkdv_kernel, grid (K, B, key tiles of 32), the key tile
 //    slowest and ascending, so that the causal tiles with the most work
 //    start first: a block keeps its K and V tile in shared memory, loops
@@ -43,23 +44,21 @@
 //
 // Bound on an H100: the work is five matrix products over the visible
 // (query, key) pairs, 10 h flops a pair at h = hv (2.5 times the forward).
-// At the yi-6b train shape (q [1, 4096, 32, 128] per microbatch, causal)
-// that is 344 GFLOP against ~134 MB in and out, so operations bound it.
-// This kernel recomputes S three times and dP twice (8 products, not 5)
-// and runs them as FFMA on the CUDA cores, not the tensor cores: it is the
-// simple version first, and moving the products to mma.sync / wgmma is a
-// later change. The layouts follow csrc/flash_attention.cu: row-major
-// f32 tiles of stride D + 4 floats read as float4, a 4 x 4 (rows x keys)
-// register tile a thread for S and dP (lane = 8 * ry + kx; rows ry + 4 i,
-// keys kx + 8 j), and for the dk/dv accumulation a thread tile of 2 or 4
-// keys by 4 or 8 columns, so that a few shared loads feed each run of
-// FMAs. Inputs are converted to f32 as they are copied into shared memory.
+// At the serving shape (q [4, 1024, 32, 128], causal) that is 86 GFLOP
+// against ~302 MB in and out, so operations bound it: the f32 rate of the
+// CUDA cores (TF32 tensor cores would not keep the check path's
+// tolerance). This kernel recomputes S three times and dP twice (8
+// products, not 5) as FFMA. The layouts follow csrc/flash_attention.cu:
+// row-major f32 tiles of stride D + 4 floats read as float4, a 4 x 4
+// (rows x keys) register tile a thread for S and dP (lane = 8 * ry + kx;
+// rows ry + 4 i, keys kx + 8 j), and for the dk/dv accumulation a thread
+// tile of 2 or 4 keys by 4 or 8 columns, so that a few shared loads feed
+// each run of FMAs.
 //
 // Shapes: h, hv <= 128, any values; instantiated at a padded head width D
 // of 32, 64 or 128 (zero-filled past h and hv). Rows past Sq and keys past
 // Skv are masked; neither length has to divide a tile. A query row that
 // sees no key has no defined gradient (its P is set to 0 here).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,35 +74,20 @@ constexpr int kSStride = kBK + 8;  // floats a query row of P, dS (kernel 2)
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Rows row0 .. row0 + R - 1 of a [n_rows, row_stride] matrix, columns
-// below `width`, into shared rows of D + 4 floats (columns 0 .. D - 1),
-// converted to f32; zero where the row or column does not exist.
+// below `width`, into shared rows of D + 4 floats (columns 0 .. D - 1);
+// zero where the row or column does not exist.
 // Consecutive threads take consecutive columns.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+template <int D, int R>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0,
                                           int n_rows, int width,
                                           size_t row_stride, int tid) {
   for (int idx = tid; idx < R * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     float x = 0.f;
     if (c < width && row0 + r < n_rows)
-      x = to_f(src[(size_t)(row0 + r) * row_stride + c]);
+      x = src[(size_t)(row0 + r) * row_stride + c];
     dst[r * (D + 4) + c] = x;
   }
 }
@@ -160,12 +144,12 @@ __device__ __forceinline__ void key_tiles(int q0, int q_last, int Skv,
 // ---------------------------------------------------------------------------
 // 1. log2-domain log-sum-exp and D per query row
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_rowstats_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ o,
-                              const T* __restrict__ dout,
+    flash_bwd_rowstats_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ o,
+                              const float* __restrict__ dout,
                               float* __restrict__ lse2,
                               float* __restrict__ dvec, int Sq, int Skv,
                               int H, int KH, int h, int hv, int causal,
@@ -187,22 +171,22 @@ __global__ void __launch_bounds__(kThreads)
 
   const size_t q_rs = (size_t)H * h, k_rs = (size_t)KH * h,
                o_rs = (size_t)H * hv;
-  const T* qg = q + ((size_t)b * Sq * H + head) * h;
-  const T* kg = k + ((size_t)b * Skv * KH + kvh) * h;
+  const float* qg = q + ((size_t)b * Sq * H + head) * h;
+  const float* kg = k + ((size_t)b * Skv * KH + kvh) * h;
   const size_t stat0 = ((size_t)b * H + head) * Sq;
 
-  load_tile<T, D, kBQ>(sq, qg, q0, Sq, h, q_rs, tid);
+  load_tile<D, kBQ>(sq, qg, q0, Sq, h, q_rs, tid);
 
   // D_i: a warp a row, lanes over the columns, then a fixed shuffle tree
   {
-    const T* og = o + ((size_t)b * Sq * H + head) * hv;
-    const T* dg = dout + ((size_t)b * Sq * H + head) * hv;
+    const float* og = o + ((size_t)b * Sq * H + head) * hv;
+    const float* dg = dout + ((size_t)b * Sq * H + head) * hv;
     for (int r = wrow; r < wrow + 16; ++r) {
       const int row = q0 + r;
       if (row >= Sq) break;  // the same for every lane of the warp
       float acc = 0.f;
       for (int c = lane; c < hv; c += 32)
-        acc = fmaf(to_f(dg[row * o_rs + c]), to_f(og[row * o_rs + c]), acc);
+        acc = fmaf(dg[row * o_rs + c], og[row * o_rs + c], acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -219,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* sq_t = sq + (wrow + ry) * S;
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     __syncthreads();  // every warp is past the previous tile
-    load_tile<T, D, kBK>(sk, kg, kt * kBK, Skv, h, k_rs, tid);
+    load_tile<D, kBK>(sk, kg, kt * kBK, Skv, h, k_rs, tid);
     __syncthreads();
     float s[4][4];
     dot_tile<D, 4>(s, sq_t, sk, kx);
@@ -276,14 +260,16 @@ struct KvMap {
   static_assert(kKeys * kKG == kBK && kCPT * kCG == kChunks, "whole map");
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const T* __restrict__ dout,
+    flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
                           const float* __restrict__ lse2,
                           const float* __restrict__ dvec,
-                          T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int Sq,
                           int Skv, int H, int KH, int h, int hv, int causal,
                           int window, float scale_log2, float scale) {
   constexpr int S = D + 4;
@@ -306,9 +292,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t q_rs = (size_t)H * h, o_rs = (size_t)H * hv,
                k_rs = (size_t)KH * h, v_rs = (size_t)KH * hv;
 
-  load_tile<T, D, kBK>(sk, k + ((size_t)b * Skv * KH + kvh) * h, k0, Skv, h,
+  load_tile<D, kBK>(sk, k + ((size_t)b * Skv * KH + kvh) * h, k0, Skv, h,
                        k_rs, tid);
-  load_tile<T, D, kBK>(sv, v + ((size_t)b * Skv * KH + kvh) * hv, k0, Skv,
+  load_tile<D, kBK>(sv, v + ((size_t)b * Skv * KH + kvh) * hv, k0, Skv,
                        hv, v_rs, tid);
 
   // the query tiles some row of which reaches a key of this tile
@@ -330,14 +316,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int srow = 8 * warp + ry;  // the thread's first S row in the tile
   for (int g = 0; g < G; ++g) {
     const int head = kvh * G + g;
-    const T* qg = q + ((size_t)b * Sq * H + head) * h;
-    const T* dg = dout + ((size_t)b * Sq * H + head) * hv;
+    const float* qg = q + ((size_t)b * Sq * H + head) * h;
+    const float* dg = dout + ((size_t)b * Sq * H + head) * hv;
     const size_t stat0 = ((size_t)b * H + head) * Sq;
     for (int qt = qt_begin; qt <= qt_end; ++qt) {
       const int q0 = qt * kBQ2;
       __syncthreads();  // every warp is done with the previous step's tiles
-      load_tile<T, D, kBQ2>(sq, qg, q0, Sq, h, q_rs, tid);
-      load_tile<T, D, kBQ2>(sdo, dg, q0, Sq, hv, o_rs, tid);
+      load_tile<D, kBQ2>(sq, qg, q0, Sq, h, q_rs, tid);
+      load_tile<D, kBQ2>(sdo, dg, q0, Sq, hv, o_rs, tid);
       if (tid < kBQ2) {
         const int row = q0 + tid;
         slse[tid] = row < Sq ? lse2[stat0 + row] : 0.f;
@@ -399,15 +385,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int e = 0; e < M::kKeys; ++e) {
     const int key = k0 + kg * M::kKeys + e;
     if (key >= Skv) continue;
-    T* dkr = dk + ((size_t)b * Skv + key) * k_rs + (size_t)kvh * h;
-    T* dvr = dv + ((size_t)b * Skv + key) * v_rs + (size_t)kvh * hv;
+    float* dkr = dk + ((size_t)b * Skv + key) * k_rs + (size_t)kvh * h;
+    float* dvr = dv + ((size_t)b * Skv + key) * v_rs + (size_t)kvh * hv;
 #pragma unroll
     for (int jj = 0; jj < M::kCPT; ++jj)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int col = 4 * (cg + M::kCG * jj) + x;
-        if (col < h) dkr[col] = from_f<T>(dk_acc[e][4 * jj + x] * scale);
-        if (col < hv) dvr[col] = from_f<T>(dv_acc[e][4 * jj + x]);
+        if (col < h) dkr[col] = dk_acc[e][4 * jj + x] * scale;
+        if (col < hv) dvr[col] = dv_acc[e][4 * jj + x];
       }
   }
 }
@@ -415,12 +401,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // 3. dq, one query tile of one head a block
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse2,
-                        const float* __restrict__ dvec, T* __restrict__ dq,
+                        const float* __restrict__ dvec, float* __restrict__ dq,
                         int Sq, int Skv, int H, int KH, int h, int hv,
                         int causal, int window, float scale_log2,
                         float scale) {
@@ -445,13 +433,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const size_t q_rs = (size_t)H * h, o_rs = (size_t)H * hv,
                k_rs = (size_t)KH * h, v_rs = (size_t)KH * hv;
-  const T* kg = k + ((size_t)b * Skv * KH + kvh) * h;
-  const T* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
+  const float* kg = k + ((size_t)b * Skv * KH + kvh) * h;
+  const float* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
   const size_t stat0 = ((size_t)b * H + head) * Sq;
 
-  load_tile<T, D, kBQ>(sq, q + ((size_t)b * Sq * H + head) * h, q0, Sq, h,
+  load_tile<D, kBQ>(sq, q + ((size_t)b * Sq * H + head) * h, q0, Sq, h,
                        q_rs, tid);
-  load_tile<T, D, kBQ>(sdo, dout + ((size_t)b * Sq * H + head) * hv, q0, Sq,
+  load_tile<D, kBQ>(sdo, dout + ((size_t)b * Sq * H + head) * hv, q0, Sq,
                        hv, o_rs, tid);
   float lse_r[4], d_r[4];
 #pragma unroll
@@ -473,8 +461,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // every warp is done with the previous K, V tile
-    load_tile<T, D, kBK>(sk, kg, k0, Skv, h, k_rs, tid);
-    load_tile<T, D, kBK>(sv, vg, k0, Skv, hv, v_rs, tid);
+    load_tile<D, kBK>(sk, kg, k0, Skv, h, k_rs, tid);
+    load_tile<D, kBK>(sv, vg, k0, Skv, hv, v_rs, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D, 4>(s, sq_t, sk, kx);
@@ -523,13 +511,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + wrow + ry + 4 * i;
     if (row >= Sq) continue;
-    T* o = dq + ((size_t)b * Sq + row) * q_rs + (size_t)head * h;
+    float* o = dq + ((size_t)b * Sq + row) * q_rs + (size_t)head * h;
 #pragma unroll
     for (int jj = 0; jj < kChunks; ++jj)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int col = 4 * (kx + 8 * jj) + x;
-        if (col < h) o[col] = from_f<T>(acc[i][4 * jj + x] * scale);
+        if (col < h) o[col] = acc[i][4 * jj + x] * scale;
       }
   }
 }
@@ -552,19 +540,19 @@ constexpr int smem_dq() {
 
 // The three kernels of one (type, width) instantiation, with their shared
 // memory; `which` is 1 (row stats), 2 (dk/dv) or 3 (dq).
-template <typename T, int D>
+template <int D>
 cudaError_t kernel_of(int which, const void** fn, int* smem) {
   switch (which) {
     case 1:
-      *fn = reinterpret_cast<const void*>(flash_bwd_rowstats_kernel<T, D>);
+      *fn = reinterpret_cast<const void*>(flash_bwd_rowstats_kernel<D>);
       *smem = smem_rowstats<D>();
       break;
     case 2:
-      *fn = reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<T, D>);
+      *fn = reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<D>);
       *smem = smem_dkdv<D>();
       break;
     case 3:
-      *fn = reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, D>);
+      *fn = reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>);
       *smem = smem_dq<D>();
       break;
     default:
@@ -574,7 +562,7 @@ cudaError_t kernel_of(int which, const void** fn, int* smem) {
                               *smem);
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* ws, int B,
            int Sq, int Skv, int H, int KH, int h, int hv, int causal,
@@ -582,35 +570,37 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const void* fn;
   int smem[4];
   for (int which = 1; which <= 3; ++which) {
-    cudaError_t err = kernel_of<T, D>(which, &fn, &smem[which]);
+    cudaError_t err = kernel_of<D>(which, &fn, &smem[which]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   float* lse2 = ws;
   float* dvec = ws + (size_t)B * H * Sq;
   const float sl2 = scale * kLog2e;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const dim3 rows(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_bwd_rowstats_kernel<T, D><<<rows, kThreads, smem[1], stream>>>(
-      tq, tk, static_cast<const T*>(o), tdo, lse2, dvec, Sq, Skv, H, KH, h, hv,
+  flash_bwd_rowstats_kernel<D><<<rows, kThreads, smem[1], stream>>>(
+      tq, tk, static_cast<const float*>(o), tdo, lse2, dvec, Sq, Skv, H, KH, h,
+      hv,
       causal, window, sl2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 keys(KH, B, (Skv + kBK - 1) / kBK);
-  flash_bwd_dkdv_kernel<T, D><<<keys, kThreads, smem[2], stream>>>(
-      tq, tk, tv, tdo, lse2, dvec, static_cast<T*>(dk), static_cast<T*>(dv),
+  flash_bwd_dkdv_kernel<D><<<keys, kThreads, smem[2], stream>>>(
+      tq, tk, tv, tdo, lse2, dvec, static_cast<float*>(dk),
+      static_cast<float*>(dv),
       Sq, Skv, H, KH, h, hv, causal, window, sl2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T, D><<<rows, kThreads, smem[3], stream>>>(
-      tq, tk, tv, tdo, lse2, dvec, static_cast<T*>(dq), Sq, Skv, H, KH, h, hv,
+  flash_bwd_dq_kernel<D><<<rows, kThreads, smem[3], stream>>>(
+      tq, tk, tv, tdo, lse2, dvec, static_cast<float*>(dq), Sq, Skv, H, KH, h,
+      hv,
       causal, window, sl2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_width(int width, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, void* dq, void* dk,
                  void* dv, float* ws, int B, int Sq, int Skv, int H, int KH,
@@ -618,28 +608,27 @@ int launch_width(int width, const void* q, const void* k, const void* v,
                  cudaStream_t s) {
   switch (width) {
     case 32:
-      return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
+      return launch<32>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
                            KH, h, hv, causal, window, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
+      return launch<64>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
                            KH, h, hv, causal, window, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
+      return launch<128>(q, k, v, o, dout, dq, dk, dv, ws, B, Sq, Skv, H,
                             KH, h, hv, causal, window, scale, s);
     default:
       return 1001;
   }
 }
 
-template <typename T>
 int info_width(int which, int width, const void** fn, int* smem) {
   switch (width) {
     case 32:
-      return static_cast<int>(kernel_of<T, 32>(which, fn, smem));
+      return static_cast<int>(kernel_of<32>(which, fn, smem));
     case 64:
-      return static_cast<int>(kernel_of<T, 64>(which, fn, smem));
+      return static_cast<int>(kernel_of<64>(which, fn, smem));
     case 128:
-      return static_cast<int>(kernel_of<T, 128>(which, fn, smem));
+      return static_cast<int>(kernel_of<128>(which, fn, smem));
     default:
       return 1001;
   }
@@ -647,44 +636,36 @@ int info_width(int which, int width, const void** fn, int* smem) {
 
 }  // namespace
 
-// q, k, v, o, dout are the forward's inputs, its output and the output's
-// gradient, contiguous, all f32 (dtype 0) or all bf16 (dtype 1); dq, dk, dv
-// are written in the same type. ws holds 2 * B * H * Sq floats (row
-// log-sum-exps, then D). width is the padded head width (32, 64 or 128)
-// that holds h and hv; scale is 1 / sqrt(h). Returns a cudaError_t; 1001
-// for an unsupported argument.
+// q, k, v, o, dout are the forward's f32 inputs, its output and the
+// output's gradient, contiguous; dq, dk, dv are written in f32. ws holds
+// 2 * B * H * Sq floats (row log-sum-exps, then D). width is the padded
+// head width (32, 64 or 128) that holds h and hv; scale is 1 / sqrt(h).
+// Returns a cudaError_t; 1001 for an unsupported argument.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* ws, int B, int Sq,
     int Skv, int H, int KH, int h, int hv, int causal, int window,
-    float scale, int width, int dtype, void* stream) {
+    float scale, int width, void* stream) {
   if (h < 1 || hv < 1 || h > width || hv > width || KH < 1 || H % KH != 0 ||
       B > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
-      (Skv + kBK - 1) / kBK > 65535 || (dtype != 0 && dtype != 1))
+      (Skv + kBK - 1) / kBK > 65535)
     return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  return dtype == 0
-             ? launch_width<float>(width, q, k, v, o, dout, dq, dk, dv, w, B,
-                                   Sq, Skv, H, KH, h, hv, causal, window,
-                                   scale, s)
-             : launch_width<__nv_bfloat16>(width, q, k, v, o, dout, dq, dk, dv,
-                                           w, B, Sq, Skv, H, KH, h, hv, causal,
-                                           window, scale, s);
+  return launch_width(width, q, k, v, o, dout, dq, dk, dv, w, B, Sq,
+                             Skv, H, KH, h, hv, causal, window, scale, s);
 }
 
 // Registers a thread, local (spill) bytes a thread, dynamic shared bytes a
 // block and blocks an SM holds of kernel `which` (1 row stats, 2 dk/dv,
-// 3 dq) at padded width `width` for dtype 0 (f32) or 1 (bf16). Returns a
-// cudaError_t; 1001 for an unsupported argument.
-extern "C" int flash_attention_bwd_info(int which, int width, int dtype,
-                                        int* regs, int* local_bytes,
-                                        int* smem, int* blocks) {
+// 3 dq) at padded width `width`. Returns a cudaError_t; 1001 for an
+// unsupported argument.
+extern "C" int flash_attention_bwd_info(int which, int width, int* regs,
+                                        int* local_bytes, int* smem,
+                                        int* blocks) {
   const void* fn = nullptr;
-  int err = dtype == 0   ? info_width<float>(which, width, &fn, smem)
-            : dtype == 1 ? info_width<__nv_bfloat16>(which, width, &fn, smem)
-                         : 1001;
+  int err = info_width(which, width, &fn, smem);
   if (err != 0) return err;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);

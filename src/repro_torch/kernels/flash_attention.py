@@ -21,13 +21,24 @@ dispatches on the device, then on the dtype:
 
 :func:`flash_attention` is a ``torch.autograd.Function``
 (:class:`FlashAttention`): its backward is :func:`flash_attention_bwd`,
-which on a CUDA tensor launches ``csrc/flash_attention_bwd.cu``
-(:data:`KERNEL_BWD`, both dtypes, f32 arithmetic on the CUDA cores; one
-count a call, which runs three CUDA kernels over an f32 workspace of
-:func:`bwd_workspace_floats` values) and on a CPU tensor runs
-:func:`flash_attention_bwd_plain`. The JAX package has no backward
-kernel: it takes ``jax.vjp`` through ``repro.models.layers.flash_attend``.
-A failed build or launch raises; nothing falls back to a plain version.
+which dispatches the same way (:func:`select_bwd_kernel`):
+
+- a bf16 CUDA tensor launches ``csrc/flash_attention_bwd_bf16.cu``
+  (:data:`KERNEL_BWD_BF16`, the tensor cores). It takes the forward's
+  log2-domain log-sum-exp of each query row, which the bf16 forward
+  writes when an input needs a gradient (:func:`flash_attention_fwd_lse`
+  returns it too); without it the backward raises, it never recomputes
+  it. The same head widths as the bf16 forward;
+- an f32 CUDA tensor launches ``csrc/flash_attention_bwd.cu``
+  (:data:`KERNEL_BWD`, f32 arithmetic on the CUDA cores, which recomputes
+  the row statistics itself; any h, hv <= 128);
+- a CPU tensor runs :func:`flash_attention_bwd_plain`.
+
+Each backward call is one count, which runs three CUDA kernels over an
+f32 workspace of :func:`bwd_workspace_floats` values. The JAX package
+has no backward kernel: it takes ``jax.vjp`` through
+``repro.models.layers.flash_attend``. A failed build or launch raises;
+nothing falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -38,30 +49,42 @@ import torch
 
 from ._build import CudaKernel
 from .ref import flash_attention_bwd_plain
+from .ref import flash_attention_lse_plain
 from .ref import flash_attention_ref as flash_attention_plain
 
-__all__ = ["KERNEL", "KERNEL_BF16", "KERNEL_BWD", "FlashAttention",
-           "bf16_head_width", "bwd_workspace_floats", "f32_plan",
-           "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain",
-           "select_kernel"]
+__all__ = ["KERNEL", "KERNEL_BF16", "KERNEL_BWD", "KERNEL_BWD_BF16",
+           "FlashAttention", "bf16_head_width", "bwd_workspace_floats",
+           "f32_plan", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_fwd_lse",
+           "flash_attention_lse_plain", "flash_attention_plain",
+           "select_bwd_kernel", "select_kernel"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
 KERNEL = CudaKernel("flash_attention.cu", "flash_attention_launch",
                     _ARGS + [_I, _I, _P])
+# ... scale; padded width; lse (f32 [B,H,Sq] or null); stream
 KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
-                         "flash_attention_bf16_launch", _ARGS + [_I, _P])
+                         "flash_attention_bf16_launch", _ARGS + [_I, _P, _P])
 # q, k, v, o, do, dq, dk, dv, workspace; B, Sq, Skv, H, K, h, hv, causal,
-# window; scale; padded width, dtype (0 f32, 1 bf16); stream
+# window; scale; padded width; stream
 KERNEL_BWD = CudaKernel("flash_attention_bwd.cu",
                         "flash_attention_bwd_launch",
-                        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P])
+                        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P])
+# q, k, v, o, do, lse, dq, dk, dv, workspace; the same ints; scale; padded
+# width; stream
+KERNEL_BWD_BF16 = CudaKernel("flash_attention_bwd_bf16.cu",
+                             "flash_attention_bwd_bf16_launch",
+                             [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P])
 MAX_HEAD = 128
-WIDTHS = (32, 64, 128)   # the padded head widths both kernels are built at
+WIDTHS = (32, 64, 128)   # the padded head widths every kernel is built at
 # the f32 kernel's tiling, as csrc/flash_attention.cu: query rows per
 # block, keys per K/V tile, threads per block
 F32_BLOCK_Q, F32_BLOCK_K, F32_THREADS = 64, 32, 128
+# the bf16 backward's tiling, as csrc/flash_attention_bwd_bf16.cu: keys a
+# dk/dv block (16 a warp) and query rows a dq block (16 a warp), queries
+# or keys an inner step, warps a block
+BWD_BLOCK_K, BWD_BLOCK_Q, BWD_HALF, BWD_WARPS = 64, 64, 32, 4
 
 
 def bf16_head_width(h: int, hv: int) -> int:
@@ -126,15 +149,24 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             causal: bool, window: int) -> torch.Tensor:
-    """The forward kernel of q's dtype on a CUDA tensor, the plain version
-    on a CPU tensor; no autograd."""
+             causal: bool, window: int, lse: bool = False):
+    """``(out, lse)``: the forward kernel of q's dtype on a CUDA tensor,
+    the plain version on a CPU tensor; no autograd. ``lse`` asks for each
+    query row's log2-domain log-sum-exp (f32 [B,H,Sq]), which only the
+    bf16 kernel writes (an f32 CUDA tensor raises); else it is None and
+    the kernel is given a null pointer."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+        return out, (flash_attention_lse_plain(q, k, causal=causal,
+                                               window=window)
+                     if lse else None)
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     kernel = select_kernel(q.dtype, h, hv)
+    if lse and kernel is not KERNEL_BF16:
+        raise ValueError("only the bf16 forward kernel writes its LSE; the "
+                         "f32 backward recomputes it")
     if Skv == 0:
         raise ValueError("no keys to attend to")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -142,31 +174,75 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hv), dtype=q.dtype, device=q.device)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, K, h, hv, int(causal), int(window), 1.0 / math.sqrt(h)]
+    stats = None
     if kernel is KERNEL_BF16:
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("the bf16 kernel copies 16-byte chunks: q, k "
                              "and v must start on 16-byte boundaries")
-        args.append(bf16_head_width(h, hv))
+        if lse:
+            stats = torch.empty((B, H, Sq), dtype=torch.float32,
+                                device=q.device)
+        args += [bf16_head_width(h, hv),
+                 stats.data_ptr() if stats is not None else None]
     else:
         args.extend(f32_plan(h, hv, *args[:4]))
     with torch.cuda.device(q.device):
         kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
-    return out
+    return out, stats
 
 
-def bwd_workspace_floats(B: int, Sq: int, H: int) -> int:
-    """f32 values of the backward kernel's workspace: each query row's
-    log-sum-exp and its D = do . o."""
-    return 2 * B * Sq * H
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = -1):
+    """``(out, lse)`` with no autograd: the attention output and each
+    query row's log2-domain log-sum-exp, f32 [B,H,Sq] (``m + log2 l`` of
+    the scaled scores ``s log2(e)/sqrt(h)``, masked ones at -1e30), which
+    the bf16 backward takes as ``lse=``. A bf16 CUDA tensor launches the
+    bf16 forward kernel once; a CPU tensor runs the plain versions; an
+    f32 CUDA tensor raises (its kernel writes no LSE)."""
+    return _forward(q, k, v, causal=causal, window=window, lse=True)
+
+
+def bwd_workspace_floats(B: int, Sq: int, H: int,
+                         dtype: torch.dtype = torch.float32) -> int:
+    """f32 values of the backward kernel's workspace for inputs of
+    ``dtype``: each query row's D = do . o (bf16), and also its
+    log-sum-exp (f32, which recomputes it)."""
+    return (1 if dtype == torch.bfloat16 else 2) * B * Sq * H
+
+
+def select_bwd_kernel(dtype: torch.dtype, h: int, hv: int,
+                      lse: torch.Tensor | None) -> CudaKernel:
+    """The backward kernel that a CUDA tensor of ``dtype`` launches: bf16
+    → :data:`KERNEL_BWD_BF16` (raises for a head width the bf16 forward
+    does not take, and without the forward's ``lse``: it is never
+    recomputed and nothing falls back), f32 → :data:`KERNEL_BWD` (any h,
+    hv <= 128; ``lse`` is not used)."""
+    if dtype == torch.bfloat16:
+        bf16_head_width(h, hv)
+        if lse is None:
+            raise ValueError("the bf16 backward kernel takes the forward's "
+                             "log-sum-exp (lse=, from the bf16 forward or "
+                             "flash_attention_fwd_lse); none was given")
+        return KERNEL_BWD_BF16
+    if dtype == torch.float32:
+        if max(h, hv) > MAX_HEAD:
+            raise ValueError(f"the backward kernel takes head dims up to "
+                             f"{MAX_HEAD}, got h={h}, hv={hv}")
+        return KERNEL_BWD
+    raise TypeError(f"no attention backward kernel for {dtype}")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, window: int = -1):
+                        causal: bool = True, window: int = -1,
+                        lse: torch.Tensor | None = None):
     """The gradient of :func:`flash_attention` at (q, k, v): ``o`` is its
     output and ``do`` the output's gradient, both [B,Sq,H,hv] in q's
-    dtype. Returns (dq, dk, dv) in q's dtype: the kernel on a CUDA
-    tensor, :func:`flash_attention_bwd_plain` on a CPU tensor."""
+    dtype; ``lse`` is the forward's f32 [B,H,Sq] log2-domain log-sum-exp
+    (:func:`flash_attention_fwd_lse`), which a bf16 CUDA tensor requires.
+    Returns (dq, dk, dv) in q's dtype: the kernel on a CUDA tensor,
+    :func:`flash_attention_bwd_plain` on a CPU tensor."""
     check_inputs(q, k, v)
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
@@ -179,23 +255,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          window=window)
-    if max(h, hv) > MAX_HEAD:
-        raise ValueError(f"the backward kernel takes head dims up to "
-                         f"{MAX_HEAD}, got h={h}, hv={hv}")
+    kernel = select_bwd_kernel(q.dtype, h, hv, lse)
     if Skv == 0:
         raise ValueError("no keys to attend to")
     if not all(t.is_contiguous() for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must be contiguous")
-    width = next(w for w in WIDTHS if w >= max(h, hv))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ws = torch.empty((bwd_workspace_floats(B, Sq, H),), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty((bwd_workspace_floats(B, Sq, H, q.dtype),),
+                     dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr()]
+    if kernel is KERNEL_BWD_BF16:
+        if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
+                or lse.device != q.device or not lse.is_contiguous():
+            raise ValueError(f"lse must be a contiguous float32 [B,H,Sq] = "
+                             f"{(B, H, Sq)} on {q.device}, got {lse.dtype} "
+                             f"{tuple(lse.shape)} on {lse.device}")
+        if any(p % 16 for p in ptrs):
+            raise ValueError("the bf16 backward kernel copies 16-byte "
+                             "chunks: q, k, v, o and do must start on "
+                             "16-byte boundaries")
+        ptrs.append(lse.data_ptr())
+        width = bf16_head_width(h, hv)
+    else:
+        width = next(w for w in WIDTHS if w >= max(h, hv))
     with torch.cuda.device(q.device):
-        KERNEL_BWD.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        kernel.launch(
+            *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             ws.data_ptr(), B, Sq, Skv, H, K, h, hv, int(causal), int(window),
-            1.0 / math.sqrt(h), width, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(h), width,
             torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv
 
@@ -203,21 +291,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is the forward kernel (or the plain
     version on the CPU) and whose backward is :func:`flash_attention_bwd`.
-    Saves q, k, v and the output for the backward."""
+    Saves q, k, v, the output and, where an input needs a gradient of a
+    bf16 CUDA call, the forward's log-sum-exp for the backward; with no
+    gradient to take (serving) the forward launch writes no LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        out = _forward(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        lse = (q.dtype == torch.bfloat16 and q.device.type == "cuda"
+               and any(ctx.needs_input_grad[:3]))
+        out, stats = _forward(q, k, v, causal=causal, window=window,
+                              lse=lse)
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window)
+                                         window=ctx.window, lse=stats)
         return dq, dk, dv, None, None
 
 

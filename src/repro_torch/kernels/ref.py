@@ -3,6 +3,9 @@
 - :func:`flash_attention_ref`: masked softmax attention computed in f32,
   as the TPU kernel computes it, cast to q's dtype. It is the plain
   version that ``flash_attention`` runs on a CPU tensor.
+- :func:`flash_attention_lse_plain`: each query row's log2-domain
+  log-sum-exp of the scaled, masked scores, as the bf16 forward kernel
+  writes it for the bf16 backward kernel.
 - :func:`flash_attention_bwd_plain`: the gradient of that function, from
   explicit formulas (not autograd), in f32. It is the plain version of
   the backward kernel, which the JAX package does not have (it takes
@@ -58,6 +61,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hv).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              causal: bool = True,
+                              window: int = -1) -> torch.Tensor:
+    """f32 [B,H,Sq]: log2 sum_j 2^(s_ij) for each query row of q
+    [B,Sq,H,h] over k [B,Skv,K,h], with s = (q . k) log2(e)/sqrt(h) and a
+    masked score at -1e30, taken as m + log2(sum_j 2^(s_ij - m)), m the
+    row's max (a row that sees no key gives about -1e30)."""
+    B, Sq, H, h = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(B, Sq, K, H // K,
+                                                           h),
+                     k.float()) * (math.log2(math.e) / math.sqrt(h))
+    mask = attention_mask(Sq, k.shape[1], causal=causal, window=window,
+                          device=q.device)
+    s = torch.where(mask, s, torch.full_like(s, MASKED))
+    m = s.amax(-1)
+    lse = m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+    return lse.reshape(B, H, Sq)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,

@@ -540,21 +540,44 @@ def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):
     return q, k, v, do
 
 
+def bwd_counts():
+    return kf.KERNEL_BWD.launches, kf.KERNEL_BWD_BF16.launches
+
+
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", BWD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
                                         causal, window, dtype):
     """dq, dk, dv of one kernel call against the plain formulas on the
-    same inputs (o from the plain forward): the forward's tolerances (f32
-    2e-5, bf16 2e-2) times max(1, the gradient's largest magnitude)."""
+    same inputs: the forward's tolerances (f32 2e-5, bf16 2e-2) times
+    max(1, the gradient's largest magnitude). f32 launches the CUDA-core
+    kernel on o from the plain forward; bf16 the tensor-core kernel on o
+    and the LSE of the bf16 forward, and raises for a head width that is
+    not a multiple of 16 or without the LSE."""
     dt = getattr(torch, dtype)
     q, k, v, do = bwd_inputs(Sq + H + h, B, Sq, Skv, H, K, h, hv, dt, cuda)
-    o = kf.flash_attention_plain(q, k, v, causal=causal,
-                                 window=window).contiguous()
-    before = kf.KERNEL_BWD.launches
+    lse = None
+    if dt == torch.bfloat16:
+        if h % 16 or hv % 16:
+            with pytest.raises(ValueError, match="multiples of 16"):
+                kf.flash_attention_bwd(q, k, v, do, do, causal=causal,
+                                       window=window,
+                                       lse=torch.zeros((B, H, Sq),
+                                                       device=cuda))
+            return
+        o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                            window=window)
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   window=window)
+    else:
+        o = kf.flash_attention_plain(q, k, v, causal=causal,
+                                     window=window).contiguous()
+    before = bwd_counts()
     got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                 window=window)
-    assert kf.KERNEL_BWD.launches == before + 1
+                                 window=window, lse=lse)
+    assert bwd_counts() == (before[0] + (dt == torch.float32),
+                            before[1] + (dt == torch.bfloat16))
     want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                         window=window)
     tol = 2e-5 if dt == torch.float32 else 2e-2
@@ -565,14 +588,59 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
             name
 
 
-def test_flash_bwd_is_deterministic(cuda):
-    """Two launches on the same inputs give the same bytes."""
-    q, k, v, do = bwd_inputs(7, 2, 512, 512, 16, 2, 128, 128,
-                             torch.bfloat16, cuda)
-    o = kf.flash_attention(q, k, v)
-    first = kf.flash_attention_bwd(q, k, v, o, do)
-    second = kf.flash_attention_bwd(q, k, v, o, do)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bytes, on either
+    route."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = bwd_inputs(7, 2, 512, 512, 16, 2, 128, 128, dt, cuda)
+    o, lse = (kf.flash_attention_fwd_lse(q, k, v) if dt == torch.bfloat16
+              else (kf.flash_attention(q, k, v), None))
+    before = bwd_counts()
+    first = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    second = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert bwd_counts() == (before[0] + 2 * (dt == torch.float32),
+                            before[1] + 2 * (dt == torch.bfloat16))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# (B, Sq, Skv, H, K, h, hv, causal, window) of the bf16 forward
+LSE_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
+             (2, 128, 128, 4, 2, 32, 32, False, 40),
+             (2, 100, 130, 4, 2, 64, 48, True, -1),
+             (2, 130, 100, 4, 4, 16, 16, True, -1),
+             (1, 1000, 1000, 8, 2, 128, 128, True, -1)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", LSE_CASES)
+def test_bf16_forward_bytes_do_not_depend_on_lse(cuda, B, Sq, Skv, H, K, h,
+                                                 hv, causal, window):
+    """The bf16 forward's output is the same bytes whether or not it
+    writes the LSE (serving passes a null pointer, training does not)."""
+    q, k, v, _ = bwd_inputs(Sq + h, B, Sq, Skv, H, K, h, hv,
+                            torch.bfloat16, cuda)
+    before = kf.KERNEL_BF16.launches
+    plain_out = kf.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                          window=window)
+    assert kf.KERNEL_BF16.launches == before + 2
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.equal(out, plain_out)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", LSE_CASES)
+def test_bf16_forward_lse_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
+                                        causal, window):
+    """The LSE the bf16 forward writes against the plain log2-domain
+    logsumexp of the scaled, masked scores on the same inputs, within
+    1e-3 (log2 units: a relative error of 0.07 % in P, below a bf16 ulp
+    of it; the two sum the exponentials in another order)."""
+    q, k, v, _ = bwd_inputs(Sq + h + 1, B, Sq, Skv, H, K, h, hv,
+                            torch.bfloat16, cuda)
+    _, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    want = kf.flash_attention_lse_plain(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 1e-3
 
 
 def test_flash_autograd_on_card_matches_cpu(cuda):

@@ -168,7 +168,9 @@ def _bf16_kernel_arithmetic(q, k, v, *, causal=True, window=-1, tile=64):
     """The bf16 CUDA kernel's arithmetic in plain PyTorch (a test helper,
     on no path): kv tiles of ``tile`` keys with an online softmax in f32
     in the log2 domain, the unnormalised P rounded to bf16 before P·V,
-    l summed from the unrounded P, out = acc / max(l, 1e-30) in bf16."""
+    l summed from the unrounded P, out = acc / max(l, 1e-30) in bf16.
+    Returns (out, lse): lse = m + log2 max(l, 1e-30), f32 [B,H,Sq], the
+    log-sum-exp the kernel writes for the backward."""
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
@@ -192,9 +194,10 @@ def _bf16_kernel_arithmetic(q, k, v, *, causal=True, window=-1, tile=64):
             "bkgqs,bskh->bkgqh", p.to(torch.bfloat16).float(),
             v[:, k0:k0 + tile].float())
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv) \
-        .to(torch.bfloat16)
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l[..., None]
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv)
+            .to(torch.bfloat16), (m + torch.log2(l)).reshape(B, H, Sq))
 
 
 @pytest.mark.parametrize("S,H,K,h,hv,window", [
@@ -206,7 +209,9 @@ def test_bf16_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
     (which multiplies bf16 inputs in f32)."""
     q, k, v = _qkv(S + H + h + 1, 2, S, S, H, K, h, hv)
     tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
-    got = _bf16_kernel_arithmetic(tq, tk, tv, window=window)
+    got, lse = _bf16_kernel_arithmetic(tq, tk, tv, window=window)
+    assert _err(lse, fa.flash_attention_lse_plain(tq, tk, window=window)) \
+        < 1e-4
     pallas = pl_flash(*(x.astype(jnp.bfloat16) for x in _j(q, k, v)),
                       window=window, block_q=64, block_k=64, interpret=True)
     assert _err(got.float().numpy(), pallas.astype(jnp.float32)) < 2e-2
@@ -927,6 +932,8 @@ def test_flash_bwd_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="o must be"):
         fa.flash_attention_bwd(q, k, v, do.double(), do)
     assert fa.bwd_workspace_floats(2, 100, 8) == 2 * 2 * 100 * 8
+    assert fa.bwd_workspace_floats(2, 100, 8, torch.bfloat16) \
+        == 2 * 100 * 8
 
 
 def test_wkv6_trains_on_cpu():
@@ -937,3 +944,290 @@ def test_wkv6_trains_on_cpu():
     grads = torch.autograd.grad(out.square().sum(), (r, k, v, wlog, u))
     assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
                for g in grads)
+
+
+# -- the bf16 backward kernel's schedule and arithmetic, emulated -------------
+
+BWD_BK, BWD_BQ, BWD_HALF = fa.BWD_BLOCK_K, fa.BWD_BLOCK_Q, fa.BWD_HALF
+# (B, Sq, Skv, H, K, h, hv, causal, window): GQA, G = 1, windows, not
+# causal, Sq != Skv both ways, hv != h, h 16 and 128, lengths off the tiles
+BF16_BWD_CASES = [(2, 128, 128, 8, 4, 64, 64, True, -1),
+                  (2, 96, 96, 4, 4, 32, 32, True, -1),
+                  (2, 128, 128, 8, 2, 64, 64, True, 40),
+                  (2, 80, 80, 4, 2, 32, 32, False, -1),
+                  (1, 96, 96, 4, 2, 32, 32, False, 40),
+                  (2, 100, 130, 4, 2, 64, 48, True, -1),
+                  (2, 130, 100, 4, 2, 32, 32, True, -1),
+                  (2, 77, 77, 8, 8, 16, 16, True, 30),
+                  (1, 96, 96, 4, 2, 128, 128, True, -1)]
+BF16_BWD_TOL = 2e-2   # bf16, times max(1, the gradient's largest magnitude)
+
+
+def _visible(rows, keys, Sq, Skv, causal, window):
+    r, c = np.asarray(rows)[:, None], np.asarray(keys)[None, :]
+    m = (r < Sq) & (c < Skv)
+    if causal:
+        m &= c <= r
+    if window > 0:
+        m &= c > r - window
+    return m
+
+
+def _dkdv_schedule(Sq, Skv, causal, window):
+    """``flash_bwd_bf16_dkdv_kernel``'s loops: for each key tile k0, the
+    query halves (first query) of its steps in order (the same for each
+    head of the group), and for each warp's 16 keys whether it skips the
+    half and whether it masks it (``edge``)."""
+    nq = -(-Sq // BWD_BQ)
+    for k0 in range(0, Skv, BWD_BK):
+        k_last = min(k0 + BWD_BK, Skv) - 1
+        qt_begin = k0 // BWD_BQ if causal else 0
+        qt_end = nq - 1
+        if window > 0:
+            qt_end = min(qt_end, (k_last + window - 1) // BWD_BQ)
+        halves = []
+        for qt in range(qt_begin, qt_end + 1):
+            for half in range(BWD_BQ // BWD_HALF):
+                qs = qt * BWD_BQ + half * BWD_HALF
+                warps = []
+                for wk0 in range(k0, k0 + BWD_BK, 16):
+                    skip = (qs >= Sq or wk0 >= Skv
+                            or (causal and qs + BWD_HALF - 1 < wk0)
+                            or (window > 0 and wk0 + 15 <= qs - window))
+                    edge = ((causal and wk0 + 15 > qs)
+                            or (window > 0
+                                and wk0 <= qs + BWD_HALF - 1 - window)
+                            or wk0 + 16 > Skv or qs + BWD_HALF > Sq)
+                    warps.append((wk0, skip, edge))
+                halves.append((qs, warps))
+        yield k0, halves
+
+
+def _dq_schedule(Sq, Skv, causal, window):
+    """``flash_bwd_bf16_dq_kernel``'s loops: for each query tile q0, the
+    key halves (first key) it visits in order, and for each warp's 16
+    rows whether it skips the half and whether it masks it."""
+    for q0 in range(0, Sq, BWD_BQ):
+        q_last = min(q0 + BWD_BQ, Sq) - 1
+        kt_end = -(-Skv // BWD_BK) - 1
+        if causal:
+            kt_end = min(kt_end, q_last // BWD_BK)
+        kt_begin = (q0 - window + 1) // BWD_BK \
+            if window > 0 and q0 - window + 1 > 0 else 0
+        halves = []
+        for kt in range(kt_begin, kt_end + 1):
+            for half in range(BWD_BK // BWD_HALF):
+                ks = kt * BWD_BK + half * BWD_HALF
+                warps = []
+                for wq0 in range(q0, q0 + BWD_BQ, 16):
+                    skip = (ks >= Skv or wq0 >= Sq
+                            or (causal and ks > wq0 + 15)
+                            or (window > 0
+                                and ks + BWD_HALF - 1 <= wq0 - window))
+                    edge = ((causal and ks + BWD_HALF - 1 > wq0)
+                            or (window > 0 and ks <= wq0 + 15 - window)
+                            or ks + BWD_HALF > Skv or wq0 + 16 > Sq)
+                    warps.append((wq0, skip, edge))
+                halves.append((ks, warps))
+        yield q0, halves
+
+
+def _bf16_bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
+    """A plain emulation of csrc/flash_attention_bwd_bf16.cu (a test
+    helper, on no path): D = do . o in f32; the dk/dv pass over each
+    64-key tile, then the G heads, query tiles and 32-query halves in
+    order, and the dq pass over each 64-row query tile's key tiles and
+    32-key halves, with the kernel's skips and masks; P = exp2(s log2(e)
+    / sqrt(h) - lse) from the forward's ``lse``, 0 where masked; P and dS
+    rounded to bf16 before the products that take them, every sum in f32;
+    the gradients rounded once to bf16. Asserts on the way that every
+    visible (query, key) pair is visited exactly once in each pass, that
+    a skipped warp-half holds no visible pair and that a half the kernel
+    does not mask holds no invisible one."""
+    B, Sq, H, h = q.shape
+    Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    sl2, scale = math.log2(math.e) / math.sqrt(h), 1.0 / math.sqrt(h)
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    delta = (dof * of).sum(-1).permute(0, 2, 1)             # [B,H,Sq]
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    def ds_of(s, dp, lse_r, d_r, vis):
+        p = torch.exp2(s * sl2 - lse_r)
+        p = torch.where(torch.from_numpy(vis), p, torch.zeros(()))
+        return p, p * (dp - d_r)
+
+    want = _visible(np.arange(Sq), np.arange(Skv), Sq, Skv, causal, window)
+    dk = torch.zeros((B, Skv, K, h))
+    dv = torch.zeros((B, Skv, K, hv))
+    seen = np.zeros((Sq, Skv), np.int64)
+    for _, halves in _dkdv_schedule(Sq, Skv, causal, window):
+        for g in range(G):
+            for qs, warps in halves:
+                for wk0, skip, edge in warps:
+                    rows, keys = range(qs, qs + BWD_HALF), range(wk0, wk0 + 16)
+                    vis = _visible(rows, keys, Sq, Skv, causal, window)
+                    if skip:
+                        assert not vis.any()
+                        continue
+                    assert edge or vis.all()
+                    r, c = slice(qs, min(qs + BWD_HALF, Sq)), \
+                        slice(wk0, min(wk0 + 16, Skv))
+                    vis = vis[:r.stop - qs, :c.stop - wk0].T     # [key, row]
+                    if g == 0:
+                        seen[r, c] += vis.T
+                    qg, dog = qf[:, r, g::G], dof[:, r, g::G]  # [B,r,K,h]
+                    st = torch.einsum("bskh,brkh->bksr", kf[:, c], qg)
+                    dpt = torch.einsum("bskh,brkh->bksr", vf[:, c], dog)
+                    pt, dst = ds_of(st, dpt, lse[:, g::G, None, r],
+                                    delta[:, g::G, None, r], vis)
+                    dv[:, c] += torch.einsum("bksr,brkh->bskh", bf(pt), dog)
+                    dk[:, c] += torch.einsum("bksr,brkh->bskh", bf(dst), qg)
+    assert (seen == want).all()
+    dq = torch.zeros((B, Sq, H, h))
+    kx, vx = (x.repeat_interleave(G, dim=2) for x in (kf, vf))  # [B,S,H,.]
+    seen[:] = 0
+    for _, halves in _dq_schedule(Sq, Skv, causal, window):
+        for ks, warps in halves:
+            for wq0, skip, edge in warps:
+                vis = _visible(range(wq0, wq0 + 16), range(ks, ks + BWD_HALF),
+                               Sq, Skv, causal, window)
+                if skip:
+                    assert not vis.any()
+                    continue
+                assert edge or vis.all()
+                r, c = slice(wq0, min(wq0 + 16, Sq)), \
+                    slice(ks, min(ks + BWD_HALF, Skv))
+                vis = vis[:r.stop - wq0, :c.stop - ks]
+                seen[r, c] += vis
+                s = torch.einsum("brhd,bshd->bhrs", qf[:, r], kx[:, c])
+                dp = torch.einsum("brhd,bshd->bhrs", dof[:, r], vx[:, c])
+                _, ds = ds_of(s, dp, lse[:, :, r, None],
+                              delta[:, :, r, None], vis)
+                dq[:, r] += torch.einsum("bhrs,bshd->brhd", bf(ds), kx[:, c])
+    assert (seen == want).all()
+    return tuple((x * m).to(torch.bfloat16)
+                 for x, m in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
+def _bf16_bwd_inputs(seed, B, Sq, Skv, H, K, h, hv):
+    return [x.to(torch.bfloat16)
+            for x in _t(*_bwd_inputs(seed, B, Sq, Skv, H, K, h, hv))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", BF16_BWD_CASES)
+def test_bf16_bwd_kernel_arithmetic_matches_plain_and_jax_vjp(
+        B, Sq, Skv, H, K, h, hv, causal, window):
+    """The bf16 backward kernel's schedule and arithmetic (emulated, with
+    the LSE and output of the emulated bf16 forward) within 2e-2 x max(1,
+    the gradient's largest magnitude) of the plain backward and of
+    ``jax.vjp`` through the reference's ``flash_attend`` on the same bf16
+    inputs."""
+    import jax
+    from repro.models.layers import flash_attend
+    q, k, v, do = _bf16_bwd_inputs(Sq + Skv + h, B, Sq, Skv, H, K, h, hv)
+    o, lse = _bf16_kernel_arithmetic(q, k, v, causal=causal, window=window)
+    got = _bf16_bwd_kernel_arithmetic(q, k, v, o, do, lse, causal=causal,
+                                      window=window)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    as_j = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+            for x in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda *x: flash_attend(*x, causal=causal,
+                                             window=window), *as_j[:3])
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, vjp(as_j[3])):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert _close(a.float(), b.float(), BF16_BWD_TOL), name
+        assert _close(a.float(), np.asarray(c.astype(jnp.float32)),
+                      BF16_BWD_TOL), name
+
+
+def _store_writers(n_rows_total, row0s, width, chunks_of, lanes=32):
+    """``store_rows``: the elements of [n_rows_total, width] that the warps
+    starting at ``row0s`` write (a warp's 16 accumulator rows staged in
+    shared memory, then lane i copies 16-byte chunks i, i + 32, ...),
+    counted; and that the m16n8 accumulator map (lane = 4 g + tg, tile t,
+    element e: row g + 8 (e // 2), column 8 t + 2 tg + e % 2) fills the
+    16 x D staging rows once."""
+    D = chunks_of * 8
+    lane = np.arange(lanes)
+    g, tg = lane // 4, lane % 4
+    hits = np.zeros((16, D), np.int64)
+    for t in range(D // 8):
+        for e in range(4):
+            np.add.at(hits, (g + 8 * (e // 2), 8 * t + 2 * tg + e % 2), 1)
+    assert (hits == 1).all()
+    writers = np.zeros((n_rows_total, width), np.int64)
+    chunks = width // 8
+    for r0 in row0s:
+        for ln in lane:
+            for i in range(ln, 16 * chunks, lanes):
+                r, c = i // chunks, i % chunks
+                if r0 + r < n_rows_total:
+                    writers[r0 + r, c * 8:c * 8 + 8] += 1
+    return writers
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", BF16_BWD_CASES)
+def test_bf16_bwd_grid_writes_every_element_once(B, Sq, Skv, H, K, h, hv,
+                                                 causal, window):
+    """Under the bf16 backward's grid, each element of dk and dv (per kv
+    head: one block a 64-key tile, 16 keys a warp) and of dq (per head:
+    one block a 64-row query tile, 16 rows a warp) has exactly one
+    writer, whether or not any query reaches its key."""
+    width = fa.bf16_head_width(h, hv)
+    key_warps = [k0 + 16 * w for k0 in range(0, Skv, BWD_BK)
+                 for w in range(fa.BWD_WARPS)]
+    row_warps = [q0 + 16 * w for q0 in range(0, Sq, BWD_BQ)
+                 for w in range(fa.BWD_WARPS)]
+    assert BWD_BK == BWD_BQ == 16 * fa.BWD_WARPS
+    for n, row0s, w in ((Skv, key_warps, h), (Skv, key_warps, hv),
+                        (Sq, row_warps, h)):
+        assert (_store_writers(n, row0s, w, width // 8) == 1).all()
+
+
+@pytest.mark.parametrize("h,hv", [(40, 40), (50, 36), (8, 8), (144, 128),
+                                  (64, 24)])
+def test_bf16_bwd_rejects_other_head_widths(h, hv):
+    """A bf16 head width the tensor-core kernels do not take raises, with
+    or without an LSE; it is never routed to the f32 kernel."""
+    lse = torch.zeros((1, 1, 1))
+    for given in (None, lse):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fa.select_bwd_kernel(torch.bfloat16, h, hv, given)
+
+
+def test_bf16_bwd_without_lse_raises():
+    """A bf16 CUDA backward takes the forward's LSE: without it the
+    choice raises (it never recomputes the LSE or falls back)."""
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.select_bwd_kernel(torch.bfloat16, 64, 64, None)
+    assert fa.select_bwd_kernel(torch.bfloat16, 64, 64,
+                                torch.zeros((1, 1, 1))) is fa.KERNEL_BWD_BF16
+
+
+@pytest.mark.parametrize("h,hv", [(1, 1), (7, 5), (50, 36), (64, 64),
+                                  (128, 100), (128, 128)])
+def test_f32_bwd_takes_any_width_up_to_128(h, hv):
+    assert fa.select_bwd_kernel(torch.float32, h, hv, None) is fa.KERNEL_BWD
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.select_bwd_kernel(torch.float32, h + 128, hv, None)
+    with pytest.raises(TypeError):
+        fa.select_bwd_kernel(torch.float16, h, hv, None)
+
+
+def test_fwd_lse_on_cpu_is_the_plain_logsumexp():
+    """``flash_attention_fwd_lse`` on a CPU tensor: the plain forward and
+    the log2-domain logsumexp of the scaled, masked scores, equal to
+    torch's natural-log logsumexp over the visible keys / ln 2."""
+    q, k, v = _t(*_qkv(12, 2, 70, 90, 8, 2, 32, 32))
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, window=20)
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v, window=20))
+    s = torch.einsum("bqhd,bshd->bhqs", q, k.repeat_interleave(4, dim=2)) \
+        / math.sqrt(32)
+    mask = ref.attention_mask(70, 90, causal=True, window=20, device="cpu")
+    want = torch.logsumexp(s.masked_fill(~mask, -math.inf), -1) / math.log(2)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 8, 70)
+    assert _err(lse, want) < 1e-5
