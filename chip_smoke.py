@@ -2447,19 +2447,20 @@ BWD_KERNELS = {
     "flash_attention_bwd": ("flash_bwd_bf16_dot_kernel",
                             "flash_bwd_bf16_dkdv_kernel",
                             "flash_bwd_bf16_dq_kernel"),
-    "flash_attention_bwd_f32": ("flash_bwd_rowstats_kernel",
-                                "flash_bwd_dkdv_kernel",
-                                "flash_bwd_dq_kernel")}
+    "flash_attention_bwd_f32": ("flash_bwd_f32_dot_kernel",
+                                "flash_bwd_f32_dkdv_kernel",
+                                "flash_bwd_f32_dq_kernel")}
 BWD_BF16_PREFIX = "flash_bwd_bf16_"
 BWD_LIBS = {
     "flash_attention_bwd": ("flash_attention_bwd_bf16.cu",
                             "flash_attention_bwd_bf16_info"),
     "flash_attention_bwd_f32": ("flash_attention_bwd.cu",
                                 "flash_attention_bwd_info")}
-# the bf16 forward's LSE (log2 units) against the plain logsumexp of the
-# same scores: the two sum the exponentials in another order; 1e-3 is a
-# relative error of 0.07 % in P, below a bf16 ulp of it
-LSE_TOL = 1e-3
+# each forward's LSE (log2 units) against the plain logsumexp of the same
+# scores: the two sum the exponentials in another order. bf16: 1e-3 is a
+# relative error of 0.07 % in P, below a bf16 ulp of it; f32: 1e-4, f32
+# rounding of sums of up to a few thousand terms
+LSE_TOL = {BF16: 1e-3, F32: 1e-4}
 
 
 def bwd_route(dt) -> str:
@@ -2470,44 +2471,52 @@ def bwd_kernel_info() -> dict:
     """Registers a thread, spill (local) bytes a thread, dynamic shared
     bytes a block and blocks an SM of each backward route's three CUDA
     kernels at each padded width (``flash_attention_bwd_bf16_info``,
-    ``flash_attention_bwd_info``). The bf16 kernels must not spill."""
+    ``flash_attention_bwd_info``; the f32 kernels on both copy paths,
+    keyed ``name/width`` for 16-byte copies and ``name/width/4byte``).
+    No kernel may spill."""
     from repro_torch.kernels import _build
     out = {}
     for route, (source, symbol) in BWD_LIBS.items():
         fn = getattr(ctypes.CDLL(str(_build.library_path(source))), symbol)
+        plans = ((None, ""),) if route == "flash_attention_bwd" else \
+            ((1, ""), (0, "/4byte"))
         for width in (32, 64, 128):
-            for which, name in enumerate(BWD_KERNELS[route], start=1):
-                vals = [ctypes.c_int() for _ in range(4)]
-                err = fn(which, width, *map(ctypes.byref, vals))
-                check(err == 0, f"{symbol}({which}, {width}): {err}")
-                out[f"{name}/{width}"] = info = dict(zip(
-                    ("registers", "spill_bytes", "smem_bytes_per_block",
-                     "blocks_per_sm"), (v.value for v in vals)))
-                check(route != "flash_attention_bwd"
-                      or info["spill_bytes"] == 0,
-                      f"{name} at width {width} spills: {info}")
+            for vec, suffix in plans:
+                for which, name in enumerate(BWD_KERNELS[route], start=1):
+                    vals = [ctypes.c_int() for _ in range(4)]
+                    args = (which, width) + (() if vec is None else (vec,))
+                    err = fn(*args, *map(ctypes.byref, vals))
+                    check(err == 0, f"{symbol}{args}: {err}")
+                    key = f"{name}/{width}{suffix}"
+                    out[key] = info = dict(zip(
+                        ("registers", "spill_bytes", "smem_bytes_per_block",
+                         "blocks_per_sm"), (v.value for v in vals)))
+                    check(info["spill_bytes"] == 0,
+                          f"{key} spills: {info}")
     return out
 
 
 def bwd_kernel_phase(dev) -> dict:
     """The flash backward kernels against their plain version on the card
-    in every case of BWD_CASES: bf16 through the tensor-core kernel with
-    the LSE of ``flash_attention_fwd_lse``, f32 through the CUDA-core
-    kernel (each call one launch of its dtype's kernel and no other); two
-    launches at the train shape give the same bytes. The forward output
-    ``o`` that the backward takes is held against the plain forward too
-    (FLASH_TOL), so the train shape's forward is checked on the card. In
-    bf16 the forward's LSE is held against the plain log2-domain
-    logsumexp (LSE_TOL), its output bytes must equal a launch without the
-    LSE, and the backward without the LSE must raise. Returns, by route,
-    the worst absolute error and the worst error over its tolerance's
-    scale of the backward; the forward's worst absolute error by kernel
-    name and the LSE's worst error."""
+    in every case of BWD_CASES, each with the output and LSE of
+    ``flash_attention_fwd_lse``: bf16 through the tensor-core kernel, f32
+    through the CUDA-core kernel (each call one launch of its dtype's
+    kernel and no other); two launches at the train shape and at the f32
+    serving shape give the same bytes. The forward output ``o`` that the
+    backward takes is held against the plain forward too (FLASH_TOL), so
+    the train shape's forward is checked on the card. In both dtypes the
+    forward's LSE is held against the plain log2-domain logsumexp
+    (LSE_TOL), its output bytes must equal a launch without the LSE, and
+    the backward without the LSE must raise. Returns, by route, the worst
+    absolute error and the worst error over its tolerance's scale of the
+    backward and the LSE's worst error; the forward's worst absolute
+    error by kernel name."""
     kf, _ = model_kernel_modules()
     gen = torch.Generator(dev).manual_seed(SEED + 6)
     worst = dict.fromkeys(BWD_KERNELS, 0.0)
     worst_abs = dict.fromkeys(BWD_KERNELS, 0.0)
-    cases, lse_worst = [], 0.0
+    lse_worst = dict.fromkeys(BWD_KERNELS, 0.0)
+    cases = []
     fwd_worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0}
     for (B, Sq, Skv, H, K, h, hv, causal, window, dt) in BWD_CASES:
         q = randn(gen, (B, Sq, H, h), dev, dt)
@@ -2516,32 +2525,27 @@ def bwd_kernel_phase(dev) -> dict:
         do = randn(gen, (B, Sq, H, hv), dev, dt)
         case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt)]
         route, extra = bwd_route(dt), {}
-        if dt == BF16:
-            o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+        o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                            window=window)
+        o_bare = kf.flash_attention(q, k, v, causal=causal, window=window)
+        extra["same_bytes_without_lse"] = torch.equal(o, o_bare)
+        check(extra["same_bytes_without_lse"], f"flash_attention "
+              f"{case}: the output differs with and without the LSE")
+        lse_want = kf.flash_attention_lse_plain(q, k, causal=causal,
                                                 window=window)
-            o_bare = kf.flash_attention(q, k, v, causal=causal,
-                                        window=window)
-            extra["same_bytes_without_lse"] = torch.equal(o, o_bare)
-            check(extra["same_bytes_without_lse"], f"flash_attention "
-                  f"{case}: the output differs with and without the LSE")
-            lse_want = kf.flash_attention_lse_plain(q, k, causal=causal,
-                                                    window=window)
-            extra["lse_err"] = float((lse - lse_want).abs().max())
-            check(extra["lse_err"] <= LSE_TOL, f"flash_attention {case}: "
-                  f"LSE max abs err {extra['lse_err']} > {LSE_TOL}")
-            lse_worst = max(lse_worst, extra["lse_err"])
-            del o_bare, lse_want
-            try:
-                kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                       window=window)
-                extra["raised_without_lse"] = False
-            except ValueError:
-                extra["raised_without_lse"] = True
-            check(extra["raised_without_lse"], f"flash_attention_bwd "
-                  f"{case}: a bf16 backward without the LSE did not raise")
-        else:
-            o, lse = kf.flash_attention(q, k, v, causal=causal,
-                                        window=window), None
+        extra["lse_err"] = float((lse - lse_want).abs().max())
+        check(extra["lse_err"] <= LSE_TOL[dt], f"flash_attention {case}: "
+              f"LSE max abs err {extra['lse_err']} > {LSE_TOL[dt]}")
+        lse_worst[route] = max(lse_worst[route], extra["lse_err"])
+        del o_bare, lse_want
+        try:
+            kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   window=window)
+            extra["raised_without_lse"] = False
+        except ValueError:
+            extra["raised_without_lse"] = True
+        check(extra["raised_without_lse"], f"flash_attention_bwd {case}: "
+              "a backward without the LSE did not raise")
         o_want = kf.flash_attention_plain(q, k, v, causal=causal,
                                           window=window)
         before = model_counts()
@@ -2575,7 +2579,9 @@ def bwd_kernel_phase(dev) -> dict:
             errs[name] = dict(err=err, scale=scale)
             worst[route] = max(worst[route], err / scale)
             worst_abs[route] = max(worst_abs[route], err)
-        if Sq == 4096:      # the train shape: byte-equal on a second launch
+        # the train shape and the f32 serving shape: byte-equal on a
+        # second launch
+        if Sq == 4096 or (dt == F32 and Sq == 1024):
             again = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                            window=window, lse=lse)
             extra["same_bytes_twice"] = all(
@@ -2942,11 +2948,13 @@ def train_refusal_phase(dev) -> dict:
 def time_bwd_kernel(dev, info: dict) -> dict:
     """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
-    ([4, 1024, 32, 128], bf16 and f32; bf16 runs the tensor-core kernel
-    with the LSE of ``flash_attention_fwd_lse``, f32 the CUDA-core
-    kernel; in bf16 also the forward without and with the LSE, in turns
-    W, L, L, W): CUDA events over back-to-back calls, each pass's device time
-    (``torch.profiler``), the plain version, and the backward of one
+    ([4, 1024, 32, 128], bf16 and f32; bf16 runs the tensor-core kernel,
+    f32 the CUDA-core kernel, each with the LSE of
+    ``flash_attention_fwd_lse``; also each forward without and with the
+    LSE, in turns W, L, L, W): CUDA events over back-to-back calls, each
+    pass's device time (``torch.profiler``) and its rate on the products
+    it runs (D: none; dk/dv: S, dP, dV, dK; dq: S, dP, dQ), the plain
+    version, and the backward of one
     scaled_dot_product_attention(is_causal=True, enable_gqa=True) on the
     same inputs (its forward run once outside the timed calls; each timed
     call is one autograd.grad of that output, retain_graph=True), with
@@ -2967,8 +2975,7 @@ def time_bwd_kernel(dev, info: dict) -> dict:
         k = randn(gen, (B, S, K, h), dev, dt)
         v = randn(gen, (B, S, K, h), dev, dt)
         do = randn(gen, (B, S, H, h), dev, dt)
-        o, lse = (kf.flash_attention_fwd_lse(q, k, v) if dt == BF16
-                  else (kf.flash_attention(q, k, v), None))
+        o, lse = kf.flash_attention_fwd_lse(q, k, v)
 
         def bwd():
             return kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
@@ -3011,13 +3018,22 @@ def time_bwd_kernel(dev, info: dict) -> dict:
         rows[tag]["tflops_per_s"] = rows[tag]["flops"] / (ms * 1e9)
         rows[tag]["over_bound"] = ms / rows[tag]["bound_ms"]
         rows[tag]["over_library"] = ms / library_ms
-        if dt == BF16:   # the forward without and with its LSE, in turns
-            fwd = [lambda: kf.flash_attention(q, k, v),
-                   lambda: kf.flash_attention_fwd_lse(q, k, v)]
-            turns = [time_cuda(fwd[i], reps=10, warmup=2)
-                     for i in (0, 1, 1, 0)]
-            rows[tag]["forward_ms"] = dict(without_lse=turns[::3],
-                                           with_lse=turns[1:3])
+        # the passes' own products over the visible pairs: dk/dv 2 h + 4 hv
+        # + 2 h flops a pair (S, dP, dV, dK), dq 2 h + 2 hv + 2 h (S, dP,
+        # dQ): seven products in all
+        pairs = B * H * S * (S + 1) // 2
+        pass_flops = dict(zip(BWD_KERNELS[route][1:],
+                              (pairs * 4 * (h + h), pairs * 2 * (h + h + h))))
+        rows[tag]["kernel_flops"] = sum(pass_flops.values())
+        rows[tag]["pass_tflops_per_s"] = {
+            n: f / (dev_us[n] * 1e6) for n, f in pass_flops.items()}
+        # the forward without and with its LSE, in turns
+        fwd = [lambda: kf.flash_attention(q, k, v),
+               lambda: kf.flash_attention_fwd_lse(q, k, v)]
+        turns = [time_cuda(fwd[i], reps=10 if dt == BF16 else 5, warmup=2)
+                 for i in (0, 1, 1, 0)]
+        rows[tag]["forward_ms"] = dict(without_lse=turns[::3],
+                                       with_lse=turns[1:3])
         log(phase="timing/flash_bwd", name=tag, **rows[tag])
         del q, k, v, do, o, lse, qt, kt, vt, out, lib_grads, want
         torch.cuda.empty_cache()
@@ -3230,7 +3246,7 @@ def main() -> int:
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
-        lse_max_abs_err=bwd_check["lse_max_abs_err"],
+        lse_max_abs_err=bwd_check["lse_max_abs_err"]["flash_attention_bwd"],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         library=row["library"],
@@ -3249,10 +3265,14 @@ def main() -> int:
                  ["flash_attention_bwd_f32"],
                  max_err_over_scale=bwd_check["worst_err_over_scale"]
                  ["flash_attention_bwd_f32"],
+                 lse_max_abs_err=bwd_check["lse_max_abs_err"]
+                 ["flash_attention_bwd_f32"],
                  kernel_info=f32_row["kernel_info"],
                  **{k: f32_row[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                     "shape", "dtype")})))
+                     "shape", "dtype", "device_us", "pass_tflops_per_s",
+                     "tflops_per_s", "over_bound", "over_library",
+                     "forward_ms")})))
     log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
                                      "peak_mem_bytes")})
     log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",

@@ -61,6 +61,12 @@
 //   exp2(-1e30 - m) = 0), a key past Skv scores -inf so its probability
 //   is exactly 0, query rows past Sq are not written, and neither length
 //   has to divide a tile.
+// - The log-sum-exp for the backward: where the optional `lse` pointer
+//   (f32 [B, H, Sq]) is not null, the lane that holds a row's finished sum
+//   writes m + log2 max(l, 1e-30) in the log2 domain, the value
+//   csrc/flash_attention_bwd.cu takes instead of recomputing it. The
+//   output's arithmetic does not depend on it, so its bytes are the same
+//   with and without it; serving passes null.
 //
 // Shapes: h, hv <= 128, any values; the kernel is instantiated at a
 // padded head width D of 32, 64 or 128 (zero-filled past h and hv).
@@ -147,8 +153,9 @@ template <int D, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int Sq, int Skv, int H, int KH, int h, int hv,
-                     int causal, int window, float scale_log2) {
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KH,
+                     int h, int hv, int causal, int window,
+                     float scale_log2) {
   constexpr int kS = D + 4;           // floats per shared row
   constexpr int kTile = kBK * kS;     // floats per K or V tile
   constexpr int kChunksO = D / 32;    // float4 output chunks per row
@@ -316,6 +323,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float denom = fmaxf(l, 1e-30f);
     const int row = q0 + wrow + ry + 4 * i;
     if (row >= Sq) continue;
+    if (lse != nullptr && kx == 0)  // one lane of the row's 8
+      lse[((size_t)b * H + head) * Sq + row] = m_run[i] + log2f(denom);
     float* o = out + ((size_t)b * Sq + row) * H * hv + (size_t)head * hv;
 #pragma unroll
     for (int jj = 0; jj < kChunksO; ++jj) {
@@ -359,33 +368,33 @@ int occupancy(int* blocks, int* smem) {
 }
 
 template <int D, bool kVec>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KH, int h, int hv, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int KH, int h, int hv,
+           int causal, int window, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem<D, kVec>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_f32_kernel<D, kVec><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH,
-      h, hv, causal, window, scale * kLog2e);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, H,
+      KH, h, hv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kVec>
 int launch_width(int width, const void* q, const void* k, const void* v,
-                 void* out, int B, int Sq, int Skv, int H, int KH, int h,
-                 int hv, int causal, int window, float scale,
+                 void* out, float* lse, int B, int Sq, int Skv, int H, int KH,
+                 int h, int hv, int causal, int window, float scale,
                  cudaStream_t s) {
   switch (width) {
     case 32:
-      return launch<32, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
-                              window, scale, s);
+      return launch<32, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
+                              causal, window, scale, s);
     case 64:
-      return launch<64, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv, causal,
-                              window, scale, s);
+      return launch<64, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
+                              causal, window, scale, s);
     case 128:
-      return launch<128, kVec>(q, k, v, out, B, Sq, Skv, H, KH, h, hv,
+      return launch<128, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
                                causal, window, scale, s);
     default:
       return 1001;
@@ -401,13 +410,15 @@ bool aligned16(const void* p) {
 // q, k, v and out are f32; width is the padded head width (32, 64 or 128)
 // that holds h and hv; vec = 1 takes 16-byte copies and needs h and hv
 // multiples of 4 and all four pointers 16-byte aligned, vec = 0 takes
-// 4-byte copies of any shape. Returns a cudaError_t; 1001 for an
-// unsupported argument.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Skv, int H, int KH, int h, int hv,
-                                      int causal, int window, float scale,
-                                      int width, int vec, void* stream) {
+// 4-byte copies of any shape. lse is null or an f32 [B, H, Sq] array that
+// receives each row's log2-domain log-sum-exp. Returns a cudaError_t;
+// 1001 for an unsupported argument.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int Sq, int Skv, int H, int KH,
+                                          int h, int hv, int causal,
+                                          int window, float scale, int width,
+                                          int vec, void* lse, void* stream) {
   if (h < 1 || hv < 1 || h > width || hv > width || KH < 1 ||
       H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
       (vec != 0 && vec != 1))
@@ -417,10 +428,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_width<true>(width, q, k, v, out, B, Sq, Skv, H, KH, h,
-                                  hv, causal, window, scale, s)
-             : launch_width<false>(width, q, k, v, out, B, Sq, Skv, H, KH, h,
-                                   hv, causal, window, scale, s);
+  float* l = static_cast<float*>(lse);
+  return vec ? launch_width<true>(width, q, k, v, out, l, B, Sq, Skv, H, KH,
+                                  h, hv, causal, window, scale, s)
+             : launch_width<false>(width, q, k, v, out, l, B, Sq, Skv, H, KH,
+                                   h, hv, causal, window, scale, s);
+}
+
+// The same without the log-sum-exp (lse = null).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B, int Sq,
+                                      int Skv, int H, int KH, int h, int hv,
+                                      int causal, int window, float scale,
+                                      int width, int vec, void* stream) {
+  return flash_attention_lse_launch(q, k, v, out, B, Sq, Skv, H, KH, h, hv,
+                                    causal, window, scale, width, vec,
+                                    nullptr, stream);
 }
 
 // The blocks of the kernel at padded head width `width` (16-byte copies)

@@ -30,13 +30,17 @@ which dispatches the same way (:func:`select_bwd_kernel`):
   returns it too); without it the backward raises, it never recomputes
   it. The same head widths as the bf16 forward;
 - an f32 CUDA tensor launches ``csrc/flash_attention_bwd.cu``
-  (:data:`KERNEL_BWD`, f32 arithmetic on the CUDA cores, which recomputes
-  the row statistics itself; any h, hv <= 128);
+  (:data:`KERNEL_BWD`, f32 arithmetic on the CUDA cores; any h, hv <=
+  128, 16- or 4-byte copies as :func:`f32_plan` chooses). It takes the
+  f32 forward's log-sum-exp the same way and raises without it;
 - a CPU tensor runs :func:`flash_attention_bwd_plain`.
 
-Each backward call is one count, which runs three CUDA kernels over an
-f32 workspace of :func:`bwd_workspace_floats` values. The JAX package
-has no backward kernel: it takes ``jax.vjp`` through
+Both forward kernels write the LSE (f32 [B,H,Sq], log2 domain) when
+:class:`FlashAttention` saves it for a gradient, and not when serving;
+the output's bytes are the same either way. Each backward call is one
+count, which runs three CUDA kernels (D = do·o, dk/dv, dq) over an f32
+workspace of :func:`bwd_workspace_floats` values (each row's D). The JAX
+package has no backward kernel: it takes ``jax.vjp`` through
 ``repro.models.layers.flash_attend``. A failed build or launch raises;
 nothing falls back to a plain version.
 """
@@ -61,16 +65,17 @@ __all__ = ["KERNEL", "KERNEL_BF16", "KERNEL_BWD", "KERNEL_BWD_BF16",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
-KERNEL = CudaKernel("flash_attention.cu", "flash_attention_launch",
-                    _ARGS + [_I, _I, _P])
+# ... scale; padded width; copy plan; lse (f32 [B,H,Sq] or null); stream
+KERNEL = CudaKernel("flash_attention.cu", "flash_attention_lse_launch",
+                    _ARGS + [_I, _I, _P, _P])
 # ... scale; padded width; lse (f32 [B,H,Sq] or null); stream
 KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
                          "flash_attention_bf16_launch", _ARGS + [_I, _P, _P])
-# q, k, v, o, do, dq, dk, dv, workspace; B, Sq, Skv, H, K, h, hv, causal,
-# window; scale; padded width; stream
+# q, k, v, o, do, lse, dq, dk, dv, workspace; B, Sq, Skv, H, K, h, hv,
+# causal, window; scale; padded width; copy plan; stream
 KERNEL_BWD = CudaKernel("flash_attention_bwd.cu",
                         "flash_attention_bwd_launch",
-                        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P])
+                        [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _I, _P])
 # q, k, v, o, do, lse, dq, dk, dv, workspace; the same ints; scale; padded
 # width; stream
 KERNEL_BWD_BF16 = CudaKernel("flash_attention_bwd_bf16.cu",
@@ -85,6 +90,13 @@ F32_BLOCK_Q, F32_BLOCK_K, F32_THREADS = 64, 32, 128
 # dk/dv block (16 a warp) and query rows a dq block (16 a warp), queries
 # or keys an inner step, warps a block
 BWD_BLOCK_K, BWD_BLOCK_Q, BWD_HALF, BWD_WARPS = 64, 64, 32, 4
+# the f32 backward's tiling, as csrc/flash_attention_bwd.cu: keys a dk/dv
+# tile (8 a warp) and query rows a dk/dv step; query rows a dq block (16 a
+# warp) and keys a dq K/V tile; warps a block. A causal dk/dv launch gives
+# each block key tiles t and n - 1 - t
+F32_BWD_BLOCK_K, F32_BWD_STEP_Q, F32_BWD_BLOCK_Q, F32_BWD_TILE_K = \
+    64, 64, 128, 32
+F32_BWD_WARPS = 8
 
 
 def bf16_head_width(h: int, hv: int) -> int:
@@ -100,10 +112,11 @@ def bf16_head_width(h: int, hv: int) -> int:
 
 
 def f32_plan(h: int, hv: int, *ptrs: int) -> tuple[int, int]:
-    """``(width, vec)`` of the f32 kernel: the least of 32, 64 and 128
+    """``(width, vec)`` of the f32 kernels: the least of 32, 64 and 128
     that holds h and hv, and 1 (16-byte copies) where h and hv are
-    multiples of 4 and every pointer in ``ptrs`` (q, k, v, out) is 16-byte
-    aligned, else 0 (4-byte copies)."""
+    multiples of 4 and every pointer in ``ptrs`` (the forward's q, k, v,
+    out; the backward's q, k, v, o, do, dq, dk, dv) is 16-byte aligned,
+    else 0 (4-byte copies)."""
     if max(h, hv) > MAX_HEAD:
         raise ValueError(f"the f32 kernel takes head dims up to {MAX_HEAD}, "
                          f"got h={h}, hv={hv}")
@@ -152,9 +165,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool, window: int, lse: bool = False):
     """``(out, lse)``: the forward kernel of q's dtype on a CUDA tensor,
     the plain version on a CPU tensor; no autograd. ``lse`` asks for each
-    query row's log2-domain log-sum-exp (f32 [B,H,Sq]), which only the
-    bf16 kernel writes (an f32 CUDA tensor raises); else it is None and
-    the kernel is given a null pointer."""
+    query row's log2-domain log-sum-exp (f32 [B,H,Sq]), which either
+    kernel writes beside its output; else it is None and the kernel is
+    given a null pointer."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -164,9 +177,6 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     kernel = select_kernel(q.dtype, h, hv)
-    if lse and kernel is not KERNEL_BF16:
-        raise ValueError("only the bf16 forward kernel writes its LSE; the "
-                         "f32 backward recomputes it")
     if Skv == 0:
         raise ValueError("no keys to attend to")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -174,18 +184,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hv), dtype=q.dtype, device=q.device)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, K, h, hv, int(causal), int(window), 1.0 / math.sqrt(h)]
-    stats = None
+    stats = torch.empty((B, H, Sq), dtype=torch.float32,
+                        device=q.device) if lse else None
+    stats_ptr = stats.data_ptr() if stats is not None else None
     if kernel is KERNEL_BF16:
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("the bf16 kernel copies 16-byte chunks: q, k "
                              "and v must start on 16-byte boundaries")
-        if lse:
-            stats = torch.empty((B, H, Sq), dtype=torch.float32,
-                                device=q.device)
-        args += [bf16_head_width(h, hv),
-                 stats.data_ptr() if stats is not None else None]
+        args += [bf16_head_width(h, hv), stats_ptr]
     else:
-        args.extend(f32_plan(h, hv, *args[:4]))
+        args += [*f32_plan(h, hv, *args[:4]), stats_ptr]
     with torch.cuda.device(q.device):
         kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out, stats
@@ -197,40 +205,42 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     """``(out, lse)`` with no autograd: the attention output and each
     query row's log2-domain log-sum-exp, f32 [B,H,Sq] (``m + log2 l`` of
     the scaled scores ``s log2(e)/sqrt(h)``, masked ones at -1e30), which
-    the bf16 backward takes as ``lse=``. A bf16 CUDA tensor launches the
-    bf16 forward kernel once; a CPU tensor runs the plain versions; an
-    f32 CUDA tensor raises (its kernel writes no LSE)."""
+    the backward kernels take as ``lse=``. A CUDA tensor launches the
+    forward kernel of its dtype once; a CPU tensor runs the plain
+    versions."""
     return _forward(q, k, v, causal=causal, window=window, lse=True)
 
 
-def bwd_workspace_floats(B: int, Sq: int, H: int,
-                         dtype: torch.dtype = torch.float32) -> int:
-    """f32 values of the backward kernel's workspace for inputs of
-    ``dtype``: each query row's D = do . o (bf16), and also its
-    log-sum-exp (f32, which recomputes it)."""
-    return (1 if dtype == torch.bfloat16 else 2) * B * Sq * H
+def bwd_workspace_floats(B: int, Sq: int, H: int) -> int:
+    """f32 values of either backward kernel's workspace: each query row's
+    D = do . o (both take the forward's log-sum-exp instead of
+    recomputing it)."""
+    return B * Sq * H
 
 
 def select_bwd_kernel(dtype: torch.dtype, h: int, hv: int,
                       lse: torch.Tensor | None) -> CudaKernel:
     """The backward kernel that a CUDA tensor of ``dtype`` launches: bf16
     → :data:`KERNEL_BWD_BF16` (raises for a head width the bf16 forward
-    does not take, and without the forward's ``lse``: it is never
-    recomputed and nothing falls back), f32 → :data:`KERNEL_BWD` (any h,
-    hv <= 128; ``lse`` is not used)."""
+    does not take), f32 → :data:`KERNEL_BWD` (any h, hv <= 128). Either
+    raises without the forward's ``lse``: it is never recomputed and
+    nothing falls back."""
     if dtype == torch.bfloat16:
         bf16_head_width(h, hv)
-        if lse is None:
-            raise ValueError("the bf16 backward kernel takes the forward's "
-                             "log-sum-exp (lse=, from the bf16 forward or "
-                             "flash_attention_fwd_lse); none was given")
-        return KERNEL_BWD_BF16
-    if dtype == torch.float32:
+        kernel = KERNEL_BWD_BF16
+    elif dtype == torch.float32:
         if max(h, hv) > MAX_HEAD:
             raise ValueError(f"the backward kernel takes head dims up to "
                              f"{MAX_HEAD}, got h={h}, hv={hv}")
-        return KERNEL_BWD
-    raise TypeError(f"no attention backward kernel for {dtype}")
+        kernel = KERNEL_BWD
+    else:
+        raise TypeError(f"no attention backward kernel for {dtype}")
+    if lse is None:
+        raise ValueError("the backward kernels take the forward's "
+                         "log-sum-exp (lse=, from the forward of "
+                         "FlashAttention or flash_attention_fwd_lse); none "
+                         "was given")
+    return kernel
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,7 +250,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_attention` at (q, k, v): ``o`` is its
     output and ``do`` the output's gradient, both [B,Sq,H,hv] in q's
     dtype; ``lse`` is the forward's f32 [B,H,Sq] log2-domain log-sum-exp
-    (:func:`flash_attention_fwd_lse`), which a bf16 CUDA tensor requires.
+    (:func:`flash_attention_fwd_lse`), which a CUDA tensor requires.
     Returns (dq, dk, dv) in q's dtype: the kernel on a CUDA tensor,
     :func:`flash_attention_bwd_plain` on a CPU tensor."""
     check_inputs(q, k, v)
@@ -260,30 +270,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("no keys to attend to")
     if not all(t.is_contiguous() for t in (q, k, v, o, do)):
         raise ValueError("q, k, v, o and do must be contiguous")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 [B,H,Sq] = "
+                         f"{(B, H, Sq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ws = torch.empty((bwd_workspace_floats(B, Sq, H, q.dtype),),
+    ws = torch.empty((bwd_workspace_floats(B, Sq, H),),
                      dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr()]
+    outs = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
     if kernel is KERNEL_BWD_BF16:
-        if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
-                or lse.device != q.device or not lse.is_contiguous():
-            raise ValueError(f"lse must be a contiguous float32 [B,H,Sq] = "
-                             f"{(B, H, Sq)} on {q.device}, got {lse.dtype} "
-                             f"{tuple(lse.shape)} on {lse.device}")
         if any(p % 16 for p in ptrs):
             raise ValueError("the bf16 backward kernel copies 16-byte "
                              "chunks: q, k, v, o and do must start on "
                              "16-byte boundaries")
-        ptrs.append(lse.data_ptr())
-        width = bf16_head_width(h, hv)
+        plan = [bf16_head_width(h, hv)]
     else:
-        width = next(w for w in WIDTHS if w >= max(h, hv))
+        plan = list(f32_plan(h, hv, *ptrs, *outs))
     with torch.cuda.device(q.device):
         kernel.launch(
-            *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ws.data_ptr(), B, Sq, Skv, H, K, h, hv, int(causal), int(window),
-            1.0 / math.sqrt(h), width,
+            *ptrs, lse.data_ptr(), *outs, ws.data_ptr(), B, Sq, Skv, H, K,
+            h, hv, int(causal), int(window), 1.0 / math.sqrt(h), *plan,
             torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv
 
@@ -291,14 +300,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is the forward kernel (or the plain
     version on the CPU) and whose backward is :func:`flash_attention_bwd`.
-    Saves q, k, v, the output and, where an input needs a gradient of a
-    bf16 CUDA call, the forward's log-sum-exp for the backward; with no
+    Saves q, k, v, the output and, where an input of a CUDA call needs a
+    gradient, the forward's log-sum-exp for the backward; with no
     gradient to take (serving) the forward launch writes no LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        lse = (q.dtype == torch.bfloat16 and q.device.type == "cuda"
-               and any(ctx.needs_input_grad[:3]))
+        lse = q.device.type == "cuda" and any(ctx.needs_input_grad[:3])
         out, stats = _forward(q, k, v, causal=causal, window=window,
                               lse=lse)
         ctx.save_for_backward(q, k, v, out, stats)

@@ -550,29 +550,22 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
                                         causal, window, dtype):
     """dq, dk, dv of one kernel call against the plain formulas on the
     same inputs: the forward's tolerances (f32 2e-5, bf16 2e-2) times
-    max(1, the gradient's largest magnitude). f32 launches the CUDA-core
-    kernel on o from the plain forward; bf16 the tensor-core kernel on o
-    and the LSE of the bf16 forward, and raises for a head width that is
-    not a multiple of 16 or without the LSE."""
+    max(1, the gradient's largest magnitude). Each dtype's backward kernel
+    takes o and the LSE of its forward kernel and raises without the LSE
+    (f32 on the CUDA cores, bf16 on the tensor cores, which also raises
+    for a head width that is not a multiple of 16)."""
     dt = getattr(torch, dtype)
     q, k, v, do = bwd_inputs(Sq + H + h, B, Sq, Skv, H, K, h, hv, dt, cuda)
-    lse = None
-    if dt == torch.bfloat16:
-        if h % 16 or hv % 16:
-            with pytest.raises(ValueError, match="multiples of 16"):
-                kf.flash_attention_bwd(q, k, v, do, do, causal=causal,
-                                       window=window,
-                                       lse=torch.zeros((B, H, Sq),
-                                                       device=cuda))
-            return
-        o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
-                                            window=window)
-        with pytest.raises(ValueError, match="log-sum-exp"):
-            kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                   window=window)
-    else:
-        o = kf.flash_attention_plain(q, k, v, causal=causal,
-                                     window=window).contiguous()
+    if dt == torch.bfloat16 and (h % 16 or hv % 16):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            kf.flash_attention_bwd(q, k, v, do, do, causal=causal,
+                                   window=window,
+                                   lse=torch.zeros((B, H, Sq), device=cuda))
+        return
+    o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        kf.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     before = bwd_counts()
     got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                  window=window, lse=lse)
@@ -594,8 +587,7 @@ def test_flash_bwd_is_deterministic(cuda, dtype):
     route."""
     dt = getattr(torch, dtype)
     q, k, v, do = bwd_inputs(7, 2, 512, 512, 16, 2, 128, 128, dt, cuda)
-    o, lse = (kf.flash_attention_fwd_lse(q, k, v) if dt == torch.bfloat16
-              else (kf.flash_attention(q, k, v), None))
+    o, lse = kf.flash_attention_fwd_lse(q, k, v)
     before = bwd_counts()
     first = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
     second = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
@@ -604,12 +596,72 @@ def test_flash_bwd_is_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-# (B, Sq, Skv, H, K, h, hv, causal, window) of the bf16 forward
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window",
+                         [(2, 200, 300, 4, 2, 50, 36, True, -1),
+                          (2, 256, 256, 8, 2, 128, 128, True, -1)])
+def test_f32_bwd_takes_misaligned_inputs(cuda, B, Sq, Skv, H, K, h, hv,
+                                         causal, window):
+    """q, k, v, o and do 4 bytes past a 16-byte boundary: the f32
+    backward's 4-byte copy path, within 2e-5 x max(1, the gradient's
+    largest magnitude) of the plain formulas, one launch."""
+    q, k, v, do = (misaligned(t) for t in bwd_inputs(
+        Sq + h + 2, B, Sq, Skv, H, K, h, hv, torch.float32, cuda))
+    o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    o = misaligned(o)
+    assert kf.f32_plan(h, hv, q.data_ptr(), o.data_ptr())[1] == 0
+    before = bwd_counts()
+    got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                 window=window, lse=lse)
+    assert bwd_counts() == (before[0] + 1, before[1])
+    want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 2e-5 * scale, name
+
+
+# (B, Sq, Skv, H, K, h, hv, causal, window) of the forward's LSE; f32 also
+# takes odd widths
 LSE_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 128, 128, 4, 2, 32, 32, False, 40),
              (2, 100, 130, 4, 2, 64, 48, True, -1),
              (2, 130, 100, 4, 4, 16, 16, True, -1),
              (1, 1000, 1000, 8, 2, 128, 128, True, -1)]
+
+
+F32_LSE_CASES = [*LSE_CASES, (2, 200, 300, 4, 2, 50, 36, True, -1),
+                 (2, 130, 170, 3, 1, 7, 5, False, 40)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_LSE_CASES)
+def test_f32_forward_bytes_do_not_depend_on_lse(cuda, B, Sq, Skv, H, K, h,
+                                                hv, causal, window):
+    """The f32 forward's output is the same bytes whether or not it
+    writes the LSE."""
+    q, k, v, _ = bwd_inputs(Sq + h, B, Sq, Skv, H, K, h, hv, torch.float32,
+                            cuda)
+    before = kf.KERNEL.launches
+    plain_out = kf.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                          window=window)
+    assert kf.KERNEL.launches == before + 2
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.equal(out, plain_out)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_LSE_CASES)
+def test_f32_forward_lse_matches_plain(cuda, B, Sq, Skv, H, K, h, hv,
+                                       causal, window):
+    """The LSE the f32 forward writes against the plain log2-domain
+    logsumexp of the scaled, masked scores, within 1e-4 (log2 units; the
+    two sum the exponentials in another order in f32)."""
+    q, k, v, _ = bwd_inputs(Sq + h + 1, B, Sq, Skv, H, K, h, hv,
+                            torch.float32, cuda)
+    _, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                        window=window)
+    want = kf.flash_attention_lse_plain(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", LSE_CASES)

@@ -435,13 +435,16 @@ def _f32_kernel_arithmetic(q, k, v, *, causal=True, window=-1):
     on no path): per query tile of 64 rows, the kv tiles of 32 keys it
     visits, an online softmax in f32 in the log2 domain (scale
     log2(e)/sqrt(h), exp2), masked scores -1e30 and keys past Skv -inf on
-    the tiles it masks, out = acc / max(l, 1e-30)."""
+    the tiles it masks, out = acc / max(l, 1e-30). Returns ``(out, lse)``:
+    lse [B,H,Sq] = m + log2 max(l, 1e-30), what the kernel writes through
+    its lse pointer."""
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
     qf = q.float().reshape(B, Sq, K, G, h)
     scale = math.log2(math.e) / math.sqrt(h)
     out = torch.zeros((B, K, G, Sq, hv))
+    lse = torch.zeros((B, K, G, Sq))
     for q0 in range(0, Sq, BQ):
         n = min(BQ, Sq - q0)
         m = torch.full((B, K, G, n), ref.MASKED)
@@ -468,8 +471,11 @@ def _f32_kernel_arithmetic(q, k, v, *, causal=True, window=-1):
             acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
                                                        p, vt)
             m = m_new
-        out[:, :, :, q0:q0 + n] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv)
+        denom = torch.clamp(l, min=1e-30)
+        out[:, :, :, q0:q0 + n] = acc / denom[..., None]
+        lse[:, :, :, q0:q0 + n] = m + torch.log2(denom)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hv),
+            lse.reshape(B, H, Sq))
 
 
 @pytest.mark.parametrize("S,H,K,h,hv,window", [
@@ -478,14 +484,17 @@ def _f32_kernel_arithmetic(q, k, v, *, causal=True, window=-1):
 def test_f32_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
     """The kernel's tiling (32-key tiles, a query tile's visited tiles
     only) and log2-domain softmax stay within 2e-5 of the Pallas kernel
-    in interpret mode and of the port's plain version."""
+    in interpret mode and of the port's plain version; the LSE it writes
+    within 1e-5 of the plain log2-domain logsumexp."""
     q, k, v = _qkv(S + H + h + 2, 2, S, S, H, K, h, hv)
-    got = _f32_kernel_arithmetic(*_t(q, k, v), window=window).numpy()
+    got, lse = _f32_kernel_arithmetic(*_t(q, k, v), window=window)
     pallas = pl_flash(*_j(q, k, v), window=window, block_q=64, block_k=64,
                       interpret=True)
     assert _err(got, pallas) < 2e-5
     plain = fa.flash_attention(*_t(q, k, v), window=window).numpy()
     assert _err(got, plain) < 2e-5
+    want = fa.flash_attention_lse_plain(*_t(q, k), window=window)
+    assert _err(lse, want) < 1e-5
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window",
@@ -495,14 +504,18 @@ def test_f32_kernel_arithmetic_ragged_matches_oracle(B, Sq, Skv, H, K, h, hv,
     """Lengths no tile divides, hv != h, h % 4 != 0, without the causal
     mask: the emulation against the port's plain version and, where it
     applies the same mask (the JAX oracle drops a window without the
-    causal mask), the JAX oracle, within 2e-5. Rows that see no key have
-    no defined output and are left out."""
+    causal mask), the JAX oracle, within 2e-5; its LSE within 1e-5 of the
+    plain one. Rows that see no key have no defined output and are left
+    out."""
     q, k, v = _qkv(Sq * 3 + Skv + h, B, Sq, Skv, H, K, h, hv)
-    got = _f32_kernel_arithmetic(*_t(q, k, v), causal=causal,
-                                 window=window).numpy()
+    got, lse = _f32_kernel_arithmetic(*_t(q, k, v), causal=causal,
+                                      window=window)
     seen = ref.attention_mask(Sq, Skv, causal=causal, window=window,
                               device="cpu").any(1).numpy()
     assert seen.any()
+    lse_want = fa.flash_attention_lse_plain(*_t(q, k), causal=causal,
+                                            window=window)
+    assert _err(lse[:, :, seen], lse_want[:, :, seen]) < 1e-5
     plain = fa.flash_attention(*_t(q, k, v), causal=causal,
                                window=window).numpy()
     assert _err(got[:, seen], plain[:, seen]) < 2e-5
@@ -812,99 +825,150 @@ def test_flash_wrapper_is_differentiable_on_cpu():
     assert all(_close(a, b) for a, b in zip(got, auto))
 
 
-def _bwd_kernel_arithmetic(q, k, v, o, do, *, causal, window):
-    """A plain emulation of csrc/flash_attention_bwd.cu's three kernels:
-    the tiles each block visits (row stats and dq: 64-row query tiles
-    over the key tiles of 32 they reach; dk/dv: 32-key tiles over the G
-    heads and the 32-row query tiles that reach them), the log2-domain
-    row log-sum-exp with masked keys at -1e30 and keys past Skv at -inf,
-    and P = exp2(s log2(e)/sqrt(h) - lse2), zero where masked."""
+F32_BK, F32_QS = fa.F32_BWD_BLOCK_K, fa.F32_BWD_STEP_Q
+F32_BQ, F32_KS = fa.F32_BWD_BLOCK_Q, fa.F32_BWD_TILE_K
+F32_WK = F32_BK // fa.F32_BWD_WARPS    # keys a dk/dv warp
+F32_WQ = F32_BQ // fa.F32_BWD_WARPS    # rows a dq warp
+
+
+def _f32_dkdv_slots(Skv, causal):
+    """``flash_bwd_f32_dkdv_kernel``'s grid: for each blockIdx.z, the key
+    tiles its block takes, in order (t and n - 1 - t under a causal
+    mask, the middle tile alone; one tile each otherwise)."""
+    n = -(-Skv // F32_BK)
+    if causal and n > 1:
+        return [tuple(dict.fromkeys((z, n - 1 - z)))
+                for z in range((n + 1) // 2)]
+    return [(z,) for z in range(n)]
+
+
+def _f32_dkdv_steps(k0, Sq, Skv, causal, window):
+    """The dk/dv block's steps for the key tile at k0 (the same for each
+    head of the group): each 64-row query tile's first row, and for each
+    warp's 8 keys whether it skips the step and whether it masks it."""
+    k_last = min(k0 + F32_BK, Skv) - 1
+    qt_begin = k0 // F32_QS if causal else 0
+    qt_end = -(-Sq // F32_QS) - 1
+    if window > 0:
+        qt_end = min(qt_end, (k_last + window - 1) // F32_QS)
+    for qt in range(qt_begin, qt_end + 1):
+        q0 = qt * F32_QS
+        warps = []
+        for wk0 in range(k0, k0 + F32_BK, F32_WK):
+            skip = (q0 >= Sq or wk0 >= Skv
+                    or (causal and q0 + F32_QS - 1 < wk0)
+                    or (window > 0 and wk0 + F32_WK - 1 <= q0 - window))
+            edge = ((causal and wk0 + F32_WK - 1 > q0)
+                    or (window > 0 and wk0 <= q0 + F32_QS - 1 - window)
+                    or wk0 + F32_WK > Skv or q0 + F32_QS > Sq)
+            warps.append((wk0, skip, edge))
+        yield q0, warps
+
+
+def _f32_dq_tiles(q0, Sq, Skv, causal, window):
+    """The dq block's 32-key tiles for the 128-row query tile at q0: each
+    tile's first key, and for each warp's 16 rows whether it skips the
+    tile and whether it masks it."""
+    q_last = min(q0 + F32_BQ, Sq) - 1
+    kt_end = -(-Skv // F32_KS) - 1
+    if causal:
+        kt_end = min(kt_end, q_last // F32_KS)
+    kt_begin = (q0 - window + 1) // F32_KS \
+        if window > 0 and q0 - window + 1 > 0 else 0
+    for kt in range(kt_begin, kt_end + 1):
+        k0 = kt * F32_KS
+        warps = []
+        for wq0 in range(q0, q0 + F32_BQ, F32_WQ):
+            skip = (wq0 >= Sq or (causal and k0 > wq0 + F32_WQ - 1)
+                    or (window > 0 and k0 + F32_KS - 1 <= wq0 - window))
+            edge = ((causal and k0 + F32_KS - 1 > wq0)
+                    or (window > 0 and k0 <= wq0 + F32_WQ - 1 - window)
+                    or k0 + F32_KS > Skv or wq0 + F32_WQ > Sq)
+            warps.append((wq0, skip, edge))
+        yield k0, warps
+
+
+def _bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
+    """A plain emulation of csrc/flash_attention_bwd.cu (a test helper,
+    on no path), in f32: D = do . o; the dk/dv pass over the grid's
+    key-tile slots (:func:`_f32_dkdv_slots`), each tile's steps over the
+    G heads, then its 64-row query tiles, and each warp's 8 keys; the dq
+    pass over the 128-row query tiles, heaviest first, their 32-key tiles
+    and each warp's 16 rows; with the kernel's skips and masks and P =
+    exp2(s log2(e)/sqrt(h) - lse) from the forward's ``lse``, 0 where
+    masked. Asserts on the way that each key tile is taken by one slot,
+    that every visible (query, key) pair is visited exactly once in each
+    pass, that a skipped warp-step holds no visible pair and that one the
+    kernel does not mask holds no invisible one."""
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
-    sl2 = math.log2(math.e) / math.sqrt(h)
-    qf, kf, vf, of, dof = (x.double() for x in (q, k, v, o, do))
+    sl2, scale = math.log2(math.e) / math.sqrt(h), 1.0 / math.sqrt(h)
+    delta = (do * o).sum(-1).permute(0, 2, 1)                  # [B,H,Sq]
 
-    def visible(rows, keys):
-        m = (rows[:, None] < Sq) & (keys[None, :] < Skv)
-        if causal:
-            m &= keys[None, :] <= rows[:, None]
-        if window > 0:
-            m &= keys[None, :] > rows[:, None] - window
-        return m
+    def p_of(s, lse_r, vis):
+        p = torch.exp2(s * sl2 - lse_r)
+        return torch.where(torch.from_numpy(vis), p, torch.zeros(()))
 
-    def key_tiles(q0, q_last):
-        end = (Skv + 31) // 32 - 1
-        if causal:
-            end = min(end, q_last // 32)
-        begin = (q0 - window + 1) // 32 if window > 0 and \
-            q0 - window + 1 > 0 else 0
-        return range(begin, end + 1)
-
-    lse2 = torch.full((B, H, Sq), float("nan"), dtype=torch.float64)
-    dvec = (dof * of).sum(-1).permute(0, 2, 1)
-    dq = torch.zeros_like(qf)
-    for b in range(B):
-        for hh in range(H):
-            kv = hh // G
-            for q0 in range(0, Sq, 64):
-                rows = torch.arange(q0, q0 + 64)
-                live = rows < Sq
-                qt = qf[b, rows[live], hh]
-                x_all = []
-                for kt in key_tiles(q0, min(q0 + 64, Sq) - 1):
-                    keys = torch.arange(kt * 32, kt * 32 + 32)
-                    kin = keys < Skv
-                    s = torch.full((int(live.sum()), 32), -math.inf,
-                                   dtype=torch.float64)
-                    s[:, kin] = qt @ kf[b, keys[kin], kv].T * sl2
-                    vis = visible(rows[live], keys)
-                    s = torch.where(vis | ~kin[None], s,
-                                    torch.tensor(-1e30, dtype=s.dtype))
-                    x_all.append(s)
-                x = torch.cat(x_all, 1)
-                m = torch.clamp(x.max(1).values, min=-1e30)
-                lse2[b, hh, rows[live]] = m + torch.log2(
-                    torch.exp2(x - m[:, None]).sum(1))
-    for b in range(B):
-        for hh in range(H):
-            kv = hh // G
-            for q0 in range(0, Sq, 64):
-                rows = torch.arange(q0, min(q0 + 64, Sq))
-                for kt in key_tiles(q0, rows[-1].item()):
-                    keys = torch.arange(kt * 32, min(kt * 32 + 32, Skv))
-                    s = qf[b, rows, hh] @ kf[b, keys, kv].T * sl2
-                    p = torch.where(visible(rows, keys),
-                                    torch.exp2(s - lse2[b, hh, rows, None]),
-                                    torch.zeros((), dtype=s.dtype))
-                    dp = dof[b, rows, hh] @ vf[b, keys, kv].T
-                    ds = p * (dp - dvec[b, hh, rows, None])
-                    dq[b, rows, hh] += ds @ kf[b, keys, kv] / math.sqrt(h)
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    nq = (Sq + 31) // 32
-    for b in range(B):
-        for kv in range(K):
-            for k0 in range(0, Skv, 32):
-                keys = torch.arange(k0, min(k0 + 32, Skv))
-                k_last = keys[-1].item()
-                qt_end = nq - 1
-                if window > 0:
-                    qt_end = min(qt_end, (k_last + window - 1) // 32)
-                for g in range(G):
-                    hh = kv * G + g
-                    for qt in range((k0 // 32) if causal else 0, qt_end + 1):
-                        rows = torch.arange(qt * 32, min(qt * 32 + 32, Sq))
-                        s = qf[b, rows, hh] @ kf[b, keys, kv].T * sl2
-                        p = torch.where(
-                            visible(rows, keys),
-                            torch.exp2(s - lse2[b, hh, rows, None]),
-                            torch.zeros((), dtype=s.dtype))
-                        dp = dof[b, rows, hh] @ vf[b, keys, kv].T
-                        ds = p * (dp - dvec[b, hh, rows, None])
-                        dv[b, keys, kv] += p.T @ dof[b, rows, hh]
-                        dk[b, keys, kv] += ds.T @ qf[b, rows, hh] \
-                            / math.sqrt(h)
-    return dq.float(), dk.float(), dv.float()
+    want = _visible(np.arange(Sq), np.arange(Skv), Sq, Skv, causal, window)
+    dk, dv = torch.zeros((B, Skv, K, h)), torch.zeros((B, Skv, K, hv))
+    seen = np.zeros((Sq, Skv), np.int64)
+    slots = _f32_dkdv_slots(Skv, causal)
+    assert sorted(kt for s in slots for kt in s) == \
+        list(range(-(-Skv // F32_BK)))
+    for slot in slots:
+        for kt in slot:
+            steps = list(_f32_dkdv_steps(kt * F32_BK, Sq, Skv, causal,
+                                         window))
+            for g in range(G):
+                for q0, warps in steps:
+                    for wk0, skip, edge in warps:
+                        vis = _visible(range(q0, q0 + F32_QS),
+                                       range(wk0, wk0 + F32_WK), Sq, Skv,
+                                       causal, window)
+                        if skip:
+                            assert not vis.any()
+                            continue
+                        assert edge or vis.all()
+                        r = slice(q0, min(q0 + F32_QS, Sq))
+                        c = slice(wk0, min(wk0 + F32_WK, Skv))
+                        vis = vis[:r.stop - q0, :c.stop - wk0].T  # [key,row]
+                        if g == 0:
+                            seen[r, c] += vis.T
+                        qg, dog = q[:, r, g::G], do[:, r, g::G]
+                        st = torch.einsum("bskh,brkh->bksr", k[:, c], qg)
+                        pt = p_of(st, lse[:, g::G, None, r], vis)
+                        dpt = torch.einsum("bskh,brkh->bksr", v[:, c], dog)
+                        dst = pt * (dpt - delta[:, g::G, None, r])
+                        dv[:, c] += torch.einsum("bksr,brkh->bskh", pt, dog)
+                        dk[:, c] += torch.einsum("bksr,brkh->bskh", dst, qg)
+    assert (seen == want).all()
+    dq = torch.zeros((B, Sq, H, h))
+    kx, vx = (x.repeat_interleave(G, dim=2) for x in (k, v))  # [B,S,H,.]
+    seen[:] = 0
+    n_qt = -(-Sq // F32_BQ)
+    for z in range(n_qt):
+        q0 = (n_qt - 1 - z) * F32_BQ                 # heaviest first
+        for k0, warps in _f32_dq_tiles(q0, Sq, Skv, causal, window):
+            for wq0, skip, edge in warps:
+                vis = _visible(range(wq0, wq0 + F32_WQ),
+                               range(k0, k0 + F32_KS), Sq, Skv, causal,
+                               window)
+                if skip:
+                    assert not vis.any()
+                    continue
+                assert edge or vis.all()
+                r = slice(wq0, min(wq0 + F32_WQ, Sq))
+                c = slice(k0, min(k0 + F32_KS, Skv))
+                vis = vis[:r.stop - wq0, :c.stop - k0]
+                seen[r, c] += vis
+                s = torch.einsum("brhd,bshd->bhrs", q[:, r], kx[:, c])
+                p = p_of(s, lse[:, :, r, None], vis)
+                dp = torch.einsum("brhd,bshd->bhrs", do[:, r], vx[:, c])
+                ds = p * (dp - delta[:, :, r, None])
+                dq[:, r] += torch.einsum("bhrs,bshd->brhd", ds, kx[:, c])
+    assert (seen == want).all()
+    return dq * scale, dk * scale, dv
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", [
@@ -912,13 +976,15 @@ def _bwd_kernel_arithmetic(q, k, v, o, do, *, causal, window):
     (1, 150, 40, 2, 1, 16, 16, True, -1)])
 def test_flash_bwd_kernel_tiles_match_plain(B, Sq, Skv, H, K, h, hv, causal,
                                             window):
-    """The backward kernel's tile loops, masks and log2-domain softmax
-    (emulated in f64) give the plain backward's gradients: every tile a
-    visible (query, key) pair lies in is visited, by the row-stats, the
-    dq and the dk/dv kernels alike."""
+    """The f32 backward kernel's schedule (the dk/dv grid's key-tile
+    slots, its steps and warps; the dq tiles and warps), masks and
+    log2-domain softmax, emulated in f32 from the output and LSE of the
+    emulated f32 forward, give the plain backward's gradients within
+    2e-5 x max(1, the gradient's largest magnitude): every visible
+    (query, key) pair is visited once by the dk/dv and the dq passes."""
     q, k, v, do = _t(*_bwd_inputs(Sq + 2 * h, B, Sq, Skv, H, K, h, hv))
-    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    got = _bwd_kernel_arithmetic(q, k, v, o, do, causal=causal,
+    o, lse = _f32_kernel_arithmetic(q, k, v, causal=causal, window=window)
+    got = _bwd_kernel_arithmetic(q, k, v, o, do, lse, causal=causal,
                                  window=window)
     want = ref.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          window=window)
@@ -931,9 +997,7 @@ def test_flash_bwd_wrapper_checks_inputs():
         fa.flash_attention_bwd(q, k, v, do, do[:, :16])
     with pytest.raises(ValueError, match="o must be"):
         fa.flash_attention_bwd(q, k, v, do.double(), do)
-    assert fa.bwd_workspace_floats(2, 100, 8) == 2 * 2 * 100 * 8
-    assert fa.bwd_workspace_floats(2, 100, 8, torch.bfloat16) \
-        == 2 * 100 * 8
+    assert fa.bwd_workspace_floats(2, 100, 8) == 2 * 100 * 8
 
 
 def test_wkv6_trains_on_cpu():
@@ -1188,6 +1252,130 @@ def test_bf16_bwd_grid_writes_every_element_once(B, Sq, Skv, H, K, h, hv,
         assert (_store_writers(n, row0s, w, width // 8) == 1).all()
 
 
+# the f32 backward's grid on BWD_CASES and on odd widths, an odd count of
+# key tiles (a middle tile alone) and Skv < Sq
+F32_GRID_CASES = [*BWD_CASES, (1, 33, 45, 3, 1, 7, 5, False, -1),
+                  (1, 300, 260, 4, 2, 128, 128, True, -1),
+                  (2, 200, 300, 4, 2, 50, 36, True, 70)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_GRID_CASES)
+def test_f32_bwd_grid_writes_every_element_once(B, Sq, Skv, H, K, h, hv,
+                                                causal, window):
+    """Under the f32 backward's grid, each element of dk and dv (per kv
+    head: the key-tile slots, 8 keys a warp, 32 lanes over key groups x
+    16-byte column chunks) and of dq (per head: one block a 128-row
+    query tile, 16 rows a warp, rows ry + 4 i, columns 4 (kx + 8 jj) + x)
+    has exactly one writer, whether or not any query reaches its key."""
+    width, _ = fa.f32_plan(h, hv)
+    chunks = width // 4
+    cgs = min(chunks, 16)
+    keys_pt, cpt = F32_WK // (32 // cgs), chunks // cgs
+    lane = np.arange(32)
+    kg, cg = lane // cgs, lane % cgs
+    for w in (h, hv):
+        writers = np.zeros((Skv, w), np.int64)
+        for slot in _f32_dkdv_slots(Skv, causal):
+            for kt in slot:
+                for warp in range(fa.F32_BWD_WARPS):
+                    key = (kt * F32_BK + warp * F32_WK + kg[:, None] * keys_pt
+                           + np.arange(keys_pt))[:, :, None, None]
+                    col = (4 * (cg[:, None] + cgs * np.arange(cpt)))[
+                        :, None, :, None] + np.arange(4)
+                    key, col = np.broadcast_arrays(key, col)
+                    live = (key < Skv) & (col < w)
+                    np.add.at(writers, (key[live], col[live]), 1)
+        assert (writers == 1).all()
+    writers = np.zeros((Sq, h), np.int64)
+    ry, kx = lane // 8, lane % 8
+    for q0 in range(0, Sq, F32_BQ):
+        for warp in range(fa.F32_BWD_WARPS):
+            row = (q0 + warp * F32_WQ + ry[:, None]
+                   + 4 * np.arange(4))[:, :, None, None]
+            col = (4 * (kx[:, None] + 8 * np.arange(width // 32)))[
+                :, None, :, None] + np.arange(4)
+            row, col = np.broadcast_arrays(row, col)
+            live = (row < Sq) & (col < h)
+            np.add.at(writers, (row[live], col[live]), 1)
+    assert (writers == 1).all()
+
+
+@pytest.mark.parametrize("S,causal", [(1024, True), (4096, True),
+                                      (1000, True), (130, True),
+                                      (1024, False)])
+def test_f32_dkdv_slots_carry_equal_work(S, causal):
+    """The dk/dv grid at Sq = Skv: every key tile in one slot, and under
+    the causal mask every slot (but a middle tile alone) reaches n + 1
+    query tiles, so the heaviest slot is the mean's at the serving shape
+    (16 key tiles: 8 slots a (kv head, batch)); without the mask each
+    slot is one tile reaching all n."""
+    n = -(-S // F32_BK)
+    slots = _f32_dkdv_slots(S, causal)
+    assert sorted(kt for s in slots for kt in s) == list(range(n))
+    work = [sum(len(list(_f32_dkdv_steps(kt * F32_BK, S, S, causal, -1)))
+                for kt in slot) for slot in slots]
+    if causal:
+        assert all(wk == n + 1 for wk, s in zip(work, slots) if len(s) == 2)
+        assert len(slots) == (n + 1) // 2
+    else:
+        assert work == [n] * n
+
+
+def _wavefronts(addr, lanes):
+    """Shared-memory wavefronts of one float4 access by ``lanes`` (float
+    offsets): the most distinct 16-byte chunks in one group of 4 banks,
+    and the least any access of that many distinct chunks needs."""
+    chunks = np.unique(np.asarray(addr)[lanes] // 4)
+    return int(np.bincount(chunks % 8).max()), -(-len(chunks) // 8)
+
+
+@pytest.mark.parametrize("width", fa.WIDTHS)
+def test_f32_bwd_shared_accesses_are_conflict_free(width):
+    """Every float4 shared access of the f32 backward's products, per
+    warp, takes the fewest wavefronts its distinct chunks need: dk/dv's
+    K and V rows (2 a load) and Q and dO rows (16) in S^T and dP^T, the
+    stores of P^T and dS^T into the warp's [64][8] slice and their
+    read-back beside dO and Q rows; dq's Q and dO rows (4), K and V rows
+    (8), the dS^T store and its read-back beside K rows."""
+    S = width + 4
+    lane = np.arange(32)
+    ry, kx = lane // 16, lane % 16                       # dk/dv S^T map
+    chunks = width // 4
+    cgs = min(chunks, 16)
+    kg, cg = lane // cgs, lane % cgs
+    accesses = []
+    for warp in range(fa.F32_BWD_WARPS):
+        wk = warp * F32_WK
+        for d in range(0, width, 4):
+            accesses += [(wk + 4 * ry + i) * S + d for i in range(4)]
+            accesses += [(kx + 16 * j) * S + d for j in range(4)]
+        slice0 = F32_QS * F32_WK * warp
+        accesses += [slice0 + (kx + 16 * j) * F32_WK + 4 * ry
+                     for j in range(4)]
+        for r in range(F32_QS):
+            if F32_WK // (32 // cgs) == 4:
+                accesses.append(slice0 + r * F32_WK + 4 * kg)
+            accesses += [r * S + 4 * (cg + cgs * jj)
+                         for jj in range(chunks // cgs)]
+    dq_ry, dq_kx = lane // 8, lane % 8                   # dq map
+    P = F32_BQ + 4
+    for warp in range(fa.F32_BWD_WARPS):
+        wrow = warp * F32_WQ
+        for d in range(0, width, 4):
+            accesses += [(wrow + dq_ry + 4 * i) * S + d for i in range(4)]
+            accesses += [(dq_kx + 8 * j) * S + d for j in range(4)]
+        accesses += [(dq_kx + 8 * j) * P + wrow + 4 * dq_ry
+                     for j in range(4)]
+        for c in range(F32_KS):
+            accesses.append(c * P + wrow + 4 * dq_ry)
+            accesses += [c * S + 4 * (dq_kx + 8 * jj)
+                         for jj in range(width // 32)]
+    for addr in accesses:
+        assert (np.asarray(addr) % 4 == 0).all()
+        got, least = _wavefronts(addr, lane)
+        assert got == least
+
+
 @pytest.mark.parametrize("h,hv", [(40, 40), (50, 36), (8, 8), (144, 128),
                                   (64, 24)])
 def test_bf16_bwd_rejects_other_head_widths(h, hv):
@@ -1211,11 +1399,27 @@ def test_bf16_bwd_without_lse_raises():
 @pytest.mark.parametrize("h,hv", [(1, 1), (7, 5), (50, 36), (64, 64),
                                   (128, 100), (128, 128)])
 def test_f32_bwd_takes_any_width_up_to_128(h, hv):
-    assert fa.select_bwd_kernel(torch.float32, h, hv, None) is fa.KERNEL_BWD
+    lse = torch.zeros((1, 1, 1))
+    assert fa.select_bwd_kernel(torch.float32, h, hv, lse) is fa.KERNEL_BWD
     with pytest.raises(ValueError, match="up to 128"):
-        fa.select_bwd_kernel(torch.float32, h + 128, hv, None)
+        fa.select_bwd_kernel(torch.float32, h + 128, hv, lse)
     with pytest.raises(TypeError):
-        fa.select_bwd_kernel(torch.float16, h, hv, None)
+        fa.select_bwd_kernel(torch.float16, h, hv, lse)
+
+
+def test_f32_bwd_without_lse_raises():
+    """An f32 CUDA backward takes the f32 forward's LSE: without it the
+    choice raises (it never recomputes the LSE or falls back); the CPU
+    route needs none."""
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.select_bwd_kernel(torch.float32, 64, 64, None)
+    assert fa.select_bwd_kernel(torch.float32, 64, 64,
+                                torch.zeros((1, 1, 1))) is fa.KERNEL_BWD
+    q, k, v, do = _t(*_bwd_inputs(9, 1, 40, 40, 2, 1, 16, 16))
+    o = fa.flash_attention_plain(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_fwd_lse_on_cpu_is_the_plain_logsumexp():
