@@ -22,19 +22,31 @@ Phases, each of which must pass or the script exits non-zero:
 3. engine phase: the repo's documented deployment (G=4 ordering groups
    x W=2048 slots, 1000 disseminators in partitions of 250, 16
    sequencers, order budget 64, recycling watermark 1024, id stride
-   2**22) in the gated-recycled family, driven through ``Engine.tick``
-   and ``Engine.run`` for >= 6 window generations of seeded traffic; the
-   merged log, its sha256, count and committed length must equal the
-   same run on the CPU, and the kernel launch counts must be exactly 2T
-   (quorum) and T (stability). The plain, recycled and gated families
-   run once each at the same width, also against the CPU;
+   2**22) in the gated-recycled family, driven through ``Engine.run``
+   (captured, the default on the card: one CUDA graph of the tick
+   replayed T times), ``Engine.run`` eager and ``Engine.tick`` for >= 6
+   window generations of seeded traffic; the merged log, its sha256,
+   count, committed length and the whole state must equal the same run
+   on the CPU, and the kernel launches must be exactly 2T (quorum) and T
+   (stability): eagerly as the wrappers' counts; captured as the
+   launches the capture recorded times the replays, as device kernel
+   events in a ``torch.profiler`` trace of the captured run itself (the
+   main path, counts reset just before it: the capture's warm-up step
+   and T replays, 2(T + 1) and T + 1, the launches the ``kernels`` line
+   reports), and in a trace of a second captured run (which replays the
+   same graph with no host launch: 2T and T). The plain,
+   recycled and gated families run the same way at the same width;
+   then each engine kernel captured alone in a graph and replayed equals
+   its eager call (``newly``, the cluster-reduced count, included);
 4. timing with CUDA events: each kernel at the engine's shapes beside its
    bound and its plain version (plus each one's device time from
    ``torch.profiler``, where every device op of a call must be the
    kernel, one per call: no fill, no memset; its floor, the device time at
    a [1, 1, 1] tile; and the host's cost to enqueue a call, of the wrapper
    and of a bare ``ctypes`` launch), ``quorum_update`` at its test shape
-   and a main-path-sized tile, and the engine's ticks/s and ids/s;
+   and a main-path-sized tile, and the engine's ticks/s and ids/s eager
+   (E) against captured (G) in turns E, G, G, E, with the host µs a
+   replay takes, alone and with the step's tile copies;
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
    heaviest kernels and PyTorch ops;
@@ -49,10 +61,15 @@ Phases, each of which must pass or the script exits non-zero:
    (``plan_admissions``); nothing overflowed or was dropped; each lane's
    flushed bytes equal its batches' ``batch_bytes``; every admitted bid
    is decoded exactly once; the flip moved nothing, sealed row 3 and
-   kept the committed prefix; launches are exactly 2 and 1 per tick.
-   Then segment A timed (pipeline ticks/s, committed batch ids/s and
-   requests/s, the ratio to the engine's ticks/s) and a profiler pass
-   over 32 pipeline ticks;
+   kept the committed prefix; launches are exactly 2 and 1 per tick. The
+   drive runs captured (``run_pipeline``'s default on the card: each
+   segment replays one captured tick, the drains tick on the host) and
+   eager, each equal to the CPU's; captured, the launches recorded x
+   replays are 2 and 1 a tick. Then segment A timed eager against
+   captured in turns E, G, G, E (pipeline ticks/s, committed batch ids/s
+   and requests/s, the ratio to the engine's ticks/s), a profiler pass
+   over 32 eager pipeline ticks and one over 32 replays (2 and 1 kernel
+   events a tick);
 7. adaptive phase: (a) ``adaptive/skew`` and ``adaptive/uniform``: the
    engine's deployment with README's ``AdaptiveConfig(max_tiles_per_tick
    =4, policy="backlog")`` over the engine phase's tiles pre-loaded with
@@ -61,8 +78,13 @@ Phases, each of which must pass or the script exits non-zero:
    the same passes on the CPU (merged log, the whole state and queue,
    every R) and a lock-step ``Engine.run`` of ΣR ticks over the same
    tiles on the card (the same merged prefix); nothing dropped; launches
-   exactly 2·ΣR and ΣR; lock-step and adaptive timed in turns, and a
-   profiler pass over 32 skew passes of R = 4. (b) ``pipeline/adaptive``:
+   exactly 2·ΣR and ΣR; the same passes captured (the default on the
+   card: the reference's fixed-K pass, one replay a pass, 2K and K
+   launches recorded a pass), ``Engine.run_adaptive`` and the functional
+   ``run_adaptive`` (no host read between passes) equal too; lock-step
+   and adaptive timed eager and captured in turns E, G, G, E, and
+   profiler passes over 32 skew passes of R = 4, eager and captured.
+   (b) ``pipeline/adaptive``:
    the pipeline phase's drive in the subtick mode (K = 4, policy
    "unstable"): card = CPU; against the lock-step run, the same admitted
    count, all committed, the same bids in the same groups and each
@@ -474,10 +496,76 @@ def tree_digest(tree) -> str:
     return h.hexdigest()
 
 
+def graph_counts(loop) -> tuple[int, int]:
+    """(quorum, stability) launches a captured loop recorded in its
+    capture, times its replays: what its replays launched on the card."""
+    rec = loop.recorded
+    return (rec["quorum_update_grouped"] * loop.replays,
+            rec["stability_update_grouped"] * loop.replays)
+
+
+def check_graph_loop(name, loop, want, wrapper) -> None:
+    """A captured loop's exact launches: ``want`` (quorum, stability) as
+    recorded in the capture x replays, and the wrappers' host count of
+    the drive that captured it, ``wrapper``: one warm-up step and the
+    captured step, each launching what the capture recorded."""
+    rec = (loop.recorded["quorum_update_grouped"],
+           loop.recorded["stability_update_grouped"])
+    check(graph_counts(loop) == want,
+          f"{name}: recorded {rec} x {loop.replays} replays, expected "
+          f"{want}")
+    if wrapper is not None:
+        check(wrapper == (2 * rec[0], 2 * rec[1]),
+              f"{name}: the wrappers counted {wrapper} host launches, "
+              f"expected a warm-up and a captured step of {rec}")
+
+
+def device_counts(events) -> tuple[int, int]:
+    """(quorum, stability) kernel events of a trace."""
+    return (sum("quorum_kernel" in k for k, _ in events),
+            sum("stability_kernel" in k for k, _ in events))
+
+
+def graph_profile(name, run, steps: int, want) -> dict:
+    """``run()`` (replays of a captured loop) under ``torch.profiler``:
+    the quorum and stability kernels must show as exactly ``want`` device
+    events; kernels and device time per step and the busy share. A
+    session that :func:`traced` traces again runs ``run`` again, so
+    ``run`` starts from a fresh state."""
+    wall = {}
+
+    def timed_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall["us"] = (time.perf_counter() - t0) * 1e6
+    _, events = traced(timed_run)
+    got = device_counts(events)
+    check(got == tuple(want), f"{name}: the trace shows {got} quorum and "
+          f"stability kernels, expected {tuple(want)}")
+    busy = sum(us for _, us in events)
+    res = dict(steps=steps, device_launches=got,
+               kernels_per_step=len(events) / steps,
+               device_us_per_step=busy / steps,
+               wall_us_per_step=wall["us"] / steps,
+               device_busy_share=busy / wall["us"])
+    log(phase=name, **res)
+    return res
+
+
 def run_family(family: str, tiles_cpu, tiles_dev, dev, *, host_ticks: bool):
-    """One family through ``Engine.run`` on the card, the same run on the
-    CPU, and (``host_ticks``) ``Engine.tick`` on the card. Returns the
-    results and the card run's wall time and launch counts."""
+    """One family through ``Engine.run`` on the card, captured (the
+    default there: one CUDA graph of the tick, replayed T times) and
+    eager, against the same run on the CPU, and (``host_ticks``)
+    ``Engine.tick`` on the card. The captured run, the main path, is
+    traced whole (counts reset just before it): its device kernel events
+    are its launches, the capture's warm-up step and T replays, exactly
+    2(T + 1) and T + 1. The captured engine then runs again from a fresh
+    state: the same graph replays (no host launch), the trace shows 2T
+    quorum and T stability kernels. Returns the results and each card
+    run's wall time and launch counts."""
+    from repro_torch.engine import api
     from repro_torch.engine.api import Engine
     cfg = engine_config(family)
     gated = cfg.gating is not None
@@ -486,6 +574,7 @@ def run_family(family: str, tiles_cpu, tiles_dev, dev, *, host_ticks: bool):
     dev_in = [x[:ticks] for x in tiles_dev]
     if not gated:
         cpu_in, dev_in = cpu_in[:2], dev_in[:2]
+    want_counts = (2 * ticks, ticks if gated else 0)
 
     t0 = time.perf_counter()
     ref = Engine.create(cfg, device="cpu")
@@ -493,39 +582,152 @@ def run_family(family: str, tiles_cpu, tiles_dev, dev, *, host_ticks: bool):
     cpu_s = time.perf_counter() - t0
     want = digest(ref_out[0], ref_out[1]) + (int(ref_out[2]),)
 
+    def by_tick(e):
+        for t in range(ticks):
+            e.tick(*(x[t] for x in dev_in))
+        return e.committed()
     results = {}
-    runs = [("run", lambda e: e.run(*dev_in))]
+    runs = [("graph", None, lambda e: e.run(*dev_in)),
+            ("run", False, lambda e: e.run(*dev_in))]
     if host_ticks:
-        def by_tick(e):
-            for t in range(ticks):
-                e.tick(*(x[t] for x in dev_in))
-            return e.committed()
-        runs.append(("tick", by_tick))
-    for how, drive in runs:
-        eng = Engine.create(cfg, device=dev)
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        out = drive(eng)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_counts()
+        runs.append(("tick", False, by_tick))
+    for how, capture, drive in runs:
+        box = {}
+
+        def drive_fresh():
+            box["eng"] = Engine.create(cfg, device=dev, capture=capture)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            box["out"] = drive(box["eng"])
+            torch.cuda.synchronize()
+            box["seconds"] = time.perf_counter() - t0
+            box["launches"] = read_counts()
+        if how == "graph":
+            # the main path's own run under the profiler (a session that
+            # is traced again drives a fresh engine again)
+            _, events = traced(drive_fresh)
+        else:
+            drive_fresh()
+        eng, out, seconds, launches = (box[k] for k in (
+            "eng", "out", "seconds", "launches"))
+        check(eng.capture == (how == "graph"),
+              f"{family}/{how}: Engine.capture is {eng.capture}")
         got = digest(out[0], out[1]) + (int(out[2]),)
         check(got == want, f"{family}/{how}: card {got} != CPU {want}")
         check(states_equal(eng.state, ref.state),
               f"{family}/{how}: final state differs from the CPU run")
-        check(launches == (2 * ticks, ticks if gated else 0),
-              f"{family}/{how}: launches {launches}, expected "
-              f"{(2 * ticks, ticks if gated else 0)}")
+        res = dict(seconds=seconds, launches=launches, engine=eng)
+        if how == "graph":
+            check(len(eng._loops) == 1, f"{family}/graph: "
+                  f"{len(eng._loops)} captured loops")
+            loop, = eng._loops.values()
+            check_graph_loop(f"{family}/graph", loop, want_counts, launches)
+            # on the card: the warm-up step, then T replays
+            device = device_counts(events)
+            want_device = tuple(loop.recorded[k] * (ticks + 1) for k in (
+                "quorum_update_grouped", "stability_update_grouped"))
+            check(device == want_device,
+                  f"{family}/graph: the trace of the run shows {device} "
+                  f"quorum and stability kernels, expected {want_device} "
+                  "(a warm-up step and T replays)")
+            res.update(capture_host_calls=launches, launches=device)
+        else:
+            check(launches == want_counts,
+                  f"{family}/{how}: launches {launches}, expected "
+                  f"{want_counts}")
         overflow = int(eng.state.merge.overflowed.sum())
         check(got[2] > 0 and overflow == 0,
               f"{family}/{how}: committed {got[2]}, overflowed {overflow}")
-        results[how] = dict(seconds=seconds, launches=launches, engine=eng)
+        results[how] = res
+
+    # the captured engine again, from a fresh state: the same graph, no
+    # host launch, 2T and T kernels on the card
+    eng = results["graph"]["engine"]
+    loop, = eng._loops.values()
+    first_replays = loop.replays
+    again = []
+
+    def rerun():
+        eng.state = api.create_state(cfg, dev)
+        again.append(eng.run(*dev_in))
+    reset_counts()
+    prof = graph_profile("profile/graph_tick" + (
+        "" if family == "gated_recycled" else f"/{family}"), rerun, ticks,
+        want_counts)
+    host = read_counts()
+    check(host == (0, 0), f"{family}/graph: a replayed run made {host} "
+          "host launches")
+    check(list(eng._loops.values()) == [loop], f"{family}/graph: the "
+          "second run captured again")
+    got = digest(again[-1][0], again[-1][1]) + (int(again[-1][2]),)
+    check(got == want and states_equal(eng.state, ref.state),
+          f"{family}/graph: the replayed run {got} != CPU {want}")
+    results["graph"].update(recorded=dict(loop.recorded),
+                            replays=first_replays,
+                            replayed_run_device_launches=prof[
+                                "device_launches"],
+                            profile=prof)
     log(phase=f"engine/{family}", ticks=ticks, sha256=want[0],
         count=want[1], committed=want[2], cpu_seconds=cpu_s,
         **{f"{how}_first_seconds": r["seconds"]
            for how, r in results.items()})
+    log(phase=f"graph/engine/{family}", ticks=ticks, sha256=want[0],
+        count=want[1], committed=want[2],
+        device_launches=results["graph"]["launches"],
+        capture_host_calls=results["graph"]["capture_host_calls"],
+        recorded=loop.recorded, replays_a_run=first_replays,
+        replays=loop.replays, replayed_launches=graph_counts(loop),
+        replayed_run_device_launches=prof["device_launches"])
     return want, results
+
+
+def graph_kernel_phase(dev, tiles_dev) -> None:
+    """Each engine kernel at the engine's tiles, out of place, captured in
+    a CUDA graph alone and replayed twice: every output (bits, counts,
+    stable and the stability kernel's cluster-reduced ``newly``) equals
+    the eager call's on the same inputs, and the replay launches the
+    kernel once on the card (its launch attributes, the stability
+    kernel's cluster dimension among them, survive the capture)."""
+    from repro_torch.kernels import dissem as kd
+    from repro_torch.kernels import quorum as kq
+    acks, votes, holds = (x[0] for x in tiles_dev)
+    rng = np.random.default_rng(SEED + 7)
+    for name, fn, upd, n, symbol in (
+            ("quorum_update_grouped", kq.quorum_update_grouped, acks,
+             N_DISS, "quorum_kernel"),
+            ("quorum_update_grouped", kq.quorum_update_grouped, votes,
+             N_SEQ, "quorum_kernel"),
+            ("stability_update_grouped", kd.stability_update_grouped, holds,
+             PART, "stability_kernel")):
+        g, w, words = upd.shape
+        bits = torch.from_numpy(sparse_words(rng, (g, w, words), 2, n)
+                                .view(np.int32)).to(dev)
+        stable = torch.from_numpy(rng.random((g, w)) < 0.3).to(dev)
+        maj = n // 2 + 1
+        want = fn(bits, upd, stable, majority=maj)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(bits, upd, stable, majority=maj)           # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn(bits, upd, stable, majority=maj)
+        for _ in range(2):
+            for x in got:
+                x.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"graph/kernel/{name} {[g, w, words]}: a replay differs "
+                  "from the eager call")
+        events = device_kernels(graph.replay, 4, symbol, 4)
+        check(sum(symbol in k for k, _ in events) == 4,
+              f"graph/kernel/{name}: 4 replays traced "
+              f"{[k for k, _ in events]}")
+        log(phase=f"graph/kernel/{name}", shape=[g, w, words],
+            outputs=len(got), replays_equal=True)
 
 
 def time_cuda(fn, reps=REPS, warmup=WARMUP) -> float:
@@ -665,38 +867,88 @@ def time_kernels(dev, tiles_dev) -> list[dict]:
 
 
 def time_engine(tiles_dev, dev) -> dict:
-    """Steady-state rate of the main path: a fused ``Engine.run`` of
-    T_MAIN ticks after one warm-up run, timed by CUDA events and the host
-    clock; plus the host-driven tick loop."""
+    """Steady-state rate of the main path, eager (E) against captured
+    (G) in turns E, G, G, E inside this call, each a T_MAIN-tick
+    ``Engine.run`` from a fresh state after a warm-up run (the capture's
+    run), timed by CUDA events and the host clock. Then the host
+    microseconds a replay takes, alone and with the step's tile copies,
+    and the host-driven tick loop."""
+    from repro_torch.engine import api
     from repro_torch.engine.api import Engine
     cfg = engine_config("gated_recycled")
-    Engine.create(cfg, device=dev).run(*tiles_dev)   # warm-up
+    Engine.create(cfg, device=dev, capture=False).run(*tiles_dev)  # warm-up
+    captured = Engine.create(cfg, device=dev)
+    captured.run(*tiles_dev)                                     # captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine.create(cfg, device=dev)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def turn(mode):
+        if mode == "eager":
+            eng = Engine.create(cfg, device=dev, capture=False)
+        else:
+            eng = captured
+            eng.state = api.create_state(cfg, dev)
+        (m, c, k), secs, wall = timed(lambda: eng.run(*tiles_dev))
+        return dict(seconds=secs, wall_seconds=wall, committed=int(k),
+                    ticks_per_s=T_MAIN / secs,
+                    committed_ids_per_s=int(k) / secs,
+                    generations_min=int(eng.state.core.rs.retired.min())
+                    / W)
+    order = ["eager", "graph", "graph", "eager"]
+    turns = [(mode, turn(mode)) for mode in order]
+    by = {mode: [t for m, t in turns if m == mode] for mode in order}
+    commits = {t["committed"] for _, t in turns}
+    check(len(commits) == 1, f"timing/engine: committed {commits} across "
+          "turns")
+
+    # host microseconds a replay takes (the graph launch alone, and a
+    # step: its tile copies and the launch), over few enough steps that
+    # the launch queue does not fill
+    loop, = captured._loops.values()
+    captured.state = api.create_state(cfg, dev)
+    loop.load(captured.state)
+    n = 32
+    seqs = [x[:n] for x in tiles_dev]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    start.record()
-    merged, count, committed = eng.run(*tiles_dev)
-    end.record()
+    for t in range(n):
+        for buf, x in zip(loop.tiles, seqs):
+            buf.copy_(x[t])
+        loop.graph.replay()
+    step_us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    run_s = start.elapsed_time(end) / 1e3
-    eng2 = Engine.create(cfg, device=dev)
+    t0 = time.perf_counter()
+    for t in range(n):
+        loop.graph.replay()
+    replay_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+
+    eng2 = Engine.create(cfg, device=dev, capture=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(T_MAIN):
         eng2.tick(*(x[t] for x in tiles_dev))
     torch.cuda.synchronize()
     tick_s = time.perf_counter() - t0
-    retired = eng.state.core.rs.retired
-    res = dict(ticks=T_MAIN, committed=int(committed), run_seconds=run_s,
-               run_wall_seconds=wall, ticks_per_s=T_MAIN / run_s,
-               committed_ids_per_s=int(committed) / run_s,
+    eager, graph = by["eager"], by["graph"]
+    res = dict(ticks=T_MAIN, committed=commits.pop(), turns=order,
+               **{f"{mode}_turn_{k}": [t[k] for t in v]
+                  for mode, v in by.items()
+                  for k in ("seconds", "wall_seconds", "ticks_per_s",
+                            "committed_ids_per_s")},
+               step_host_us=step_us, replay_host_us=replay_us,
+               # the eager figures under their earlier names
+               run_seconds=sum(t["seconds"] for t in eager) / len(eager),
+               ticks_per_s=sum(t["ticks_per_s"] for t in eager) / len(eager),
+               committed_ids_per_s=sum(t["committed_ids_per_s"]
+                                       for t in eager) / len(eager),
+               graph_ticks_per_s=sum(t["ticks_per_s"] for t in graph)
+               / len(graph),
+               graph_committed_ids_per_s=sum(
+                   t["committed_ids_per_s"] for t in graph) / len(graph),
                tick_loop_seconds=tick_s,
                tick_loop_ticks_per_s=T_MAIN / tick_s,
-               generations_min=int(retired.min()) / W,
+               generations_min=eager[0]["generations_min"],
                peak_mem_bytes=torch.cuda.max_memory_allocated())
     log(phase="timing/engine", **res)
     return res
@@ -766,7 +1018,8 @@ def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
     ``torch.profiler`` (after 8 warm-up ticks), as :func:`profile_loop`
     reports it."""
     from repro_torch.engine.api import Engine
-    eng = Engine.create(engine_config("gated_recycled"), device=dev)
+    eng = Engine.create(engine_config("gated_recycled"), device=dev,
+                        capture=False)
     return profile_loop(
         lambda t: eng.tick(*(x[t] for x in tiles_dev)), ticks,
         "profile/tick")
@@ -934,14 +1187,19 @@ def drain_pipeline(cfg, st, rt):
     fail(f"pipeline did not drain in {P_DRAIN} ticks")
 
 
-def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
+def drive_pipeline(cfg, arrived, sizes, rts, dev, capture=None) -> dict:
     """The main path of the pipeline phase on ``dev``: segment A at epoch
-    0, a drain, the flip to epoch 1, segment B, a drain."""
+    0, a drain, the flip to epoch 1, segment B, a drain. ``capture`` is
+    ``run_pipeline``'s (``None``: captured on the card in lock-step);
+    both segments step the loop kept in one dict (``loops`` in the
+    result); the drains are host-driven ticks."""
     from repro_torch import pipeline as P
     a, s = arrived.to(dev), sizes.to(dev)
     rt0, rt1 = (x.to(dev) for x in rts)
+    loops = {}
     st, oa = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:T_MAIN],
-                            s[:T_MAIN], rt0, inplace=True)
+                            s[:T_MAIN], rt0, inplace=True, capture=capture,
+                            loops=loops)
     st, drain_a, da, ra = drain_pipeline(cfg, st, rt0)
     merged, _, com = P.committed(cfg, st)
     pre = merged[:int(com)].cpu()
@@ -949,7 +1207,7 @@ def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
     rs = logical_engine(cfg.engine, st.engine).core.rs
     sealed = (int(rs.retired[G - 1]), int(rs.q.next_instance[G - 1]))
     st, ob = P.run_pipeline(cfg, st, a[T_MAIN:], s[T_MAIN:], rt1,
-                            inplace=True)
+                            inplace=True, capture=capture, loops=loops)
     st, drain_b, db, rb = drain_pipeline(cfg, st, rt1)
     dropped = int(oa["dropped"].sum() + da + ob["dropped"].sum() + db)
     # the subtick mode's R of every tick, in tick order
@@ -957,7 +1215,8 @@ def drive_pipeline(cfg, arrived, sizes, rts, dev) -> dict:
         oa["rounds"].tolist() + ra + ob["rounds"].tolist() + rb
     return dict(state=st, pre=pre, report=report, sealed=sealed,
                 drains=(drain_a, drain_b), dropped=dropped, rounds=rounds,
-                ticks=T_MAIN + drain_a + P_SEG_B + drain_b)
+                ticks=T_MAIN + drain_a + P_SEG_B + drain_b,
+                loops=list(loops.values()))
 
 
 def bid_groups(cfg, st, merged, com) -> list:
@@ -997,27 +1256,62 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
     t0 = time.perf_counter()
     ref = drive_pipeline(cfg, arrived, sizes, rts, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    got = drive_pipeline(cfg, arrived, sizes, rts, dev)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    launches = read_counts()
+    want_tree = pipeline_tree(ref["state"])
+    want = digest(*P.committed(cfg, ref["state"])[:2]) + (
+        int(P.committed(cfg, ref["state"])[2]),)
+    drives = {}
+    for how, capture in (("graph", None), ("eager", False)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = drive_pipeline(cfg, arrived, sizes, rts, dev, capture)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        m, c, k = P.committed(cfg, run["state"])
+        got = digest(m, c) + (int(k),)
+        name = "pipeline" if how == "eager" else "graph/pipeline"
+        check(got == want, f"{name}: card {got} != CPU {want}")
+        check(trees_equal(pipeline_tree(run["state"]), want_tree),
+              f"{name}: final state differs from the CPU run")
+        check(run["drains"] == ref["drains"]
+              and run["report"] == ref["report"],
+              f"{name}: drains/report {run['drains']} {run['report']} != "
+              f"CPU {ref['drains']} {ref['report']}")
+        ticks = run["ticks"]
+        drained = sum(run["drains"])
+        if how == "eager":
+            check(launches == (2 * ticks, ticks), f"{name}: launches "
+                  f"{launches}, expected {(2 * ticks, ticks)}")
+        else:
+            # both segments replay one captured tick (segment B, shorter,
+            # with its route table copied in), the drains tick on the host
+            loops = run["loops"]
+            check(len(loops) == 1 and loops[0].replays == T_MAIN + P_SEG_B,
+                  f"{name}: loops replayed {[lp.replays for lp in loops]}")
+            rec = [sum(lp.recorded[k] for lp in loops) for k in (
+                "quorum_update_grouped", "stability_update_grouped")]
+            for lp in loops:
+                check_graph_loop(name, lp, (2 * lp.replays, lp.replays),
+                                 None)
+            check(launches == (2 * drained + 2 * rec[0],
+                               drained + 2 * rec[1]),
+                  f"{name}: the wrappers counted {launches}: expected the "
+                  f"drains' {(2 * drained, drained)} plus a warm-up and a "
+                  f"captured tick of each loop, {rec}")
+            launches_replayed = tuple(map(sum, zip(
+                *(graph_counts(lp) for lp in loops))))
+            run["replayed"] = launches_replayed
+            log(phase=name, ticks=ticks, drains=run["drains"], sha256=got[0],
+                count=got[1], committed=got[2], launches=launches,
+                replayed_launches=launches_replayed,
+                recorded=[lp.recorded for lp in loops],
+                replays=[lp.replays for lp in loops], card_seconds=seconds)
+        drives[how] = (run, launches, seconds)
+    got, launches, card_s = drives["eager"]
+    graph_launches = drives["graph"][1]
     st = got["state"]
-
-    # the card's run equals the CPU's, field by field
-    res = [P.committed(cfg, x["state"]) for x in (ref, got)]
-    want, have = (digest(m, c) + (int(k),) for m, c, k in res)
-    check(have == want, f"pipeline: card {have} != CPU {want}")
-    check(trees_equal(pipeline_tree(st), pipeline_tree(ref["state"])),
-          "pipeline: final state differs from the CPU run")
-    check(got["drains"] == ref["drains"] and got["report"] == ref["report"],
-          f"pipeline: drains/report {got['drains']} {got['report']} != "
-          f"CPU {ref['drains']} {ref['report']}")
-    ticks = got["ticks"]
-    check(launches == (2 * ticks, ticks),
-          f"pipeline: launches {launches}, expected {(2 * ticks, ticks)}")
+    have = want
     check(not bool(st.overflowed) and got["dropped"] == 0,
           f"pipeline: overflowed {bool(st.overflowed)}, dropped "
           f"{got['dropped']}")
@@ -1068,7 +1362,7 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
           "pipeline: n_flushed differs from the lanes' non-empty ticks")
 
     # every admitted bid exactly once; the pre-flip prefix kept
-    merged, _, com = res[1]
+    merged, _, com = P.committed(cfg, st)
     bids = P.decode_merged(cfg, st, merged, com)
     want_bids = {P.lane_bid(r["lane"], r["seq"])
                  for rows in twin.values() for r in rows}
@@ -1088,8 +1382,23 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
         sealed_retired=got["sealed"][0], cpu_seconds=cpu_s,
         card_first_seconds=card_s, route_table_seconds=route_s,
         twin_seconds=twin_s)
-    timing = time_pipeline(cfg, arrived, sizes, rts[0], lane_n, dev,
-                           engine_ticks_per_s)
+    # eager (E) against captured (G) segment A, in turns E, G, G, E
+    turns = [(mode, time_pipeline(cfg, arrived, sizes, rts[0], lane_n, dev,
+                                  engine_ticks_per_s,
+                                  f"timing/pipeline_{mode}",
+                                  capture=mode == "graph"))
+             for mode in ("eager", "graph", "graph", "eager")]
+    by = {m: [t for mode, t in turns if mode == m] for m in ("eager",
+                                                           "graph")}
+    timing = {k: sum(t[k] for t in by["eager"]) / 2 for k in (
+        "ticks_per_s", "committed_ids_per_s", "committed_requests_per_s",
+        "ratio_to_engine_ticks_per_s")}
+    timing.update({f"{m}_{k}": [t[k] for t in v] for m, v in by.items()
+                   for k in ("ticks_per_s", "committed_ids_per_s",
+                             "committed_requests_per_s", "run_seconds",
+                             "run_wall_seconds")})
+    timing["graph_ticks_per_s"] = sum(by["graph"][i]["ticks_per_s"]
+                                      for i in range(2)) / 2
     a, s, rt = arrived.to(dev), sizes.to(dev), rts[0].to(dev)
     box = [P.init_pipeline(cfg, dev)]
 
@@ -1097,8 +1406,21 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
         box[0] = P.pipeline_tick(cfg, box[0], a[t], s[t], rt,
                                  inplace=True)[0]
     profile = profile_loop(step, P_PROFILE, "profile/pipeline")
+    # the captured tick traced over P_PROFILE replays of one loop, whose
+    # capture a first run made outside the trace
+    loops = {}
+    P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:P_PROFILE],
+                   s[:P_PROFILE], rt, inplace=True, loops=loops)
+
+    def replays():
+        P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:P_PROFILE],
+                       s[:P_PROFILE], rt, inplace=True, loops=loops)
+    graph_prof = graph_profile("profile/graph_pipeline", replays,
+                               P_PROFILE, (2 * P_PROFILE, P_PROFILE))
     log(phase="pipeline/seconds", seconds=time.perf_counter() - start)
-    return dict(launches=launches, ticks=ticks, timing=timing,
+    return dict(launches=launches, graph_launches=graph_launches,
+                graph_replayed=drives["graph"][0]["replayed"],
+                graph_profile=graph_prof, ticks=ticks, timing=timing,
                 profile=profile, route_table_seconds=route_s,
                 arrived=arrived, sizes=sizes, rts=rts, lane_n=lane_n,
                 admitted=int(count.sum()), committed=have[2],
@@ -1109,20 +1431,26 @@ def pipeline_phase(dev, engine_ticks_per_s: float) -> dict:
 
 def time_pipeline(cfg, arrived, sizes, rt, lane_n, dev,
                   engine_ticks_per_s: float,
-                  phase: str = "timing/pipeline") -> dict:
-    """Segment A through ``run_pipeline`` on the card, after one warm-up
-    run, timed by CUDA events: pipeline ticks/s, committed batch ids/s
-    and committed requests/s (each committed batch carries its lane's
-    requests of the tick that flushed it)."""
+                  phase: str = "timing/pipeline",
+                  capture: bool = False) -> dict:
+    """Segment A through ``run_pipeline`` on the card (``capture``: the
+    captured tick), after one warm-up run that builds the loop both runs
+    step (and captures it), timed by CUDA events:
+    pipeline ticks/s, committed batch ids/s and committed requests/s
+    (each committed batch carries its lane's requests of the tick that
+    flushed it)."""
     from repro_torch import pipeline as P
     a, s, rt = (x.to(dev) for x in (arrived[:T_MAIN], sizes[:T_MAIN], rt))
-    P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a, s, rt, inplace=True)
+    loops = {}
+    P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a, s, rt, inplace=True,
+                   capture=capture, loops=loops)
     st = P.init_pipeline(cfg, dev)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    st, _ = P.run_pipeline(cfg, st, a, s, rt, inplace=True)
+    st, _ = P.run_pipeline(cfg, st, a, s, rt, inplace=True,
+                           capture=capture, loops=loops)
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1180,12 +1508,12 @@ def adaptive_config():
                                 threshold=1, queue_capacity=T_MAIN))
 
 
-def adaptive_engine(cfg, tiles, lens, dev):
-    """A fresh engine whose queue holds each group's first ``lens[g]``
-    tiles."""
+def adaptive_engine(cfg, tiles, lens, dev, capture=None):
+    """A fresh engine (``capture`` as ``Engine.create``'s) whose queue
+    holds each group's first ``lens[g]`` tiles."""
     from repro_torch.engine.adaptive import queue_from_arrays
     from repro_torch.engine.api import Engine
-    eng = Engine.create(cfg, device=dev)
+    eng = Engine.create(cfg, device=dev, capture=capture)
     eng.queue = queue_from_arrays(cfg, *tiles, lengths=lens)
     return eng
 
@@ -1233,12 +1561,18 @@ def timed(fn) -> tuple:
 
 def adaptive_engine_phase(dev, tiles_cpu) -> dict:
     """``adaptive/skew`` and ``adaptive/uniform``: adaptive passes to
-    quiescence on the card against the same passes on the CPU (merged
-    log, state, queue, every R) and against a lock-step ``Engine.run``
-    of ΣR ticks on the card (the same merged prefix); launches exactly
-    2·ΣR and ΣR; then lock-step and adaptive timed in turns (L, A, A,
-    L)."""
+    quiescence on the card, eager (R read each pass, R rounds) and
+    captured (one replay of the fixed-K pass each), against the same
+    passes on the CPU (merged log, state, queue, every R) and against a
+    lock-step ``Engine.run`` of ΣR ticks on the card (the same merged
+    prefix); ``Engine.run_adaptive`` and the functional ``run_adaptive``
+    captured (no host read between passes) equal them too. Launches
+    exactly 2·ΣR and ΣR eager, 2K and K a captured pass (recorded x
+    replays, and device events in a trace). Then lock-step and adaptive
+    timed eager (E) and captured (G) in turns E, G, G, E."""
     from repro_torch.convert import queue_to_numpy
+    from repro_torch.engine import adaptive as ad
+    from repro_torch.engine import api
     from repro_torch.engine.api import Engine
     cfg = adaptive_config()
     tiles_dev = [x.to(dev) for x in tiles_cpu]
@@ -1251,22 +1585,27 @@ def adaptive_engine_phase(dev, tiles_cpu) -> dict:
         cpu_s = time.perf_counter() - t0
         res = ref.committed()
         want = digest(res[0], res[1]) + (int(res[2]),)
+        ref_state, ref_queue = (state_tree(ref.state),
+                                queue_to_numpy(ref.queue))
 
-        eng = adaptive_engine(cfg, tiles_dev, lens, dev)
+        def same(eng, what):
+            res = eng.committed()
+            got = digest(res[0], res[1]) + (int(res[2]),)
+            check(got == want, f"{what}: card {got} != CPU {want}")
+            check(trees_equal(state_tree(eng.state), ref_state),
+                  f"{what}: final state differs from the CPU run")
+            check(trees_equal(queue_to_numpy(eng.queue), ref_queue),
+                  f"{what}: final queue differs from the CPU run")
+            return got
+
+        eng = adaptive_engine(cfg, tiles_dev, lens, dev, capture=False)
         torch.cuda.synchronize()
         reset_counts()
         (rounds, dropped), card_s, _ = timed(lambda: drain_adaptive(eng))
         launches = read_counts()
         n = sum(rounds)
-        res = eng.committed()
-        got = digest(res[0], res[1]) + (int(res[2]),)
-        check(got == want, f"{name}: card {got} != CPU {want}")
+        got = same(eng, name)
         check(rounds == ref_rounds, f"{name}: rounds differ from the CPU's")
-        check(states_equal(eng.state, ref.state),
-              f"{name}: final state differs from the CPU run")
-        check(trees_equal(queue_to_numpy(eng.queue),
-                          queue_to_numpy(ref.queue)),
-              f"{name}: final queue differs from the CPU run")
         check(launches == (2 * n, n),
               f"{name}: launches {launches}, expected {(2 * n, n)}")
         q = eng.queue
@@ -1280,49 +1619,112 @@ def adaptive_engine_phase(dev, tiles_cpu) -> dict:
               f"head {q.head.tolist()}, tail {q.tail.tolist()}")
         check(got[2] > 0 and n >= max(lens),
               f"{name}: committed {got[2]}, ΣR {n}")
+        passes = len(rounds)
 
-        # lock-step over the same tiles, drain-padded to ΣR ticks
+        # captured: one replay of the fixed-K pass each, R read after it
+        gname = f"graph/adaptive/{scenario}"
+        geng = adaptive_engine(cfg, tiles_dev, lens, dev)
+        check(geng.capture, f"{gname}: the engine is not captured")
+        torch.cuda.synchronize()
+        reset_counts()
+        (grounds, gdropped), graph_s, _ = timed(lambda: drain_adaptive(geng))
+        glaunches = read_counts()
+        same(geng, gname)
+        check(grounds == ref_rounds and gdropped == 0,
+              f"{gname}: rounds {grounds[:8]}..., dropped {gdropped}")
+        loop, = geng._loops.values()
+        check_graph_loop(gname, loop, (2 * A_K * (passes + 1),
+                                       A_K * (passes + 1)), glaunches)
+        drain_replays = loop.replays
+        # passes with no host read between them: the facade's and the
+        # functional run_adaptive
+        e = adaptive_engine(cfg, tiles_dev, lens, dev)
+        e.run_adaptive(passes)
+        same(e, f"{gname}/run_adaptive")
+        fst, fq, *fres = ad.run_adaptive(
+            cfg, api.create_state(cfg, dev),
+            ad.queue_from_arrays(cfg, *tiles_dev, lengths=lens),
+            n_passes=passes + 4)
+        check(digest(fres[0], fres[1]) + (int(fres[2]),) == want
+              and trees_equal(state_tree(fst), ref_state)
+              and trees_equal(queue_to_numpy(fq), ref_queue),
+              f"{gname}: the functional run_adaptive differs from the CPU")
+
+        # lock-step over the same tiles, drain-padded to ΣR ticks, eager
+        # and captured
         lock_in = lockstep_tiles(tiles_dev, lens, n)
-        lock = Engine.create(cfg, device=dev)
-        m, c, k = lock.run(*lock_in)
-        lock_got = digest(m, c) + (int(k),)
-        check(lock_got == got, f"{name}: lock-step {lock_got} != adaptive "
-              f"{got}")
+        glock = Engine.create(cfg, device=dev)
+        for lock in (Engine.create(cfg, device=dev, capture=False), glock):
+            m, c, k = lock.run(*lock_in)
+            lock_got = digest(m, c) + (int(k),)
+            check(lock_got == got, f"{name}: lock-step {lock_got} != "
+                  f"adaptive {got} (capture={lock.capture})")
 
-        # timing in turns, each drive on a fresh engine
-        def run_lock():
-            e = Engine.create(cfg, device=dev)
+        # timing in turns E, G, G, E; eager drives on fresh engines, the
+        # captured ones on the engines above from a fresh state
+        def run_lock(mode):
+            if mode == "eager":
+                e = Engine.create(cfg, device=dev, capture=False)
+            else:
+                e = glock
+                e.state = api.create_state(cfg, dev)
             torch.cuda.synchronize()
             return timed(lambda: e.run(*lock_in))[1:]
 
-        def run_adaptive():
-            e = adaptive_engine(cfg, tiles_dev, lens, dev)
-            return timed(lambda: drain_adaptive(e))[1:]
-        turns = [("lockstep", run_lock()), ("adaptive", run_adaptive()),
-                 ("adaptive", run_adaptive()), ("lockstep", run_lock())]
-        secs = {k: [t for how, t in turns if how == k]
-                for k in ("lockstep", "adaptive")}
+        def run_adaptive(mode):
+            if mode == "eager":
+                e = adaptive_engine(cfg, tiles_dev, lens, dev,
+                                    capture=False)
+                return timed(lambda: drain_adaptive(e))[1:]
+            geng.state = api.create_state(cfg, dev)
+            geng.queue = geng.queue._replace(
+                head=torch.zeros_like(geng.queue.head))
+            return timed(lambda: geng.run_adaptive(passes))[1:]
+        turns = [(mode, {"lockstep": run_lock(mode),
+                         "adaptive": run_adaptive(mode)})
+                 for mode in ("eager", "graph", "graph", "eager")]
         res = dict(
-            lens=lens, passes=len(rounds), rounds_sum=n,
+            lens=lens, passes=passes, rounds_sum=n,
+            k_times_passes=A_K * passes,
             rounds_hist={r: rounds.count(r) for r in sorted(set(rounds))},
             sha256=got[0], count=got[1], committed=got[2],
-            launches=launches, cpu_seconds=cpu_s, card_first_seconds=card_s,
-            **{f"{k}_seconds": [t[0] for t in v] for k, v in secs.items()},
-            **{f"{k}_wall_seconds": [t[1] for t in v]
-               for k, v in secs.items()},
-            **{f"{k}_committed_ids_per_s": [got[2] / t[0] for t in v]
-               for k, v in secs.items()})
-        res["adaptive_over_lockstep_ids_per_s"] = \
-            sum(t[0] for t in secs["lockstep"]) \
-            / sum(t[0] for t in secs["adaptive"])
+            launches=launches, graph_launches=glaunches,
+            graph_recorded=loop.recorded, graph_replays=drain_replays,
+            cpu_seconds=cpu_s, card_first_seconds=card_s,
+            graph_first_seconds=graph_s)
+        for mode in ("eager", "graph"):
+            pre = "" if mode == "eager" else "graph_"
+            secs = {k: [t[k] for m, t in turns if m == mode]
+                    for k in ("lockstep", "adaptive")}
+            res.update(
+                {f"{pre}{k}_seconds": [t[0] for t in v]
+                 for k, v in secs.items()},
+                **{f"{pre}{k}_wall_seconds": [t[1] for t in v]
+                   for k, v in secs.items()},
+                **{f"{pre}{k}_committed_ids_per_s": [got[2] / t[0]
+                                                     for t in v]
+                   for k, v in secs.items()})
+            res[f"{pre}adaptive_over_lockstep_ids_per_s"] = \
+                sum(t[0] for t in secs["lockstep"]) \
+                / sum(t[0] for t in secs["adaptive"])
         log(phase=name, **res)
         out[scenario] = dict(res, rounds=rounds,
                              state_sha=tree_digest(state_tree(eng.state)))
         if scenario == "skew":
             # passes 9-40 of the skew all run R = 4 rounds
-            e = adaptive_engine(cfg, tiles_dev, lens, dev)
+            e = adaptive_engine(cfg, tiles_dev, lens, dev, capture=False)
             profile_loop(lambda t: e.adaptive_pass(), 32,
                          "profile/adaptive_skew")
+
+            # the first 32 captured passes, traced: 2K and K kernels each
+            def replays():
+                geng.state = api.create_state(cfg, dev)
+                geng.queue = geng.queue._replace(
+                    head=torch.zeros_like(geng.queue.head))
+                geng.run_adaptive(32)
+            out[scenario]["graph_profile"] = graph_profile(
+                "profile/graph_adaptive_skew", replays, 32,
+                (2 * A_K * 32, A_K * 32))
     return out
 
 
@@ -1426,7 +1828,8 @@ def adaptive_pipeline_phase(dev, pipe: dict,
                                   "timing/pipeline_adaptive"),
         "lockstep": time_pipeline(pipeline_config(), arrived, sizes, rts[0],
                                   pipe["lane_n"], dev, engine_ticks_per_s,
-                                  "timing/pipeline_lockstep")}
+                                  "timing/pipeline_lockstep",
+                                  capture=False)}
     a, s, rt = arrived.to(dev), sizes.to(dev), rts[0].to(dev)
     box = [P.init_pipeline(cfg, dev)]
 
@@ -1575,7 +1978,7 @@ def mesh_child(tag: str, rank: int, world: int, backend: str,
         base = meshed.unmeshed(cfg)
         turns = []
         for c in (base, cfg, cfg, base):
-            e = Engine.create(c, device=dev)
+            e = Engine.create(c, device=dev, capture=False)
             torch.cuda.synchronize()
             dist.barrier()
             turns.append((c.mesh is not None,
@@ -3083,13 +3486,14 @@ def main() -> int:
     # the main path: counts are reset right before each drive of it
     main_want, main = run_family("gated_recycled", tiles_cpu, tiles_dev,
                                  dev, host_ticks=True)
-    main_launches = main["run"]["launches"]
+    main_launches = main["graph"]["launches"]
     retired = main["run"]["engine"].state.core.rs.retired
     check(int(retired.min()) >= 6 * W,
           f"only {int(retired.min()) / W:.2f} window generations retired")
     for family in ("plain", "recycled", "gated"):
         run_family(family, tiles_cpu, tiles_dev, dev, host_ticks=False)
 
+    graph_kernel_phase(dev, tiles_dev)
     timings = time_kernels(dev, tiles_dev)
     single = time_quorum_single(dev)
     engine = time_engine(tiles_dev, dev)
@@ -3142,7 +3546,16 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/dissem.cu",
              "src/repro/kernels/dissem.py:63"))):
         row, launches = by_name[name], main_launches[i]
-        by_path = {"engine": launches, "pipeline": pipe["launches"][i],
+        graph = main["graph"]
+        replayed = (graph["recorded"][name] * graph["replays"])
+        by_path = {"engine/graph": launches,
+                   "engine/graph/replayed_run":
+                       graph["replayed_run_device_launches"][i],
+                   "engine": main["run"]["launches"][i],
+                   "pipeline/graph": pipe["graph_replayed"][i],
+                   **{f"adaptive/{k}/graph": v["graph_recorded"][name]
+                      * v["graph_replays"] for k, v in adaptive.items()},
+                   "pipeline": pipe["launches"][i],
                    **{f"adaptive/{k}": v["launches"][i]
                       for k, v in adaptive.items()},
                    "pipeline/adaptive": pipe_adaptive["launches"][i],
@@ -3155,7 +3568,16 @@ def main() -> int:
         check(all(v > 0 for v in by_path.values()),
               f"{name} was not launched on every engine path: {by_path}")
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=launches, launches_by_path=by_path,
+                     launches=launches,
+                     launches_counted="kernel events on the card in a "
+                                      "torch.profiler trace of the main "
+                                      "path's run: the capture's warm-up "
+                                      "step, then T replays",
+                     launches_replayed=replayed,
+                     capture_host_calls=graph["capture_host_calls"][i],
+                     main_path="Engine.run, captured: a warm-up step and "
+                               "the capture, then T replays",
+                     launches_by_path=by_path,
                      max_abs_err=errors[name],
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -3275,16 +3697,28 @@ def main() -> int:
                      "forward_ms")})))
     log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
                                      "peak_mem_bytes")})
-    log(engine={k: engine[k] for k in ("ticks_per_s", "committed_ids_per_s",
-                                       "tick_loop_ticks_per_s",
-                                       "generations_min")},
+    graph_profiles = {"engine": main["graph"]["profile"],
+                      "pipeline": pipe["graph_profile"],
+                      "adaptive_skew": adaptive["skew"]["graph_profile"]}
+    log(engine={k: engine[k] for k in (
+        "ticks_per_s", "committed_ids_per_s", "graph_ticks_per_s",
+        "graph_committed_ids_per_s", "eager_turn_ticks_per_s",
+        "graph_turn_ticks_per_s", "replay_host_us", "step_host_us",
+        "tick_loop_ticks_per_s", "generations_min")},
+        graph_profile={k: {m: v[m] for m in (
+            "kernels_per_step", "device_us_per_step", "wall_us_per_step",
+            "device_busy_share")} for k, v in graph_profiles.items()},
         pipeline={k: pipe["timing"][k] for k in (
             "ticks_per_s", "committed_ids_per_s", "committed_requests_per_s",
-            "ratio_to_engine_ticks_per_s")},
+            "ratio_to_engine_ticks_per_s", "graph_ticks_per_s",
+            "eager_ticks_per_s", "graph_committed_requests_per_s")},
         adaptive={k: {m: v[m] for m in (
-            "passes", "rounds_sum", "lockstep_committed_ids_per_s",
-            "adaptive_committed_ids_per_s",
-            "adaptive_over_lockstep_ids_per_s")}
+            "passes", "rounds_sum", "k_times_passes",
+            "lockstep_committed_ids_per_s", "adaptive_committed_ids_per_s",
+            "adaptive_over_lockstep_ids_per_s",
+            "graph_lockstep_committed_ids_per_s",
+            "graph_adaptive_committed_ids_per_s",
+            "graph_adaptive_over_lockstep_ids_per_s")}
             for k, v in adaptive.items()},
         pipeline_adaptive={k: {m: v[m] for m in (
             "ticks_per_s", "committed_ids_per_s",

@@ -20,13 +20,17 @@ families.
 
 Port notes:
 
-* **R on the host.** The reference runs K masked iterations inside one
-  jit. Here each round launches a whole tick, so a pass reads R once
-  (``int(R)``, the only host sync of a pass) and runs exactly R rounds:
-  a pass launches the quorum kernel 2R times and, in the gated
-  families, the stability kernel R times. A round in which no group is
-  active (the reference's ``lax.cond`` skip) still runs the masked tick,
-  which then leaves the state unchanged and writes all-SKIP entries.
+* **R on the host, or K rounds on the card.** The reference runs K
+  masked iterations inside one jit. Eagerly each round launches a whole
+  tick, so a pass reads R once (``int(R)``, the only host sync of a
+  pass) and runs exactly R rounds: a pass launches the quorum kernel 2R
+  times and, in the gated families, the stability kernel R times. A
+  round in which no group is active (the reference's ``lax.cond`` skip)
+  still runs the masked tick, which then leaves the state unchanged and
+  writes all-SKIP entries. The captured pass (``fixed=True``,
+  ``engine.graphs``) is the reference's form: K rounds every pass, each
+  row masked with ``active = (j < R) & (consume | assignable)``, so a
+  round j >= R changes nothing and R never leaves the card.
 * **Masked rounds.** Each round's family tick runs functionally; the
   active groups' rows are then selected into the live state
   (``torch.where``), written back in place when the pass is in place.
@@ -54,6 +58,7 @@ import torch
 from ..core.tilesim import QuorumState, _words, admitted_mask
 from ..device import resolve_device
 from ..dissem.engine import unstable_backlog
+from . import graphs
 from . import merge as merge_mod
 from . import meshed as meshed_mod
 from . import sharded as sharded_mod
@@ -357,9 +362,11 @@ def _family_tick(cfg, core, dissem, slot_ids, acks, votes, holds,
 
 
 def _masked_rounds(cfg, state, R: torch.Tensor, n_rounds: int, tile_fn,
-                   consume_of, inplace: bool, extra=None):
-    """The rounds of one pass (``n_rounds`` = ``int(R)``), then one wide
-    merge append of ``R·rw`` entries per group.
+                   consume_of, inplace: bool, extra=None,
+                   fixed: bool = False):
+    """The rounds of one pass (``n_rounds`` = ``int(R)``; with ``fixed``,
+    K rounds whose rows are masked by ``j < R`` too, the reference's
+    form), then one wide merge append of ``R·rw`` entries per group.
 
     Round j ticks exactly the rows ``consume_of(j) | assignable``,
     masked per row, over ``tile_fn(j, consume, core)`` (``core`` is the
@@ -383,6 +390,8 @@ def _masked_rounds(cfg, state, R: torch.Tensor, n_rounds: int, tile_fn,
     for j in range(n_rounds):
         consume = consume_of(j)                               # bool[rows]
         active = consume | (_assignable(_quorum(cfg, core)) > 0)
+        if fixed:
+            active = active & (j < R)
         acks, votes, holds = tile_fn(j, consume, core)
         ncore, ndissem, assigned, sids = _family_tick(
             cfg, core, dissem, state.slot_ids, acks, votes, holds,
@@ -409,17 +418,24 @@ def _check_adaptive(cfg, what: str) -> None:
 
 
 def adaptive_pass(cfg, state, queue: TrafficQueue, *,
-                  inplace: bool = False) -> tuple[Any, TrafficQueue, dict]:
+                  inplace: bool = False,
+                  fixed: bool = False) -> tuple[Any, TrafficQueue, dict]:
     """One adaptive merged pass: consume up to K queued tiles per group.
 
     Reads R to the host once, then runs R masked rounds (R = 0: nothing
-    ticks, nothing appends). Returns ``(state, queue, out)`` with
-    ``out["rounds"]`` (R, 0 = engine drained), ``out["consumed"]``
-    int32[G] tiles dequeued and ``out["dropped"]`` (merge truncations,
-    0 whenever ``max_entries ≥ order_budget``), all on the device.
+    ticks, nothing appends). ``fixed=True`` is the form a CUDA graph
+    holds (``engine.graphs``): no host read, K rounds, a round j >= R
+    masked off entirely, with the same result bit for bit. Returns
+    ``(state, queue, out)`` with ``out["rounds"]`` (R, 0 = engine
+    drained), ``out["consumed"]`` int32[G] tiles dequeued and
+    ``out["dropped"]`` (merge truncations, 0 whenever ``max_entries ≥
+    order_budget``), all on the device.
     ``inplace`` writes the engine state into its own buffers; the
     queue's tiles are never written."""
     _check_adaptive(cfg, "adaptive_pass")
+    if fixed and cfg.mesh is not None:
+        raise ValueError("adaptive_pass(fixed=True) is the captured "
+                         "pass, which the meshed engine does not take")
     if (queue.holds is None) != (cfg.gating is None):
         raise ValueError(
             "queue hold tiles are required exactly when gating is "
@@ -437,24 +453,43 @@ def adaptive_pass(cfg, state, queue: TrafficQueue, *,
         return (take(queue.acks), take(queue.votes),
                 None if queue.holds is None else take(queue.holds))
 
+    K = cfg.adaptive.max_tiles_per_tick
     state, dropped, consumed = _masked_rounds(
-        cfg, state, R, int(R), tile_fn, lambda j: j < k, inplace, extra=k)
+        cfg, state, R, K if fixed else int(R), tile_fn, lambda j: j < k,
+        inplace, extra=k, fixed=fixed)
     queue = queue._replace(head=queue.head + k)
     return state, queue, {"rounds": R, "consumed": consumed,
                           "dropped": dropped}
 
 
 def run_adaptive(cfg, state, queue: TrafficQueue, *, n_passes: int,
-                 inplace: bool = False)\
+                 inplace: bool = False, capture: bool | None = None)\
         -> tuple[Any, TrafficQueue, torch.Tensor, torch.Tensor,
                  torch.Tensor]:
     """Up to ``n_passes`` adaptive passes, then the commit gate: returns
     ``(state, queue, merged, count, committed)``, the adaptive twin of
     ``api.run``. A pass with R = 0 changes nothing, so every later pass
-    would too: the loop stops at the first. ``n_passes`` only needs to
-    be an upper bound. Position-addressed traffic caveat as ``api.run``:
-    only position-uniform traffic is id-sound under recycling. Raises
-    if any ordered id was truncated out of the merge entries."""
+    would too: the eager loop stops at the first. ``n_passes`` only
+    needs to be an upper bound. Position-addressed traffic caveat as
+    ``api.run``: only position-uniform traffic is id-sound under
+    recycling. Raises if any ordered id was truncated out of the merge
+    entries.
+
+    ``capture`` (``None``: on a CUDA device, unmeshed): the passes replay
+    one captured CUDA graph of the fixed-K pass (``engine.graphs``, a
+    loop for this call) with no host read between them, as the
+    reference's scan; the R = 0 passes past quiescence are no-ops."""
+    eager_only = None if cfg.mesh is None else \
+        "under a mesh (the captured meshed pass is not ported)"
+    if graphs.resolve_capture(capture, state.merge.logs.device,
+                              "run_adaptive", eager_only):
+        _check_adaptive(cfg, "run_adaptive")
+        (state, queue), loop = graphs.run_functional(
+            None, "adaptive", graphs.adaptive_body(cfg), (state, queue),
+            steps=n_passes, inplace=inplace, graph=True)
+        sharded_mod._assert_no_dropped(loop.dropped)
+        from . import api as api_mod   # api imports this module
+        return (state, queue) + api_mod.committed_prefix(cfg, state)
     dropped = torch.zeros((), dtype=_I32, device=state.merge.logs.device)
     for _ in range(n_passes):
         state, queue, out = adaptive_pass(cfg, state, queue,

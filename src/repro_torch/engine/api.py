@@ -44,6 +44,7 @@ from ..device import resolve_device
 from ..dissem.engine import init_dissem
 from . import adaptive as adaptive_mod
 from . import epochs as epochs_mod
+from . import graphs
 from . import merge as merge_mod
 from . import meshed as meshed_mod
 from . import sharded as sharded_mod
@@ -479,28 +480,50 @@ class Engine:
     ``Engine.create(cfg)`` builds fresh state; ``.tick()``/``.run()``
     advance it in place and return the outputs; ``.recycle()`` and
     ``.reconfigure()`` are the explicit control-plane entry points;
-    ``.enqueue()``/``.adaptive_pass()`` drive adaptive tick batching
-    (``cfg.adaptive``) over :attr:`queue`, created on first use."""
+    ``.enqueue()``/``.adaptive_pass()``/``.run_adaptive()`` drive
+    adaptive tick batching (``cfg.adaptive``) over :attr:`queue`,
+    created on first use.
+
+    ``run`` (unmeshed) steps one loop of the tick (``engine.graphs``)
+    whose static buffers are this engine's state: a later run with the
+    same shapes steps the same loop, and what ``tick``, ``recycle``,
+    ``reconfigure`` or ``enqueue`` changed in between is copied into
+    the buffers first. With ``capture`` (:meth:`create`) the loop is one
+    captured CUDA graph, replayed, and ``adaptive_pass`` and
+    ``run_adaptive`` replay one of the fixed-K pass; without it the loop
+    runs the same tick eagerly and the adaptive passes run R rounds.
+    ``tick`` stays eager."""
 
     def __init__(self, cfg: EngineConfig, state: EngineState,
-                 epoch: int = 0) -> None:
+                 epoch: int = 0, capture: bool = False) -> None:
         self.cfg = cfg
         self.state = state
         self.epoch = int(epoch)
         self.queue: adaptive_mod.TrafficQueue | None = None
+        self.capture = bool(capture)
+        self._loops: dict = {}
 
     @classmethod
-    def create(cls, cfg: EngineConfig, *, device=None,
-               epoch: int = 0) -> "Engine":
+    def create(cls, cfg: EngineConfig, *, device=None, epoch: int = 0,
+               capture: bool | None = None) -> "Engine":
         """Build a fresh engine for ``cfg`` on ``device`` (default
         ``cuda``; raises when there is no CUDA device). ``epoch`` must
         index ``cfg.epochs`` when an :class:`EpochTable` is
-        configured."""
+        configured. ``capture``: ``None`` captures on a CUDA device and
+        runs eagerly on the CPU (CUDA graphs do not exist there) and
+        under a mesh (the captured meshed tick is not ported); ``True``
+        raises there. A failed capture or replay raises: nothing falls
+        back to the eager loop."""
         if cfg.epochs is not None and \
                 not 0 <= int(epoch) < cfg.epochs.n_epochs:
             raise ValueError(f"epoch {epoch} not in EpochTable "
                              f"(n={cfg.epochs.n_epochs})")
-        return cls(cfg, create_state(cfg, device), epoch=epoch)
+        state = create_state(cfg, device)
+        capture = graphs.resolve_capture(
+            capture, state.merge.logs.device, "Engine",
+            None if cfg.mesh is None else
+            "under a mesh (the captured meshed tick is not ported)")
+        return cls(cfg, state, epoch=epoch, capture=capture)
 
     def tick(self, acks, votes, holds=None) -> dict:
         """One engine step on packed tiles — ``acks`` int32[G, W,
@@ -515,7 +538,11 @@ class Engine:
     def run(self, acks_seq, votes_seq, holds_seq=None)\
             -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Multi-tick run over [T, G, W, WORDS] tile sequences →
-        ``(merged, merged_count, committed_count)``."""
+        ``(merged, merged_count, committed_count)``: T steps of the
+        engine's loop (T replays of the captured tick with
+        ``capture``); under a mesh, the meshed ``run``."""
+        if self.cfg.mesh is None:
+            return graphs.engine_run(self, acks_seq, votes_seq, holds_seq)
         self.state, merged, count, committed = run(
             self.cfg, self.state, acks_seq, votes_seq, holds_seq,
             inplace=True)
@@ -573,11 +600,28 @@ class Engine:
         lagging groups consume up to ``cfg.adaptive.max_tiles_per_tick``
         tiles, caught-up groups one (or none, padded with SKIP rounds).
         Returns ``rounds``/``consumed``/``dropped``; ``rounds == 0``
-        means the engine is drained."""
+        means the engine is drained. With ``capture``, one replay of the
+        captured fixed-K pass (no host read)."""
+        if self.capture:
+            return graphs.engine_adaptive(self)
         self.state, self.queue, out = adaptive_mod.adaptive_pass(
             self.cfg, self.state, self._queue("adaptive_pass"),
             inplace=True)
         return out
+
+    def run_adaptive(self, n_passes: int)\
+            -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``n_passes`` adaptive passes over the queued traffic, then the
+        commit gate → ``(merged, merged_count, committed_count)``
+        (``adaptive.run_adaptive``); with ``capture``, ``n_passes``
+        replays of the captured pass with no host read between them."""
+        if self.capture:
+            return graphs.engine_adaptive(self, n_passes)
+        self.state, self.queue, merged, count, committed = \
+            adaptive_mod.run_adaptive(
+                self.cfg, self.state, self._queue("run_adaptive"),
+                n_passes=n_passes, inplace=True, capture=False)
+        return merged, count, committed
 
     @property
     def slot_ids(self) -> torch.Tensor:

@@ -4,8 +4,9 @@ The four decoupled HT-Paxos stages (§4.1) as one :func:`pipeline_tick`
 (``closed``), driven by pre-drawn client workload tensors
 (``workload``), through the tensor twin of the byte-budget batcher
 (``vbatch``), a per-node lag delivery model, and the gated engine behind
-the ``engine.api`` facade. The reference's jitted entry points
-(``pipeline_tick_jit``) have no counterpart: the tick runs eagerly.
+the ``engine.api`` facade. The reference's jitted run is
+:func:`run_pipeline`, which on a CUDA device replays one captured CUDA
+graph of the lock-step tick; :func:`pipeline_tick` runs eagerly.
 """
 from .closed import (PipelineConfig, PipelineState, build_route_table,
                      committed, decode_merged, init_pipeline, lane_bid,

@@ -39,9 +39,12 @@ A lock-step tick does no host sync (the adaptive subtick mode reads its
 round count once per tick): ``overflowed`` and ``dropped`` stay device
 tensors for the caller to check once at the end of a run. The per-config
 constants a tick needs on the device (lane gather, lag masks) are built
-once per (config, device). A functional call modifies no input unless
-it is given ``inplace=True``, which lets the engine's kernels write into
-the state's buffers (the counterpart of the reference's donation).
+once per (config, device), by the capture's warm-up when the tick is
+captured: :func:`run_pipeline` steps one loop of the lock-step tick
+(``engine.graphs``), on a CUDA device one captured CUDA graph, replayed.
+A functional call modifies no input unless it is given ``inplace=True``,
+which lets the engine's kernels write into the state's buffers (the
+counterpart of the reference's donation).
 
 Reconfiguration is drain-then-switch at quiescent boundaries:
 :func:`reconfigure_pipeline` refuses to re-home in-flight ids (rank
@@ -61,6 +64,7 @@ from ..device import resolve_device
 from ..dissem.batcher import BatchAccumulator, EMPTY_BATCH_BYTES
 from ..engine import adaptive as adaptive_mod
 from ..engine import api
+from ..engine import graphs
 from ..engine import meshed
 from ..engine.api import EngineConfig, EngineState
 from ..engine.epochs import EpochTable, route_id_epoch
@@ -255,7 +259,8 @@ def _consts(cfg: PipelineConfig, device: torch.device) -> _Consts:
     return _Consts(
         lane_idx=torch.from_numpy(idx).long().to(device),
         lane_mask=torch.from_numpy(mask).to(device),
-        flush_lane=torch.arange(D, device=device).repeat_interleave(K + 1),
+        flush_lane=torch.arange(D, device=device).repeat_interleave(
+            K + 1, output_size=D * (K + 1)),
         groups=groups, id_base=groups * cfg.id_stride,
         lags=tuple(packed(x) for x in (cfg.ack_lag, cfg.vote_lag,
                                        cfg.hold_lag)))
@@ -385,14 +390,44 @@ def pipeline_tick(cfg: PipelineConfig, state: PipelineState,
     return state, out
 
 
+_SUMMARIES = ("flushed", "admitted", "dropped")
+
+
 def run_pipeline(cfg: PipelineConfig, state: PipelineState,
                  arrived: torch.Tensor, sizes: torch.Tensor,
-                 route_table: torch.Tensor, *, inplace: bool = False)\
+                 route_table: torch.Tensor, *, inplace: bool = False,
+                 capture: bool | None = None, loops: dict | None = None)\
         -> tuple[PipelineState, dict]:
     """:func:`pipeline_tick` over whole workload arrays (bool[T, C] /
-    int32[T, C]). Per-tick summaries come back stacked on the device
-    (int32[T] each): ``flushed``, ``admitted``, ``dropped``, and
-    ``rounds`` in the adaptive subtick mode."""
+    int32[T, C]). Per-tick summaries come back on the device (int32[T]
+    each): ``flushed``, ``admitted``, ``dropped``, and ``rounds`` in the
+    adaptive subtick mode.
+
+    In lock-step and unmeshed the T ticks step one loop of the tick
+    (``engine.graphs``): the route table is an input of the run, copied
+    into the loop's buffer (an epoch flip does not rebuild the loop), and
+    the summaries are written into int32 buffers at the tick's index.
+    ``capture`` (``None``: on a CUDA device) makes the loop one captured
+    CUDA graph, replayed; without it the loop runs the tick eagerly.
+    ``loops``: a dict the caller keeps, in which the loop stays for later
+    runs of the same shapes and no more ticks (``None``: a loop for this
+    call alone). The subtick mode and the meshed pipeline tick from a
+    Python loop, eagerly; ``capture=True`` raises there."""
+    eager_only = ("in the adaptive subtick mode"
+                  if cfg.engine.adaptive is not None else
+                  "under a mesh (the captured meshed tick is not ported)"
+                  if cfg.engine.mesh is not None else None)
+    graph = graphs.resolve_capture(capture, arrived.device, "run_pipeline",
+                                   eager_only)
+    if eager_only is None:
+        def body(st, tiles, consts):
+            return pipeline_tick(cfg, st, *tiles, *consts, inplace=True)
+        state, loop = graphs.run_functional(
+            loops, ("pipeline", cfg), body, state, (arrived, sizes),
+            (route_table,), inplace=inplace, graph=graph,
+            series=_SUMMARIES)
+        T = arrived.shape[0]
+        return state, {k: loop.series[k][:T].clone() for k in _SUMMARIES}
     outs = []
     for a, s in zip(arrived, sizes):
         state, out = pipeline_tick(cfg, state, a, s, route_table,

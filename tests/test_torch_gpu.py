@@ -3,7 +3,9 @@
 kernels within the tolerances of tests/test_kernels.py; the flash
 backward kernel within the same tolerances relative to the gradient's
 size, and byte-equal across two launches), launches counted, the entry
-points' default device, a small engine run, the smoke models' serving
+points' default device, a small engine run (captured in a CUDA graph
+and eager, against the CPU, and a replay after a state change), the
+pipeline and adaptive passes captured and eager, the smoke models' serving
 path and train step on the card against the same runs on the CPU, and
 two trainer pods on the card ending bitwise equal.
 Every test is marked ``gpu`` and skips without a card.
@@ -176,6 +178,80 @@ def test_engine_on_card_matches_cpu(cuda, fam):
             return all(same(a[k], b[k]) for k in a)
         return (a is None and b is None) or np.array_equal(a, b)
     assert same(got, want)
+
+
+def small_engine(fam, **over):
+    G, W = 2, 16
+    return api.EngineConfig(
+        groups=G, window=W, n_diss=5, n_seq=3, order_budget=4,
+        merge_capacity=64 * 4,
+        recycling=api.RecyclingConfig(watermark=W // 2, id_stride=4096)
+        if "recycled" in fam else None,
+        gating=api.GatingConfig(stab_majority=3) if "gated" in fam else None,
+        **over)
+
+
+def small_tiles(cfg, seed, T):
+    rng = np.random.default_rng(seed)
+    G, W = cfg.groups, cfg.window
+    tiles = [((rng.random((T, G, W, 1)) < p) * np.uint32(m)).astype(
+        np.uint32) for p, m in ((0.7, 0x1F), (0.6, 0x7), (0.8, 0x1F))]
+    return tiles if cfg.gating is not None else tiles[:2]
+
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_captured_engine_on_card_matches_eager_and_cpu(cuda, fam):
+    """Engine.run captured (the default on the card) equals the eager
+    card run and the CPU run (merged log, count, committed, the whole
+    state); a second run replays the same graph with no host launch."""
+    from repro_torch.engine import graphs
+    cfg = small_engine(fam)
+    tiles = small_tiles(cfg, 40 + FAMILIES.index(fam), 24)
+    runs = []
+    for dev, capture in (("cpu", None), (cuda, False), (cuda, None)):
+        eng = api.Engine.create(cfg, device=dev, capture=capture)
+        assert eng.capture == (dev == cuda and capture is None)
+        seqs = [convert.bits_from_numpy(x, dev) for x in tiles]
+        out = [eng.run(*(x[:12] for x in seqs))]
+        before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        out.append(eng.run(*(x[12:] for x in seqs)))
+        if eng.capture:
+            assert (kq.KERNEL.launches, kd.KERNEL.launches) == before
+            loop, = eng._loops.values()
+            assert loop.replays == 24
+            assert all(a is b for a, b in zip(graphs.leaves(loop.state),
+                                               graphs.leaves(eng.state)))
+        runs.append(([(r[0].cpu(), int(r[1]), int(r[2])) for r in out],
+                     convert.engine_state_to_numpy(eng.state)))
+    (r0, s0), *rest = runs
+    for r, st in rest:
+        assert trees_equal(st, s0)
+        for (m, c, k), (m0, c0, k0) in zip(r, r0):
+            assert torch.equal(m, m0) and (c, k) == (c0, k0)
+    assert r0[-1][2] > 0
+
+
+@pytest.mark.parametrize("how", ["recycle", "tick"])
+def test_replay_after_state_change_matches_eager(cuda, how):
+    """A recycle or an eager tick between two captured runs on the card
+    replaces state leaves outside the graph; the next replay sees them
+    and equals the eager engine's same sequence."""
+    cfg = small_engine("gated_recycled")
+    tiles = [convert.bits_from_numpy(x, cuda)
+             for x in small_tiles(cfg, 7, 25)]
+    results = []
+    for capture in (False, None):
+        eng = api.Engine.create(cfg, device=cuda, capture=capture)
+        eng.run(*(x[:12] for x in tiles))
+        if how == "recycle":
+            eng.recycle()
+        else:
+            eng.tick(*(x[12] for x in tiles))
+        res = eng.run(*(x[13:] for x in tiles))
+        results.append(((res[0].cpu(), int(res[1]), int(res[2])),
+                        convert.engine_state_to_numpy(eng.state)))
+    ((m0, *c0), s0), ((m1, *c1), s1) = results
+    assert torch.equal(m1, m0) and c1 == c0 and trees_equal(s1, s0)
 
 
 def test_meshed_engine_on_card_matches_unmeshed_and_cpu(cuda, tmp_path):
@@ -380,11 +456,16 @@ def test_workload_model_on_card_is_deterministic(cuda):
     assert torch.equal(a.arrived, b.arrived) and 0 < a.n_requests < 1280
 
 
+@pytest.mark.parametrize("capture", [False, None])
 @pytest.mark.parametrize("inplace", [False, True])
-def test_pipeline_on_card_matches_cpu(cuda, inplace):
+def test_pipeline_on_card_matches_cpu(cuda, inplace, capture):
     """G=3, D=5 with a shrink to rows (0, 1) after a drain: the run on
-    the card (2 quorum and 1 stability launch per tick) equals the CPU's,
-    state field by field, merged log and report."""
+    the card equals the CPU's, state field by field, merged log and
+    report. Eager on the card (``capture=False``): 2 quorum and 1
+    stability launch per tick. Captured (the default there): both
+    segments replay one loop kept in the caller's dict (segment B's
+    table copied in), whose capture recorded 2 and 1, 40 times; the
+    drains tick on the host."""
     from repro_torch import pipeline as P
     from repro_torch.engine.epochs import EpochTable
     ecfg = api.EngineConfig(
@@ -407,18 +488,31 @@ def test_pipeline_on_card_matches_cpu(cuda, inplace):
         rts = [torch.from_numpy(P.build_route_table(cfg, e)).to(dev)
                for e in (0, 1)]
         before = (kq.KERNEL.launches, kd.KERNEL.launches)
+        loops = {}
         st, o1 = P.run_pipeline(cfg, P.init_pipeline(cfg, dev), a[:20],
-                                s[:20], rts[0], inplace=inplace)
+                                s[:20], rts[0], inplace=inplace,
+                                capture=capture, loops=loops)
         for _ in range(16):
             st, _ = P.pipeline_tick(cfg, st, *quiet, rts[0], inplace=inplace)
         st, report = P.reconfigure_pipeline(cfg, st, 0, 1)
         st, o2 = P.run_pipeline(cfg, st, a[20:], s[20:], rts[1],
-                                inplace=inplace)
+                                inplace=inplace, capture=capture,
+                                loops=loops)
         for _ in range(16):
             st, _ = P.pipeline_tick(cfg, st, *quiet, rts[1], inplace=inplace)
         launches = (kq.KERNEL.launches - before[0],
                     kd.KERNEL.launches - before[1])
-        assert launches == ((2 * 72, 72) if dev == cuda else (0, 0))
+        if dev != cuda:
+            assert launches == (0, 0)
+        elif capture is False:
+            assert launches == (2 * 72, 72)
+        else:
+            loop, = loops.values()
+            rec = (loop.recorded["quorum_update_grouped"],
+                   loop.recorded["stability_update_grouped"])
+            assert rec == (2, 1) and loop.replays == 40
+            # the drains, then the loop's warm-up and captured tick
+            assert launches == (2 * 32 + 2 * rec[0], 32 + 2 * rec[1])
         merged, count, com = P.committed(cfg, st)
         assert not bool(st.overflowed)
         assert int(o1["dropped"].sum()) == int(o2["dropped"].sum()) == 0
@@ -432,12 +526,16 @@ def test_pipeline_on_card_matches_cpu(cuda, inplace):
 
 # -- adaptive tick batching on the card ---------------------------------------
 
+@pytest.mark.parametrize("capture", [False, None])
 @pytest.mark.parametrize("fam", FAMILIES)
-def test_adaptive_on_card_matches_cpu(cuda, fam):
+def test_adaptive_on_card_matches_cpu(cuda, fam, capture):
     """A skewed queue (group 0 four times the others' tiles) drained by
     Engine.adaptive_pass on the card equals the same passes on the CPU
-    (every pass's R, the whole state and queue, the merged log), with
-    exactly 2·ΣR quorum and ΣR stability launches (gated)."""
+    (every pass's R, the whole state and queue, the merged log). Eager
+    on the card: exactly 2·ΣR quorum and ΣR stability launches (gated).
+    Captured (the default there): each pass one replay of the fixed-K
+    pass, whose capture recorded 2K and K launches; the host counted a
+    warm-up and the captured pass."""
     from repro_torch.engine import adaptive as ad
     G, W, T = 3, 16, 12
     cfg = api.EngineConfig(
@@ -455,7 +553,8 @@ def test_adaptive_on_card_matches_cpu(cuda, fam):
     lens = [T, T // 4, T // 4]
     runs = []
     for dev in ("cpu", cuda):
-        eng = api.Engine.create(cfg, device=dev)
+        eng = api.Engine.create(cfg, device=dev,
+                                capture=capture if dev == cuda else None)
         eng.queue = ad.queue_from_arrays(
             cfg, *(convert.bits_from_numpy(x, dev) for x in tiles),
             lengths=lens)
@@ -465,9 +564,19 @@ def test_adaptive_on_card_matches_cpu(cuda, fam):
             rounds.append(r)
         launches = (kq.KERNEL.launches - before[0],
                     kd.KERNEL.launches - before[1])
-        want = (2 * sum(rounds), sum(rounds) if cfg.gating else 0) \
-            if dev == cuda else (0, 0)
-        assert launches == want
+        gated = cfg.gating is not None
+        if dev != cuda:
+            assert launches == (0, 0)
+        elif capture is False:
+            assert launches == (2 * sum(rounds), sum(rounds) if gated else 0)
+        else:
+            K = cfg.adaptive.max_tiles_per_tick
+            loop, = eng._loops.values()
+            rec = (loop.recorded["quorum_update_grouped"],
+                   loop.recorded["stability_update_grouped"])
+            assert rec == (2 * K, K if gated else 0)
+            assert loop.replays == len(rounds) + 1
+            assert launches == (2 * rec[0], 2 * rec[1])
         merged, count, com = eng.committed()
         runs.append((rounds, convert.engine_state_to_numpy(eng.state),
                      convert.queue_to_numpy(eng.queue), merged.cpu(),
