@@ -167,8 +167,21 @@ Phases, each of which must pass or the script exits non-zero:
    the CKPT command with one node failed (committed by majority), pods
    fed two interleavings on equal ``tree_digest``s, and a pod restored
    into other weights that replays the rest of the log and ends on the
-   same digest; ``train/rwkv6-3b-refused``: RWKV6 training on the card
-   raises ``NotImplementedError`` (no WKV6 backward kernel yet);
+   same digest; ``train/smr``: the training service whose control plane
+   is the port's HT-Paxos DES (``runtime.coordinator.TrainingService``,
+   2 pods, 3 disseminators, 3 sequencers) with pods training qwen3-14b
+   at full width, 2 of its 40 layers, bf16, Adafactor, 2 x 1024 tokens a
+   step: one fixed batch as 6 STEP commands with CKPT(3) after the
+   third, pod1 crashed after step 3, the ordering leader crashed, pod1
+   restarted from the committed checkpoint, run to quiescence. Both pods
+   at step 6 and consistent; pod1 restored step 3's checkpoint; a third
+   state machine that applies the decided log directly ends on the same
+   digests; every step launches exactly 2 L m forward and L m backward
+   flash kernels; losses finite and falling; the leader's LAN-1 bytes 0
+   and every disseminator's above 0; the executed sequences equal the
+   same schedule's through the DES on the CPU with a stub train step;
+   ``train/rwkv6-3b-refused``: RWKV6 training on the card raises
+   ``NotImplementedError`` (no WKV6 backward kernel yet);
 16. backward timing at the train cell's shape and the serving shape in
    bf16 (the tensor-core kernel) and at the serving shape in f32 (the
    CUDA-core kernel): kernel, its device time per pass, plain version,
@@ -189,6 +202,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2245,6 +2259,7 @@ FLASH_CASES = [
     (2, 130, 100, 4, 4, 32, 32, True, -1, BF16),        # Sq > Skv
     (2, 77, 77, 4, 2, 64, 64, True, 30, BF16),          # ragged window
     (2, 256, 256, 16, 2, 128, 128, True, -1, BF16),     # G = 8
+    (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
 ]
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
@@ -2842,6 +2857,7 @@ BWD_CASES = [
     (2, 200, 300, 4, 2, 50, 36, True, -1, F32),         # odd widths
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
     (2, 100, 130, 4, 2, 64, 48, True, 40, BF16),        # window, hv != h
+    (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
 ]
 # each backward route's three CUDA kernels, as torch.profiler names them
 # (no name holds another's), and its library and info export; the bf16
@@ -3314,6 +3330,301 @@ def checkpoint_phase(dev) -> dict:
     return res
 
 
+SMR_ARCH = "qwen3-14b"
+# qwen3-14b at full width with its depth cut from 40 to 2 layers: two
+# pods' states and a restore template (about 2.2 B parameters, 4.4 GB of
+# bf16 each) sit side by side on one card within the run's time limit
+SMR_LAYERS = 2
+SMR_B, SMR_S = 2, 1024
+SMR_LR = TRAIN_LR
+SMR_STEPS = 6                 # one fixed batch as 6 STEP commands
+SMR_CKPT = 3                  # CKPT(3) after the third
+SMR_QUIET_EVERY = 500.0       # DES time between quiescence checks
+SMR_HORIZON = 20_000.0        # most DES time the schedule may take
+
+
+def smr_quiet(svc, n_cmds: int) -> bool:
+    """Every command replied to its client, and every pod's disseminator
+    (pod i's is disseminator i) has executed all of them and the pod has
+    taken all SMR_STEPS steps."""
+    return (len(svc.sim.clients[0].replied) == n_cmds and all(
+        len(svc.sim.disseminators[i].executed) == n_cmds
+        and svc.pods[f"pod{i}"].step == SMR_STEPS
+        for i in range(len(svc.pods))))
+
+
+def smr_schedule(svc, batch, template, timed=None) -> dict:
+    """The schedule of tests/test_runtime.py:118-148 and
+    tests/test_system.py:16-51 on one service: ``batch`` as SMR_STEPS
+    STEP commands with CKPT(SMR_CKPT) after the third, pod1 crashed once
+    those are applied, the ordering leader crashed, the rest submitted,
+    pod1 restarted from the committed checkpoint, the run continued to
+    quiescence. ``timed(name, fn)`` wraps each call to the service.
+    Returns the old and the new leader, pod1's step and the length of
+    its applied log right after its restart, and the DES's final
+    time."""
+    from repro_torch.runtime.statemachine import Command
+    timed = timed or (lambda name, fn: fn())
+    n_cmds = SMR_STEPS + 1
+    for _ in range(SMR_CKPT):
+        svc.submit_command(svc.submit_batch(batch))
+    svc.submit_command(Command("CKPT", SMR_CKPT))
+    timed("run", lambda: svc.run(until=400))
+    svc.crash_pod("pod1")
+    old_leader = svc.leader_id()
+    svc.crash_leader()
+    for _ in range(SMR_STEPS - SMR_CKPT):
+        svc.submit_command(svc.submit_batch(batch))
+    timed("run", lambda: svc.run(until=2500))
+    timed("restart", lambda: svc.restart_pod("pod1", template()))
+    pod1 = svc.pods["pod1"]
+    at_restart = dict(step=pod1.step, applied=len(pod1.applied))
+    t = 2500.0
+    while not smr_quiet(svc, n_cmds):
+        t += SMR_QUIET_EVERY
+        check(t <= SMR_HORIZON, f"train/smr: not quiescent by DES time "
+              f"{SMR_HORIZON}")
+        timed("run", lambda: svc.run(until=t))
+    return dict(old_leader=old_leader, leader=svc.leader_id(),
+                at_restart=at_restart, des_time=svc.sim.sched.now)
+
+
+def smr_stub_run(directory: str) -> tuple:
+    """The same schedule through the port's DES on the CPU, with a stub
+    train step that only counts steps; the host seconds of the DES's own
+    ``sim.run`` calls (without the pods' applies and the checkpoint's
+    save, which ``svc.run`` also makes)."""
+    from repro_torch.runtime.coordinator import ServiceConfig, \
+        TrainingService
+
+    def stub_state():
+        return {"params": {"w": torch.zeros(4)},
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def stub_step(state, batch):
+        state["step"] += 1
+        return state, {"loss": 0.0, "grad_norm": 0.0}
+    svc = TrainingService(ServiceConfig(n_pods=2, ckpt_dir=directory,
+                                        seed=SEED), stub_step, stub_state)
+    sim_run, des_s = svc.sim.run, [0.0]
+
+    def timed_sim_run(until):
+        t0 = time.perf_counter()
+        sim_run(until=until)
+        des_s[0] += time.perf_counter() - t0
+    svc.sim.run = timed_sim_run
+    sched = smr_schedule(svc, {"tokens": torch.zeros(1, 1,
+                                                     dtype=torch.long)},
+                         stub_state)
+    return svc, sched, des_s[0]
+
+
+def smr_phase(dev) -> dict:
+    """train/smr: ``TrainingService`` (2 pods) over the port's HT-Paxos
+    DES, its pods training SMR_ARCH at full width and SMR_LAYERS layers
+    in bf16 with Adafactor, SMR_B x SMR_S tokens a step, through the
+    schedule of ``smr_schedule``. Checks: both pods at step SMR_STEPS and
+    consistent; pod1's restore read step SMR_CKPT's manifest; a third
+    state machine applying the decided log ends on the pods' digests;
+    every step launched exactly 2 L m forward and L m backward bf16 flash
+    kernels; losses and grad norms finite, each loss below the one
+    before; the leader's LAN-1 bytes 0, every disseminator's above 0; the
+    executed sequences equal the same schedule's on the CPU with a stub
+    train step."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.coordinator import ServiceConfig, \
+        TrainingService
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.runtime.statemachine import (Command,
+                                                  TrainerStateMachine,
+                                                  tree_digest)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    full = registry.get(SMR_ARCH)
+    cfg = full.replace(n_layers=SMR_LAYERS)
+    opt = O.OptConfig(kind="adafactor", lr=SMR_LR)
+    micro = 1
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=SMR_B)
+    want = {"flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_bwd": cfg.n_layers * micro}
+    steps = []
+
+    def train_step(state, batch):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, metrics = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        row = dict(seconds=start.elapsed_time(end) / 1e3, launches=launched,
+                   **{k: float(v) for k, v in metrics.items()})
+        steps.append(row)
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train/smr step {len(steps)} launched {launched}, expected "
+              f"{want}")
+        check(all(np.isfinite(row[k]) for k in ("loss", "grad_norm")),
+              f"train/smr step {len(steps)}: {row}")
+        return state, metrics
+
+    def init_state():
+        return TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                             dev)
+    # the batch is made on the host: the service stores it on the pods'
+    # device
+    batch = ShardedBatchSource(cfg.vocab, SMR_B, SMR_S, seed=SEED + 14,
+                               device="cpu").batch(0)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_smr_")
+    stub_dir = tempfile.mkdtemp(prefix="chip_smoke_smr_stub_")
+    walls = {"run": 0.0, "restart": 0.0, "save": 0.0}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] += time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        svc = TrainingService(ServiceConfig(n_pods=2, ckpt_dir=directory,
+                                            seed=SEED),
+                              train_step, init_state)
+        check(svc.device.type == dev.type,
+              f"train/smr: pods on {svc.device}")
+        pod0 = svc.pods["pod0"]
+        save_cb = pod0.on_ckpt
+
+        def timed_save(sm, arg):
+            timed("save", lambda: save_cb(sm, arg))
+        pod0.on_ckpt = timed_save
+        # the main path: counts set to 0 right before, read right after
+        reset_counts()
+        sched = smr_schedule(svc, batch, init_state, timed)
+        counts = model_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(all(t.device == svc.device for b in svc.batch_store.values()
+                  for t in b.values()), "train/smr: a batch is not on the "
+              "pods' device")
+        pod0, pod1 = svc.pods["pod0"], svc.pods["pod1"]
+        n_steps = len(steps)
+        # pod0 applies every step, pod1 SMR_CKPT before its crash and the
+        # rest after its restore
+        check(n_steps == 2 * SMR_STEPS
+              and counts["flash_attention"] == n_steps
+              * want["flash_attention"]
+              and counts["flash_attention_bwd"] == n_steps
+              * want["flash_attention_bwd"],
+              f"train/smr: {n_steps} steps, counts {counts}")
+        manifest = json.loads((Path(directory) / (
+            f"manifest_{SMR_CKPT:08d}.json")).read_text())
+        at = sched["at_restart"]
+        # the template starts at step 0: step SMR_CKPT came from the file,
+        # and pod1 then applied the log from CKPT(SMR_CKPT) on (the
+        # restore skipped the SMR_CKPT steps before it)
+        check(ckpt.latest_committed_step(directory) == SMR_CKPT
+              and manifest["committed"] and manifest["step"] == SMR_CKPT
+              and at["step"] == SMR_CKPT and at["applied"] == 0
+              and len(pod1.applied) == SMR_STEPS + 1 - SMR_CKPT,
+              f"train/smr: pod1 restarted at step {at['step']} with "
+              f"{at['applied']} applied, then applied {len(pod1.applied)}; "
+              f"manifest {manifest}")
+        check(sched["leader"] not in (None, sched["old_leader"]),
+              f"train/smr: leader {sched['old_leader']} -> "
+              f"{sched['leader']}")
+        losses = [m["loss"] for m in pod0.metrics_log]
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"train/smr: losses not falling: {losses}")
+        same, n_tensors = leaves_equal(pod0.state, pod1.state)
+        check({pod0.step, pod1.step} == {SMR_STEPS} and same
+              and pod0.metrics_log[-SMR_CKPT:] == pod1.metrics_log,
+              f"train/smr: pods at steps {pod0.step}, {pod1.step}, leaves "
+              f"equal {same}")
+        # the decided log applied directly by a third state machine on the
+        # card, while host threads hash the pods' states (sha256 over
+        # ~4.4 GB a state; hashlib releases the GIL)
+        executed = svc.sim.disseminators[0].executed
+        with ThreadPoolExecutor(4) as pool:
+            consistent = pool.submit(svc.consistent)
+            pod_digests = (pool.submit(pod0.digest),
+                           pool.submit(tree_digest, pod0.state))
+            replay = TrainerStateMachine("replay", train_step, init_state(),
+                                         svc.batch_store)
+            for rid in executed:
+                replay.apply(Command.decode(rid[1]))
+            replay_digests = (pool.submit(replay.digest),
+                              pool.submit(tree_digest, replay.state))
+            digests = tuple(f.result() for f in pod_digests)
+            check(consistent.result(), "train/smr: svc.consistent() is "
+                  "False")
+            got = tuple(f.result() for f in replay_digests)
+        check(got == digests and replay.applied == pod0.applied,
+              f"train/smr: the direct replay ends on {got}, the pods on "
+              f"{digests}")
+        del replay
+        # the payload plane and the ordering plane
+        sim = svc.sim
+        lan1 = {n: st.total_bytes()
+                for n, st in sorted(sim.lan1.stats.items())}
+        check(lan1[sched["leader"]] == 0 and lan1[sched["old_leader"]] == 0
+              and min(lan1[d] for d in sim.diss_ids) > 0,
+              f"train/smr: LAN-1 bytes {lan1}")
+        # ordering does not depend on the device
+        stub, stub_sched, des_s = smr_stub_run(stub_dir)
+        check(stub.sim.executed_sequences() == sim.executed_sequences()
+              and stub_sched["leader"] == sched["leader"]
+              and stub_sched["des_time"] == sched["des_time"]
+              and all(stub.pods[p].applied == svc.pods[p].applied
+                      for p in svc.pods),
+              "train/smr: the card's executed sequences differ from the "
+              "stub run's on the CPU")
+        sites = sorted(set(sim.site_map.values()))
+        # the service's steps after the first; the replay's shared the
+        # card with the hashing threads' copies
+        timed_steps = steps[1:n_steps]
+        sec = sum(s["seconds"] for s in timed_steps) / len(timed_steps)
+        res = dict(
+            arch=cfg.name, layers=cfg.n_layers,
+            reduced=f"n_layers {full.n_layers} -> {cfg.n_layers} (two "
+                    "pods' states and a restore template on one card; "
+                    "the run's time limit)",
+            d_model=cfg.d_model, vocab=cfg.vocab, batch=SMR_B, seq=SMR_S,
+            microbatches=micro, optimizer=opt.kind, lr=opt.lr,
+            steps=steps, steps_applied=n_steps,
+            replica_leaves_compared=n_tensors, seconds_per_step=sec,
+            tokens_per_s=SMR_B * SMR_S / sec,
+            launches_per_step=want, launches=counts,
+            losses=losses, digest=digests[0], state_digest=digests[1],
+            ckpt_save_seconds=walls["save"],
+            ckpt_restore_seconds=walls["restart"],
+            service_run_seconds=walls["run"],
+            service_host_seconds=walls["run"] - walls["save"]
+            - sum(s["seconds"] for s in steps[:n_steps]),
+            des_host_seconds=des_s, des_time=sched["des_time"],
+            leaders=[sched["old_leader"], sched["leader"]],
+            peak_mem_bytes=peak,
+            lan1_bytes=lan1,
+            lan2_bytes={n: st.total_bytes()
+                        for n, st in sorted(sim.lan2.stats.items())},
+            lan_msgs={n: sim.node_total_msgs(n) for n in lan1},
+            site_msgs={n: sim.site_total_msgs(n) for n in sites},
+            site_bytes={n: sim.site_total_bytes(n) for n in sites},
+            card=nvidia_smi(), seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        shutil.rmtree(stub_dir, ignore_errors=True)
+    check(not Path(directory).exists() and not Path(stub_dir).exists(),
+          f"{directory} or {stub_dir} was not deleted")
+    log(phase="train/smr", **res)
+    del svc
+    torch.cuda.empty_cache()
+    return res
+
+
 def train_refusal_phase(dev) -> dict:
     """rwkv6-3b (full width, one layer) refuses to train on the card: the
     WKV6 kernel runs the forward, and the backward raises
@@ -3531,6 +3842,9 @@ def main() -> int:
     train = train_phase(dev)
     train_f32 = train_f32_phase(dev)
     checkpoint_phase(dev)
+    # the training service over the port's HT-Paxos: its drive resets
+    # the counts first
+    smr = smr_phase(dev)
     train_refusal_phase(dev)
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
 
@@ -3598,6 +3912,8 @@ def main() -> int:
                 for r in single]
         kernels.append(entry)
     csrc = "src/repro_torch/kernels/csrc/"
+    smr_path = (f"train/smr ({smr['arch']}, {smr['layers']} layers, "
+                f"{smr['steps_applied']} steps in the service's pods)")
     for name, src, replaces in (
             ("flash_attention", csrc + "flash_attention_bf16.cu",
              "src/repro/kernels/flash_attention.py:92"),
@@ -3637,6 +3953,8 @@ def main() -> int:
                 train_path=f"train/{train['arch']} ({TRAIN_STEPS} steps)",
                 train_device_ms_per_call=train["profiled_step"]
                 ["flash_fwd_us_per_call"] / 1e3,
+                smr_launches=smr["launches"][name],
+                smr_path=smr_path,
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
@@ -3665,6 +3983,8 @@ def main() -> int:
                       "models/layers.py::flash_attend",
         launches=launches, path=f"train/{train['arch']} ({TRAIN_STEPS} "
                                 f"steps)",
+        smr_launches=smr["launches"]["flash_attention_bwd"],
+        smr_path=smr_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -3696,7 +4016,11 @@ def main() -> int:
                      "tflops_per_s", "over_bound", "over_library",
                      "forward_ms")})))
     log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
-                                     "peak_mem_bytes")})
+                                     "peak_mem_bytes")},
+        smr={k: smr[k] for k in (
+            "seconds_per_step", "tokens_per_s", "ckpt_save_seconds",
+            "ckpt_restore_seconds", "des_host_seconds", "peak_mem_bytes",
+            "seconds")})
     graph_profiles = {"engine": main["graph"]["profile"],
                       "pipeline": pipe["graph_profile"],
                       "adaptive_skew": adaptive["skew"]["graph_profile"]}

@@ -310,7 +310,8 @@ FLASH_CASES = [
     (2, 77, 77, 4, 2, 64, 64, True, 30),            # ragged window
     (2, 128, 128, 4, 2, 32, 32, False, -1),         # non-causal
     (2, 200, 200, 4, 2, 64, 64, False, 50),         # non-causal window
-    (1, 256, 256, 16, 2, 128, 128, True, -1)]       # G = 8
+    (1, 256, 256, 16, 2, 128, 128, True, -1),       # G = 8
+    (2, 1024, 1024, 40, 8, 128, 128, True, -1)]     # qwen3-14b, G = 5
 # f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
 # of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
 # a long non-causal case
@@ -629,7 +630,7 @@ def test_pipeline_subtick_on_card_matches_cpu(cuda):
 
 
 # (B, Sq, Skv, H, K, h, hv, causal, window): causal and not, windows,
-# Sq != Skv, G = 1 and 8, h 16 / 64 / 128, hv != h, lengths off the tiles
+# Sq != Skv, G = 1, 5 and 8, h 16 / 64 / 128, hv != h, lengths off the tiles
 BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 128, 128, 4, 2, 32, 32, False, -1),
              (2, 128, 128, 4, 2, 32, 32, False, 40),
@@ -638,7 +639,8 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 77, 77, 8, 8, 16, 16, True, 30),
              (2, 256, 256, 16, 2, 128, 128, True, -1),
              (2, 200, 300, 4, 2, 50, 36, True, -1),
-             (1, 1000, 1000, 8, 2, 128, 128, True, -1)]
+             (1, 1000, 1000, 8, 2, 128, 128, True, -1),
+             (2, 1024, 1024, 40, 8, 128, 128, True, -1)]   # qwen3-14b
 
 
 def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):

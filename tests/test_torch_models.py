@@ -13,6 +13,7 @@ against the reference's sequential recurrence instead.
 """
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -418,10 +419,12 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_port_imports_without_jax_or_reference():
-    """Every repro_torch module, and chip_smoke.py, imports with jax and
-    repro blocked."""
+    """Every repro_torch module, chip_smoke.py and the port's example
+    twin (examples/torch_train_smr_service.py) import with jax and repro
+    blocked; the modules include the DES, its baselines and the training
+    service."""
     code = (
-        "import importlib, importlib.util, pkgutil, sys\n"
+        "import importlib, importlib.util, json, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
@@ -429,12 +432,23 @@ def test_port_imports_without_jax_or_reference():
         " 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
-        f"{str(ROOT / 'chip_smoke.py')!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "print(len(mods))\n")
+        "for name, path in (('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r}), ('torch_smr_example', "
+        f"{str(ROOT / 'examples' / 'torch_train_smr_service.py')!r})):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None)\n"
+        "print(json.dumps([mods, bad]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert len(mods) >= 60
+    core = ("events", "network", "agents", "classic", "htpaxos", "ring",
+            "multiring", "spaxos", "classical_smr", "analytical",
+            "invariants", "tilesim")
+    assert {f"repro_torch.core.{m}" for m in core} <= set(mods)
+    assert "repro_torch.runtime.coordinator" in mods
