@@ -197,6 +197,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import hashlib
 import json
 import subprocess
@@ -2260,6 +2261,9 @@ FLASH_CASES = [
     (2, 77, 77, 4, 2, 64, 64, True, 30, BF16),          # ragged window
     (2, 256, 256, 16, 2, 128, 128, True, -1, BF16),     # G = 8
     (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
+    (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
+    (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
+    (4, 192, 192, 28, 4, 128, 128, True, -1, F32),      # its f32 check
 ]
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
@@ -2398,12 +2402,14 @@ def plain_kernels():
         ops.attention, ops.wkv6 = saved
 
 
-def f32_copy(lm):
-    """The same model with every parameter in f32."""
+def f32_copy(lm, device=None):
+    """A copy of the model with every parameter in f32 (on ``device``,
+    default the model's)."""
     from repro_torch.models.transformer import LM
 
     def f32(tree):
-        return {k: f32(v) if isinstance(v, dict) else v.float()
+        return {k: f32(v) if isinstance(v, dict)
+                else v.detach().to(device, F32, copy=True)
                 for k, v in tree.items()}
     tree = {"embed": f32(lm["embed"].to_dict()),
             "ln_f": f32(lm["ln_f"].to_dict()),
@@ -2858,6 +2864,9 @@ BWD_CASES = [
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
     (2, 100, 130, 4, 2, 64, 48, True, 40, BF16),        # window, hv != h
     (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
+    (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
+    (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
+    (1, 256, 256, 28, 4, 128, 128, True, -1, F32),      # its f32 step
 ]
 # each backward route's three CUDA kernels, as torch.profiler names them
 # (no name holds another's), and its library and info export; the bf16
@@ -3174,16 +3183,12 @@ def train_phase(dev) -> dict:
 def train_f32_phase(dev) -> dict:
     """yi-6b at F32_TRAIN_LAYERS layers, full width, f32, one AdamW step
     of F32_TRAIN_B x F32_TRAIN_S tokens on the card and on the CPU from
-    one set of weights (drawn on the host): loss, grad_norm, every
-    gradient leaf and the parameters after the step."""
+    one set of weights (drawn on the host): :func:`f32_step_vs_cpu`."""
     from repro_torch import convert
     from repro_torch.configs import registry
-    from repro_torch.models.common import reference_leaves
     from repro_torch.runtime.data import ShardedBatchSource
     from repro_torch.train import optimizer as O
     from repro_torch.train import trainer as TR
-    check(not torch.backends.cuda.matmul.allow_tf32,
-          "f32 matmuls must not run in TF32")
     cfg = registry.get(TRAIN_ARCH).replace(n_layers=F32_TRAIN_LAYERS,
                                            dtype=F32)
     opt = O.OptConfig(kind="adamw", lr=TRAIN_LR)
@@ -3192,14 +3197,31 @@ def train_f32_phase(dev) -> dict:
                                         cfg, dev)
     tokens = ShardedBatchSource(cfg.vocab, F32_TRAIN_B, F32_TRAIN_S,
                                 seed=SEED + 7, device="cpu").batch(0)
-    grads_of = TR.make_grad_fn(cfg, global_batch=F32_TRAIN_B)
-    out = {}
+    return f32_step_vs_cpu("train/f32", cfg, opt, cpu, card, tokens)
+
+
+def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
+                    batch: dict) -> dict:
+    """One AdamW step of the f32 state ``cpu`` on the CPU and of its copy
+    ``card`` on the card, on the same ``batch`` (on the CPU): loss,
+    grad_norm, every gradient leaf and the parameters after the step
+    (F32_STEP_TOL), and exactly 2 L forward and L backward f32 flash
+    launches on the card."""
+    from repro_torch.models.common import reference_leaves
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    B, S = batch["labels" if "labels" in batch else "tokens"].shape
+    grads_of = TR.make_grad_fn(cfg, global_batch=B)
+    out, seconds = {}, {}
     for name, state in (("card", card), ("cpu", cpu)):
         d = state["step"].device
+        t0 = time.perf_counter()
         before = model_counts()
         with TR.deterministic(d):
             grads, loss = grads_of(state["params"],
-                                   {"tokens": tokens["tokens"].to(d)})
+                                   {k: v.to(d) for k, v in batch.items()})
             norm = TR._global_norm(grads)
             O.apply_opt(opt, state["params"], grads, state["opt"],
                         state["step"])
@@ -3207,12 +3229,13 @@ def train_f32_phase(dev) -> dict:
         out[name] = dict(loss=float(loss), grad_norm=float(norm),
                          grads=[[g.cpu() for g in leaf] for leaf in grads],
                          launched=launched)
+        seconds[name] = time.perf_counter() - t0
         del grads
     card_launched = out["card"]["launched"]
     check(card_launched == {**dict.fromkeys(card_launched, 0),
-                            "flash_attention_f32": 2 * F32_TRAIN_LAYERS,
-                            "flash_attention_bwd_f32": F32_TRAIN_LAYERS},
-          f"train/f32: launches {card_launched}")
+                            "flash_attention_f32": 2 * cfg.n_layers,
+                            "flash_attention_bwd_f32": cfg.n_layers},
+          f"{phase}: launches {card_launched}")
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
     grad_err = 0.0
@@ -3229,15 +3252,15 @@ def train_f32_phase(dev) -> dict:
     ok = (rel["loss"] <= F32_STEP_TOL["loss"]
           and rel["grad_norm"] <= F32_STEP_TOL["grad_norm"]
           and grad_err <= F32_STEP_TOL["grad"]
-          and param_err <= 2 * TRAIN_LR + 1e-6)
-    res = dict(layers=F32_TRAIN_LAYERS, batch=F32_TRAIN_B, seq=F32_TRAIN_S,
+          and param_err <= 2 * opt.lr + 1e-6)
+    res = dict(layers=cfg.n_layers, batch=B, seq=S,
                loss=out["card"]["loss"], grad_norm=out["card"]["grad_norm"],
                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
                grad_leaf_rel_err=grad_err, param_err=param_err,
-               tolerance=dict(F32_STEP_TOL, params=2 * TRAIN_LR + 1e-6),
-               launches=out["card"]["launched"])
-    log(phase="train/f32", **res)
-    check(ok, f"train/f32: card vs CPU {res}")
+               tolerance=dict(F32_STEP_TOL, params=2 * opt.lr + 1e-6),
+               launches=out["card"]["launched"], seconds=seconds)
+    log(phase=phase, **res)
+    check(ok, f"{phase}: card vs CPU {res}")
     del cpu, card, out
     torch.cuda.empty_cache()
     return res
@@ -3659,6 +3682,385 @@ def train_refusal_phase(dev) -> dict:
     return res
 
 
+# -- the vision-language family: qwen2-vl-7b ----------------------------------
+
+VLM_ARCH = "qwen2-vl-7b"
+# Qwen2-VL layouts (M-RoPE ids as in arXiv:2409.12191, section 2.1): text
+# and images of rows x cols patches from the stub frontend
+VLM_PREFILL = (("text", 32), ("image", 32, 30), ("text", 32))    # 1,024
+# the teacher-forced decode at full depth runs over 192 positions, not
+# 1,024: the decode is host-bound (~70 ms a step at yi-6b)
+VLM_PROMPT = (("text", 32), ("image", 8, 16), ("text", 32))
+VLM_NEW = 32
+VLM_CPU_B = 2
+VLM_CPU_PROMPT = (("text", 16), ("image", 4, 8), ("text", 16))   # 64
+VLM_PATCH_STD = 0.02          # the embedding table's init scale
+VLM_F32_LAYERS = 2
+# apply_rope on the card against the CPU port: f32 sin/cos of the same
+# angles, relative to max |x|; and the least largest difference on the
+# image's rows between M-RoPE and the rotation by the cache index
+ROPE_TOL = 2e-5
+ROPE_SECTIONS_DIFFER = 0.1
+# train/qwen2-vl-7b: full width with the depth cut 28 -> 4 (the phase's
+# time and memory budget); train_4k's sequence of 4,096 with its batch
+# cut 256 -> TRAIN_B; the registry's microbatches (2); Adafactor
+VLM_TRAIN_LAYERS = 4
+VLM_TRAIN_LAYOUT = (("text", 64), ("image", 48, 40), ("text", 64),
+                    ("image", 48, 40), ("text", 128))             # 4,096
+VLM_TRAIN_STEPS = 4           # 1 warm-up + 3 timed
+# the f32 step, card vs CPU: VLM_F32_LAYERS layers, 1 x 256 positions
+VLM_F32_TRAIN_LAYOUT = (("text", 32), ("image", 12, 16), ("text", 32))
+
+
+def fresh_peak() -> int:
+    """Free what earlier phases left unreachable (the training service's
+    pods sit in reference cycles), reset the peak-memory counter and
+    return the bytes still allocated, which the phase's peak includes."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def layout_image_rows(layout) -> torch.Tensor:
+    """bool [S]: the positions of ``layout`` that hold image patches."""
+    return torch.cat([torch.full((seg[1] if seg[0] == "text"
+                                  else seg[1] * seg[2],), seg[0] == "image")
+                      for seg in layout])
+
+
+def vlm_inputs(lm, cfg, layout, batch: int, gen, dev) -> dict:
+    """The stub frontend's batch for ``layout``: token ids drawn from
+    ``gen`` (``labels``), their rows of the embedding table at the text
+    positions and patch embeddings (normal x VLM_PATCH_STD, from ``gen``)
+    at the image positions (``embeds``, cfg.dtype), the layout's M-RoPE
+    ids [3, batch, S] (``positions``) and the id of the next text token
+    (``next``)."""
+    from repro_torch.models import layers as L
+    pos, nxt = L.mrope_positions(layout, batch, dev)
+    S = pos.shape[-1]
+    tokens = torch.randint(0, cfg.vocab, (batch, S), generator=gen,
+                           device=dev)
+    patches = randn(gen, (batch, S, cfg.d_model), dev, cfg.dtype,
+                    VLM_PATCH_STD)
+    image = layout_image_rows(layout).to(dev)[None, :, None]
+    with torch.no_grad():
+        embeds = torch.where(image, patches,
+                             L.embed_apply(lm["embed"], tokens))
+    return {"embeds": embeds, "positions": pos, "labels": tokens,
+            "next": nxt}
+
+
+def vlm_teacher_forced(lm, cfg, inputs: dict, cache):
+    """decode_step over every position of ``inputs`` (embeds, positions):
+    step t writes cache slot t and rotates by positions[:, :, t]; the
+    logits of every step."""
+    from repro_torch.models import decode as D
+    out = []
+    for t in range(inputs["embeds"].shape[1]):
+        logits, cache = D.decode_step(lm, cfg, {
+            "embeds": inputs["embeds"][:, t:t + 1],
+            "positions": inputs["positions"][:, :, t:t + 1],
+            "index": t}, cache)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def vlm_rope_check(dev, cfg) -> dict:
+    """apply_rope with VLM_PREFILL's [3, B, S] ids on the card against the
+    CPU port (within ROPE_TOL x max |x|) and against the rotation by the
+    cache index: equal on the first text rows, where the ids are the
+    index, and farther than ROPE_SECTIONS_DIFFER x max |x| on the
+    image's rows."""
+    from repro_torch.models import layers as L
+    pos, _ = L.mrope_positions(VLM_PREFILL, SERVE_B, dev)
+    S = pos.shape[-1]
+    x = randn(torch.Generator(dev).manual_seed(SEED + 22),
+              (SERVE_B, S, cfg.n_heads, cfg.hd), dev)
+    scale = float(x.abs().max())
+    got = L.apply_rope(x, pos, cfg.rope_theta, cfg.mrope_sections)
+    want = L.apply_rope(x.cpu(), pos.cpu(), cfg.rope_theta,
+                        cfg.mrope_sections)
+    index = torch.arange(S, device=dev)[None].expand(SERVE_B, S)
+    plain = L.apply_rope(x, index, cfg.rope_theta, cfg.mrope_sections)
+    diff = (got - plain).abs().amax(dim=(0, 2, 3)).cpu()           # [S]
+    image = layout_image_rows(VLM_PREFILL)
+    first_text = VLM_PREFILL[0][1]
+    res = dict(shape=list(x.shape), max_abs_x=scale,
+               card_vs_cpu=float((got.cpu() - want).abs().max()),
+               first_text_vs_index=float(diff[:first_text].max()),
+               image_vs_index=float(diff[image].max()),
+               image_rows_over_gap=float((diff[image] > ROPE_SECTIONS_DIFFER
+                                          * scale).float().mean()),
+               tolerance=ROPE_TOL, sections_differ=ROPE_SECTIONS_DIFFER)
+    check(res["card_vs_cpu"] <= ROPE_TOL * scale
+          and res["first_text_vs_index"] <= ROPE_TOL * scale
+          and res["image_vs_index"] > ROPE_SECTIONS_DIFFER * scale,
+          f"serve/{VLM_ARCH}: apply_rope {res}")
+    return res
+
+
+def vlm_f32_checks(dev) -> dict:
+    """VLM_F32_LAYERS layers at full width in f32: prefill of VLM_PROMPT
+    (VLM_F32_LAYERS f32 flash launches) against its teacher-forced decode
+    (no model kernel) within F32_LOGIT_TOL with equal greedy tokens; the
+    card against the CPU port (prefill and every decode step of
+    VLM_CPU_PROMPT, VLM_CPU_B rows) within CPU_LOGIT_TOL; the layer-level
+    M-RoPE check (:func:`vlm_rope_check`)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = registry.get(VLM_ARCH).replace(n_layers=VLM_F32_LAYERS, dtype=F32)
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    prompt = vlm_inputs(lm, cfg, VLM_PROMPT, SERVE_B, gen, dev)
+    P = prompt["positions"].shape[-1]
+    before = model_counts()
+    pre, _ = D.prefill(lm, cfg, {k: prompt[k] for k in ("embeds",
+                                                        "positions")})
+    launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "flash_attention_f32": VLM_F32_LAYERS},
+          f"serve/{VLM_ARCH}/f32: prefill launched {launched}")
+    before = model_counts()
+    dec = vlm_teacher_forced(lm, cfg, prompt, D.cache_zeros(
+        D.cache_spec(cfg, SERVE_B, P), dev))[:, -1]
+    check(model_counts() == before,
+          f"serve/{VLM_ARCH}/f32: the decode launched a model kernel")
+    f32_err = float((pre - dec).abs().max())
+    same = bool(torch.equal(pre.argmax(-1), dec.argmax(-1)))
+    check(f32_err <= F32_LOGIT_TOL and same
+          and bool(torch.isfinite(pre).all()),
+          f"serve/{VLM_ARCH}/f32: prefill vs teacher-forced decode over "
+          f"{P} positions: max abs err {f32_err}, same greedy {same}")
+    # the card against the port on the CPU, on one set of weights
+    lm_cpu = f32_copy(lm, "cpu")
+    short = vlm_inputs(lm, cfg, VLM_CPU_PROMPT, VLM_CPU_B, gen, dev)
+    S = short["positions"].shape[-1]
+    outs = []
+    for model, d in ((lm_cpu, torch.device("cpu")), (lm, dev)):
+        inp = {k: short[k].to(d) for k in ("embeds", "positions")}
+        logits, _ = D.prefill(model, cfg, inp)
+        steps = vlm_teacher_forced(model, cfg, inp, D.cache_zeros(
+            D.cache_spec(cfg, VLM_CPU_B, S), d))
+        outs.append(torch.cat([logits[:, None], steps], dim=1).cpu())
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    check(cpu_err <= CPU_LOGIT_TOL and bool(torch.isfinite(outs[1]).all()),
+          f"serve/{VLM_ARCH}/f32: card vs CPU max abs err {cpu_err}")
+    res = dict(layers=VLM_F32_LAYERS, prompt=P, batch=SERVE_B,
+               prefill_vs_decode=f32_err, tolerance=F32_LOGIT_TOL,
+               greedy_tokens=pre.argmax(-1).tolist(),
+               logits_max_abs=float(pre.abs().max()),
+               launches=launched["flash_attention_f32"],
+               cpu=dict(batch=VLM_CPU_B, prompt=S, decode_steps=S,
+                        max_abs_err=cpu_err, tolerance=CPU_LOGIT_TOL),
+               rope=vlm_rope_check(dev, cfg))
+    del lm, lm_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def vlm_serve_phase(dev) -> dict:
+    """serve/qwen2-vl-7b: full width and depth in bf16, SERVE_B rows, the
+    stub frontend's embeddings. (a) Prefill over VLM_PREFILL: exactly L
+    bf16 flash launches and no other model kernel, finite logits,
+    CUDA-event time; (b) the teacher-forced decode of VLM_PROMPT at full
+    depth, which fills the cache; (c) VLM_NEW greedy text steps at
+    positions that continue the layout: finite logits, no model kernel;
+    (d) :func:`vlm_f32_checks`."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = registry.get(VLM_ARCH)
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    pre = vlm_inputs(lm, cfg, VLM_PREFILL, SERVE_B, gen, dev)
+    prompt = vlm_inputs(lm, cfg, VLM_PROMPT, SERVE_B, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    inputs = {k: pre[k] for k in ("embeds", "positions")}
+    S = inputs["positions"].shape[-1]
+
+    # (a) the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits_p, _ = D.prefill(lm, cfg, inputs)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    launches = model_counts()
+    check(launches["flash_attention"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"{VLM_ARCH} prefill launched {launches}, expected "
+          f"{cfg.n_layers} x flash_attention")
+    check(tuple(logits_p.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{VLM_ARCH}: prefill logits {tuple(logits_p.shape)} not finite")
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, inputs), reps=3,
+                           warmup=1)
+    check(model_counts()["flash_attention"] == 5 * cfg.n_layers,
+          f"{VLM_ARCH}: timed prefills launched {model_counts()}")
+    counts = model_counts()
+
+    # (b) the teacher-forced decode of the prompt at full depth
+    P = prompt["positions"].shape[-1]
+    cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, P + VLM_NEW), dev)
+    t0 = time.perf_counter()
+    logits_d = vlm_teacher_forced(lm, cfg, prompt, cache)[:, -1]
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits_d).all()),
+          f"{VLM_ARCH}: teacher-forced decode logits not finite")
+
+    # (c) greedy text steps: one id in all three streams, after the
+    # layout's largest; the cache slot after the prompt's
+    tok = logits_d.argmax(-1)[:, None]
+    ids = torch.arange(prompt["next"], prompt["next"] + VLM_NEW,
+                       dtype=torch.int32, device=dev)
+    all_finite = torch.ones((), dtype=torch.bool, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(VLM_NEW):
+        logits, cache = D.decode_step(lm, cfg, {
+            "token": tok, "index": P + i,
+            "positions": ids[i].expand(3, SERVE_B, 1)}, cache)
+        all_finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / VLM_NEW
+    check(bool(all_finite), f"{VLM_ARCH}: greedy decode logits not finite")
+    check(model_counts() == counts,
+          f"{VLM_ARCH}: decode launched a model kernel: {model_counts()}")
+    peak = torch.cuda.max_memory_allocated()
+    del lm, cache, pre, prompt, inputs
+    torch.cuda.empty_cache()
+
+    # (d) exactness at VLM_F32_LAYERS layers in f32
+    exact = vlm_f32_checks(dev)
+    res = dict(arch=VLM_ARCH, params=n_params, batch=SERVE_B, prefill=S,
+               layout=dict(prefill=VLM_PREFILL, prompt=VLM_PROMPT,
+                           cpu=VLM_CPU_PROMPT), prompt=P,
+               new_tokens=VLM_NEW, init_seconds=init_s,
+               prefill_first_seconds=prefill_first_s,
+               launches={"flash_attention": launches["flash_attention"]},
+               prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * S / (prefill_ms / 1e3),
+               teacher_forced_seconds=tf_s,
+               teacher_forced_ms_per_step=tf_s * 1e3 / P,
+               decode_ms_per_step=decode_ms,
+               decode_tokens_per_s=SERVE_B / (decode_ms / 1e3),
+               peak_mem_bytes=peak, resident_at_start_bytes=resident,
+               f32=exact, seconds=time.perf_counter() - t_phase)
+    log(phase=f"serve/{VLM_ARCH}", **res)
+    return res
+
+
+def vlm_train_phase(dev) -> dict:
+    """train/qwen2-vl-7b: full width, VLM_TRAIN_LAYERS layers, bf16,
+    Adafactor at TRAIN_LR; one fixed batch of VLM_TRAIN_LAYOUT (TRAIN_B x
+    4,096 positions: embeds, [3, B, S] positions, labels) split into the
+    registry's microbatches on the card. VLM_TRAIN_STEPS steps timed with
+    CUDA events: each loss below the one before, finite grad norms,
+    exactly 2 L m forward and L m backward bf16 flash launches a step.
+    Then one f32 step at VLM_F32_LAYERS layers, card vs CPU
+    (:func:`f32_step_vs_cpu`)."""
+    from repro_torch.configs import registry
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    cfg = registry.get(VLM_ARCH).replace(n_layers=VLM_TRAIN_LAYERS)
+    micro = registry.microbatches(VLM_ARCH, "train_4k")
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    resident = fresh_peak()
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    batch = vlm_inputs(state["params"], cfg, VLM_TRAIN_LAYOUT, TRAIN_B,
+                       torch.Generator(dev).manual_seed(SEED + 23), dev)
+    batch = {k: batch[k] for k in ("embeds", "positions", "labels")}
+    split = TR._split_microbatch(batch["positions"], micro, TRAIN_B)
+    check(tuple(batch["positions"].shape) == (3, TRAIN_B, TRAIN_S)
+          and tuple(split.shape) == (micro, 3, TRAIN_B // micro, TRAIN_S)
+          and split.device == batch["positions"].device,
+          f"train/{VLM_ARCH}: positions "
+          f"{tuple(batch['positions'].shape)} split as "
+          f"{tuple(split.shape)}")
+    split_shape = list(split.shape)
+    del split
+    want = {"flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_bwd": cfg.n_layers * micro}
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    steps = []
+    for _ in range(VLM_TRAIN_STEPS):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                          launches=launched, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"])))
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train/{VLM_ARCH} step {len(steps)} launched {launched}, "
+              f"expected {want}")
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    check(all(np.isfinite([st[k] for st in steps
+                           for k in ("loss", "grad_norm")]))
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train/{VLM_ARCH}: losses {losses}, grad norms "
+          f"{[st['grad_norm'] for st in steps]}")
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # the f32 step, card vs CPU, on one set of weights (drawn on the card)
+    cfg32 = registry.get(VLM_ARCH).replace(n_layers=VLM_F32_LAYERS,
+                                           dtype=F32)
+    opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    card = TR.make_state(cfg32, opt32,
+                         torch.Generator(dev).manual_seed(SEED), dev)
+    params = f32_copy(card["params"], "cpu")
+    cpu = {"params": params, "opt": O.init_opt(opt32, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    inp = vlm_inputs(cpu["params"], cfg32, VLM_F32_TRAIN_LAYOUT,
+                     F32_TRAIN_B, torch.Generator().manual_seed(SEED + 24),
+                     torch.device("cpu"))
+    f32 = f32_step_vs_cpu(f"train/{VLM_ARCH}/f32", cfg32, opt32, cpu, card,
+                          {k: inp[k] for k in ("embeds", "positions",
+                                               "labels")})
+    del card, cpu
+    S = TRAIN_S
+    res = dict(arch=VLM_ARCH, layers=cfg.n_layers,
+               cuts={"layers": [registry.get(VLM_ARCH).n_layers,
+                                cfg.n_layers],
+                     "batch": [256, TRAIN_B]},
+               batch=TRAIN_B, seq=S, layout=VLM_TRAIN_LAYOUT,
+               microbatches=micro, positions_split=split_shape,
+               optimizer=opt.kind, lr=opt.lr,
+               steps=steps, seconds_per_step=sec,
+               tokens_per_s=TRAIN_B * S / sec, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident,
+               launches_per_step=want, launches=counts, f32=f32,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{VLM_ARCH}", **res)
+    return res
+
+
 def time_bwd_kernel(dev, info: dict) -> dict:
     """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
@@ -3784,7 +4186,16 @@ def main() -> int:
     log(torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0))
 
+    last = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        """Log the wall seconds since the previous mark."""
+        now = time.perf_counter()
+        log(phase_seconds=name, seconds=now - last[0])
+        last[0] = now
+
     build_kernels()
+    mark("build")
     errors = kernel_phase(dev)
 
     t0 = time.perf_counter()
@@ -3810,6 +4221,7 @@ def main() -> int:
     engine = time_engine(tiles_dev, dev)
     profile_ticks(tiles_dev, dev)
     del tiles_dev
+    mark("engine")
     # the closed pipeline: its drive resets the counts first
     pipe = pipeline_phase(dev, engine["ticks_per_s"])
     # adaptive batching and its subtick mode: each drive resets the
@@ -3825,6 +4237,7 @@ def main() -> int:
                       adaptive, pipe)
     del tiles_np
     torch.cuda.empty_cache()
+    mark("pipeline, adaptive, mesh")
 
     # the model-serving path: each model's drive resets the counts first
     model_errors = model_kernel_phase(dev)
@@ -3834,6 +4247,7 @@ def main() -> int:
     serve_cpu_phase(dev)
     serve_cli(dev)
     model_timing = time_model_kernels(dev)
+    mark("serve")
 
     # the training path: the train cell's drive resets the counts first
     bwd_check = bwd_kernel_phase(dev)
@@ -3846,7 +4260,14 @@ def main() -> int:
     # the counts first
     smr = smr_phase(dev)
     train_refusal_phase(dev)
+    mark("train")
+    # the vision-language family: each drive resets the counts first
+    vlm_serve = vlm_serve_phase(dev)
+    mark(f"serve/{VLM_ARCH}")
+    vlm_train = vlm_train_phase(dev)
+    mark(f"train/{VLM_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
+    mark("timing/flash_bwd")
 
     cells = f"gloo{MESH_GLOO_WORLDS[0]}"    # the mesh's adaptive, pipeline
     by_name = {}
@@ -3912,6 +4333,10 @@ def main() -> int:
                 for r in single]
         kernels.append(entry)
     csrc = "src/repro_torch/kernels/csrc/"
+    vlm_path = (f"serve/{VLM_ARCH} prefill (full depth, {SERVE_B} x "
+                f"{vlm_serve['prefill']} positions); train/{VLM_ARCH} "
+                f"({vlm_train['layers']} layers, {VLM_TRAIN_STEPS} steps of "
+                f"{TRAIN_B} x {TRAIN_S} positions)")
     smr_path = (f"train/smr ({smr['arch']}, {smr['layers']} layers, "
                 f"{smr['steps_applied']} steps in the service's pods)")
     for name, src, replaces in (
@@ -3948,6 +4373,17 @@ def main() -> int:
             f32_launches = serves_f32["yi-6b"]["launches"]
             check(f32_launches > 0, "flash_attention_f32 was not launched "
                   "on the f32 serving path")
+            vlm_fwd = {f"serve/{VLM_ARCH} prefill":
+                       vlm_serve["launches"][name],
+                       f"train/{VLM_ARCH}": vlm_train["launches"][name]}
+            vlm_f32 = {f"serve/{VLM_ARCH}/f32 prefill":
+                       vlm_serve["f32"]["launches"],
+                       f"train/{VLM_ARCH}/f32":
+                       vlm_train["f32"]["launches"]["flash_attention_f32"]}
+            check(all(v > 0 for v in (*vlm_fwd.values(),
+                                      *vlm_f32.values())),
+                  f"flash was not launched on every {VLM_ARCH} path: "
+                  f"{vlm_fwd}, {vlm_f32}")
             entry.update(
                 train_launches=train["launches"][name],
                 train_path=f"train/{train['arch']} ({TRAIN_STEPS} steps)",
@@ -3955,10 +4391,13 @@ def main() -> int:
                 ["flash_fwd_us_per_call"] / 1e3,
                 smr_launches=smr["launches"][name],
                 smr_path=smr_path,
+                vlm_launches=vlm_fwd,
+                vlm_path=vlm_path,
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
                          path="serve/f32 yi-6b prefill",
+                         vlm_launches=vlm_f32,
                          max_abs_err=model_errors["flash_attention_f32"],
                          **{k: f32[k] for k in (
                              "ms", "plain_ms", "bound_ms",
@@ -3970,7 +4409,9 @@ def main() -> int:
     row, f32_row = bwd_timing["train"], bwd_timing["serve_f32"]
     launches = train["launches"]["flash_attention_bwd"]
     f32_launches = train_f32["launches"]["flash_attention_bwd_f32"]
-    check(launches > 0 and f32_launches > 0, "a flash backward kernel was "
+    check(launches > 0 and f32_launches > 0
+          and vlm_train["launches"]["flash_attention_bwd"] > 0,
+          "a flash backward kernel was "
           f"not launched on its train path: bf16 {launches}, f32 "
           f"{f32_launches}")
     bwd_src, bwd_f32_src = (csrc + "flash_attention_bwd_bf16.cu",
@@ -3985,6 +4426,9 @@ def main() -> int:
                                 f"steps)",
         smr_launches=smr["launches"]["flash_attention_bwd"],
         smr_path=smr_path,
+        vlm_launches={f"train/{VLM_ARCH}":
+                      vlm_train["launches"]["flash_attention_bwd"]},
+        vlm_path=vlm_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -4003,6 +4447,8 @@ def main() -> int:
         launches_by_source={bwd_src: launches, bwd_f32_src: f32_launches},
         f32=dict(source=bwd_f32_src, launches=f32_launches,
                  path=f"train/f32 (one step, {F32_TRAIN_LAYERS} layers)",
+                 vlm_launches={f"train/{VLM_ARCH}/f32": vlm_train["f32"]
+                               ["launches"]["flash_attention_bwd_f32"]},
                  max_abs_err=bwd_check["max_abs_err"]
                  ["flash_attention_bwd_f32"],
                  max_err_over_scale=bwd_check["worst_err_over_scale"]
@@ -4055,7 +4501,14 @@ def main() -> int:
               for tag, ranks in mesh.items()})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
-        for s in serves.values()}, profile_retries=PROFILE_RETRIES,
+        for s in (*serves.values(), vlm_serve)},
+        vlm={f"serve/{VLM_ARCH}": {k: vlm_serve[k] for k in (
+            "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+            "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
+            f"train/{VLM_ARCH}": {k: vlm_train[k] for k in (
+                "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+                "seconds")}},
+        profile_retries=PROFILE_RETRIES,
         seconds=time.perf_counter() - START)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,16 +3,18 @@
 the gradient-accumulation default of a shape cell.
 
 The port has the dense GQA architectures ``yi-6b``, ``yi-34b``,
-``internlm2-1.8b`` and ``qwen3-14b`` (qk-norm) and the RWKV6 ``rwkv6-3b``,
-for serving and training. Every other architecture of the reference
-registry raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+``internlm2-1.8b`` and ``qwen3-14b`` (qk-norm), the vision-language
+``qwen2-vl-7b`` (a dense GQA backbone with M-RoPE over stub embeddings)
+and the RWKV6 ``rwkv6-3b``, for serving and training. Every other
+architecture of the reference registry raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "rwkv6-3b"]
+ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "qwen2-vl-7b",
+         "rwkv6-3b"]
 
 # the reference's other architectures → the ROADMAP.md item that ports them
 NOT_PORTED = {
@@ -20,7 +22,6 @@ NOT_PORTED = {
     "llama4-maverick-400b-a17b": "queue 1 item 12 (MoE)",
     "hymba-1.5b": "queue 1 item 12 (hybrid with Mamba, ring-buffer cache)",
     "whisper-small": "queue 1 item 12 (encoder-decoder)",
-    "qwen2-vl-7b": "queue 1 item 12 (M-RoPE)",
 }
 
 

@@ -10,7 +10,9 @@ on the card the step runs with deterministic algorithms
 (``train.trainer``). The reference places the state on a host mesh
 (``make_host_mesh``, ``tree_shardings``); the port has no counterpart on
 one card, and sharding the train state is ROADMAP.md queue 1 item 14.
-The token batches come from a ``torch.Generator`` (seed 1), not the
+The token batches (and, for the vision-language family, the stub
+frontend's embeddings, 3-D positions and labels, as the reference's
+launcher makes them) come from a ``torch.Generator`` (seed 1), not the
 reference's ``jax.random`` key.
 """
 from __future__ import annotations
@@ -72,7 +74,16 @@ def main(argv=None) -> None:
     for i in range(start, args.steps):
         batch = {"tokens": torch.randint(0, cfg.vocab,
                                          (args.batch, args.seq),
-                                         generator=gen).to(dev)}
+                                         generator=gen)}
+        if cfg.family == "vlm":     # the stub frontend's embeddings
+            batch["embeds"] = torch.randn(
+                (args.batch, args.seq, cfg.d_model),
+                generator=gen).to(cfg.dtype)
+            batch["positions"] = torch.arange(
+                args.seq, dtype=torch.int32)[None, None].expand(
+                    3, args.batch, args.seq)
+            batch["labels"] = batch["tokens"]
+        batch = {k: v.to(dev) for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         if (i + 1) % 10 == 0 or i == start:
             dt = time.time() - t0

@@ -96,23 +96,36 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
 
 def _check_device(params, t: torch.Tensor) -> None:
     if t.device != params["embed"]["tok"].device:
-        raise ValueError(f"tokens on {t.device}, parameters on "
+        raise ValueError(f"inputs on {t.device}, parameters on "
                          f"{params['embed']['tok'].device}")
+
+
+def _inputs(params, cfg: ModelConfig, batch: dict, key: str) -> torch.Tensor:
+    """The first layer's input [B,S,D]: the stub frontend's ``embeds``
+    (in ``cfg.dtype``) when the batch has them, else the embedding of
+    ``batch[key]`` (token ids)."""
+    ref = batch["embeds"] if "embeds" in batch else batch[key]
+    _check_device(params, ref)
+    if "embeds" in batch:
+        return ref.to(cfg.dtype)
+    return L.embed_apply(params["embed"], ref)
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
-    """batch: {"token": [B,1] int, "index": int position of the token}.
-    Returns (logits [B,V], cache) with the cache updated in place."""
+    """batch: {"token": [B,1] int (or "embeds": [B,1,D]), "index": int
+    cache slot of the token, optional "positions": [B,1], or [3,B,1] for
+    M-RoPE}. The cache slot and the causal mask follow ``index``; the
+    rotation follows ``positions`` (default: ``index``), which after an
+    image differ. Returns (logits [B,V], cache) with the cache updated in
+    place."""
     index = int(batch["index"])
-    tokens = batch["token"]
-    _check_device(params, tokens)
-    x = L.embed_apply(params["embed"], tokens)
-    B = tokens.shape[0]
+    x = _inputs(params, cfg, batch, "token")
+    B = x.shape[0]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32,
-                               device=tokens.device)
+                               device=x.device)
     for i, seg in enumerate(plan_segments(cfg)):
         c = cache[f"seg{i}"]
         layers = params["segments"][f"seg{i}"]
@@ -136,31 +149,41 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
 # prefill
 # ---------------------------------------------------------------------------
 
+def _batch_rows(batch: dict, rows: slice) -> dict:
+    """The batch's rows ``rows``: axis 1 of M-RoPE positions [3,B,S],
+    axis 0 of every other value."""
+    return {k: v[:, rows] if k == "positions" and v.dim() == 3 else v[rows]
+            for k, v in batch.items()}
+
+
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
-    """batch: {"tokens": [B,S] int (, "positions": [B,S])}. Returns
+    """batch: {"tokens": [B,S] int, or the stub frontend's "embeds":
+    [B,S,D]; optional "positions": [B,S], or [3,B,S] for M-RoPE}. Returns
     (last-token logits [B,V], None): the reference's prefill runs the
     full-sequence forward and fills no cache, and so does this one.
 
     ``batch_chunks`` > 1 runs the batch in that many chunks, one after
     the other (exact: every row is independent); 0 → 8 chunks for
-    B >= 16, 4 for B >= 8, else 1, as in the reference."""
-    tokens = batch["tokens"]
-    _check_device(params, tokens)
-    B, Sq = tokens.shape
+    B >= 16, 4 for B >= 8, else 1, as in the reference. A chunk takes its
+    rows of M-RoPE positions on their batch axis (1); the reference's
+    chunking swaps the position streams and the rows where a chunk holds
+    3 rows (ROADMAP.md queue 3)."""
+    B, Sq = (batch["embeds"] if "embeds" in batch
+             else batch["tokens"]).shape[:2]
     if batch_chunks == 0:
         batch_chunks = 8 if B >= 16 else (4 if B >= 8 else 1)
     if batch_chunks > 1 and B % batch_chunks == 0:
         n = B // batch_chunks
         return torch.cat([
-            prefill(params, cfg, {k: v[c * n:(c + 1) * n]
-                                  for k, v in batch.items()},
+            prefill(params, cfg, _batch_rows(batch, slice(c * n,
+                                                           (c + 1) * n)),
                     batch_chunks=1)[0]
             for c in range(batch_chunks)]), None
-    x = L.embed_apply(params["embed"], tokens)
+    x = _inputs(params, cfg, batch, "tokens")
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     hidden = backbone_forward(params, cfg, x, positions)
     logits = L.logits_apply(params["embed"], hidden[:, -1:],
                             cfg.tie_embeddings)

@@ -1,7 +1,7 @@
 """Transformer building blocks of the serving path: RMSNorm, RoPE, GQA
 attention with its decode cache, the SwiGLU MLP, embeddings and the head.
 Counterpart of ``repro.models.layers`` (only what the ported families
-call; MLA and MoE are not ported yet).
+call, M-RoPE included; MLA and MoE are not ported yet).
 
 All shapes use: B batch, S sequence, D d_model, H heads, K kv heads,
 h head_dim, F ffn dim, V vocab.
@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..kernels import ops
 from .common import ModelConfig, ParamFactory
 
@@ -44,7 +45,7 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard; M-RoPE is not ported)
+# RoPE (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float,
@@ -55,20 +56,62 @@ def rope_freqs(head_dim: int, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                sections: tuple = ()) -> torch.Tensor:
-    """x [B, S, N, h]; positions [B, S]. Rotates the two halves of the
-    head dim by position × frequency, in f32, and returns x.dtype."""
-    if positions.dim() == 3 or sections:
-        raise NotImplementedError(
-            "M-RoPE (3-D positions) is not ported: ROADMAP.md queue 1 "
-            "item 12")
+    """x [B, S, N, h]; positions [B, S], or [3, B, S] for M-RoPE.
+    Rotates the two halves of the head dim by position × frequency, in
+    f32, and returns x.dtype.
+
+    M-RoPE (qwen2-vl): the h/2 frequencies are split into (t, h, w)
+    ``sections``, each rotated by its own position stream. As in the
+    reference, only the positions' rank chooses: 2-D positions take the
+    standard rotation whatever ``sections`` is (text-only serving)."""
     h = x.shape[-1]
     freqs = rope_freqs(h, theta, x.device)                    # [h/2]
-    ang = positions.float()[..., None] * freqs                # [B,S,h/2]
+    if positions.dim() == 3:
+        if sum(sections) != h // 2:
+            raise ValueError(f"M-RoPE sections {sections} must sum to "
+                             f"h/2 = {h // 2}")
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(sections), device=x.device),
+            torch.tensor(sections, device=x.device))           # [h/2]
+        pos = positions.float()[sec_id]                       # [h/2,B,S]
+        ang = pos.permute(1, 2, 0) * freqs                    # [B,S,h/2]
+    else:
+        ang = positions.float()[..., None] * freqs            # [B,S,h/2]
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_positions(layout, batch: int, device=None):
+    """M-RoPE position ids of the Qwen2-VL layout (arXiv:2409.12191,
+    §2.1) for a sequence of segments: ``("text", n)`` or ``("image",
+    rows, cols)``, the patches row-major. A text token has one id in all
+    three streams; an image's patches share the temporal id ``s`` and take
+    ``s + row`` and ``s + col``; each segment starts at the largest id
+    before it plus 1 (0 for the first). Returns (int32 [3, batch, S] on
+    ``device``, default the CUDA card, and the id of the next text
+    token). The reference builds no such ids (its data feeds one stream
+    three times)."""
+    streams, nxt = [], 0
+    for seg in layout:
+        if seg[0] == "text":
+            ids = torch.arange(nxt, nxt + seg[1])
+            streams.append(torch.stack([ids, ids, ids]))
+            nxt += seg[1]
+        elif seg[0] == "image":
+            rows, cols = seg[1], seg[2]
+            r = torch.arange(rows).repeat_interleave(cols)
+            c = torch.arange(cols).repeat(rows)
+            streams.append(torch.stack([torch.full_like(r, nxt), nxt + r,
+                                        nxt + c]))
+            nxt += max(rows, cols)
+        else:
+            raise ValueError(f"unknown layout segment {seg!r}")
+    pos = torch.cat(streams, dim=1).to(torch.int32)           # [3, S]
+    return (pos[:, None].expand(3, batch, pos.shape[1]).contiguous()
+            .to(resolve_device(device)), nxt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""LM assembly for the ported families: dense GQA stacks (yi-6b) and the
-attention-free RWKV6 stack (rwkv6-3b). Counterpart of
-``repro.models.transformer`` for those families.
+"""LM assembly for the ported families: dense GQA stacks (yi-6b; and
+qwen2-vl-7b, whose vision-language backbone is the dense block with
+M-RoPE over stub embeddings) and the attention-free RWKV6 stack
+(rwkv6-3b). Counterpart of ``repro.models.transformer`` for those
+families.
 
 The reference stacks each homogeneous segment's parameters along a
 leading layer axis and runs it under ``lax.scan``; the port keeps one
@@ -9,14 +11,14 @@ the layers in Python. MLA, MoE, the hybrid (hymba) and encoder-decoder
 (whisper) families are not ported yet (ROADMAP.md queue 1 item 12).
 
 Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
-the reference's for the dense and RWKV6 families. The reference saves
-nothing inside a layer (``REMAT_POLICY = nothing_saveable`` on each
-scanned block); the port runs each block under non-reentrant
-``torch.utils.checkpoint`` whenever grad is enabled, so the backward
-recomputes the block's forward (flash kernel included) from the block's
-input, and the loss runs each 512-token chunk of the head and
-log-softmax under its own checkpoint, never holding the [B,S,V] f32
-logits.
+the reference's for the dense, vision-language and RWKV6 families. The
+reference saves nothing inside a layer (``REMAT_POLICY =
+nothing_saveable`` on each scanned block); the port runs each block
+under non-reentrant ``torch.utils.checkpoint`` whenever grad is enabled,
+so the backward recomputes the block's forward (flash kernel included)
+from the block's input, and the loss runs each 512-token chunk of the
+head and log-softmax under its own checkpoint, never holding the
+[B,S,V] f32 logits.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from .common import ModelConfig, ParamFactory, ParamTree
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.attn_kind != "gqa" or cfg.family != "dense" or cfg.n_experts:
+    if cfg.attn_kind != "gqa" or cfg.family not in ("dense", "vlm") \
+            or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA blocks are ported (attn_kind "
             f"{cfg.attn_kind!r}, family {cfg.family!r}); ROADMAP.md queue 1 "
@@ -43,7 +46,8 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def init_block(pf: ParamFactory, cfg: ModelConfig) -> dict:
-    """Dense GQA block: pre-norm attention and SwiGLU MLP."""
+    """Dense GQA block: pre-norm attention and SwiGLU MLP (also the
+    vision-language backbone's)."""
     _check_dense(cfg)
     return {"ln1": L.init_rmsnorm(pf, cfg.d_model),
             "ln2": L.init_rmsnorm(pf, cfg.d_model),
@@ -179,9 +183,10 @@ def remat(fn, *args):
 
 def backbone_forward(params, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
-    """x [B,S,D] (after the embedding) → final-normed hidden [B,S,D]. The
-    reference also returns the summed MoE auxiliary loss (0 here). With
-    grad enabled each block runs under :func:`remat`."""
+    """x [B,S,D] (after the embedding; positions [B,S], or [3,B,S] for
+    M-RoPE) → final-normed hidden [B,S,D]. The reference also returns the
+    summed MoE auxiliary loss (0 here). With grad enabled each block runs
+    under :func:`remat`."""
     for i, seg in enumerate(plan_segments(cfg)):
         for lp in params["segments"][f"seg{i}"]:
             if seg["kind"] == "rwkv":
@@ -251,25 +256,28 @@ def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token loss of the dense and RWKV6 families. batch: tokens
-    [B,S] (optional positions [B,S], labels, loss_weights). Returns (loss,
-    metrics) with metrics ``ce`` and ``aux`` (the MoE auxiliary loss,
-    always 0 here). The vision-language, hybrid, encoder-decoder and MTP
-    branches of the reference raise."""
-    if cfg.is_encoder_decoder or cfg.family in ("vlm", "hybrid") \
-            or cfg.mtp or "embeds" in batch:
+    """Next-token loss of the dense, vision-language and RWKV6 families.
+    batch: tokens [B,S], or the stub frontend's embeds [B,S,D] (then
+    labels [B,S]); optional positions ([B,S], or [3,B,S] for M-RoPE),
+    labels, loss_weights. Returns (loss, metrics) with metrics ``ce`` and
+    ``aux`` (the MoE auxiliary loss, always 0 here). The hybrid,
+    encoder-decoder and MTP branches of the reference raise."""
+    if cfg.is_encoder_decoder or cfg.family == "hybrid" or cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: lm_loss of the {cfg.family} family (encoder-"
-            f"decoder, vision stub, hybrid or MTP) is not ported: "
-            f"ROADMAP.md queue 1 item 12")
-    tokens = batch["tokens"]
-    B, Sq = tokens.shape
-    x = L.embed_apply(params["embed"], tokens)
+            f"decoder, hybrid or MTP) is not ported: ROADMAP.md queue 1 "
+            f"item 12")
+    if "embeds" in batch:                         # vlm stub frontend
+        x = batch["embeds"].to(cfg.dtype)
+        B, Sq = x.shape[:2]
+    else:
+        x = L.embed_apply(params["embed"], batch["tokens"])
+        B, Sq = batch["tokens"].shape
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     hidden = backbone_forward(params, cfg, x, positions)
-    targets = batch.get("labels", tokens)
+    targets = batch["labels"] if "labels" in batch else batch["tokens"]
     loss = ce_loss_seqchunk(params["embed"], hidden, targets,
                             cfg.tie_embeddings,
                             weights=batch.get("loss_weights"), shift=1)

@@ -30,25 +30,36 @@ from ..device import resolve_device
 
 @dataclass
 class ShardedBatchSource:
-    """Deterministic token batches: content = f(seed, index), on
-    ``device`` (default the CUDA card; raises without one). The
-    reference's stub-frontend fields (``d_model``, ``family``,
-    ``encoder_len``: vision embeddings, encoder frames) wait for those
-    families (ROADMAP.md queue 1 item 12)."""
+    """Deterministic batches: content = f(seed, index), on ``device``
+    (default the CUDA card; raises without one). For the
+    vision-language family (``family="vlm"``, with ``d_model``) the stub
+    frontend's fields come too, as in the reference: ``embeds`` [B,S,D]
+    standard normal (f32), ``positions`` [3,B,S] int32 (the token index
+    in all three streams) and ``labels`` (the tokens). The reference's
+    ``encoder_len`` (encoder frames) waits for the encoder-decoder family
+    (ROADMAP.md queue 1 item 12)."""
     vocab: int
     global_batch: int
     seq_len: int
     seed: int = 0
     device: Optional[str] = None
+    d_model: int = 0          # for the stub-frontend family (vlm)
+    family: str = "dense"
 
     def batch(self, index: int) -> dict:
         seed = int(np.random.SeedSequence([self.seed, index])
                    .generate_state(1, np.uint64)[0])
         gen = torch.Generator().manual_seed(seed)
-        tokens = torch.randint(0, self.vocab,
-                               (self.global_batch, self.seq_len),
-                               generator=gen)
-        return {"tokens": tokens.to(resolve_device(self.device))}
+        B, S = self.global_batch, self.seq_len
+        out = {"tokens": torch.randint(0, self.vocab, (B, S),
+                                       generator=gen)}
+        if self.family == "vlm":
+            out["embeds"] = torch.randn((B, S, self.d_model), generator=gen)
+            out["positions"] = torch.arange(S, dtype=torch.int32)[
+                None, None].expand(3, B, S).contiguous()
+            out["labels"] = out["tokens"]
+        dev = resolve_device(self.device)
+        return {k: v.to(dev) for k, v in out.items()}
 
 
 class OrderedDataFeed:

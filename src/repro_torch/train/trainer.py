@@ -59,7 +59,9 @@ def make_state(cfg: ModelConfig, opt_cfg: OptConfig,
 def _split_microbatch(x: torch.Tensor, m: int, global_batch: int):
     """Split the first axis of size ``global_batch`` into [m, gb/m, ...]
     (the microbatch axis first, the rest in their order); a tensor with no
-    such axis is repeated over the m microbatches."""
+    such axis is repeated over the m microbatches. The reference's rule:
+    M-RoPE positions [3, B, S] split on axis 1 (where B != 3), embeddings
+    [B, S, D] on axis 0."""
     for ax in range(x.dim()):
         if x.shape[ax] == global_batch:
             moved = torch.movedim(x, ax, 0)
@@ -170,7 +172,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
                     grad_dtype=torch.float32):
     """The train step of ``cfg`` with ``opt_cfg``: ``train_step(state,
     batch) -> (state, {"loss", "grad_norm"})``, both f32 scalars on the
-    state's device; ``batch["tokens"]`` is [global_batch, S]."""
+    state's device; ``batch["tokens"]`` is [global_batch, S], or for the
+    vision-language family ``batch`` holds ``embeds`` [global_batch, S,
+    D], ``positions`` [3, global_batch, S] and ``labels``."""
     grads_of = make_grad_fn(cfg, microbatches=microbatches,
                             global_batch=global_batch, grad_dtype=grad_dtype)
 

@@ -311,7 +311,10 @@ FLASH_CASES = [
     (2, 128, 128, 4, 2, 32, 32, False, -1),         # non-causal
     (2, 200, 200, 4, 2, 64, 64, False, 50),         # non-causal window
     (1, 256, 256, 16, 2, 128, 128, True, -1),       # G = 8
-    (2, 1024, 1024, 40, 8, 128, 128, True, -1)]     # qwen3-14b, G = 5
+    (2, 1024, 1024, 40, 8, 128, 128, True, -1),     # qwen3-14b, G = 5
+    (4, 1024, 1024, 28, 4, 128, 128, True, -1),     # qwen2-vl-7b, G = 7
+    (1, 4096, 4096, 28, 4, 128, 128, True, -1),     # its train microbatch
+    (4, 192, 192, 28, 4, 128, 128, True, -1)]       # its f32 check
 # f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
 # of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
 # a long non-causal case
@@ -630,7 +633,8 @@ def test_pipeline_subtick_on_card_matches_cpu(cuda):
 
 
 # (B, Sq, Skv, H, K, h, hv, causal, window): causal and not, windows,
-# Sq != Skv, G = 1, 5 and 8, h 16 / 64 / 128, hv != h, lengths off the tiles
+# Sq != Skv, G = 1, 5, 7 and 8, h 16 / 64 / 128, hv != h, lengths off the
+# tiles
 BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 128, 128, 4, 2, 32, 32, False, -1),
              (2, 128, 128, 4, 2, 32, 32, False, 40),
@@ -640,7 +644,10 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 256, 256, 16, 2, 128, 128, True, -1),
              (2, 200, 300, 4, 2, 50, 36, True, -1),
              (1, 1000, 1000, 8, 2, 128, 128, True, -1),
-             (2, 1024, 1024, 40, 8, 128, 128, True, -1)]   # qwen3-14b
+             (2, 1024, 1024, 40, 8, 128, 128, True, -1),   # qwen3-14b
+             (4, 1024, 1024, 28, 4, 128, 128, True, -1),   # qwen2-vl-7b
+             (1, 4096, 4096, 28, 4, 128, 128, True, -1),   # its microbatch
+             (1, 256, 256, 28, 4, 128, 128, True, -1)]     # its f32 step
 
 
 def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):

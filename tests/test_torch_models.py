@@ -190,8 +190,12 @@ def test_rmsnorm_and_rope(models):
     got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos.copy()), 5e6)
     want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 5e6)
     assert _err(got, want) < LAYER_TOL
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        L.apply_rope(torch.from_numpy(x), torch.zeros(3, 2, 16), 1e6)
+    # M-RoPE: three position streams that differ, sections (4, 6, 6)
+    pos3 = np.random.default_rng(2).integers(0, 64, (3, 2, 16))
+    got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos3), 1e6,
+                       (4, 6, 6))
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos3), 1e6, (4, 6, 6))
+    assert _err(got, want) < LAYER_TOL
 
 
 @pytest.mark.parametrize("Sq", [64, 1024])

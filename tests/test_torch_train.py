@@ -41,7 +41,7 @@ LOSS_TOL = 2e-5
 GRAD_TOL = 1e-5
 OPT_TOL = 2e-6
 LR = 1e-3
-NEW_ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b"]
+NEW_ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "qwen2-vl-7b"]
 
 
 def _cfgs(arch):
