@@ -118,15 +118,16 @@ Phases, each of which must pass or the script exits non-zero:
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
 9. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
-   width and depth in bf16 (weights from the port's initialiser, seed 0),
-   B=4, a 1024-token seeded prompt: ``prefill`` (32 kernel launches:
+   width, 16 of its 32 layers, in bf16 (weights from the port's
+   initialiser, seed 0), B=4, a 1024-token seeded prompt: ``prefill`` (16
+   kernel launches:
    for yi-6b, of the bf16 flash kernel and none of the f32 one; for
    rwkv6-3b, of WKV6, each one call that runs three CUDA kernels),
    teacher-forced ``decode_step`` over the prompt (no kernel launch),
    then 32 greedy ``decode_step``s; all logits finite. Both bf16 paths
    against the f32 forward of the same weights (neither more than 2x
-   further from it than the other), and in f32 at full depth prefill vs
-   teacher-forced decode over 160 tokens within 1e-3 with equal greedy
+   further from it than the other), and in f32 at the same depth prefill
+   vs teacher-forced decode over 160 tokens within 1e-3 with equal greedy
    tokens (the f32 forward traced: its kernel's launches and device time
    per call). Prefill and decode tokens/s, each kernel's device time in
    the prefill, peak memory;
@@ -182,6 +183,24 @@ Phases, each of which must pass or the script exits non-zero:
    same schedule's through the DES on the CPU with a stub train step;
    ``train/rwkv6-3b-refused``: RWKV6 training on the card raises
    ``NotImplementedError`` (no WKV6 backward kernel yet);
+   ``serve/qwen2-vl-7b`` and ``train/qwen2-vl-7b``: the vision-language
+   family (M-RoPE over stub embeddings; ``vlm_serve_phase``,
+   ``vlm_train_phase``);
+   ``serve/llama4-maverick-400b-a17b``: the MoE family at full width with
+   all 128 experts and one dense/MoE pair (the depth cut 48 -> 2), bf16,
+   B=4 x 1024 prompt tokens: prefill (2 bf16 flash launches; the MoE
+   layer's capacity 40, drops, largest expert load, aux), then
+   ``launch.serve.generate`` (the prompt teacher-forced, 32 greedy steps;
+   no model kernel, nothing dropped at C = 8); in f32 at one pair with 8
+   experts, 1 x 256 tokens: the forward against the teacher-forced decode
+   at the positions the forward kept, and the card against the CPU port
+   under the flip-aware routing rule; ``train/llama4-maverick-400b-a17b``:
+   one pair, 16 experts, bf16, Adafactor, 2 x 4096 tokens in 2
+   microbatches (C = 320): 1 warm-up and 3 timed steps, each loss below
+   the one before, aux > 0, 8 forward and 4 backward bf16 flash launches
+   a step, every MoE dispatch in deterministic mode, the router's
+   gradient nonzero; the f32 step (one pair, 8 experts, 1 x 128) against
+   the CPU under the flip-aware rule;
 16. backward timing at the train cell's shape and the serving shape in
    bf16 (the tensor-core kernel) and at the serving shape in f32 (the
    CUDA-core kernel): kernel, its device time per pass, plain version,
@@ -2207,6 +2226,10 @@ WKV_PHASES = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
 EVENTS_PER_CALL = {"flash_attention": 1, "flash_attention_f32": 1,
                    "wkv6_chunked": len(WKV_PHASES)}
 SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
+# serve/yi-6b and serve/rwkv6-3b: full width, the depth cut 32 -> 16 for
+# the script's time limit (their teacher-forced decode over the prompt is
+# host-bound: 81 and 62 s at 32 layers on an H100 80GB HBM3 at 700 W)
+SERVE_LAYERS = 16
 F32_LAYERS = 2
 CPU_B, CPU_P, CPU_STEPS = 2, 256, 8
 # kernel vs plain version on the same inputs. Flash: the tolerances of
@@ -2224,7 +2247,7 @@ WKV_TOL = 1e-5              # × (max |plain| + 1)
 # bf16 paths can be held to each other tighter than that noise. Each bf16
 # path is held against the f32 forward instead: neither may be more than
 # BF16_PATH_RATIO times further from it than the other (one bf16
-# arithmetic, no path worse). The exact check is in f32 at full depth:
+# arithmetic, no path worse). The exact check is in f32 at SERVE_LAYERS:
 # prefill and teacher-forced decode over an F32_P-token prompt within
 # F32_LOGIT_TOL, greedy tokens equal. f32 and CPU-vs-card: f32 rounding.
 BF16_PATH_RATIO = 2.0
@@ -2261,6 +2284,9 @@ FLASH_CASES = [
     (2, 77, 77, 4, 2, 64, 64, True, 30, BF16),          # ragged window
     (2, 256, 256, 16, 2, 128, 128, True, -1, BF16),     # G = 8
     (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
+    (4, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # llama4 prefill, G=5
+    (1, 4096, 4096, 40, 8, 128, 128, True, -1, BF16),   # its microbatch
+    (1, 256, 256, 40, 8, 128, 128, True, -1, F32),      # its f32 checks
     (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
     (4, 192, 192, 28, 4, 128, 128, True, -1, F32),      # its f32 check
@@ -2439,12 +2465,13 @@ def wkv_workspace(cfg, kernel: str) -> dict:
 
 
 def serve_phase(arch: str, kernel: str, dev) -> dict:
-    """The serving path at full width and depth in bf16: prefill,
-    teacher-forced decode, greedy decode, checks and timing."""
+    """The serving path at full width and SERVE_LAYERS layers in bf16:
+    prefill, teacher-forced decode, greedy decode, checks and timing."""
     from repro_torch.configs import registry
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
-    cfg = registry.get(arch)
+    full = registry.get(arch)
+    cfg = full.replace(n_layers=SERVE_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2499,7 +2526,7 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
 
     # the f32 forward of the same weights (after the counted run), traced:
     # its kernel's launches and device time per call; and the f32 prefill
-    # vs teacher-forced decode at full depth
+    # vs teacher-forced decode at the same depth
     lm32 = f32_copy(lm)
     kernel32 = next(k32 for a, _, k32 in SERVE_ARCHS if a == arch)
     forwards, before = [], model_counts()[kernel32]
@@ -2529,7 +2556,8 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
     f32_err = float((f32_prefill - f32_decode).abs().max())
     check(f32_err <= F32_LOGIT_TOL and torch.equal(
         f32_prefill.argmax(-1), f32_decode.argmax(-1)),
-        f"{arch}: f32 full depth, prefill vs teacher-forced decode over "
+        f"{arch}: f32 at {cfg.n_layers} layers, prefill vs teacher-forced "
+        f"decode over "
         f"{F32_P} tokens: max abs err {f32_err}, greedy "
         f"{f32_prefill.argmax(-1).tolist()} vs "
         f"{f32_decode.argmax(-1).tolist()}")
@@ -2579,7 +2607,9 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
         lm, cfg, {"token": tok, "index": SERVE_P + SERVE_NEW}, cache), steps,
         want=1)
     decode_wall_us = (time.perf_counter() - t0) * 1e6 / steps
-    res = dict(arch=arch, params=n_params, batch=SERVE_B, prompt=SERVE_P,
+    res = dict(arch=arch, params=n_params, layers=cfg.n_layers,
+               cuts={"layers": [full.n_layers, cfg.n_layers]},
+               batch=SERVE_B, prompt=SERVE_P,
                new_tokens=SERVE_NEW, init_seconds=init_s,
                prefill_first_seconds=prefill_first_s,
                launches={kernel: after_prefill[kernel]},
@@ -2864,6 +2894,8 @@ BWD_CASES = [
     (3, 1000, 1000, 8, 2, 128, 128, True, -1, BF16),    # ragged, long
     (2, 100, 130, 4, 2, 64, 48, True, 40, BF16),        # window, hv != h
     (2, 1024, 1024, 40, 8, 128, 128, True, -1, BF16),   # train/smr, G = 5
+    (1, 4096, 4096, 40, 8, 128, 128, True, -1, BF16),   # llama4 train, G=5
+    (1, 256, 256, 40, 8, 128, 128, True, -1, F32),      # its f32 step
     (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
     (1, 256, 256, 28, 4, 128, 128, True, -1, F32),      # its f32 step
@@ -3201,12 +3233,16 @@ def train_f32_phase(dev) -> dict:
 
 
 def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
-                    batch: dict) -> dict:
+                    batch: dict, flip_aware_of=None) -> dict:
     """One AdamW step of the f32 state ``cpu`` on the CPU and of its copy
     ``card`` on the card, on the same ``batch`` (on the CPU): loss,
     grad_norm, every gradient leaf and the parameters after the step
     (F32_STEP_TOL), and exactly 2 L forward and L backward f32 flash
-    launches on the card."""
+    launches on the card. With ``flip_aware_of``, an active
+    :class:`MoeRecorder`, the MoE dispatches of the two runs (the card's
+    first) are held to the flip-aware rule first; the step's checks then
+    hold only where no token flipped, so a flip fails them, and the log
+    says so."""
     from repro_torch.models.common import reference_leaves
     from repro_torch.train import optimizer as O
     from repro_torch.train import trainer as TR
@@ -3215,22 +3251,45 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
     B, S = batch["labels" if "labels" in batch else "tokens"].shape
     grads_of = TR.make_grad_fn(cfg, global_batch=B)
     out, seconds = {}, {}
+    split = {}
     for name, state in (("card", card), ("cpu", cpu)):
         d = state["step"].device
-        t0 = time.perf_counter()
+        marks = [time.perf_counter()]
+
+        def mark():
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
         before = model_counts()
         with TR.deterministic(d):
             grads, loss = grads_of(state["params"],
                                    {k: v.to(d) for k, v in batch.items()})
             norm = TR._global_norm(grads)
+            mark()
             O.apply_opt(opt, state["params"], grads, state["opt"],
                         state["step"])
+            mark()
         launched = {n: c - before[n] for n, c in model_counts().items()}
         out[name] = dict(loss=float(loss), grad_norm=float(norm),
                          grads=[[g.cpu() for g in leaf] for leaf in grads],
                          launched=launched)
-        seconds[name] = time.perf_counter() - t0
+        mark()
+        seconds[name] = marks[-1] - marks[0]
+        split[name] = dict(zip(("grads", "opt", "grads_to_host"),
+                               np.diff(marks).tolist()))
         del grads
+    routing = None
+    if flip_aware_of is not None:
+        routes = flip_aware_of.routes
+        half = len(routes) // 2
+        rows, flips, worst = flip_aware(routes[half:], routes[:half])
+        routing = dict(dispatches=half, flips=flips,
+                       largest_flipped_margin=worst,
+                       flip_margin=MOE_FLIP_MARGIN,
+                       keep_differs=sum(int((~r).sum()) for r in rows)
+                       - flips,
+                       dropped=[int((~r.keep).sum()) for r in routes[:half]],
+                       capacity=routes[0].capacity)
     card_launched = out["card"]["launched"]
     check(card_launched == {**dict.fromkeys(card_launched, 0),
                             "flash_attention_f32": 2 * cfg.n_layers,
@@ -3258,7 +3317,10 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
                grad_leaf_rel_err=grad_err, param_err=param_err,
                tolerance=dict(F32_STEP_TOL, params=2 * opt.lr + 1e-6),
-               launches=out["card"]["launched"], seconds=seconds)
+               launches=out["card"]["launched"], seconds=seconds,
+               split_seconds=split)
+    if routing is not None:
+        res["routing"] = routing
     log(phase=phase, **res)
     check(ok, f"{phase}: card vs CPU {res}")
     del cpu, card, out
@@ -4061,6 +4123,447 @@ def vlm_train_phase(dev) -> dict:
     return res
 
 
+# -- the MoE family: llama4-maverick-400b-a17b -------------------------------
+
+MOE_ARCH = "llama4-maverick-400b-a17b"
+# serve/llama4: full width with all 128 experts, the depth cut 48 -> 2 (one
+# dense/MoE pair): one MoE layer's routed experts are 3 x 128 x 5120 x 8192
+# bf16 = 32.2 GB, the pair with both embedding tables 37.4 GB
+MOE_SERVE_LAYERS = 2
+# the f32 checks (serving and the train step): one pair, the experts cut
+# 128 -> 8 (f32 weights on the card and a copy on the host), 1 x 256; the
+# train step's positions cut to 128 (its host half, AdamW over 14.3 GB of
+# f32 state, takes over a minute)
+MOE_F32_EXPERTS = 8
+MOE_F32_B, MOE_F32_S, MOE_F32_TRAIN_S = 1, 256, 128
+# card against CPU in f32: a token may take another expert on the two only
+# where its top-2 router probabilities are closer than this (f32 rounding
+# moves them by ~1e-7)
+MOE_FLIP_MARGIN = 1e-4
+# train/llama4: full width, one pair, the experts cut 128 -> 16 (bf16
+# weights, f32 accumulators, .grad and Adafactor's state fit one card);
+# train_4k's sequence with its batch cut 256 -> TRAIN_B, and its 16
+# microbatches cut to the batch
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_EXPERTS = 16
+MOE_TRAIN_STEPS = 4           # 1 warm-up + 3 timed
+
+
+class MoeRecorder:
+    """Records each MoE dispatch of the port while active: its routing
+    (``layers.moe_route``) and whether PyTorch's deterministic mode was
+    on, and the auxiliary loss of each ``moe_apply`` that returned (a
+    checkpoint's recompute stops inside it, so it records a route and no
+    aux)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.route0, self.apply0 = L, L.moe_route, L.moe_apply
+        self.routes, self.auxs, self.deterministic = [], [], []
+
+        def route(*a):
+            r = self.route0(*a)
+            # detached: a recorded route must not keep the step's graph
+            self.routes.append(r._replace(probs=r.probs.detach(),
+                                          gate=r.gate.detach()))
+            self.deterministic.append(
+                torch.are_deterministic_algorithms_enabled())
+            return r
+
+        def apply(*a):
+            y, aux = self.apply0(*a)
+            self.auxs.append(aux.detach())
+            return y, aux
+        L.moe_route, L.moe_apply = route, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route, self.L.moe_apply = self.route0, self.apply0
+
+    def stats(self) -> list:
+        """Per dispatch: tokens, capacity, dropped choices, the largest
+        expert load."""
+        return [dict(tokens=int(r.probs.shape[0]), capacity=r.capacity,
+                     dropped=int((~r.keep).sum()),
+                     max_load=int(r.counts.max())) for r in self.routes]
+
+
+def flip_aware(cpu_routes, card_routes) -> tuple:
+    """The flip-aware routing rule, card against CPU: (1) the expert and
+    the keep mask of every token; (2) a token whose expert differs must
+    have a top-2 router margin (on the CPU) below MOE_FLIP_MARGIN;
+    returns (bool [T] per dispatch: the tokens whose expert and keep
+    agree, the flipped count, the largest flipped margin)."""
+    rows, flips, worst = [], 0, 0.0
+    check(len(cpu_routes) == len(card_routes),
+          f"{len(cpu_routes)} dispatches on the CPU, {len(card_routes)} on "
+          "the card")
+    for a, b in zip(cpu_routes, card_routes):
+        top2 = torch.topk(a.probs, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).reshape(-1)
+        flipped = a.expert != b.expert.cpu()
+        if bool(flipped.any()):
+            flips += int(flipped.sum())
+            worst = max(worst, float(gap[flipped].max()))
+        rows.append(~flipped & (a.keep == b.keep.cpu()))
+    check(worst < MOE_FLIP_MARGIN,
+          f"a token took another expert at a top-2 margin of {worst} "
+          f"(rule: < {MOE_FLIP_MARGIN})")
+    return rows, flips, worst
+
+
+def moe_f32_checks(dev) -> dict:
+    """One pair in f32 at full width with MOE_F32_EXPERTS experts,
+    MOE_F32_B x MOE_F32_S tokens. (a) The prefill's forward (logits at
+    every position; 2 f32 flash launches) against the teacher-forced
+    decode (no model kernel; every step one token at C = 8, nothing
+    dropped), at the positions the prefill kept, within F32_LOGIT_TOL;
+    the dropped ones are skipped and counted. (b) The card against the
+    CPU port under the flip-aware rule: the logits of the tokens whose
+    expert and keep mask agree within CPU_LOGIT_TOL, and aux."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = registry.get(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS,
+                                         n_experts=MOE_F32_EXPERTS,
+                                         dtype=F32)
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    toks = torch.randint(0, cfg.vocab, (MOE_F32_B, MOE_F32_S), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 31))
+    pos = torch.arange(MOE_F32_S, device=dev)[None].expand(MOE_F32_B,
+                                                           MOE_F32_S)
+
+    def forward(model, d):
+        with torch.no_grad(), MoeRecorder() as rec:
+            x = L.embed_apply(model["embed"], toks.to(d))
+            hidden, aux = T.backbone_forward(model, cfg, x, pos.to(d))
+            logits = L.logits_apply(model["embed"], hidden,
+                                    cfg.tie_embeddings)
+        return logits, float(aux), rec
+
+    before = model_counts()
+    full, aux, rec = forward(lm, dev)
+    launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "flash_attention_f32": MOE_SERVE_LAYERS},
+          f"serve/{MOE_ARCH}/f32: the forward launched {launched}")
+    last, _ = D.prefill(lm, cfg, {"tokens": toks})
+    (route,) = rec.routes
+    keep = route.keep.reshape(MOE_F32_B, MOE_F32_S)
+    before = model_counts()
+    cache = D.cache_zeros(D.cache_spec(cfg, MOE_F32_B, MOE_F32_S), dev)
+    steps = []
+    with MoeRecorder() as drec:
+        for t in range(MOE_F32_S):
+            logits, cache = D.decode_step(
+                lm, cfg, {"token": toks[:, t:t + 1], "index": t}, cache)
+            steps.append(logits)
+    dec = torch.stack(steps, dim=1)
+    check(model_counts() == before,
+          f"serve/{MOE_ARCH}/f32: the decode launched a model kernel")
+    check(all(s["dropped"] == 0
+              and s["capacity"] == L.moe_capacity(MOE_F32_B, cfg)
+              for s in drec.stats()),
+          f"serve/{MOE_ARCH}/f32: a decode step dropped a token")
+    diff = (full - dec).abs().amax(dim=-1)                  # [B, S]
+    kept_err = float(diff[keep].max())
+    check(kept_err <= F32_LOGIT_TOL
+          and float((last - full[:, -1]).abs().max()) <= F32_LOGIT_TOL
+          and bool(torch.isfinite(full).all()),
+          f"serve/{MOE_ARCH}/f32: prefill vs teacher-forced decode at the "
+          f"kept positions: max abs err {kept_err}")
+    # the card against the CPU port, on one set of weights
+    lm_cpu = f32_copy(lm, "cpu")
+    t0 = time.perf_counter()
+    full_cpu, aux_cpu, rec_cpu = forward(lm_cpu, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    (rows,), flips, worst = flip_aware(rec_cpu.routes, rec.routes)
+    rows = rows.reshape(MOE_F32_B, MOE_F32_S)
+    cpu_diff = (full.cpu() - full_cpu).abs().amax(dim=-1)
+    cpu_err = float(cpu_diff[rows].max())
+    aux_err = abs(aux - aux_cpu) / aux_cpu
+    check(cpu_err <= CPU_LOGIT_TOL and aux_err <= F32_STEP_TOL["loss"],
+          f"serve/{MOE_ARCH}/f32: card vs CPU max abs err {cpu_err}, aux "
+          f"{aux} vs {aux_cpu}")
+    res = dict(layers=cfg.n_layers, experts=cfg.n_experts,
+               batch=MOE_F32_B, positions=MOE_F32_S,
+               capacity=route.capacity, launches=launched[
+                   "flash_attention_f32"],
+               prefill_vs_decode=kept_err,
+               dropped_positions_skipped=int((~keep).sum()),
+               dropped_vs_decode_min=float(diff[~keep].min())
+               if bool((~keep).any()) else None,
+               tolerance=F32_LOGIT_TOL,
+               cpu=dict(max_abs_err=cpu_err, tolerance=CPU_LOGIT_TOL,
+                        compared_positions=int(rows.sum()), flips=flips,
+                        largest_flipped_margin=worst,
+                        flip_margin=MOE_FLIP_MARGIN, aux=aux,
+                        aux_cpu=aux_cpu, aux_rel_err=aux_err,
+                        cpu_seconds=cpu_s))
+    del lm, lm_cpu, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_serve_phase(dev) -> dict:
+    """serve/llama4-maverick-400b-a17b: full width with all 128 experts,
+    MOE_SERVE_LAYERS layers (one pair), bf16, SERVE_B x SERVE_P prompt
+    tokens. (a) The prefill: exactly 2 bf16 flash launches and no other
+    model kernel, finite logits; the MoE layer's capacity, drops, largest
+    expert load and aux; CUDA-event time. (b) ``launch.serve.generate``:
+    the prompt teacher-forced through ``decode_step``, then SERVE_NEW
+    greedy steps, no model kernel. (c) :func:`moe_f32_checks`."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    full = registry.get(MOE_ARCH)
+    cfg = full.replace(n_layers=MOE_SERVE_LAYERS)
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 30))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    # (a) the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    with MoeRecorder() as rec:
+        logits_p, _ = D.prefill(lm, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    launches = model_counts()
+    check(launches["flash_attention"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"{MOE_ARCH} prefill launched {launches}, expected "
+          f"{cfg.n_layers} x flash_attention")
+    check(tuple(logits_p.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{MOE_ARCH}: prefill logits {tuple(logits_p.shape)} not finite")
+    moe = [dict(s, aux=float(a)) for s, a in zip(rec.stats(), rec.auxs)]
+    check(len(moe) == len(rec.routes) == cfg.n_layers // 2 and all(
+        s["tokens"] == SERVE_B * SERVE_P
+        and s["capacity"] == L.moe_capacity(SERVE_B * SERVE_P, cfg)
+        and np.isfinite(s["aux"]) and s["aux"] > 0 for s in moe),
+        f"{MOE_ARCH}: prefill dispatches {moe}")
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
+                           reps=3, warmup=1)
+    check(model_counts()["flash_attention"] == 5 * cfg.n_layers,
+          f"{MOE_ARCH}: timed prefills launched {model_counts()}")
+    counts = model_counts()
+
+    # (b) generate: the prompt teacher-forced, then greedy steps
+    steps = SERVE_P + SERVE_NEW - 1
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with MoeRecorder() as drec:
+        start.record()
+        gen = serve.generate(lm, cfg, prompts, SERVE_NEW)
+        end.record()
+        torch.cuda.synchronize()
+    gen_ms = start.elapsed_time(end)
+    check(model_counts() == counts,
+          f"{MOE_ARCH}: decode launched a model kernel: {model_counts()}")
+    check(tuple(gen.shape) == (SERVE_B, SERVE_NEW)
+          and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"{MOE_ARCH}: generated {tuple(gen.shape)}")
+    dstats = drec.stats()
+    check(len(dstats) == steps and all(
+        s["capacity"] == L.moe_capacity(SERVE_B, cfg) and s["dropped"] == 0
+        for s in dstats),
+        f"{MOE_ARCH}: decode dispatches dropped tokens")
+    peak = torch.cuda.max_memory_allocated()
+    del lm, prompts, rec, drec
+    torch.cuda.empty_cache()
+
+    # (c) exactness in f32 at the expert cut
+    exact = moe_f32_checks(dev)
+    res = dict(arch=MOE_ARCH, params=n_params, layers=cfg.n_layers,
+               experts=cfg.n_experts,
+               cuts={"layers": [full.n_layers, cfg.n_layers],
+                     "f32_checks": {"layers": [full.n_layers,
+                                               MOE_SERVE_LAYERS],
+                                    "experts": [full.n_experts,
+                                                MOE_F32_EXPERTS],
+                                    "positions": [SERVE_P, MOE_F32_S]}},
+               batch=SERVE_B, prompt=SERVE_P, new_tokens=SERVE_NEW,
+               init_seconds=init_s, init_peak_bytes=init_peak,
+               prefill_first_seconds=prefill_first_s,
+               launches={"flash_attention": launches["flash_attention"]},
+               moe=moe, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
+               generate_seconds=gen_ms / 1e3, decode_steps=steps,
+               decode_ms_per_step=gen_ms / steps,
+               decode_tokens_per_s=SERVE_B * steps / (gen_ms / 1e3),
+               greedy_tokens=gen[:, :8].tolist(),
+               peak_mem_bytes=peak, resident_at_start_bytes=resident,
+               f32=exact, seconds=time.perf_counter() - t_phase)
+    log(phase=f"serve/{MOE_ARCH}", **res)
+    return res
+
+
+def moe_router_grad(cfg, params, tokens, dev) -> dict:
+    """The gradient of the loss on ``tokens`` with respect to each
+    router, in deterministic mode: every one nonzero and finite."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import reference_leaves
+    from repro_torch.train import trainer as TR
+    routers = [p for path, ps, _ in reference_leaves(params)
+               if path[-1] == "router" for p in ps]
+    with TR.deterministic(dev):
+        loss, _ = T.lm_loss(params, cfg, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, routers)
+    res = dict(routers=len(routers),
+               max_abs=[float(g.abs().max()) for g in grads],
+               finite=all(bool(torch.isfinite(g).all()) for g in grads))
+    check(res["routers"] == cfg.n_layers // 2 and res["finite"]
+          and min(res["max_abs"]) > 0,
+          f"train/{MOE_ARCH}: the router's gradient {res}")
+    return res
+
+
+def moe_train_phase(dev) -> dict:
+    """train/llama4-maverick-400b-a17b: full width, MOE_TRAIN_LAYERS
+    layers (one pair), MOE_TRAIN_EXPERTS experts, bf16, Adafactor at
+    TRAIN_LR; one fixed batch of TRAIN_B x TRAIN_S tokens in TRAIN_B
+    microbatches (each one dispatch of TRAIN_S tokens, C = 320).
+    MOE_TRAIN_STEPS steps timed with CUDA events: each loss below the one
+    before, finite grad norms, aux > 0, exactly 2 L m forward and L m
+    backward bf16 flash launches a step, every MoE dispatch (forward and
+    recompute) in deterministic mode. Then the router's gradient on the
+    first microbatch: nonzero and finite. Then one f32 AdamW step at one
+    pair with MOE_F32_EXPERTS experts, card vs CPU
+    (:func:`f32_step_vs_cpu`) under the flip-aware routing rule."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    full = registry.get(MOE_ARCH)
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS,
+                       n_experts=MOE_TRAIN_EXPERTS)
+    micro = min(registry.microbatches(MOE_ARCH, "train_4k"), TRAIN_B)
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    resident = fresh_peak()
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S), device=dev,
+        generator=torch.Generator(dev).manual_seed(SEED + 32))}
+    want = {"flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_bwd": cfg.n_layers * micro}
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    steps = []
+    with MoeRecorder() as rec:
+        for _ in range(MOE_TRAIN_STEPS):
+            before = model_counts()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in model_counts().items()}
+            steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                              launches=launched, loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              aux=float(m["aux"])))
+            check(launched == {**dict.fromkeys(launched, 0), **want},
+                  f"train/{MOE_ARCH} step {len(steps)} launched {launched}, "
+                  f"expected {want}")
+    counts = model_counts()
+    moe = rec.stats()
+    # each microbatch dispatches in its forward, then in the backward's
+    # recompute, which must route as the forward did
+    recompute_same = all(
+        torch.equal(a.expert, b.expert) and torch.equal(a.keep, b.keep)
+        for a, b in zip(rec.routes[0::2], rec.routes[1::2]))
+    check(recompute_same, f"train/{MOE_ARCH}: a recompute routed other "
+          "than its forward")
+    # steps x microbatches x (forward, recompute), one MoE layer
+    check(cfg.n_layers == 2
+          and len(moe) == MOE_TRAIN_STEPS * micro * cfg.n_layers
+          and all(rec.deterministic)
+          and all(s["capacity"] == L.moe_capacity(TRAIN_S, cfg)
+                  for s in moe),
+          f"train/{MOE_ARCH}: {len(moe)} dispatches, deterministic "
+          f"{set(rec.deterministic)}, capacities "
+          f"{sorted({s['capacity'] for s in moe})}")
+    losses = [st["loss"] for st in steps]
+    check(all(np.isfinite([st[k] for st in steps
+                           for k in ("loss", "grad_norm", "aux")]))
+          and all(st["aux"] > 0 for st in steps)
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train/{MOE_ARCH}: losses {losses}, grad norms "
+          f"{[st['grad_norm'] for st in steps]}, aux "
+          f"{[st['aux'] for st in steps]}")
+    peak = torch.cuda.max_memory_allocated()
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+    t0 = time.perf_counter()
+    router_grad = moe_router_grad(cfg, state["params"],
+                                  batch["tokens"][:TRAIN_B // micro], dev)
+    router_grad["seconds"] = time.perf_counter() - t0
+    del state, batch, m
+    # what the f32 step finds on the card: its state, gradients and
+    # AdamW's temporaries take ~70 GB
+    resident_f32 = fresh_peak()
+
+    # the f32 step, card vs CPU, on one set of weights (drawn on the card)
+    t0 = time.perf_counter()
+    cfg32 = full.replace(n_layers=MOE_TRAIN_LAYERS,
+                         n_experts=MOE_F32_EXPERTS, dtype=F32)
+    opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    card = TR.make_state(cfg32, opt32,
+                         torch.Generator(dev).manual_seed(SEED), dev)
+    params = f32_copy(card["params"], "cpu")
+    cpu = {"params": params, "opt": O.init_opt(opt32, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    f32_setup_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg32.vocab, (MOE_F32_B, MOE_F32_TRAIN_S),
+                           generator=torch.Generator().manual_seed(SEED + 33))
+    with MoeRecorder() as rec32:
+        f32 = f32_step_vs_cpu(f"train/{MOE_ARCH}/f32", cfg32, opt32, cpu,
+                              card, {"tokens": tokens}, flip_aware_of=rec32)
+    del card, cpu
+    res = dict(arch=MOE_ARCH, layers=cfg.n_layers, experts=cfg.n_experts,
+               cuts={"layers": [full.n_layers, cfg.n_layers],
+                     "experts": [full.n_experts, cfg.n_experts],
+                     "batch": [256, TRAIN_B],
+                     "microbatches": [registry.microbatches(
+                         MOE_ARCH, "train_4k"), micro],
+                     "f32_step": {"experts": [full.n_experts,
+                                              MOE_F32_EXPERTS],
+                                  "positions": [MOE_F32_S,
+                                                MOE_F32_TRAIN_S]}},
+               batch=TRAIN_B, seq=TRAIN_S, microbatches=micro,
+               optimizer=opt.kind, lr=opt.lr, steps=steps,
+               moe_first_step=moe[:2 * micro],
+               recompute_routes_as_forward=recompute_same,
+               seconds_per_step=sec,
+               tokens_per_s=TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident, router_grad=router_grad,
+               resident_at_f32_step_bytes=resident_f32,
+               f32_setup_seconds=f32_setup_s,
+               launches_per_step=want, launches=counts, f32=f32,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{MOE_ARCH}", **res)
+    return res
+
+
 def time_bwd_kernel(dev, info: dict) -> dict:
     """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
@@ -4266,6 +4769,11 @@ def main() -> int:
     mark(f"serve/{VLM_ARCH}")
     vlm_train = vlm_train_phase(dev)
     mark(f"train/{VLM_ARCH}")
+    # the MoE family: each drive resets the counts first
+    moe_serve = moe_serve_phase(dev)
+    mark(f"serve/{MOE_ARCH}")
+    moe_train = moe_train_phase(dev)
+    mark(f"train/{MOE_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
     mark("timing/flash_bwd")
 
@@ -4339,6 +4847,11 @@ def main() -> int:
                 f"{TRAIN_B} x {TRAIN_S} positions)")
     smr_path = (f"train/smr ({smr['arch']}, {smr['layers']} layers, "
                 f"{smr['steps_applied']} steps in the service's pods)")
+    moe_path = (f"serve/{MOE_ARCH} prefill ({moe_serve['layers']} layers, "
+                f"{moe_serve['experts']} experts, {SERVE_B} x {SERVE_P} "
+                f"tokens); train/{MOE_ARCH} ({moe_train['layers']} layers, "
+                f"{moe_train['experts']} experts, {MOE_TRAIN_STEPS} steps of "
+                f"{TRAIN_B} x {TRAIN_S} tokens)")
     for name, src, replaces in (
             ("flash_attention", csrc + "flash_attention_bf16.cu",
              "src/repro/kernels/flash_attention.py:92"),
@@ -4349,7 +4862,8 @@ def main() -> int:
         check(launches > 0, f"{name} was not launched on its serving path")
         entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches, path=f"serve/{serve['arch']} prefill",
+            launches=launches, path=f"serve/{serve['arch']} prefill "
+                                    f"({serve['layers']} layers)",
             max_abs_err=model_errors[name], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -4384,6 +4898,17 @@ def main() -> int:
                                       *vlm_f32.values())),
                   f"flash was not launched on every {VLM_ARCH} path: "
                   f"{vlm_fwd}, {vlm_f32}")
+            moe_fwd = {f"serve/{MOE_ARCH} prefill":
+                       moe_serve["launches"][name],
+                       f"train/{MOE_ARCH}": moe_train["launches"][name]}
+            moe_f32 = {f"serve/{MOE_ARCH}/f32 forward":
+                       moe_serve["f32"]["launches"],
+                       f"train/{MOE_ARCH}/f32":
+                       moe_train["f32"]["launches"]["flash_attention_f32"]}
+            check(all(v > 0 for v in (*moe_fwd.values(),
+                                      *moe_f32.values())),
+                  f"flash was not launched on every {MOE_ARCH} path: "
+                  f"{moe_fwd}, {moe_f32}")
             entry.update(
                 train_launches=train["launches"][name],
                 train_path=f"train/{train['arch']} ({TRAIN_STEPS} steps)",
@@ -4393,11 +4918,14 @@ def main() -> int:
                 smr_path=smr_path,
                 vlm_launches=vlm_fwd,
                 vlm_path=vlm_path,
+                moe_launches=moe_fwd,
+                moe_path=moe_path,
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
                          path="serve/f32 yi-6b prefill",
                          vlm_launches=vlm_f32,
+                         moe_launches=moe_f32,
                          max_abs_err=model_errors["flash_attention_f32"],
                          **{k: f32[k] for k in (
                              "ms", "plain_ms", "bound_ms",
@@ -4410,7 +4938,9 @@ def main() -> int:
     launches = train["launches"]["flash_attention_bwd"]
     f32_launches = train_f32["launches"]["flash_attention_bwd_f32"]
     check(launches > 0 and f32_launches > 0
-          and vlm_train["launches"]["flash_attention_bwd"] > 0,
+          and vlm_train["launches"]["flash_attention_bwd"] > 0
+          and moe_train["launches"]["flash_attention_bwd"] > 0
+          and moe_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0,
           "a flash backward kernel was "
           f"not launched on its train path: bf16 {launches}, f32 "
           f"{f32_launches}")
@@ -4429,6 +4959,9 @@ def main() -> int:
         vlm_launches={f"train/{VLM_ARCH}":
                       vlm_train["launches"]["flash_attention_bwd"]},
         vlm_path=vlm_path,
+        moe_launches={f"train/{MOE_ARCH}":
+                      moe_train["launches"]["flash_attention_bwd"]},
+        moe_path=moe_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -4448,6 +4981,8 @@ def main() -> int:
         f32=dict(source=bwd_f32_src, launches=f32_launches,
                  path=f"train/f32 (one step, {F32_TRAIN_LAYERS} layers)",
                  vlm_launches={f"train/{VLM_ARCH}/f32": vlm_train["f32"]
+                               ["launches"]["flash_attention_bwd_f32"]},
+                 moe_launches={f"train/{MOE_ARCH}/f32": moe_train["f32"]
                                ["launches"]["flash_attention_bwd_f32"]},
                  max_abs_err=bwd_check["max_abs_err"]
                  ["flash_attention_bwd_f32"],
@@ -4501,11 +5036,17 @@ def main() -> int:
               for tag, ranks in mesh.items()})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
-        for s in (*serves.values(), vlm_serve)},
+        for s in (*serves.values(), vlm_serve, moe_serve)},
         vlm={f"serve/{VLM_ARCH}": {k: vlm_serve[k] for k in (
             "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
             "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
             f"train/{VLM_ARCH}": {k: vlm_train[k] for k in (
+                "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+                "seconds")}},
+        moe={f"serve/{MOE_ARCH}": {k: moe_serve[k] for k in (
+            "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+            "decode_tokens_per_s", "peak_mem_bytes", "moe", "seconds")},
+            f"train/{MOE_ARCH}": {k: moe_train[k] for k in (
                 "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
                 "seconds")}},
         profile_retries=PROFILE_RETRIES,

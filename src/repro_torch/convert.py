@@ -247,10 +247,12 @@ def tensor_to_numpy(t: torch.Tensor, native: bool = False) -> np.ndarray:
 
 def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
     """The reference's ``init_lm`` parameter tree (of a dense, a
-    vision-language, whose tree is the dense one, or an RWKV6 config), as
-    nested dicts of numpy arrays (bf16 arrays too), → the port's
-    :class:`LM` on ``device``. Each stacked ``[n, ...]`` segment leaf is
-    sliced into the per-layer trees; every leaf goes through f32 to
+    vision-language, whose tree is the dense one, a dense/MoE-pair or an
+    RWKV6 config), as nested dicts of numpy arrays (bf16 arrays too), →
+    the port's :class:`LM` on ``device``. Each stacked ``[n, ...]``
+    segment leaf is sliced into the per-layer trees (a pair segment's
+    ``{"dense", "moe"}`` leaves, expert weights ``[n, E, D, F]``, into one
+    tree per pair); every leaf goes through f32 to
     ``cfg.dtype``, which is exact for bf16. Raises ``ValueError`` if a key
     or shape does not fit ``cfg``."""
     tmpl = init_lm(cfg, device="meta")

@@ -2,7 +2,9 @@
 
 Batched greedy decoding with the per-family cache (full-length KV cache
 for dense GQA, recurrent state for RWKV6): teacher-forced ``decode_step``
-over a seeded random prompt, then greedy decoding. The vision-language
+over a seeded random prompt, then greedy decoding; llama4-maverick's
+dense/MoE pairs take token batches, each decode step one MoE dispatch
+of B tokens. The vision-language
 ``qwen2-vl-7b`` runs text-only here, as in the reference: token ids and
 the standard rotation of 2-D positions. Counterpart of
 ``repro.launch.serve``; ``--full`` takes the published configuration,

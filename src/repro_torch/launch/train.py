@@ -10,10 +10,11 @@ on the card the step runs with deterministic algorithms
 (``train.trainer``). The reference places the state on a host mesh
 (``make_host_mesh``, ``tree_shardings``); the port has no counterpart on
 one card, and sharding the train state is ROADMAP.md queue 1 item 14.
-The token batches (and, for the vision-language family, the stub
-frontend's embeddings, 3-D positions and labels, as the reference's
-launcher makes them) come from a ``torch.Generator`` (seed 1), not the
-reference's ``jax.random`` key.
+The MoE family (llama4-maverick) trains on token batches and logs its
+auxiliary loss. The token batches (and, for the vision-language family,
+the stub frontend's embeddings, 3-D positions and labels, as the
+reference's launcher makes them) come from a ``torch.Generator`` (seed
+1), not the reference's ``jax.random`` key.
 """
 from __future__ import annotations
 
@@ -87,8 +88,10 @@ def main(argv=None) -> None:
         state, metrics = step_fn(state, batch)
         if (i + 1) % 10 == 0 or i == start:
             dt = time.time() - t0
+            aux = (f"aux {float(metrics['aux']):.4f} " if cfg.n_experts
+                   else "")
             print(f"step {i + 1:4d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} {aux}"
                   f"({dt / max(i + 1 - start, 1):.2f}s/step)")
         if (i + 1) % args.ckpt_every == 0:
             man = save_sharded(state, args.ckpt_dir, i + 1)

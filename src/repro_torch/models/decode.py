@@ -2,8 +2,10 @@
 families. Counterpart of ``repro.models.decode``.
 
 The cache keeps the reference's pytree (``cache_spec``):
-``{"seg0": {"attn": {"k", "v": [n, B, L, K·h]}}}`` for a dense GQA stack
-and ``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack.
+``{"seg0": {"attn": {"k", "v": [n, B, L, K·h]}}}`` for a dense GQA stack,
+``{"seg0": {"dense": {"attn": ...}, "moe": {"attn": ...}}}`` (each
+``[n, B, L, K·h]`` over the n pairs) for dense/MoE pairs, and
+``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack.
 :func:`decode_step` updates the cache IN PLACE (the reference returns a
 new one) and returns the same dict; the tests hold the updated cache
 equal to the reference's new cache.
@@ -60,6 +62,10 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
             H = cfg.ssm_heads or cfg.n_heads
             hd = cfg.d_model // H
             leaf = {"state": ((seg["n"], batch, H * hd, hd), torch.float32)}
+        elif seg["kind"] == "pair":
+            leaf = {part: _prepend(block_cache_spec(cfg, batch, seq_len,
+                                                    seg["window"]), seg["n"])
+                    for part in ("dense", "moe")}
         else:
             leaf = _prepend(block_cache_spec(cfg, batch, seq_len,
                                              seg["window"]), seg["n"])
@@ -82,16 +88,19 @@ def cache_zeros(spec, device=None) -> Any:
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict, index: int, *,
-                 window: int):
+                 moe: bool, window: int):
     """One block, one token, full-length cache. Returns (x, new_cache);
-    the cache is updated in place."""
+    the cache is updated in place. With ``moe`` the MoE dispatches the B
+    tokens of this step (T = B, so C = ``moe_capacity(B)``, 8 for B up
+    to 819 at llama4's 128 experts)."""
     W = cache["attn"]["k"].shape[1]
     if not (window <= 0 or W > window):
         raise NotImplementedError(
             "the sliding-window ring-buffer cache is not ported: ROADMAP.md "
             "queue 1 item 12")
-    return block_apply(p, cfg, x, positions, window=window, cache=cache,
-                       cache_index=index)
+    x, nc, _ = block_apply(p, cfg, x, positions, moe=moe, window=window,
+                           cache=cache, cache_index=index)
+    return x, nc
 
 
 def _check_device(params, t: torch.Tensor) -> None:
@@ -109,6 +118,11 @@ def _inputs(params, cfg: ModelConfig, batch: dict, key: str) -> torch.Tensor:
     if "embeds" in batch:
         return ref.to(cfg.dtype)
     return L.embed_apply(params["embed"], ref)
+
+
+def _layer_cache(c: dict, n: int) -> dict:
+    """Layer n's views of a segment's stacked k/v cache."""
+    return {"attn": {"k": c["attn"]["k"][n], "v": c["attn"]["v"][n]}}
 
 
 @torch.no_grad()
@@ -134,12 +148,17 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
                 x, nc = rwkv_block_apply(lp, cfg, x,
                                          cache={"state": c["state"][n]})
                 c["state"][n].copy_(nc["state"])
+        elif seg["kind"] == "pair":
+            for n, lp in enumerate(layers):
+                for part, moe in (("dense", False), ("moe", True)):
+                    x, _ = block_decode(lp[part], cfg, x, positions,
+                                        _layer_cache(c[part], n), index,
+                                        moe=moe, window=seg["window"])
         else:
             for n, lp in enumerate(layers):
-                layer_cache = {"attn": {"k": c["attn"]["k"][n],
-                                        "v": c["attn"]["v"][n]}}
-                x, _ = block_decode(lp, cfg, x, positions, layer_cache,
-                                    index, window=seg["window"])
+                x, _ = block_decode(lp, cfg, x, positions,
+                                    _layer_cache(c, n), index,
+                                    moe=seg["moe"], window=seg["window"])
     hidden = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = L.logits_apply(params["embed"], hidden, cfg.tie_embeddings)
     return logits[:, 0], cache
@@ -164,11 +183,15 @@ def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
     full-sequence forward and fills no cache, and so does this one.
 
     ``batch_chunks`` > 1 runs the batch in that many chunks, one after
-    the other (exact: every row is independent); 0 → 8 chunks for
-    B >= 16, 4 for B >= 8, else 1, as in the reference. A chunk takes its
-    rows of M-RoPE positions on their batch axis (1); the reference's
-    chunking swaps the position streams and the rows where a chunk holds
-    3 rows (ROADMAP.md queue 3)."""
+    the other; 0 → 8 chunks for B >= 16, 4 for B >= 8, else 1, as in the
+    reference. Without MoE every row is independent, so chunking changes
+    nothing. With MoE it does: each chunk is one dispatch whose capacity
+    follows the chunk's B/chunks · S tokens, and which tokens are dropped
+    depends on the chunk's other rows, as in the reference's ``lax.map``
+    over chunks (ROADMAP.md queue 3). A chunk takes its rows of M-RoPE
+    positions on their batch axis (1); the reference's chunking swaps the
+    position streams and the rows where a chunk holds 3 rows (ROADMAP.md
+    queue 3)."""
     B, Sq = (batch["embeds"] if "embeds" in batch
              else batch["tokens"]).shape[:2]
     if batch_chunks == 0:
@@ -184,7 +207,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    hidden = backbone_forward(params, cfg, x, positions)
+    hidden, _ = backbone_forward(params, cfg, x, positions)
     logits = L.logits_apply(params["embed"], hidden[:, -1:],
                             cfg.tie_embeddings)
     return logits[:, 0], None

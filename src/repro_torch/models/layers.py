@@ -1,10 +1,16 @@
-"""Transformer building blocks of the serving path: RMSNorm, RoPE, GQA
-attention with its decode cache, the SwiGLU MLP, embeddings and the head.
-Counterpart of ``repro.models.layers`` (only what the ported families
-call, M-RoPE included; MLA and MoE are not ported yet).
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention with its
+decode cache, the SwiGLU MLP, the capacity-routed MoE, embeddings and the
+head. Counterpart of ``repro.models.layers`` (only what the ported
+families call, M-RoPE and the MoE included; MLA is not ported yet).
 
 All shapes use: B batch, S sequence, D d_model, H heads, K kv heads,
-h head_dim, F ffn dim, V vocab.
+h head_dim, F ffn dim, E experts, C expert capacity, V vocab.
+
+The MoE (:func:`moe_apply`) is plain PyTorch on the CPU and on the card,
+as it is plain jnp in the reference: its expert FFN is three products
+batched over E (``torch.bmm``), and its dispatch and combine are index
+operations that have deterministic CUDA implementations (the train step
+runs in PyTorch's deterministic mode).
 
 The full-sequence (prefill) branch of :func:`gqa_apply` calls the flash
 attention kernel through ``kernels.ops.attention`` at every S; the
@@ -19,7 +25,7 @@ yet.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -212,6 +218,113 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE with capacity-based scatter dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(pf: ParamFactory, cfg: ModelConfig) -> dict:
+    """Router [D, E] (normal × 0.006), the experts' SwiGLU weights
+    stacked over E, and the shared expert's MLP when the config has
+    one."""
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    p = {"router": pf.leaf((D, E), scale=0.006),
+         "w_gate": pf.leaf((E, D, F)), "w_up": pf.leaf((E, D, F)),
+         "w_down": pf.leaf((E, F, D))}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(pf, D, (cfg.moe_d_ff or cfg.d_ff)
+                               * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a dispatch of ``n_tokens`` tokens:
+    ``max(8, ceil8(ceil(T·k·cf / E)))``, the reference's float
+    arithmetic."""
+    c = int(math.ceil(n_tokens * cfg.experts_per_token
+                      * cfg.capacity_factor / cfg.n_experts))
+    return max(8, int(math.ceil(c / 8)) * 8)
+
+
+class MoeRouting(NamedTuple):
+    """One dispatch's routing. ``probs`` [T, E] f32 router softmax;
+    ``gate`` [T, k] f32, renormalised over the top k; ``expert`` [T·k]
+    the flat expert ids (token-major); ``slot`` [T·k] each choice's place
+    in its expert, first come first served, ``capacity`` for a dropped
+    one; ``keep`` [T·k] bool; ``counts`` [E] f32 the choices of each
+    expert, dropped ones included."""
+    probs: torch.Tensor
+    gate: torch.Tensor
+    expert: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    counts: torch.Tensor
+    capacity: int
+
+
+def moe_route(p, cfg: ModelConfig, xf: torch.Tensor) -> MoeRouting:
+    """Route the tokens ``xf`` [T, D]. The router product is taken in f32
+    (the reference's ``preferred_element_type``: a bf16 product is exact
+    in f32), then softmax and top-k, the gate renormalised with a clip at
+    1e-9. A choice's place in its expert is its rank among the choices of
+    that expert in token order: a stable sort of the flat ids, and each
+    expert's first index in it (``searchsorted``)."""
+    T = xf.shape[0]
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = moe_capacity(T, cfg)
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = eidx.reshape(T * k)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    experts = torch.arange(E, device=xf.device)
+    starts = torch.searchsorted(sorted_e, experts)
+    ends = torch.searchsorted(sorted_e, experts, right=True)
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(T * k, device=xf.device) - starts[sorted_e]
+    keep = pos < C
+    return MoeRouting(probs, gate, flat_e, torch.where(keep, pos, C), keep,
+                      (ends - starts).float(), C)
+
+
+def moe_apply(p, cfg: ModelConfig, x: torch.Tensor):
+    """Top-k routing with per-expert capacity C = ``moe_capacity(B·S)``;
+    a dropped choice adds nothing (the token passes through the
+    residual). Returns (y [B,S,D], aux).
+
+    Dispatch: each choice's token is written into ``[E, C+1, D]`` at
+    (expert, slot); the dropped ones land in slot C, which is sliced off
+    (the reference's scatter with ``mode="drop"``). The expert FFN is one
+    product batched over E for each weight, silu in f32 cast back to
+    x.dtype. Combine: each choice reads its row back (a dropped one reads
+    any row and is zeroed), times its gate in x.dtype, summed over k;
+    plus the shared expert. ``aux`` is the switch load-balance loss
+    ``E · Σ_e mean_t(probs) · counts_e / (T·k)``, with no gradient
+    through the counts."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, D)
+    r = moe_route(p, cfg, xf)
+    C = r.capacity
+    tok = torch.arange(T * k, device=x.device) // k
+    buf = x.new_zeros((E, C + 1, D)).index_put((r.expert, r.slot), xf[tok])
+    buf = buf[:, :C]
+    g = torch.bmm(buf, p["w_gate"])
+    u = torch.bmm(buf, p["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    out = torch.bmm(h, p["w_down"])                          # [E, C, D]
+    y_tok = out[r.expert, torch.where(r.keep, r.slot, 0)]
+    y_tok = torch.where(r.keep[:, None], y_tok, 0.0)
+    y_tok = y_tok * r.gate.reshape(T * k)[:, None].to(y_tok.dtype)
+    y = y_tok.reshape(T, k, D).sum(dim=1).reshape(B, S, D)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x)
+    aux = E * torch.sum(r.probs.mean(dim=0) * (r.counts / (T * k)))
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,29 @@
 """LM assembly for the ported families: dense GQA stacks (yi-6b; and
 qwen2-vl-7b, whose vision-language backbone is the dense block with
-M-RoPE over stub embeddings) and the attention-free RWKV6 stack
+M-RoPE over stub embeddings), llama4-maverick's dense and MoE layers in
+pairs (``moe_interleave=2``), and the attention-free RWKV6 stack
 (rwkv6-3b). Counterpart of ``repro.models.transformer`` for those
 families.
 
 The reference stacks each homogeneous segment's parameters along a
 leading layer axis and runs it under ``lax.scan``; the port keeps one
-parameter tree per layer (an ``nn.ModuleList`` per segment) and loops over
-the layers in Python. MLA, MoE, the hybrid (hymba) and encoder-decoder
-(whisper) families are not ported yet (ROADMAP.md queue 1 item 12).
+parameter tree per layer (an ``nn.ModuleList`` per segment; a pair
+segment holds one ``{"dense", "moe"}`` tree per pair) and loops over the
+layers in Python. MLA, the MoE stack with a dense prefix (deepseek-v3),
+the hybrid (hymba) and encoder-decoder (whisper) families are not ported
+yet (ROADMAP.md queue 1 item 12).
 
 Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
-the reference's for the dense, vision-language and RWKV6 families. The
-reference saves nothing inside a layer (``REMAT_POLICY =
-nothing_saveable`` on each scanned block); the port runs each block
-under non-reentrant ``torch.utils.checkpoint`` whenever grad is enabled,
-so the backward recomputes the block's forward (flash kernel included)
-from the block's input, and the loss runs each 512-token chunk of the
-head and log-softmax under its own checkpoint, never holding the
-[B,S,V] f32 logits.
+the reference's for the dense, vision-language, MoE-pair and RWKV6
+families. The reference saves nothing inside a layer (``REMAT_POLICY =
+nothing_saveable`` on each scanned block or pair); the port runs each
+block under non-reentrant ``torch.utils.checkpoint`` whenever grad is
+enabled, so the backward recomputes the block's forward (flash kernel
+and MoE routing included) from the block's input, and the loss runs
+each 512-token chunk of the head and log-softmax under its own
+checkpoint, never holding the [B,S,V] f32 logits. The recomputed routing
+is the forward's: the same ops on the same input (deterministic on the
+card, where a train step runs in PyTorch's deterministic mode).
 """
 from __future__ import annotations
 
@@ -36,37 +41,50 @@ from .common import ModelConfig, ParamFactory, ParamTree
 # ---------------------------------------------------------------------------
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.attn_kind != "gqa" or cfg.family not in ("dense", "vlm") \
-            or cfg.n_experts:
+def _check_ported(cfg: ModelConfig) -> None:
+    """GQA blocks of the dense and vision-language families, or dense and
+    MoE layers in pairs (``moe_interleave`` > 1); anything else raises."""
+    dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
+    pairs = cfg.family == "moe" and cfg.n_experts and cfg.moe_interleave > 1
+    if cfg.attn_kind != "gqa" or not (dense or pairs):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA blocks are ported (attn_kind "
-            f"{cfg.attn_kind!r}, family {cfg.family!r}); ROADMAP.md queue 1 "
+            f"{cfg.name}: only GQA blocks, dense or in dense/MoE pairs, are "
+            f"ported (attn_kind {cfg.attn_kind!r}, family {cfg.family!r}, "
+            f"moe_interleave {cfg.moe_interleave}); ROADMAP.md queue 1 "
             f"item 12")
 
 
-def init_block(pf: ParamFactory, cfg: ModelConfig) -> dict:
-    """Dense GQA block: pre-norm attention and SwiGLU MLP (also the
-    vision-language backbone's)."""
-    _check_dense(cfg)
-    return {"ln1": L.init_rmsnorm(pf, cfg.d_model),
-            "ln2": L.init_rmsnorm(pf, cfg.d_model),
-            "attn": L.init_gqa(pf, cfg),
-            "mlp": L.init_mlp(pf, cfg.d_model, cfg.d_ff)}
+def init_block(pf: ParamFactory, cfg: ModelConfig, *, moe: bool) -> dict:
+    """GQA block: pre-norm attention, then the SwiGLU MLP, or the MoE
+    with ``moe``."""
+    _check_ported(cfg)
+    p = {"ln1": L.init_rmsnorm(pf, cfg.d_model),
+         "ln2": L.init_rmsnorm(pf, cfg.d_model),
+         "attn": L.init_gqa(pf, cfg)}
+    if moe:
+        p["moe"] = L.init_moe(pf, cfg)
+    else:
+        p["mlp"] = L.init_mlp(pf, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, window: int, cache=None,
-                cache_index=None):
-    """One transformer block. Returns (x, new_cache). The reference also
-    returns an auxiliary MoE loss, which is always 0 without MoE."""
+                positions: torch.Tensor, *, moe: bool, window: int,
+                cache=None, cache_index=None):
+    """One transformer block. Returns (x, new_cache, aux): aux is the
+    MoE's auxiliary loss with ``moe``, else an f32 zero."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, nc = L.gqa_apply(p["attn"], cfg, h, positions, window=window,
                         cache=None if cache is None else cache["attn"],
                         cache_index=cache_index)
     x = x + a
-    y = L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + y, (None if nc is None else {"attn": nc})
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if moe:
+        y, aux = L.moe_apply(p["moe"], cfg, h2)
+    else:
+        y = L.mlp_apply(p["mlp"], h2)
+        aux = torch.zeros((), device=x.device)
+    return x + y, (None if nc is None else {"attn": nc}), aux
 
 
 # rwkv6 block -----------------------------------------------------------------
@@ -103,18 +121,31 @@ def rwkv_block_apply(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None):
 
 def plan_segments(cfg: ModelConfig) -> list[dict]:
     """Layer plan → list of segments, each {kind, n, ...}, as the
-    reference plans them for the ported families."""
+    reference plans them for the ported families. With
+    ``moe_interleave`` > 1 (llama4) one ``"pair"`` segment of
+    ``n_layers // moe_interleave`` (dense block, MoE block) pairs."""
     if cfg.family == "ssm" and cfg.ssm_kind == "rwkv6":
         return [{"kind": "rwkv", "n": cfg.n_layers, "scanned": True}]
-    _check_dense(cfg)
+    _check_ported(cfg)
+    if cfg.n_experts:
+        if cfg.n_layers % cfg.moe_interleave:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                             f"pairs of {cfg.moe_interleave}")
+        return [{"kind": "pair", "n": cfg.n_layers // cfg.moe_interleave,
+                 "moe": True, "window": cfg.window, "scanned": True}]
     return [{"kind": "block", "n": cfg.n_layers, "moe": False,
              "window": cfg.window, "scanned": True}]
 
 
 def init_segment(pf: ParamFactory, cfg: ModelConfig, seg: dict) -> list:
-    """One parameter tree per layer of the segment."""
-    init = init_rwkv_block if seg["kind"] == "rwkv" else init_block
-    return [init(pf, cfg) for _ in range(seg["n"])]
+    """One parameter tree per layer (per pair) of the segment."""
+    if seg["kind"] == "rwkv":
+        return [init_rwkv_block(pf, cfg) for _ in range(seg["n"])]
+    if seg["kind"] == "pair":
+        return [{"dense": init_block(pf, cfg, moe=False),
+                 "moe": init_block(pf, cfg, moe=True)}
+                for _ in range(seg["n"])]
+    return [init_block(pf, cfg, moe=seg["moe"]) for _ in range(seg["n"])]
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +181,7 @@ class LM(nn.Module):
         positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
         return backbone_forward(self, self.cfg,
                                 L.embed_apply(self["embed"], tokens),
-                                positions)
+                                positions)[0]
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -182,22 +213,36 @@ def remat(fn, *args):
 
 
 def backbone_forward(params, cfg: ModelConfig, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor):
     """x [B,S,D] (after the embedding; positions [B,S], or [3,B,S] for
-    M-RoPE) → final-normed hidden [B,S,D]. The reference also returns the
-    summed MoE auxiliary loss (0 here). With grad enabled each block runs
-    under :func:`remat`."""
+    M-RoPE) → (final-normed hidden [B,S,D], the MoE auxiliary loss summed
+    over the MoE layers, an f32 scalar: 0 without MoE). With grad enabled
+    each block runs under :func:`remat`; a pair is its dense block's
+    remat, then its MoE block's."""
+    aux = torch.zeros((), device=x.device)
+
+    def block(lp, moe: bool, window: int):
+        def body(h):
+            y, _, a = block_apply(lp, cfg, h, positions, moe=moe,
+                                  window=window)
+            return y, a
+        return body
+
     for i, seg in enumerate(plan_segments(cfg)):
         for lp in params["segments"][f"seg{i}"]:
             if seg["kind"] == "rwkv":
-                def body(h, lp=lp):
-                    return rwkv_block_apply(lp, cfg, h)[0]
+                x = remat(lambda h, lp=lp: rwkv_block_apply(lp, cfg, h)[0],
+                          x)
+                continue
+            if seg["kind"] == "pair":
+                bodies = (block(lp["dense"], False, seg["window"]),
+                          block(lp["moe"], True, seg["window"]))
             else:
-                def body(h, lp=lp, window=seg["window"]):
-                    return block_apply(lp, cfg, h, positions,
-                                       window=window)[0]
-            x = remat(body, x)
-    return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+                bodies = (block(lp, seg["moe"], seg["window"]),)
+            for body in bodies:
+                x, a = remat(body, x)
+                aux = aux + a
+    return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +301,13 @@ def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token loss of the dense, vision-language and RWKV6 families.
-    batch: tokens [B,S], or the stub frontend's embeds [B,S,D] (then
-    labels [B,S]); optional positions ([B,S], or [3,B,S] for M-RoPE),
-    labels, loss_weights. Returns (loss, metrics) with metrics ``ce`` and
-    ``aux`` (the MoE auxiliary loss, always 0 here). The hybrid,
-    encoder-decoder and MTP branches of the reference raise."""
+    """Next-token loss of the dense, vision-language, MoE-pair and RWKV6
+    families. batch: tokens [B,S], or the stub frontend's embeds [B,S,D]
+    (then labels [B,S]); optional positions ([B,S], or [3,B,S] for
+    M-RoPE), labels, loss_weights. Returns (ce + 0.01·aux, metrics) with
+    metrics ``ce`` and ``aux`` (the MoE auxiliary loss summed over the MoE
+    layers; 0 without MoE). The hybrid, encoder-decoder and MTP branches
+    of the reference raise."""
     if cfg.is_encoder_decoder or cfg.family == "hybrid" or cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: lm_loss of the {cfg.family} family (encoder-"
@@ -276,10 +322,9 @@ def lm_loss(params, cfg: ModelConfig, batch: dict):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    hidden = backbone_forward(params, cfg, x, positions)
+    hidden, aux = backbone_forward(params, cfg, x, positions)
     targets = batch["labels"] if "labels" in batch else batch["tokens"]
     loss = ce_loss_seqchunk(params["embed"], hidden, targets,
                             cfg.tie_embeddings,
                             weights=batch.get("loss_weights"), shift=1)
-    aux = torch.zeros((), device=hidden.device)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -35,7 +35,8 @@ class ShardedBatchSource:
     vision-language family (``family="vlm"``, with ``d_model``) the stub
     frontend's fields come too, as in the reference: ``embeds`` [B,S,D]
     standard normal (f32), ``positions`` [3,B,S] int32 (the token index
-    in all three streams) and ``labels`` (the tokens). The reference's
+    in all three streams) and ``labels`` (the tokens); every other family
+    (the MoE family too) takes the tokens alone. The reference's
     ``encoder_len`` (encoder frames) waits for the encoder-decoder family
     (ROADMAP.md queue 1 item 12)."""
     vocab: int

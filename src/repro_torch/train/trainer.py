@@ -9,6 +9,8 @@ reference's ``lax.scan`` over microbatches is a loop: each microbatch's
 loss goes through ``loss.backward()`` (every block recomputed under
 activation checkpointing), and its gradients are added into accumulators
 of ``grad_dtype`` (f32), then divided by the number of microbatches.
+Each microbatch is its own MoE dispatch, whose capacity follows the
+microbatch's tokens, as in the reference's scan.
 
 On the CUDA card a step runs with ``torch.use_deterministic_algorithms
 (True)`` and restores the previous setting after: two pods of the
@@ -17,7 +19,11 @@ every op whose CUDA kernel has a nondeterministic default (the backward
 of the embedding gather and of the loss's gather, which accumulate rows
 that repeat) takes its deterministic one, and an op that has none raises
 instead of running. The flash backward kernel is deterministic by
-design, and cuBLAS is on one stream. cuBLAS's deterministic mode needs
+design, and cuBLAS is on one stream. The MoE's dispatch and combine
+(``models.layers.moe_apply``) use only ops with a deterministic CUDA
+implementation: a stable sort, ``searchsorted``, advanced-index gathers
+and ``index_put`` (whose backward accumulates deterministically in this
+mode), ``topk``. cuBLAS's deterministic mode needs
 ``CUBLAS_WORKSPACE_CONFIG`` set before the process's first matrix product
 (PyTorch reads it once): entry points set it to ``:4096:8`` before they
 touch the card (:func:`set_cublas_workspace`), and a step on the card
@@ -123,6 +129,20 @@ def make_grad_fn(cfg: ModelConfig, *, microbatches: int = 1,
     mean loss over the microbatches in ``grad_dtype``, one list per leaf of
     ``reference_leaves(params)`` (the reference's leaves, one tensor a
     layer), and that loss. The parameters' ``.grad`` are left empty."""
+    grads_aux = _grads_and_aux_fn(cfg, microbatches, global_batch,
+                                  grad_dtype)
+
+    def grads_of(params, batch):
+        grads, loss, _ = grads_aux(params, batch)
+        return grads, loss
+
+    return grads_of
+
+
+def _grads_and_aux_fn(cfg: ModelConfig, microbatches: int,
+                      global_batch: int, grad_dtype):
+    """:func:`make_grad_fn`'s function, returning also the mean over the
+    microbatches of the MoE auxiliary loss (``metrics["aux"]``)."""
     if global_batch % microbatches:
         raise ValueError(f"global batch {global_batch} is not a multiple "
                          f"of {microbatches} microbatches")
@@ -133,36 +153,38 @@ def make_grad_fn(cfg: ModelConfig, *, microbatches: int = 1,
         for p in flat:
             p.grad = None
         if microbatches == 1:
-            loss, _ = T.lm_loss(params, cfg, batch)
+            loss, metrics = T.lm_loss(params, cfg, batch)
             loss.backward()
             acc = [_grad(p).to(grad_dtype) for p in flat]
             for p in flat:
                 p.grad = None
-            loss = loss.detach()
+            loss, aux = loss.detach(), metrics["aux"].detach()
         else:
             mbs = {k: _split_microbatch(v, microbatches, global_batch)
                    for k, v in batch.items()}
             acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
                    for p in flat]
-            losses = []
+            losses, auxs = [], []
             for i in range(microbatches):
-                loss, _ = T.lm_loss(params, cfg,
-                                    {k: v[i] for k, v in mbs.items()})
+                loss, metrics = T.lm_loss(params, cfg,
+                                          {k: v[i] for k, v in mbs.items()})
                 loss.backward()
                 with torch.no_grad():
                     for a, p in zip(acc, flat):
                         a.add_(_grad(p))
                         p.grad = None
                 losses.append(loss.detach())
+                auxs.append(metrics["aux"].detach())
             with torch.no_grad():
                 for a in acc:
                     a.div_(microbatches)
             loss = torch.stack(losses).mean()
+            aux = torch.stack(auxs).mean()
         grads, i = [], 0
         for _, ps, _ in leaves:
             grads.append(acc[i:i + len(ps)])
             i += len(ps)
-        return grads, loss
+        return grads, loss, aux
 
     return grads_of
 
@@ -171,22 +193,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
                     microbatches: int = 1, global_batch: int,
                     grad_dtype=torch.float32):
     """The train step of ``cfg`` with ``opt_cfg``: ``train_step(state,
-    batch) -> (state, {"loss", "grad_norm"})``, both f32 scalars on the
-    state's device; ``batch["tokens"]`` is [global_batch, S], or for the
+    batch) -> (state, {"loss", "grad_norm", "aux"})``, f32 scalars on the
+    state's device (``aux``, the MoE auxiliary loss averaged over the
+    microbatches, is 0 without MoE; the reference's step reports loss and
+    grad_norm only); ``batch["tokens"]`` is [global_batch, S], or for the
     vision-language family ``batch`` holds ``embeds`` [global_batch, S,
     D], ``positions`` [3, global_batch, S] and ``labels``."""
-    grads_of = make_grad_fn(cfg, microbatches=microbatches,
-                            global_batch=global_batch, grad_dtype=grad_dtype)
+    grads_of = _grads_and_aux_fn(cfg, microbatches, global_batch,
+                                 grad_dtype)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         with deterministic(state["step"].device):
-            grads, loss = grads_of(params, batch)
+            grads, loss, aux = grads_of(params, batch)
             apply_opt(opt_cfg, params, grads, state["opt"], state["step"])
             with torch.no_grad():
                 state["step"] += 1
                 metrics = {"loss": loss.float(),
-                           "grad_norm": _global_norm(grads)}
+                           "grad_norm": _global_norm(grads),
+                           "aux": aux.float()}
         return state, metrics
 
     return train_step

@@ -6,8 +6,11 @@ size, and byte-equal across two launches), launches counted, the entry
 points' default device, a small engine run (captured in a CUDA graph
 and eager, against the CPU, and a replay after a state change), the
 pipeline and adaptive passes captured and eager, the smoke models' serving
-path and train step on the card against the same runs on the CPU, and
-two trainer pods on the card ending bitwise equal.
+path and train step on the card against the same runs on the CPU, the
+MoE (llama4's smoke config) on the card against the CPU under the
+flip-aware routing rule, its train step in deterministic mode and its
+checkpointed gradients against un-checkpointed ones, and two trainer
+pods on the card ending bitwise equal.
 Every test is marked ``gpu`` and skips without a card.
 
 This file imports only torch, numpy and repro_torch, so it also runs on
@@ -312,6 +315,9 @@ FLASH_CASES = [
     (2, 200, 200, 4, 2, 64, 64, False, 50),         # non-causal window
     (1, 256, 256, 16, 2, 128, 128, True, -1),       # G = 8
     (2, 1024, 1024, 40, 8, 128, 128, True, -1),     # qwen3-14b, G = 5
+    (4, 1024, 1024, 40, 8, 128, 128, True, -1),     # llama4 prefill, G = 5
+    (1, 4096, 4096, 40, 8, 128, 128, True, -1),     # its train microbatch
+    (1, 256, 256, 40, 8, 128, 128, True, -1),       # its f32 checks
     (4, 1024, 1024, 28, 4, 128, 128, True, -1),     # qwen2-vl-7b, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1),     # its train microbatch
     (4, 192, 192, 28, 4, 128, 128, True, -1)]       # its f32 check
@@ -417,7 +423,7 @@ def test_model_entry_points_default_to_the_card(cuda):
     assert all(t.is_cuda for t in cache["seg0"].values())
 
 
-# -- epochs and the closed pipeline on the card --------------------------------
+# -- epochs and the closed pipeline on the card -------------------------------
 
 def pipeline_tree(state):
     """A pipeline state → nested numpy dicts (bitsets as uint32)."""
@@ -645,6 +651,8 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (2, 200, 300, 4, 2, 50, 36, True, -1),
              (1, 1000, 1000, 8, 2, 128, 128, True, -1),
              (2, 1024, 1024, 40, 8, 128, 128, True, -1),   # qwen3-14b
+             (1, 4096, 4096, 40, 8, 128, 128, True, -1),   # llama4 train
+             (1, 256, 256, 40, 8, 128, 128, True, -1),     # its f32 step
              (4, 1024, 1024, 28, 4, 128, 128, True, -1),   # qwen2-vl-7b
              (1, 4096, 4096, 28, 4, 128, 128, True, -1),   # its microbatch
              (1, 256, 256, 28, 4, 128, 128, True, -1)]     # its f32 step
@@ -883,3 +891,158 @@ def test_pods_on_card_end_bitwise_equal(cuda):
         assert log.audit() == [] and sm.step == 3
         pods.append(sm)
     assert pods[0].digest() == pods[1].digest()
+
+
+# -- the MoE (llama4-maverick's smoke config) on the card ---------------------
+
+MOE_ARCH = "llama4-maverick-400b-a17b"
+# f32, card against CPU: a token may take the other expert only where its
+# top-2 router probabilities are closer than this (f32 rounding of the
+# router product moves them by ~1e-7)
+MOE_FLIP_MARGIN = 1e-4
+
+
+class MoeRecorder:
+    """Records each MoE dispatch's routing (wraps ``layers.moe_route``)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.real, self.routes, self.deterministic = \
+            L, L.moe_route, [], []
+
+        def route(*a):
+            r = self.real(*a)
+            self.routes.append(r)
+            self.deterministic.append(
+                torch.are_deterministic_algorithms_enabled())
+            return r
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self.real
+
+
+def flip_aware_rows(cpu_routes, card_routes, margin):
+    """bool [T] per dispatch pair: the tokens whose expert and keep mask
+    agree on both devices. Raises where a token's expert differs with a
+    top-2 margin of ``margin`` or more."""
+    rows = []
+    for a, b in zip(cpu_routes, card_routes):
+        top2 = torch.topk(a.probs, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        flipped = a.expert != b.expert.cpu()
+        assert bool((gap[flipped] < margin).all()), gap[flipped]
+        rows.append(~flipped & (a.keep == b.keep.cpu()))
+    return rows
+
+
+def moe_pair(cfg, cuda):
+    lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    lm_dev = convert.lm_params_from_jax(convert.lm_params_to_numpy(lm_cpu),
+                                        cfg, cuda)
+    return lm_cpu, lm_dev
+
+
+def test_moe_forward_on_card_matches_cpu(cuda):
+    """llama4's smoke config in f32, one pair, B = 2 × 64 (T = 128 at C =
+    24: the forward drops tokens): every dispatch's expert and keep mask
+    equal the CPU's up to flips under MOE_FLIP_MARGIN; the per-position logits of
+    the tokens with the same routing agree within 1e-4 (one pair: a
+    token's routing changes only its own output), as do the aux losses."""
+    from repro_torch.models import layers as L
+    cfg = registry.get_smoke(MOE_ARCH).replace(dtype=torch.float32,
+                                               n_layers=2)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64)))
+    outs = []
+    for lm, dev in zip(moe_pair(cfg, cuda), ("cpu", cuda)):
+        with MoeRecorder() as rec, torch.no_grad():
+            x = L.embed_apply(lm["embed"], toks.to(dev))
+            hidden, aux = T.backbone_forward(
+                lm, cfg, x, torch.arange(64, device=dev)[None].expand(2, 64))
+            logits = L.logits_apply(lm["embed"], hidden, cfg.tie_embeddings)
+        outs.append((logits.cpu(), float(aux), rec.routes))
+    (cpu, aux_cpu, r_cpu), (card, aux_card, r_card) = outs
+    assert len(r_cpu) == len(r_card) == 1
+    assert int((~r_cpu[0].keep).sum()) > 0
+    (rows,) = flip_aware_rows(r_cpu, r_card, MOE_FLIP_MARGIN)
+    assert rows.float().mean() > 0.9
+    diff = (cpu - card).abs().amax(dim=-1).reshape(-1)
+    assert float(diff[rows].max()) < 1e-4
+    assert abs(aux_cpu - aux_card) <= 1e-5 * aux_cpu
+
+
+def test_moe_train_step_on_card_is_deterministic(cuda):
+    """llama4's smoke config in bf16, Adafactor, two microbatches, under
+    the step's deterministic mode (an op without a deterministic CUDA
+    implementation would raise): two runs from one state end with the
+    same bytes, and the loss, grad_norm and aux are finite."""
+    cfg = registry.get_smoke(MOE_ARCH)
+    opt = O.OptConfig(kind="adafactor", lr=1e-3)
+    step = TR.make_train_step(cfg, opt, microbatches=2, global_batch=4)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 64))).to(cuda)}
+    runs = []
+    for _ in range(2):
+        state = TR.make_state(cfg, opt, torch.Generator(cuda).manual_seed(0),
+                              cuda)
+        with MoeRecorder() as rec:
+            for _ in range(2):
+                state, m = step(state, batch)
+        # steps x microbatches x MoE layers x (forward, recompute)
+        assert len(rec.routes) == 2 * 2 * 2 * 2 and all(rec.deterministic)
+        assert not torch.are_deterministic_algorithms_enabled()
+        assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm",
+                                                      "aux"))
+        assert float(m["aux"]) > 0
+        runs.append(_leaves(convert.train_state_to_numpy(state)))
+    a, b = runs
+    assert len(a) == len(b) and all(x.tobytes() == y.tobytes()
+                                    for x, y in zip(a, b))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def test_moe_checkpointed_gradients_on_card(cuda):
+    """On the card in f32, deterministic mode: the loss with every block
+    under checkpoint (the backward recomputes each MoE block's routing)
+    against the same loss composed from the blocks without checkpoint:
+    the same routing in the recompute, the same gradients (1e-5 of each
+    leaf's largest magnitude)."""
+    from repro_torch.models import layers as L
+    cfg = registry.get_smoke(MOE_ARCH).replace(dtype=torch.float32)
+    _, lm = moe_pair(cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 64))).to(cuda)
+    params = list(lm.parameters())
+    with TR.deterministic(cuda):
+        with MoeRecorder() as rec:
+            loss, _ = T.lm_loss(lm, cfg, {"tokens": toks})
+            ckpt = torch.autograd.grad(loss, params)
+        assert len(rec.routes) == 4
+        for a, b in zip(rec.routes[:2], rec.routes[:1:-1]):
+            assert torch.equal(a.expert, b.expert)
+            assert torch.equal(a.keep, b.keep)
+        x = L.embed_apply(lm["embed"], toks)
+        pos = torch.arange(64, device=cuda)[None].expand(2, 64)
+        aux = 0.0
+        for lp in lm["segments"]["seg0"]:
+            x, _, _ = T.block_apply(lp["dense"], cfg, x, pos, moe=False,
+                                    window=-1)
+            x, _, a = T.block_apply(lp["moe"], cfg, x, pos, moe=True,
+                                    window=-1)
+            aux = aux + a
+        logits = L.logits_apply(lm["embed"],
+                                L.rmsnorm(lm["ln_f"], x, cfg.norm_eps),
+                                cfg.tie_embeddings)
+        plain = T.ce_loss(logits[:, :-1], toks[:, 1:]) + 0.01 * aux
+        direct = torch.autograd.grad(plain, params)
+    assert abs(float(plain) - float(loss)) <= 1e-6 * abs(float(loss))
+    for a, b in zip(ckpt, direct):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1e-2, float(b.abs().max()))

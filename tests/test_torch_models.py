@@ -1,5 +1,7 @@
 """The port's serving path (repro_torch.models, configs, launch.serve)
-against the JAX package, on the smoke configs of yi-6b and rwkv6-3b.
+against the JAX package, on the smoke configs of yi-6b, rwkv6-3b and
+llama4-maverick-400b-a17b (whose MoE has its own tests in
+tests/test_torch_moe.py).
 
 Both packages run the same weights: the reference's ``init_lm`` tree,
 carried to the port through ``convert.lm_params_from_jax``, and the same
@@ -40,7 +42,7 @@ from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["yi-6b", "rwkv6-3b"]
+ARCHS = ["yi-6b", "rwkv6-3b", "llama4-maverick-400b-a17b"]
 LAYER_TOL = 2e-5
 MODEL_TOL = 1e-4
 
@@ -148,7 +150,7 @@ def test_init_lm_matches_reference_layout(models, arch):
         if np.all(want == want.flat[0]):           # ones or zeros
             assert np.array_equal(mine, want), keys
         elif mine.size > 1000:
-            scale = 0.006 if keys[-1] == "w_w" else 0.02
+            scale = 0.006 if keys[-1] in ("w_w", "router") else 0.02
             assert abs(mine.std() / scale - 1) < 0.05, keys
     assert all(p.dtype == torch.bfloat16 for p in lm.parameters())
     again = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -374,17 +376,33 @@ def test_rwkv6_prefill_finite_where_reference_is_nan(models):
 def test_decode_matches_forward(models, arch):
     """Counterpart of test_arch_smoke.py::test_decode_matches_forward_internlm:
     sequential decode over a prompt reproduces the teacher-forced forward
-    logits (cache correctness)."""
+    logits (cache correctness). For the MoE config the forward's 16 tokens
+    meet a capacity of 8 and the decode's single token never overflows:
+    the two agree before the first position the forward dropped (a
+    token's place in its expert counts only earlier tokens, so a drop
+    changes nothing before it) and differ there."""
     m = models[arch]
     toks = _tokens(14, m.cfg, 1, 16)
     x = L.embed_apply(m.lm["embed"], torch.from_numpy(toks))
     pos = torch.arange(16)[None]
-    with torch.no_grad():
-        hidden = T.backbone_forward(m.lm, m.cfg, x, pos)
-        full = L.logits_apply(m.lm["embed"], hidden, m.cfg.tie_embeddings)
+    routes, real = [], L.moe_route
+    L.moe_route = lambda *a: routes.append(real(*a)) or routes[-1]
+    try:
+        with torch.no_grad():
+            hidden, _ = T.backbone_forward(m.lm, m.cfg, x, pos)
+            full = L.logits_apply(m.lm["embed"], hidden,
+                                  m.cfg.tie_embeddings)
+    finally:
+        L.moe_route = real
+    assert len(routes) == (2 if m.cfg.n_experts else 0)
+    first = min([int(torch.nonzero(~r.keep)[0]) for r in routes
+                 if not r.keep.all()], default=16)
     assert torch.equal(hidden, m.lm(torch.from_numpy(toks)))
     dec, _ = _port_decode(m, toks)
-    assert _err(dec, full) < MODEL_TOL
+    assert _err(dec[:, :first], full[:, :first]) < MODEL_TOL
+    if m.cfg.n_experts:
+        assert 8 <= first < 16
+        assert _err(dec[:, first], full[:, first]) > MODEL_TOL
 
 
 def test_prefill_batch_chunks_are_exact(models):

@@ -64,7 +64,8 @@ def _same(a, b) -> bool:
         for x, y in zip(fa, fb))
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-3b",
+                                  "llama4-maverick-400b-a17b"])
 @pytest.mark.parametrize("kind,dtype", [("adamw", "bf16"),
                                         ("adafactor", "bf16"),
                                         ("adamw", "f32")])

@@ -198,7 +198,8 @@ def _port_grads(state, gtree):
     return out
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-3b",
+                                  "llama4-maverick-400b-a17b"])
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
 def test_apply_opt_matches_reference(arch, kind):
     """Three steps on identical gradients: parameters and state."""
@@ -305,6 +306,32 @@ def _functional_opt(opt, params, grads, state, step):
             upd = upd + opt.weight_decay * P.float()
         out[path] = ((P.float() - opt.lr * upd).to(P.dtype), news)
     return out
+
+
+def test_adamw_in_slices_gives_the_same_bytes(monkeypatch):
+    """AdamW updates a tensor in slices of its first dim (ADAMW_CHUNK
+    elements at most): with ADAMW_CHUNK = 100 every matrix goes one row at
+    a time and the stacked norm scales in slices, and every parameter and
+    moment ends with the bytes of the whole-tensor update."""
+    opt = O.OptConfig(kind="adamw", lr=LR)
+    _, cfg = _cfgs("yi-6b")
+    states = []
+    for chunk in (O.ADAMW_CHUNK, 100):
+        monkeypatch.setattr(O, "ADAMW_CHUNK", chunk)
+        state = TR.make_state(cfg, opt, torch.Generator().manual_seed(0),
+                              "cpu")
+        for i in range(2):
+            g = _port_grads(state, _grad_tree(
+                convert.lm_params_to_numpy(state["params"]), 20 + i))
+            O.apply_opt(opt, state["params"], g, state["opt"],
+                        torch.tensor(i, dtype=torch.int32))
+        states.append(state)
+    for (_, a, _), (_, b, _) in zip(reference_leaves(states[0]["params"]),
+                                    reference_leaves(states[1]["params"])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    flat = [jax.tree.leaves(convert.train_state_to_numpy(s)["opt"])
+            for s in states]
+    assert all(np.array_equal(x, y) for x, y in zip(*flat))
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
