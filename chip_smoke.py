@@ -118,13 +118,14 @@ Phases, each of which must pass or the script exits non-zero:
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
 9. serving path (``serve/yi-6b``, ``serve/rwkv6-3b``): each model at full
-   width, 16 of its 32 layers, in bf16 (weights from the port's
-   initialiser, seed 0), B=4, a 1024-token seeded prompt: ``prefill`` (16
+   width and depth (32 layers), in bf16 (weights from the port's
+   initialiser, seed 0), B=4, a 1024-token seeded prompt: ``prefill`` (32
    kernel launches:
    for yi-6b, of the bf16 flash kernel and none of the f32 one; for
-   rwkv6-3b, of WKV6, each one call that runs three CUDA kernels),
-   teacher-forced ``decode_step`` over the prompt (no kernel launch),
-   then 32 greedy ``decode_step``s; all logits finite. Both bf16 paths
+   rwkv6-3b, of WKV6, each one call that runs three CUDA kernels), then
+   ``launch.serve.generate`` (each ``decode_step`` one captured CUDA
+   graph): the prompt teacher-forced (no kernel launch), then 32 greedy
+   tokens; all logits finite. Both bf16 paths
    against the f32 forward of the same weights (neither more than 2x
    further from it than the other), and in f32 at the same depth prefill
    vs teacher-forced decode over 160 tokens within 1e-3 with equal greedy
@@ -200,7 +201,25 @@ Phases, each of which must pass or the script exits non-zero:
    the one before, aux > 0, 8 forward and 4 backward bf16 flash launches
    a step, every MoE dispatch in deterministic mode, the router's
    gradient nonzero; the f32 step (one pair, 8 experts, 1 x 128) against
-   the CPU under the flip-aware rule;
+   the CPU under the flip-aware rule; ``serve/hymba-1.5b``: the hybrid
+   family (attention and Mamba heads, window 1024 except layers 0, 16,
+   31, 128 meta tokens) at full width and depth, bf16, B=4 x 1024 prompt
+   tokens: prefill behind the meta tokens (32 bf16 flash launches, 29 of
+   them windowed), then ``launch.serve.generate`` with each decode step
+   one captured CUDA graph (128 meta steps, the prompt teacher-forced, 32
+   greedy tokens; every ring wraps; no model kernel), both bf16 paths
+   against the f32 forward; the flash kernel at the prefill's and the
+   train microbatch's shapes with and without the window, and one
+   layer's Mamba scan and its share; in f32 at 2 layers over 1,228
+   positions the card against the CPU and the captured decode against
+   the forward at every position;
+   ``train/hymba-1.5b``: full width, 16 of its 32 layers (global 0, 8,
+   15), 2 x 4096 tokens behind the meta tokens in 2 microbatches,
+   Adafactor, 1 warm-up and 3 timed steps, each loss below the one
+   before, 64 forward and 32 backward bf16 flash launches a step, the
+   meta tokens', A_log's and w_dt's gradients nonzero and finite, the
+   Mamba scan's share of a step, and the f32 step at 2 layers against
+   the CPU;
 16. backward timing at the train cell's shape and the serving shape in
    bf16 (the tensor-core kernel) and at the serving shape in f32 (the
    CUDA-core kernel): kernel, its device time per pass, plain version,
@@ -2226,10 +2245,9 @@ WKV_PHASES = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
 EVENTS_PER_CALL = {"flash_attention": 1, "flash_attention_f32": 1,
                    "wkv6_chunked": len(WKV_PHASES)}
 SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
-# serve/yi-6b and serve/rwkv6-3b: full width, the depth cut 32 -> 16 for
-# the script's time limit (their teacher-forced decode over the prompt is
-# host-bound: 81 and 62 s at 32 layers on an H100 80GB HBM3 at 700 W)
-SERVE_LAYERS = 16
+# serve/yi-6b and serve/rwkv6-3b: full width and depth (their decode
+# steps run as one captured CUDA graph each through launch.serve.generate)
+SERVE_LAYERS = 32
 F32_LAYERS = 2
 CPU_B, CPU_P, CPU_STEPS = 2, 256, 8
 # kernel vs plain version on the same inputs. Flash: the tolerances of
@@ -2290,6 +2308,10 @@ FLASH_CASES = [
     (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
     (4, 192, 192, 28, 4, 128, 128, True, -1, F32),      # its f32 check
+    (4, 1152, 1152, 25, 5, 64, 64, True, 1024, BF16),   # hymba prefill
+    (4, 1152, 1152, 25, 5, 64, 64, True, -1, BF16),     # its global layers
+    (1, 4224, 4224, 25, 5, 64, 64, True, 1024, BF16),   # its microbatch
+    (1, 1228, 1228, 25, 5, 64, 64, True, 1024, F32),    # its f32 check
 ]
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
@@ -2434,23 +2456,45 @@ def f32_copy(lm, device=None):
     from repro_torch.models.transformer import LM
 
     def f32(tree):
-        return {k: f32(v) if isinstance(v, dict)
-                else v.detach().to(device, F32, copy=True)
-                for k, v in tree.items()}
-    tree = {"embed": f32(lm["embed"].to_dict()),
-            "ln_f": f32(lm["ln_f"].to_dict()),
-            "segments": {name: [f32(layer.to_dict()) for layer in layers]
-                         for name, layers in lm["segments"].items()}}
-    return LM(lm.cfg.replace(dtype=F32), tree)
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [f32(v) for v in tree]
+        return tree.detach().to(device, F32, copy=True)
+    return LM(lm.cfg.replace(dtype=F32), f32(lm.tree()))
 
 
-def teacher_forced(lm, cfg, prompts, cache):
-    """decode_step over every prompt token; the last step's logits."""
-    from repro_torch.models import decode as D
-    for t in range(prompts.shape[1]):
-        logits, cache = D.decode_step(
-            lm, cfg, {"token": prompts[:, t:t + 1], "index": t}, cache)
-    return logits
+def teacher_forced(lm, cfg, prompts):
+    """The last prompt token's logits after ``launch.serve.generate`` fed
+    the prompt through ``decode_step`` (one captured CUDA graph a step on
+    the card)."""
+    from repro_torch.launch import serve
+    return serve.generate(lm, cfg, prompts, 1, return_logits=True)[1][:, -1]
+
+
+def generate_timed(lm, cfg, prompts, new_tokens: int,
+                   keep_logits: bool = True) -> dict:
+    """``launch.serve.generate`` (with every logit kept, if
+    ``keep_logits``), each part timed with CUDA events (``part_ms``:
+    "step" the capture, "meta" the hybrid family's meta tokens, "prompt"
+    the teacher-forced prompt, "greedy" the greedy steps after the first
+    token), and its host seconds."""
+    from repro_torch.launch import serve
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+    mark("start")
+    t0 = time.perf_counter()
+    out = serve.generate(lm, cfg, prompts, new_tokens,
+                         return_logits=keep_logits, on_phase=mark)
+    gen, logits = out if keep_logits else (out, None)
+    torch.cuda.synchronize()
+    return dict(gen=gen, logits=logits, seconds=time.perf_counter() - t0,
+                part_ms={b[0]: a[1].elapsed_time(b[1])
+                         for a, b in zip(marks, marks[1:])})
 
 
 def wkv_workspace(cfg, kernel: str) -> dict:
@@ -2466,7 +2510,8 @@ def wkv_workspace(cfg, kernel: str) -> dict:
 
 def serve_phase(arch: str, kernel: str, dev) -> dict:
     """The serving path at full width and SERVE_LAYERS layers in bf16:
-    prefill, teacher-forced decode, greedy decode, checks and timing."""
+    prefill, then ``launch.serve.generate`` (the prompt teacher-forced,
+    greedy decode), checks and timing."""
     from repro_torch.configs import registry
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
@@ -2494,34 +2539,23 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
           and sum(after_prefill.values()) == cfg.n_layers,
           f"{arch} prefill launched {after_prefill}, expected "
           f"{cfg.n_layers} x {kernel}")
-    cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B,
-                                       SERVE_P + SERVE_NEW + 4), dev)
-    t0 = time.perf_counter()
-    logits_d = teacher_forced(lm, cfg, prompts, cache)
-    torch.cuda.synchronize()
-    tf_s = time.perf_counter() - t0
+    run = generate_timed(lm, cfg, prompts, SERVE_NEW)
     check(model_counts() == after_prefill,
-          f"{arch}: decode launched a model kernel")
-    finite = bool(torch.isfinite(logits_p).all()
-                  and torch.isfinite(logits_d).all())
-    check(finite, f"{arch}: prefill or decode logits are not finite")
-
-    tok = logits_d.argmax(-1)[:, None]
-    all_finite = torch.ones((), dtype=torch.bool, device=dev)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for i in range(SERVE_NEW):
-        logits, cache = D.decode_step(
-            lm, cfg, {"token": tok, "index": SERVE_P + i}, cache)
-        all_finite &= torch.isfinite(logits).all()
-        tok = logits.argmax(-1)[:, None]
-    end.record()
-    torch.cuda.synchronize()
-    decode_ms = start.elapsed_time(end) / SERVE_NEW
-    check(bool(all_finite), f"{arch}: greedy decode logits not finite")
-    launches = model_counts()
-    check(launches == after_prefill, f"{arch}: greedy decode launched "
-          f"{launches}")
+          f"{arch}: decode launched a model kernel: {model_counts()}")
+    logits_d = run["logits"][:, SERVE_P - 1]
+    check(tuple(run["gen"].shape) == (SERVE_B, SERVE_NEW)
+          and tuple(run["logits"].shape) == (SERVE_B, SERVE_P + SERVE_NEW
+                                             - 1, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()
+                   and torch.isfinite(run["logits"]).all()),
+          f"{arch}: generate gave {tuple(run['gen'].shape)}, logits "
+          f"{tuple(run['logits'].shape)}; prefill or decode logits are "
+          "not finite")
+    tok = run["gen"][:, -1:]
+    part_ms = run["part_ms"]
+    tf_s = part_ms["prompt"] / 1e3
+    decode_ms = part_ms["greedy"] / (SERVE_NEW - 1)
+    del run
     peak_path = torch.cuda.max_memory_allocated()
 
     # the f32 forward of the same weights (after the counted run), traced:
@@ -2549,8 +2583,7 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
         launches=launches32, shapes={"forward": [SERVE_B, SERVE_P],
                                      "prefill_short": [SERVE_B, F32_P]},
         device_us_per_call=f32_us, forward_device_ms=f32_device_us / 1e3)
-    f32_decode = teacher_forced(lm32, lm32.cfg, short, D.cache_zeros(
-        D.cache_spec(lm32.cfg, SERVE_B, F32_P), dev))
+    f32_decode = teacher_forced(lm32, lm32.cfg, short)
     del lm32
     torch.cuda.empty_cache()
     f32_err = float((f32_prefill - f32_decode).abs().max())
@@ -2601,6 +2634,10 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
     check(all(phase_us.values()), f"{arch}: a WKV6 pass is missing from "
           f"the profile: {phase_us}")
     dev_us = sum(us for _, us in prof)
+    # one decode step's kernels, eagerly (the captured graph replays the
+    # same kernels), on a cache of the generate run's length
+    cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, SERVE_P + SERVE_NEW + 4),
+                          dev)
     steps = 4
     t0 = time.perf_counter()
     prof_d = device_kernels(lambda: D.decode_step(
@@ -2616,6 +2653,7 @@ def serve_phase(arch: str, kernel: str, dev) -> dict:
                **agree, greedy_tokens=tokens, f32_top2_gap=gap,
                teacher_forced_seconds=tf_s,
                teacher_forced_tokens_per_s=SERVE_B * SERVE_P / tf_s,
+               generate_part_ms=part_ms,
                prefill_ms=prefill_ms,
                prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
                decode_ms_per_step=decode_ms,
@@ -2683,8 +2721,7 @@ def serve_f32_phase(dev) -> dict:
         kernel_us, _ = traced_kernel_us(
             lambda: D.prefill(lm, cfg, {"tokens": prompts}), kernel,
             F32_LAYERS)
-        cache = D.cache_zeros(D.cache_spec(cfg, SERVE_B, SERVE_P), dev)
-        decoded = teacher_forced(lm, cfg, prompts, cache)
+        decoded = teacher_forced(lm, cfg, prompts)
         errs = dict(kernel_vs_plain=float((with_kernel - plain).abs().max()),
                     kernel_vs_decode=float((with_kernel - decoded)
                                            .abs().max()))
@@ -2698,7 +2735,7 @@ def serve_f32_phase(dev) -> dict:
         out[arch] = dict(errs, logits_max_abs=float(with_kernel.abs().max()),
                          tolerance=F32_LOGIT_TOL, launches=counts[kernel],
                          kernel_device_us_per_call=kernel_us)
-        del lm, cache
+        del lm
         torch.cuda.empty_cache()
     log(phase="serve/f32", layers=F32_LAYERS, batch=SERVE_B, prompt=SERVE_P,
         **out)
@@ -2749,15 +2786,16 @@ def serve_cli(dev) -> None:
 
 
 def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize,
-                    backward=False) -> dict:
+                    backward=False, window=-1) -> dict:
     """Causal attention with Sq = Skv: the visible (query, key) pairs
-    need 2 h + 2 hv flops each (S = Q K^T, P V), at the bf16 tensor-core
-    rate (itemsize 2) or the f32 rate of the CUDA cores (itemsize 4); q,
-    k, v read once and the output written once. ``backward``: the five
-    products S, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q, 6 h
-    + 4 hv flops a pair; q, k, v, o and do read once, dq, dk and dv
-    written once."""
-    pairs = B * H * Sq * (Sq + 1) // 2
+    (i - w < j <= i with a window w > 0) need 2 h + 2 hv flops each (S =
+    Q K^T, P V), at the bf16 tensor-core rate (itemsize 2) or the f32
+    rate of the CUDA cores (itemsize 4); q, k, v read once and the output
+    written once. ``backward``: the five products S, dP = dO V^T, dV =
+    P^T dO, dQ = dS K and dK = dS^T Q, 6 h + 4 hv flops a pair; q, k, v,
+    o and do read once, dq, dk and dv written once."""
+    w = min(window, Sq) if window > 0 else Sq
+    pairs = B * H * (w * (w + 1) // 2 + (Sq - w) * w)
     flops = pairs * ((6 * h + 4 * hv) if backward else 2 * (h + hv))
     elems = (B * Sq * H * h + B * Skv * K * (h + hv) + B * Sq * H * hv)
     nbytes = itemsize * elems * (2 if backward else 1)
@@ -2899,6 +2937,8 @@ BWD_CASES = [
     (4, 1024, 1024, 28, 4, 128, 128, True, -1, BF16),   # qwen2-vl, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1, BF16),   # its microbatch
     (1, 256, 256, 28, 4, 128, 128, True, -1, F32),      # its f32 step
+    (1, 4224, 4224, 25, 5, 64, 64, True, 1024, BF16),   # hymba microbatch
+    (1, 384, 384, 25, 5, 64, 64, True, 1024, F32),      # its f32 step
 ]
 # each backward route's three CUDA kernels, as torch.profiler names them
 # (no name holds another's), and its library and info export; the bf16
@@ -3041,7 +3081,7 @@ def bwd_kernel_phase(dev) -> dict:
             worst_abs[route] = max(worst_abs[route], err)
         # the train shape and the f32 serving shape: byte-equal on a
         # second launch
-        if Sq == 4096 or (dt == F32 and Sq == 1024):
+        if Sq in (4096, 4224) or (dt == F32 and Sq == 1024):
             again = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                            window=window, lse=lse)
             extra["same_bytes_twice"] = all(
@@ -4314,10 +4354,10 @@ def moe_serve_phase(dev) -> dict:
     tokens. (a) The prefill: exactly 2 bf16 flash launches and no other
     model kernel, finite logits; the MoE layer's capacity, drops, largest
     expert load and aux; CUDA-event time. (b) ``launch.serve.generate``:
-    the prompt teacher-forced through ``decode_step``, then SERVE_NEW
-    greedy steps, no model kernel. (c) :func:`moe_f32_checks`."""
+    the prompt teacher-forced through ``decode_step`` (one captured CUDA
+    graph a step), then SERVE_NEW greedy steps, no model kernel, no token
+    dropped. (c) :func:`moe_f32_checks`."""
     from repro_torch.configs import registry
-    from repro_torch.launch import serve
     from repro_torch.models import decode as D
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -4364,23 +4404,26 @@ def moe_serve_phase(dev) -> dict:
 
     # (b) generate: the prompt teacher-forced, then greedy steps
     steps = SERVE_P + SERVE_NEW - 1
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with MoeRecorder() as drec:
-        start.record()
-        gen = serve.generate(lm, cfg, prompts, SERVE_NEW)
-        end.record()
-        torch.cuda.synchronize()
-    gen_ms = start.elapsed_time(end)
+        run = generate_timed(lm, cfg, prompts, SERVE_NEW, keep_logits=False)
+    gen, part_ms = run["gen"], run["part_ms"]
+    gen_ms = sum(part_ms.values())
     check(model_counts() == counts,
           f"{MOE_ARCH}: decode launched a model kernel: {model_counts()}")
     check(tuple(gen.shape) == (SERVE_B, SERVE_NEW)
           and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
           f"{MOE_ARCH}: generated {tuple(gen.shape)}")
+    # each decode step is one captured CUDA graph: the recorder sees the
+    # capture's warm-up step and the capture itself (whose routing
+    # buffers the replays overwrite, so they end with the last step's);
+    # a dispatch of B tokens at a capacity of at least B·k drops none
     dstats = drec.stats()
-    check(len(dstats) == steps and all(
-        s["capacity"] == L.moe_capacity(SERVE_B, cfg) and s["dropped"] == 0
-        for s in dstats),
-        f"{MOE_ARCH}: decode dispatches dropped tokens")
+    cap = L.moe_capacity(SERVE_B, cfg)
+    check(len(dstats) == 2 * (cfg.n_layers // 2)
+          and cap >= SERVE_B * cfg.experts_per_token and all(
+              s["tokens"] == SERVE_B and s["capacity"] == cap
+              and s["dropped"] == 0 for s in dstats),
+          f"{MOE_ARCH}: decode dispatches {dstats} (capacity {cap})")
     peak = torch.cuda.max_memory_allocated()
     del lm, prompts, rec, drec
     torch.cuda.empty_cache()
@@ -4402,8 +4445,11 @@ def moe_serve_phase(dev) -> dict:
                moe=moe, prefill_ms=prefill_ms,
                prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
                generate_seconds=gen_ms / 1e3, decode_steps=steps,
-               decode_ms_per_step=gen_ms / steps,
-               decode_tokens_per_s=SERVE_B * steps / (gen_ms / 1e3),
+               generate_part_ms=part_ms,
+               teacher_forced_ms_per_step=part_ms["prompt"] / SERVE_P,
+               decode_ms_per_step=part_ms["greedy"] / (SERVE_NEW - 1),
+               decode_tokens_per_s=SERVE_B * (SERVE_NEW - 1)
+               / (part_ms["greedy"] / 1e3),
                greedy_tokens=gen[:, :8].tolist(),
                peak_mem_bytes=peak, resident_at_start_bytes=resident,
                f32=exact, seconds=time.perf_counter() - t_phase)
@@ -4561,6 +4607,448 @@ def moe_train_phase(dev) -> dict:
                launches_per_step=want, launches=counts, f32=f32,
                seconds=time.perf_counter() - t_phase)
     log(phase=f"train/{MOE_ARCH}", **res)
+    return res
+
+
+# -- the hybrid family: hymba-1.5b --------------------------------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+META = 128                    # hymba's meta tokens before every sequence
+# serve/hymba: full width and depth (29 layers with window 1024, global
+# layers 0, 16 and 31), bf16, SERVE_B x SERVE_P prompt tokens behind the
+# meta tokens: prefill over 1,152 positions, then launch.serve.generate
+# (128 meta steps, SERVE_P teacher-forced, SERVE_NEW - 1 greedy: 1,183
+# steps, each one captured CUDA graph, so every ring of 1,024 slots wraps)
+HYMBA_SERVE_LAYERS = 32
+# the f32 checks: full width, 2 layers (layer 0 global, layer 1 with the
+# window), HYMBA_F32_B x HYMBA_F32_P tokens behind the meta tokens (1,228
+# positions: the window's ring wraps)
+HYMBA_F32_LAYERS = 2
+HYMBA_F32_B, HYMBA_F32_P = 1, 1100
+# train/hymba: full width, the depth cut 32 -> 16 (global layers 0, 8
+# and 15, the reference's default rule) for the script's time limit (a
+# step at 32 layers: 3.2-4.9 s, host-bound in the Mamba scan's backward),
+# train_4k's 4,096 tokens with the batch cut 256 -> TRAIN_B and the
+# registry's 4 microbatches cut to 2, Adafactor at TRAIN_LR; the leaves
+# whose gradients must be nonzero
+HYMBA_TRAIN_LAYERS = 16
+HYMBA_TRAIN_MICRO = 2
+HYMBA_TRAIN_STEPS = 4         # 1 warm-up + 3 timed
+HYMBA_GRAD_LEAVES = ("meta_tokens", "A_log", "w_dt")
+
+
+def hymba_config(n_layers: int, dtype=None):
+    """hymba-1.5b at full width and ``n_layers`` layers: its own global
+    layers at full depth, layer 0 alone at HYMBA_F32_LAYERS, else the
+    reference's default rule (first, middle and last)."""
+    from repro_torch.configs import registry
+    full = registry.get(HYMBA_ARCH)
+    glb = full.global_layers if n_layers == full.n_layers else \
+        (0,) if n_layers == HYMBA_F32_LAYERS else ()
+    return full.replace(n_layers=n_layers, global_layers=glb,
+                        dtype=dtype or full.dtype)
+
+
+def hymba_global_layers(cfg) -> list:
+    """The layers of ``cfg``'s plan with full (global) attention."""
+    from repro_torch.models import transformer as T
+    out, i = [], 0
+    for seg in T.plan_segments(cfg):
+        if seg["window"] <= 0:
+            out.append(i)
+        i += seg["n"]
+    return out
+
+
+def mamba_times(dev, cfg, batch: int, seq: int) -> dict:
+    """One layer's Mamba heads (``models.ssm.mamba_scan``) at full width
+    on [batch, seq, D] bf16 inputs, CUDA events: the forward alone, and
+    forward and backward (the weights copied out of any model); with the
+    forward's device time (torch.profiler) and its share of the wall
+    time."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models.common import ParamFactory
+    gen = torch.Generator(dev).manual_seed(SEED + 33)
+    p = S.init_mamba(ParamFactory(gen, cfg.dtype, dev), cfg, cfg.d_model)
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    x = randn(gen, (batch, seq, cfg.d_model), dev, cfg.dtype)
+    xg = x.clone().requires_grad_()
+    g = randn(gen, (batch, seq, cfg.d_model), dev, cfg.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            return S.mamba_scan(p, cfg, x)
+
+    def fwd_bwd():
+        S.mamba_scan(p, cfg, xg).backward(g)
+    fwd_ms = time_cuda(fwd, reps=3, warmup=1)
+    fb_ms = time_cuda(fwd_bwd, reps=3, warmup=1)
+    events = device_kernels(fwd, 1, want=1)
+    dev_us = sum(us for _, us in events)
+    return dict(shape=[batch, seq, cfg.d_model], fwd_ms=fwd_ms,
+                fwd_bwd_ms=fb_ms, fwd_device_ms=dev_us / 1e3,
+                fwd_kernels=len(events),
+                fwd_device_busy_share=dev_us / 1e3 / fwd_ms)
+
+
+def hymba_flash_timing(dev, cfg) -> dict:
+    """The bf16 flash kernel at the prefill's shape (SERVE_B x 1,152
+    positions, 25 heads over 5, h 64) with hymba's window and without
+    (its global layers), and at the train microbatch's (1 x 4,224) with
+    the window: per call (CUDA events), device time a call
+    (torch.profiler), the plain version and
+    ``scaled_dot_product_attention`` (the window as a boolean mask), with
+    the bound of the visible pairs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    kf, _ = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 34)
+    H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    rows = {}
+    for key, B, S, window in (
+            ("window", SERVE_B, META + SERVE_P, cfg.window),
+            ("global", SERVE_B, META + SERVE_P, -1),
+            ("train_window", TRAIN_B // HYMBA_TRAIN_MICRO, META + TRAIN_S,
+             cfg.window)):
+        q = randn(gen, (B, S, H, h), dev, BF16)
+        k = randn(gen, (B, S, K, h), dev, BF16)
+        v = randn(gen, (B, S, K, h), dev, BF16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if not gqa:
+            kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+        mask = ref.attention_mask(S, S, causal=True, window=window,
+                                  device=dev)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                **({"enable_gqa": True} if gqa else {}))
+        plain = kf.flash_attention_plain(q, k, v, window=window).float()
+        lib_err = float((sdpa().transpose(1, 2).float() - plain).abs().max())
+        check(lib_err <= FLASH_TOL[BF16], f"sdpa disagrees: {lib_err}")
+        del plain
+        before = model_counts()["flash_attention"]
+        ms = time_cuda(lambda: kf.flash_attention(q, k, v, window=window),
+                       reps=20, warmup=3)
+        check(model_counts()["flash_attention"] - before == 23,
+              "hymba flash timing: the calls did not launch the kernel")
+        row = dict(shape=[B, S, H, K, h], window=window, dtype="bfloat16",
+                   ms=ms, plain_ms=time_cuda(
+                       lambda: kf.flash_attention_plain(q, k, v,
+                                                        window=window),
+                       reps=3, warmup=1),
+                   library_ms=time_cuda(sdpa, reps=20, warmup=3),
+                   library="torch.nn.functional.scaled_dot_product_"
+                           "attention(attn_mask=the causal mask"
+                           + (f" of window {window}" if window > 0 else "")
+                           + (", enable_gqa=True)" if gqa else
+                              ") on k/v expanded over G"),
+                   library_vs_plain_err=lib_err,
+                   **attention_bound(B, S, S, H, K, h, h, 2,
+                                     window=window))
+        row["device_us"], _ = traced_kernel_us(
+            lambda: [kf.flash_attention(q, k, v, window=window)
+                     for _ in range(5)], "flash_attention", 5)
+        row["tflops_per_s"] = row["flops"] / (ms * 1e9)
+        rows[key] = row
+        log(phase="timing/hymba_flash", **row)
+        del q, k, v, qt, kt, vt, mask
+    return rows
+
+
+def hymba_f32_checks(dev) -> dict:
+    """HYMBA_F32_LAYERS layers at full width in f32 (layer 0 global, layer
+    1 with the window): the forward over HYMBA_F32_P tokens behind the
+    meta tokens (2 f32 flash launches, one windowed) against the CPU
+    port's prefill (CPU_LOGIT_TOL) and against the captured teacher-forced
+    decode of ``launch.serve.generate`` at every position, the ring
+    wrapped (F32_LOGIT_TOL; no model kernel in the decode)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = hymba_config(HYMBA_F32_LAYERS, F32)
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    toks = torch.randint(0, cfg.vocab, (HYMBA_F32_B, HYMBA_F32_P),
+                         device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 35))
+    before = model_counts()
+    with torch.no_grad():
+        full = L.logits_apply(lm["embed"], lm(toks), cfg.tie_embeddings)
+    pre, _ = D.prefill(lm, cfg, {"tokens": toks})
+    launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "flash_attention_f32": 2 * cfg.n_layers},
+          f"serve/{HYMBA_ARCH}/f32: forward and prefill launched {launched}")
+    lm_cpu = f32_copy(lm, "cpu")
+    t0 = time.perf_counter()
+    pre_cpu, _ = D.prefill(lm_cpu, cfg, {"tokens": toks.cpu()})
+    cpu_s = time.perf_counter() - t0
+    cpu_err = float((pre.cpu() - pre_cpu).abs().max())
+    del lm_cpu
+    before = model_counts()
+    t0 = time.perf_counter()
+    _, dec = serve.generate(lm, cfg, toks, 1, return_logits=True)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    check(model_counts() == before,
+          f"serve/{HYMBA_ARCH}/f32: the decode launched a model kernel")
+    dec_err = float((dec - full).abs().max())
+    last_err = float((dec[:, -1] - pre).abs().max())
+    res = dict(layers=cfg.n_layers, batch=HYMBA_F32_B, prompt=HYMBA_F32_P,
+               positions=META + HYMBA_F32_P, window=cfg.window,
+               card_vs_cpu_prefill=cpu_err, cpu_prefill_seconds=cpu_s,
+               decode_vs_forward=dec_err, decode_vs_prefill=last_err,
+               decode_seconds=dec_s,
+               tolerance=dict(cpu=CPU_LOGIT_TOL, decode=F32_LOGIT_TOL),
+               logits_max_abs=float(full.abs().max()),
+               launches=launched["flash_attention_f32"])
+    check(cpu_err <= CPU_LOGIT_TOL and dec_err <= F32_LOGIT_TOL
+          and last_err <= F32_LOGIT_TOL
+          and bool(torch.isfinite(dec).all()),
+          f"serve/{HYMBA_ARCH}/f32: {res}")
+    del lm, full, dec
+    torch.cuda.empty_cache()
+    return res
+
+
+def hymba_serve_phase(dev) -> dict:
+    """serve/hymba-1.5b: full width, HYMBA_SERVE_LAYERS layers, bf16,
+    SERVE_B x SERVE_P prompt tokens. (a) Prefill (the meta tokens before
+    the prompt): exactly L bf16 flash launches (windowed and global) and
+    no other model kernel, finite logits; (b) ``launch.serve.generate``
+    (each step one captured CUDA graph): 128 meta steps, the prompt
+    teacher-forced, SERVE_NEW greedy tokens; no model kernel, finite
+    logits, each part timed with CUDA events; (c) both bf16 paths at the
+    prompt's last token against the f32 forward of the same weights
+    (neither more than BF16_PATH_RATIO times further from it than the
+    other); (d) timing: prefill, the flash kernel at the prefill's
+    shapes, one layer's Mamba heads and their share; (e)
+    :func:`hymba_f32_checks`."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    full = registry.get(HYMBA_ARCH)
+    cfg = hymba_config(HYMBA_SERVE_LAYERS)
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 30))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    windowed = sum(s["n"] for s in T.plan_segments(cfg) if s["window"] > 0)
+
+    # (a) the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits_p, _ = D.prefill(lm, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    launches = model_counts()
+    check(launches["flash_attention"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"{HYMBA_ARCH} prefill launched {launches}, expected "
+          f"{cfg.n_layers} x flash_attention")
+    check(tuple(logits_p.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{HYMBA_ARCH}: prefill logits not finite")
+
+    # (b) generate: every part timed with CUDA events
+    run = generate_timed(lm, cfg, prompts, SERVE_NEW)
+    gen, logits = run["gen"], run["logits"]
+    generate_s, part_ms = run["seconds"], run["part_ms"]
+    del run
+    check(model_counts() == launches,
+          f"{HYMBA_ARCH}: the decode launched a model kernel: "
+          f"{model_counts()}")
+    steps = {"meta": META, "prompt": SERVE_P, "greedy": SERVE_NEW - 1}
+    logits_d = logits[:, SERVE_P - 1]
+    check(tuple(gen.shape) == (SERVE_B, SERVE_NEW)
+          and tuple(logits.shape) == (SERVE_B, SERVE_P + SERVE_NEW - 1,
+                                      cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{HYMBA_ARCH}: generate gave {tuple(gen.shape)}, logits "
+          f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    del logits
+    peak = torch.cuda.max_memory_allocated()
+
+    # (c) both bf16 paths against the f32 forward of the same weights
+    lm32 = f32_copy(lm)
+    before = model_counts()["flash_attention_f32"]
+    logits_f, _ = D.prefill(lm32, lm32.cfg, {"tokens": prompts})
+    f32_launches = model_counts()["flash_attention_f32"] - before
+    check(f32_launches == cfg.n_layers,
+          f"{HYMBA_ARCH}: the f32 forward launched {f32_launches}")
+    del lm32
+    torch.cuda.empty_cache()
+    lp, ld, lf = logits_p.float(), logits_d.float(), logits_f
+
+    def rms(x):
+        return float(x.square().mean().sqrt())
+    agree = dict(prefill_vs_decode=float((lp - ld).abs().max()),
+                 prefill_vs_f32=float((lp - lf).abs().max()),
+                 decode_vs_f32=float((ld - lf).abs().max()),
+                 rms_prefill_vs_decode=rms(lp - ld),
+                 rms_prefill_vs_f32=rms(lp - lf),
+                 rms_decode_vs_f32=rms(ld - lf), rms_f32_logits=rms(lf),
+                 max_abs_f32_logit=float(lf.abs().max()))
+    tokens = {name: x.argmax(-1).tolist()
+              for name, x in (("prefill", lp), ("decode", ld), ("f32", lf))}
+    a, b = agree["prefill_vs_f32"], agree["decode_vs_f32"]
+    check(max(a, b) <= BF16_PATH_RATIO * min(a, b),
+          f"{HYMBA_ARCH}: one bf16 path is further from the f32 forward "
+          f"than the other: {agree}")
+
+    # (d) timing
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
+                           reps=3, warmup=1)
+    del lm
+    torch.cuda.empty_cache()
+    flash = hymba_flash_timing(dev, cfg)
+    mamba = mamba_times(dev, cfg, SERVE_B, META + SERVE_P)
+    mamba["prefill_share"] = cfg.n_layers * mamba["fwd_ms"] / prefill_ms
+
+    # (e) exactness at HYMBA_F32_LAYERS layers in f32
+    exact = hymba_f32_checks(dev)
+    res = dict(arch=HYMBA_ARCH, params=n_params, layers=cfg.n_layers,
+               global_layers=hymba_global_layers(cfg),
+               windowed_layers=windowed, window=cfg.window,
+               cuts={"layers": [full.n_layers, cfg.n_layers]},
+               batch=SERVE_B, prompt=SERVE_P, positions=META + SERVE_P,
+               new_tokens=SERVE_NEW, init_seconds=init_s,
+               prefill_first_seconds=prefill_first_s,
+               launches={"flash_attention": launches["flash_attention"]},
+               flash_calls_per_prefill=launches["flash_attention"],
+               **agree, greedy_tokens=tokens,
+               generate_seconds=generate_s, generate_part_ms=part_ms,
+               decode_steps=steps,
+               meta_ms_per_step=part_ms["meta"] / META,
+               teacher_forced_ms_per_step=part_ms["prompt"] / SERVE_P,
+               decode_ms_per_step=part_ms["greedy"] / (SERVE_NEW - 1),
+               decode_tokens_per_s=SERVE_B * (SERVE_NEW - 1)
+               / (part_ms["greedy"] / 1e3),
+               prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
+               flash=flash, mamba=mamba, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident, f32=exact,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"serve/{HYMBA_ARCH}", **res)
+    return res
+
+
+def hymba_train_phase(dev) -> dict:
+    """train/hymba-1.5b: full width, HYMBA_TRAIN_LAYERS layers, bf16,
+    Adafactor at TRAIN_LR; one fixed batch of TRAIN_B x TRAIN_S tokens
+    (each row 128 + TRAIN_S positions behind the meta tokens) in
+    HYMBA_TRAIN_MICRO microbatches. HYMBA_TRAIN_STEPS steps timed with
+    CUDA events: each loss below the one before, finite grad norms,
+    exactly 2 L m forward and L m backward bf16 flash launches a step.
+    Then the gradients of the meta tokens and of every layer's A_log and
+    w_dt: nonzero and finite; one layer's Mamba heads forward and
+    backward at the microbatch's shape and their share of a step; and one
+    f32 AdamW step at HYMBA_F32_LAYERS layers, card vs CPU
+    (:func:`f32_step_vs_cpu`)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import reference_leaves
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    cfg = hymba_config(HYMBA_TRAIN_LAYERS)
+    micro = HYMBA_TRAIN_MICRO
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    resident = fresh_peak()
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    batch = ShardedBatchSource(cfg.vocab, TRAIN_B, TRAIN_S, seed=SEED + 31,
+                               device=dev).batch(0)
+    want = {"flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_bwd": cfg.n_layers * micro}
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    steps = []
+    for _ in range(HYMBA_TRAIN_STEPS):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                          launches=launched, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"])))
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train/{HYMBA_ARCH} step {len(steps)} launched {launched}, "
+              f"expected {want}")
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    check(all(np.isfinite([st[k] for st in steps
+                           for k in ("loss", "grad_norm")]))
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train/{HYMBA_ARCH}: losses {losses}, grad norms "
+          f"{[st['grad_norm'] for st in steps]}")
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+
+    # the meta tokens' and the Mamba heads' gradients
+    grads, _ = TR.make_grad_fn(cfg, microbatches=micro,
+                               global_batch=TRAIN_B)(state["params"], batch)
+    grad_max = {}
+    for (path, _, _), leaf in zip(reference_leaves(state["params"]), grads):
+        if path[-1] in HYMBA_GRAD_LEAVES:
+            grad_max["/".join(path)] = [float(g.abs().max()) for g in leaf]
+    check(len(grad_max) == 1 + 2 * len(T.plan_segments(cfg))
+          and all(0 < x < float("inf") for v in grad_max.values()
+                  for x in v),
+          f"train/{HYMBA_ARCH}: gradients {grad_max}")
+    del state, grads
+    torch.cuda.empty_cache()
+    mamba = mamba_times(dev, cfg, TRAIN_B // micro, META + TRAIN_S)
+    # each microbatch runs every layer's scan forward, again in the
+    # recompute, and backward
+    mamba["step_share"] = micro * cfg.n_layers * (
+        mamba["fwd_ms"] + mamba["fwd_bwd_ms"]) / (sec * 1e3)
+
+    # the f32 step, card vs CPU, on one set of weights (drawn on the card)
+    cfg32 = hymba_config(HYMBA_F32_LAYERS, F32)
+    opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    card = TR.make_state(cfg32, opt32,
+                         torch.Generator(dev).manual_seed(SEED), dev)
+    params = f32_copy(card["params"], "cpu")
+    cpu = {"params": params, "opt": O.init_opt(opt32, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    tokens = ShardedBatchSource(cfg32.vocab, F32_TRAIN_B, F32_TRAIN_S,
+                                seed=SEED + 32, device="cpu").batch(0)
+    f32 = f32_step_vs_cpu(f"train/{HYMBA_ARCH}/f32", cfg32, opt32, cpu,
+                          card, tokens)
+    del card, cpu
+    res = dict(arch=HYMBA_ARCH, layers=cfg.n_layers,
+               global_layers=hymba_global_layers(cfg),
+               cuts={"layers": [registry.get(HYMBA_ARCH).n_layers,
+                                cfg.n_layers],
+                     "batch": [256, TRAIN_B],
+                     "microbatches": [4, micro]},
+               batch=TRAIN_B, seq=TRAIN_S, positions=META + TRAIN_S,
+               microbatches=micro, optimizer=opt.kind, lr=opt.lr,
+               steps=steps, seconds_per_step=sec,
+               tokens_per_s=TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident, grad_max_abs=grad_max,
+               mamba=mamba, launches_per_step=want, launches=counts,
+               f32=f32, seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{HYMBA_ARCH}", **res)
     return res
 
 
@@ -4774,6 +5262,11 @@ def main() -> int:
     mark(f"serve/{MOE_ARCH}")
     moe_train = moe_train_phase(dev)
     mark(f"train/{MOE_ARCH}")
+    # the hybrid family: each drive resets the counts first
+    hymba_serve = hymba_serve_phase(dev)
+    mark(f"serve/{HYMBA_ARCH}")
+    hymba_train = hymba_train_phase(dev)
+    mark(f"train/{HYMBA_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
     mark("timing/flash_bwd")
 
@@ -4847,6 +5340,13 @@ def main() -> int:
                 f"{TRAIN_B} x {TRAIN_S} positions)")
     smr_path = (f"train/smr ({smr['arch']}, {smr['layers']} layers, "
                 f"{smr['steps_applied']} steps in the service's pods)")
+    hymba_path = (f"serve/{HYMBA_ARCH} prefill ({hymba_serve['layers']} "
+                  f"layers, {hymba_serve['windowed_layers']} with window "
+                  f"{hymba_serve['window']}, {SERVE_B} x "
+                  f"{hymba_serve['positions']} positions); "
+                  f"train/{HYMBA_ARCH} ({hymba_train['layers']} layers, "
+                  f"{HYMBA_TRAIN_STEPS} steps of {TRAIN_B} x "
+                  f"{hymba_train['positions']} positions)")
     moe_path = (f"serve/{MOE_ARCH} prefill ({moe_serve['layers']} layers, "
                 f"{moe_serve['experts']} experts, {SERVE_B} x {SERVE_P} "
                 f"tokens); train/{MOE_ARCH} ({moe_train['layers']} layers, "
@@ -4909,6 +5409,20 @@ def main() -> int:
                                       *moe_f32.values())),
                   f"flash was not launched on every {MOE_ARCH} path: "
                   f"{moe_fwd}, {moe_f32}")
+            hymba_fwd = {f"serve/{HYMBA_ARCH} prefill":
+                         hymba_serve["launches"][name],
+                         f"train/{HYMBA_ARCH}":
+                         hymba_train["launches"][name]}
+            hymba_f32 = {f"serve/{HYMBA_ARCH}/f32 forward and prefill":
+                         hymba_serve["f32"]["launches"],
+                         f"train/{HYMBA_ARCH}/f32":
+                         hymba_train["f32"]["launches"]
+                         ["flash_attention_f32"]}
+            check(all(v > 0 for v in (*hymba_fwd.values(),
+                                      *hymba_f32.values())),
+                  f"flash was not launched on every {HYMBA_ARCH} path: "
+                  f"{hymba_fwd}, {hymba_f32}")
+            hymba_win = hymba_serve["flash"]["window"]
             entry.update(
                 train_launches=train["launches"][name],
                 train_path=f"train/{train['arch']} ({TRAIN_STEPS} steps)",
@@ -4920,12 +5434,24 @@ def main() -> int:
                 vlm_path=vlm_path,
                 moe_launches=moe_fwd,
                 moe_path=moe_path,
+                hymba_launches=hymba_fwd,
+                hymba_path=hymba_path,
+                hymba_window={k: hymba_win[k] for k in (
+                    "shape", "window", "device_us", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "flops")},
+                **{f"hymba_{key}": {k: hymba_serve["flash"][key][k]
+                                    for k in ("shape", "window",
+                                              "device_us", "ms",
+                                              "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")}
+                   for key in ("global", "train_window")},
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
                          path="serve/f32 yi-6b prefill",
                          vlm_launches=vlm_f32,
                          moe_launches=moe_f32,
+                         hymba_launches=hymba_f32,
                          max_abs_err=model_errors["flash_attention_f32"],
                          **{k: f32[k] for k in (
                              "ms", "plain_ms", "bound_ms",
@@ -4940,7 +5466,9 @@ def main() -> int:
     check(launches > 0 and f32_launches > 0
           and vlm_train["launches"]["flash_attention_bwd"] > 0
           and moe_train["launches"]["flash_attention_bwd"] > 0
-          and moe_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0,
+          and moe_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0
+          and hymba_train["launches"]["flash_attention_bwd"] > 0
+          and hymba_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0,
           "a flash backward kernel was "
           f"not launched on its train path: bf16 {launches}, f32 "
           f"{f32_launches}")
@@ -4962,6 +5490,9 @@ def main() -> int:
         moe_launches={f"train/{MOE_ARCH}":
                       moe_train["launches"]["flash_attention_bwd"]},
         moe_path=moe_path,
+        hymba_launches={f"train/{HYMBA_ARCH}":
+                        hymba_train["launches"]["flash_attention_bwd"]},
+        hymba_path=hymba_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -4984,6 +5515,8 @@ def main() -> int:
                                ["launches"]["flash_attention_bwd_f32"]},
                  moe_launches={f"train/{MOE_ARCH}/f32": moe_train["f32"]
                                ["launches"]["flash_attention_bwd_f32"]},
+                 hymba_launches={f"train/{HYMBA_ARCH}/f32": hymba_train[
+                     "f32"]["launches"]["flash_attention_bwd_f32"]},
                  max_abs_err=bwd_check["max_abs_err"]
                  ["flash_attention_bwd_f32"],
                  max_err_over_scale=bwd_check["worst_err_over_scale"]
@@ -5036,7 +5569,7 @@ def main() -> int:
               for tag, ranks in mesh.items()})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
-        for s in (*serves.values(), vlm_serve, moe_serve)},
+        for s in (*serves.values(), vlm_serve, moe_serve, hymba_serve)},
         vlm={f"serve/{VLM_ARCH}": {k: vlm_serve[k] for k in (
             "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
             "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
@@ -5049,6 +5582,16 @@ def main() -> int:
             f"train/{MOE_ARCH}": {k: moe_train[k] for k in (
                 "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
                 "seconds")}},
+        hymba={f"serve/{HYMBA_ARCH}": {k: hymba_serve[k] for k in (
+            "prefill_ms", "prefill_tokens_per_s", "meta_ms_per_step",
+            "teacher_forced_ms_per_step", "decode_ms_per_step",
+            "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
+            f"train/{HYMBA_ARCH}": {k: hymba_train[k] for k in (
+                "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+                "seconds")},
+            "mamba_share": {"prefill": hymba_serve["mamba"]["prefill_share"],
+                            "train_step": hymba_train["mamba"]
+                            ["step_share"]}},
         profile_retries=PROFILE_RETRIES,
         seconds=time.perf_counter() - START)
     print(nvidia_smi(), flush=True)

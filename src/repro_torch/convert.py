@@ -247,28 +247,37 @@ def tensor_to_numpy(t: torch.Tensor, native: bool = False) -> np.ndarray:
 
 def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
     """The reference's ``init_lm`` parameter tree (of a dense, a
-    vision-language, whose tree is the dense one, a dense/MoE-pair or an
-    RWKV6 config), as nested dicts of numpy arrays (bf16 arrays too), →
-    the port's :class:`LM` on ``device``. Each stacked ``[n, ...]``
-    segment leaf is sliced into the per-layer trees (a pair segment's
-    ``{"dense", "moe"}`` leaves, expert weights ``[n, E, D, F]``, into one
-    tree per pair); every leaf goes through f32 to
-    ``cfg.dtype``, which is exact for bf16. Raises ``ValueError`` if a key
-    or shape does not fit ``cfg``."""
-    tmpl = init_lm(cfg, device="meta")
+    vision-language, whose tree is the dense one, a dense/MoE-pair, a
+    hybrid or an RWKV6 config), as nested dicts of numpy arrays (bf16
+    arrays too), → the port's :class:`LM` on ``device``. Each stacked
+    ``[n, ...]`` segment leaf is sliced into the per-layer trees (a pair
+    segment's ``{"dense", "moe"}`` leaves, expert weights ``[n, E, D,
+    F]``, into one tree per pair); an unscanned segment (hymba's global
+    layers) and ``meta_tokens`` have no layer axis and cross as they are;
+    every leaf goes through f32 to ``cfg.dtype``, which is exact for
+    bf16. Raises ``ValueError`` if a key or shape does not fit ``cfg``."""
+    tmpl = init_lm(cfg, device="meta").tree()
+    if tree.keys() != tmpl.keys():
+        raise ValueError(f"keys {sorted(tree)} != {sorted(tmpl)}")
     out = {}
     for part in ("embed", "ln_f"):
-        out[part] = _weights_like(tree[part], tmpl[part].to_dict(), part,
-                                  device)
+        out[part] = _weights_like(tree[part], tmpl[part], part, device)
+    if "meta_tokens" in tmpl:
+        want = tmpl["meta_tokens"]
+        out["meta_tokens"] = tensor_from_numpy(
+            tree["meta_tokens"], want.dtype, device, tuple(want.shape),
+            "meta_tokens")
     out["segments"] = {}
     if tree["segments"].keys() != tmpl["segments"].keys():
         raise ValueError(f"segments {sorted(tree['segments'])} != "
-                         f"{sorted(tmpl['segments'].keys())}")
+                         f"{sorted(tmpl['segments'])}")
     for name, layers in tmpl["segments"].items():
-        stacked = tree["segments"][name]
-        out["segments"][name] = [
-            _weights_like(_layer(stacked, i), layer.to_dict(),
-                          f"segments.{name}[{i}]", device)
+        got = tree["segments"][name]
+        out["segments"][name] = _weights_like(
+            got, layers, f"segments.{name}", device) \
+            if isinstance(layers, dict) else [
+            _weights_like(_layer(got, i), layer, f"segments.{name}[{i}]",
+                          device)
             for i, layer in enumerate(layers)]
     return LM(cfg, out)
 
@@ -280,21 +289,25 @@ def _layer(stacked: dict, i: int) -> dict:
 
 def lm_params_to_numpy(lm: LM, native: bool = False) -> dict:
     """The port's :class:`LM` → the reference's parameter layout as numpy
-    arrays, segment leaves stacked along a leading layer axis: f32, or
-    with ``native`` each leaf in its own dtype (bf16 as ``|V2``)."""
-    def arrays(tree: dict) -> dict:
-        return {k: arrays(v) if isinstance(v, dict)
-                else tensor_to_numpy(v, native)
-                for k, v in tree.items()}
+    arrays, scanned segments' leaves stacked along a leading layer axis:
+    f32, or with ``native`` each leaf in its own dtype (bf16 as
+    ``|V2``)."""
+    def arrays(tree):
+        if not isinstance(tree, dict):
+            return tensor_to_numpy(tree, native)
+        return {k: arrays(v) for k, v in tree.items()}
 
     def stack(trees: list) -> dict:
         return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k],
                                                               dict)
                 else np.stack([t[k] for t in trees]) for k in trees[0]}
-    return {"embed": arrays(lm["embed"].to_dict()),
-            "ln_f": arrays(lm["ln_f"].to_dict()),
-            "segments": {name: stack([arrays(l.to_dict()) for l in layers])
-                         for name, layers in lm["segments"].items()}}
+    tree = lm.tree()
+    out = {k: arrays(v) for k, v in tree.items() if k != "segments"}
+    out["segments"] = {
+        name: arrays(seg) if isinstance(seg, dict)
+        else stack([arrays(layer) for layer in seg])
+        for name, seg in tree["segments"].items()}
+    return out
 
 
 # -- train state --------------------------------------------------------------

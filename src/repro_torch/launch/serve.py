@@ -1,15 +1,24 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch yi-6b``.
 
 Batched greedy decoding with the per-family cache (full-length KV cache
-for dense GQA, recurrent state for RWKV6): teacher-forced ``decode_step``
-over a seeded random prompt, then greedy decoding; llama4-maverick's
-dense/MoE pairs take token batches, each decode step one MoE dispatch
-of B tokens. The vision-language
-``qwen2-vl-7b`` runs text-only here, as in the reference: token ids and
-the standard rotation of 2-D positions. Counterpart of
-``repro.launch.serve``; ``--full`` takes the published configuration,
-otherwise the smoke configuration. Runs on the CUDA card unless
-``--device cpu`` is given.
+for dense GQA, recurrent state for RWKV6, for hymba a ring of ``window``
+slots in each sliding-window layer, full-length caches in its global
+layers and the Mamba state): teacher-forced ``decode_step`` over a
+seeded random prompt, then greedy decoding; llama4-maverick's dense/MoE
+pairs take token batches, each decode step one MoE dispatch of B tokens.
+The vision-language ``qwen2-vl-7b`` runs text-only here, as in the
+reference: token ids and the standard rotation of 2-D positions.
+Counterpart of ``repro.launch.serve``; ``--full`` takes the published
+configuration, otherwise the smoke configuration. Runs on the CUDA card
+unless ``--device cpu`` is given. On the card each decode step is one
+captured CUDA graph, replayed (the step reads nothing back to the host);
+on the CPU it runs eagerly.
+
+The hybrid family (hymba) decodes behind its 128 meta tokens, as its
+loss runs it: ``generate`` sizes every cache at 128 + P + N slots and
+writes the meta tokens first. The reference's launcher sizes the caches
+at P + N and never writes them, so its decode is not the model's
+(ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -21,24 +30,98 @@ import torch
 from ..configs import registry
 from ..device import resolve_device
 from ..models import decode as D
+from ..models import layers as L
 from ..models import transformer as T
 
 
-def generate(params, cfg, prompts: torch.Tensor, new_tokens: int):
+def _decode_fn(params, cfg, cache: dict, batch: int, dev: torch.device):
+    """``step(x, index, position) -> logits``: one ``decode_step`` of the
+    inputs' embeddings x [batch,1,D] at cache slot ``index`` with 2-D
+    positions ``position`` (ints), the cache (on ``dev``) updated in
+    place. On a CUDA device the step is one CUDA graph, captured once
+    against ``cache`` after a warm-up step on a copy of it (on a side
+    stream), and each call copies its inputs into the graph's buffers
+    and replays it; the logits it returns are the graph's output buffer,
+    which the next call overwrites. Elsewhere the step runs eagerly."""
+    if dev.type != "cuda":
+        def eager(x, index, position):
+            pos = torch.full((batch, 1), position, dtype=torch.int32,
+                             device=dev)
+            return D.decode_step(params, cfg, {"embeds": x, "index": index,
+                                               "positions": pos}, cache)[0]
+        return eager
+    inputs = {"embeds": torch.zeros((batch, 1, cfg.d_model),
+                                    dtype=cfg.dtype, device=dev),
+              "index": torch.zeros((), dtype=torch.int64, device=dev),
+              "positions": torch.zeros((batch, 1), dtype=torch.int32,
+                                       device=dev)}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        scratch = _map(lambda t: t.clone(), cache)
+        D.decode_step(params, cfg, inputs, scratch)
+        del scratch
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = D.decode_step(params, cfg, inputs, cache)
+
+    def replay(x, index, position):
+        inputs["embeds"].copy_(x)
+        inputs["index"].fill_(index)
+        inputs["positions"].fill_(position)
+        graph.replay()
+        return logits
+    replay.graph = graph
+    return replay
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def generate(params, cfg, prompts: torch.Tensor, new_tokens: int, *,
+             return_logits: bool = False, on_phase=None):
     """prompts [B,P] → greedy continuation [B,new_tokens]. The prompt is
     fed token by token through ``decode_step`` (teacher forcing); the
-    logits of its last token give the first new token."""
+    logits of its last token give the first new token. A hybrid model
+    first writes its 128 meta tokens (``embeds`` at index -128 ... -1,
+    positions -128: rotation 0, as ``lm_loss`` places them) into caches
+    of 128 + P + new_tokens slots. On the card each step replays one
+    captured CUDA graph (:func:`_decode_fn`). With ``return_logits``
+    also returns the logits of every step after the meta tokens,
+    [B, P + new_tokens - 1, V] in the model's dtype. ``on_phase(name)``,
+    if given, is called after the step is ready ("step"), after the meta
+    tokens ("meta"), the prompt ("prompt") and the greedy steps
+    ("greedy"): a caller records CUDA events there to time each part."""
     B, P = prompts.shape
-    cache = D.cache_zeros(D.cache_spec(cfg, B, P + new_tokens),
+    meta = T.META_TOKENS if cfg.family == "hybrid" else 0
+    cache = D.cache_zeros(D.cache_spec(cfg, B, meta + P + new_tokens),
                           prompts.device)
-    generated = []
-    for t in range(P + new_tokens - 1):
-        inp = prompts[:, t:t + 1] if t < P else generated[-1]
-        logits, cache = D.decode_step(params, cfg,
-                                      {"token": inp, "index": t}, cache)
-        if t >= P - 1:
-            generated.append(torch.argmax(logits, dim=-1)[:, None])
-    return torch.cat(generated, dim=1)
+    phase = on_phase or (lambda name: None)
+    step = _decode_fn(params, cfg, cache, B, prompts.device)
+    phase("step")
+    with torch.no_grad():
+        for j in range(meta):
+            x = params["meta_tokens"][j].to(cfg.dtype).expand(B, 1, -1)
+            step(x, j - meta, -meta)
+        phase("meta")
+        generated, kept = [], []
+        tok = prompts[:, :1]
+        for t in range(P + new_tokens - 1):
+            tok = prompts[:, t:t + 1] if t < P else tok
+            logits = step(L.embed_apply(params["embed"], tok), t, t)
+            if return_logits:
+                kept.append(logits.clone())
+            if t >= P - 1:
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                generated.append(tok)
+            if t == P - 1:
+                phase("prompt")
+        phase("greedy")
+    out = torch.cat(generated, dim=1)
+    return (out, torch.stack(kept, dim=1)) if return_logits else out
 
 
 def main(argv=None) -> None:

@@ -4,14 +4,30 @@ families. Counterpart of ``repro.models.decode``.
 The cache keeps the reference's pytree (``cache_spec``):
 ``{"seg0": {"attn": {"k", "v": [n, B, L, K·h]}}}`` for a dense GQA stack,
 ``{"seg0": {"dense": {"attn": ...}, "moe": {"attn": ...}}}`` (each
-``[n, B, L, K·h]`` over the n pairs) for dense/MoE pairs, and
-``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack.
-:func:`decode_step` updates the cache IN PLACE (the reference returns a
-new one) and returns the same dict; the tests hold the updated cache
-equal to the reference's new cache.
+``[n, B, L, K·h]`` over the n pairs) for dense/MoE pairs,
+``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack, and
+for the hybrid family (hymba) one entry per segment with the Mamba state
+beside the attention cache, ``{"attn": {"k", "v"}, "ssm": [B, d, N]}``
+(f32), with no layer axis for an unscanned (global) layer. A
+sliding-window layer's cache holds ``min(window, L)`` slots: a ring
+buffer (``layers.gqa_apply``). :func:`decode_step` updates the cache
+IN PLACE (the reference returns a new one) and returns the same dict;
+the tests hold the updated cache equal to the reference's new cache.
 
-Full-length GQA caches only: the sliding-window ring buffer (hymba) is
-not ported yet.
+The hybrid family's sequence runs behind its 128 meta tokens, as
+``transformer.lm_loss`` runs it. :func:`decode_step` offsets the cache
+slot and the 2-D positions by 128, as the reference's does; a caller
+first writes the meta tokens into slots 0-127 (``launch.serve.generate``
+feeds them as ``embeds`` at index -128 ... -1 with positions -128, i.e.
+rotation 0), and sizes the cache at 128 + the sequence. :func:`prefill`
+puts the meta tokens before the prompt. The reference's ring mask, its
+prefill and its serving launcher differ (ROADMAP.md queue 3): see
+``layers.gqa_apply`` and :func:`prefill`.
+
+``index`` is a Python int, or a 0-d integer tensor on the card: then no
+op of :func:`decode_step` reads a value back to the host, and a captured
+CUDA graph of the step replays with the index buffer's new value
+(``launch.serve.generate`` on the card).
 """
 from __future__ import annotations
 
@@ -21,9 +37,10 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
+from . import ssm as S
 from .common import ModelConfig
-from .transformer import (backbone_forward, block_apply, plan_segments,
-                          rwkv_block_apply)
+from .transformer import (META_TOKENS, block_apply, lm_hidden,
+                          plan_segments, rwkv_block_apply, segment_layers)
 
 # ---------------------------------------------------------------------------
 # cache specs
@@ -36,15 +53,20 @@ def _kv_len(seq_len: int, window: int) -> int:
 
 def block_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                      window: int) -> dict:
-    """{"attn": {"k", "v": ((batch, L, K·h), dtype)}} for a GQA block."""
-    if cfg.attn_kind != "gqa" or cfg.family == "hybrid":
+    """{"attn": {"k", "v": ((batch, L, K·h), dtype)}} for a GQA block, L
+    = ``min(window, seq_len)`` for a sliding-window layer; the hybrid
+    family adds the Mamba state ``"ssm"``: ((batch, d_model, N), f32)."""
+    if cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: only GQA block caches are ported; ROADMAP.md "
             f"queue 1 item 12")
     Lkv = _kv_len(seq_len, window)
     kv = cfg.n_kv_heads * cfg.hd
-    return {"attn": {"k": ((batch, Lkv, kv), cfg.dtype),
+    spec = {"attn": {"k": ((batch, Lkv, kv), cfg.dtype),
                      "v": ((batch, Lkv, kv), cfg.dtype)}}
+    if cfg.family == "hybrid":
+        spec["ssm"] = S.mamba_state_spec(cfg, batch, cfg.d_model)
+    return spec
 
 
 def _prepend(spec, n: int):
@@ -55,7 +77,9 @@ def _prepend(spec, n: int):
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Full cache spec: nested dicts of (shape, dtype) leaves."""
+    """Full cache spec: nested dicts of (shape, dtype) leaves. ``seq_len``
+    is the number of slots of a full-length cache; a hybrid model's
+    sequence needs 128 more for its meta tokens."""
     out = {}
     for i, seg in enumerate(plan_segments(cfg)):
         if seg["kind"] == "rwkv":
@@ -67,8 +91,9 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                                                     seg["window"]), seg["n"])
                     for part in ("dense", "moe")}
         else:
-            leaf = _prepend(block_cache_spec(cfg, batch, seq_len,
-                                             seg["window"]), seg["n"])
+            leaf = block_cache_spec(cfg, batch, seq_len, seg["window"])
+            if seg["scanned"]:
+                leaf = _prepend(leaf, seg["n"])
         out[f"seg{i}"] = leaf
     return out
 
@@ -85,23 +110,6 @@ def cache_zeros(spec, device=None) -> Any:
 # ---------------------------------------------------------------------------
 # decode: one new token against a filled cache
 # ---------------------------------------------------------------------------
-
-def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, cache: dict, index: int, *,
-                 moe: bool, window: int):
-    """One block, one token, full-length cache. Returns (x, new_cache);
-    the cache is updated in place. With ``moe`` the MoE dispatches the B
-    tokens of this step (T = B, so C = ``moe_capacity(B)``, 8 for B up
-    to 819 at llama4's 128 experts)."""
-    W = cache["attn"]["k"].shape[1]
-    if not (window <= 0 or W > window):
-        raise NotImplementedError(
-            "the sliding-window ring-buffer cache is not ported: ROADMAP.md "
-            "queue 1 item 12")
-    x, nc, _ = block_apply(p, cfg, x, positions, moe=moe, window=window,
-                           cache=cache, cache_index=index)
-    return x, nc
-
 
 def _check_device(params, t: torch.Tensor) -> None:
     if t.device != params["embed"]["tok"].device:
@@ -120,29 +128,41 @@ def _inputs(params, cfg: ModelConfig, batch: dict, key: str) -> torch.Tensor:
     return L.embed_apply(params["embed"], ref)
 
 
-def _layer_cache(c: dict, n: int) -> dict:
-    """Layer n's views of a segment's stacked k/v cache."""
-    return {"attn": {"k": c["attn"]["k"][n], "v": c["attn"]["v"][n]}}
+def _layer_cache(c: dict, n: int | None) -> dict:
+    """Layer n's views of a segment's stacked cache (the cache itself for
+    an unscanned segment, n None)."""
+    return {k: _layer_cache(v, n) if isinstance(v, dict)
+            else v if n is None else v[n] for k, v in c.items()}
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
-    """batch: {"token": [B,1] int (or "embeds": [B,1,D]), "index": int
-    cache slot of the token, optional "positions": [B,1], or [3,B,1] for
-    M-RoPE}. The cache slot and the causal mask follow ``index``; the
-    rotation follows ``positions`` (default: ``index``), which after an
-    image differ. Returns (logits [B,V], cache) with the cache updated in
-    place."""
-    index = int(batch["index"])
+    """batch: {"token": [B,1] int (or "embeds": [B,1,D]), "index": cache
+    slot of the token (an int, or a 0-d integer tensor on the cache's
+    device), optional "positions": [B,1], or [3,B,1] for M-RoPE}. The
+    cache slot and the causal mask follow ``index``; the rotation follows
+    ``positions`` (default: ``index``), which after an image differ. The
+    hybrid family offsets the slot and 2-D positions by 128 (its meta
+    tokens; index -128 is slot 0). Returns (logits [B,V], cache) with
+    the cache updated in place."""
+    index = batch["index"]
+    if not torch.is_tensor(index):
+        index = int(index)
     x = _inputs(params, cfg, batch, "token")
     B = x.shape[0]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32,
-                               device=x.device)
+                               device=x.device) \
+            if isinstance(index, int) else \
+            index.to(torch.int32).reshape(1, 1).expand(B, 1)
+    if cfg.family == "hybrid":
+        index = index + META_TOKENS
+        if positions.dim() == 2:
+            positions = positions + META_TOKENS
     for i, seg in enumerate(plan_segments(cfg)):
         c = cache[f"seg{i}"]
-        layers = params["segments"][f"seg{i}"]
+        layers = segment_layers(params["segments"][f"seg{i}"])
         if seg["kind"] == "rwkv":
             for n, lp in enumerate(layers):
                 x, nc = rwkv_block_apply(lp, cfg, x,
@@ -151,14 +171,17 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
         elif seg["kind"] == "pair":
             for n, lp in enumerate(layers):
                 for part, moe in (("dense", False), ("moe", True)):
-                    x, _ = block_decode(lp[part], cfg, x, positions,
-                                        _layer_cache(c[part], n), index,
-                                        moe=moe, window=seg["window"])
+                    x, _, _ = block_apply(lp[part], cfg, x, positions,
+                                          moe=moe, window=seg["window"],
+                                          cache=_layer_cache(c[part], n),
+                                          cache_index=index)
         else:
             for n, lp in enumerate(layers):
-                x, _ = block_decode(lp, cfg, x, positions,
-                                    _layer_cache(c, n), index,
-                                    moe=seg["moe"], window=seg["window"])
+                x, _, _ = block_apply(
+                    lp, cfg, x, positions, moe=seg["moe"],
+                    window=seg["window"],
+                    cache=_layer_cache(c, n if seg["scanned"] else None),
+                    cache_index=index)
     hidden = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = L.logits_apply(params["embed"], hidden, cfg.tie_embeddings)
     return logits[:, 0], cache
@@ -180,7 +203,11 @@ def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
     """batch: {"tokens": [B,S] int, or the stub frontend's "embeds":
     [B,S,D]; optional "positions": [B,S], or [3,B,S] for M-RoPE}. Returns
     (last-token logits [B,V], None): the reference's prefill runs the
-    full-sequence forward and fills no cache, and so does this one.
+    full-sequence forward and fills no cache, and so does this one. The
+    hybrid family's forward runs the prompt behind its 128 meta tokens,
+    as ``lm_loss`` does (``transformer.lm_hidden``); the reference's
+    prefill leaves them out (ROADMAP.md queue 3), so its logits are not
+    those of the model that ``lm_loss`` trains.
 
     ``batch_chunks`` > 1 runs the batch in that many chunks, one after
     the other; 0 → 8 chunks for B >= 16, 4 for B >= 8, else 1, as in the
@@ -207,7 +234,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    hidden, _ = backbone_forward(params, cfg, x, positions)
+    hidden, _ = lm_hidden(params, cfg, x, positions)
     logits = L.logits_apply(params["embed"], hidden[:, -1:],
                             cfg.tie_embeddings)
     return logits[:, 0], None

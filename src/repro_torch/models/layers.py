@@ -170,14 +170,36 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def write_slots(buf: torch.Tensor, start, val: torch.Tensor) -> None:
+    """buf[:, start:start + S] = val (val [B,S,...]) in place; ``start``
+    a Python int or a 0-d integer tensor on buf's device (no host
+    read)."""
+    if isinstance(start, int):
+        buf[:, start:start + val.shape[1]] = val
+    else:
+        slots = start.reshape(1).long() + torch.arange(val.shape[1],
+                                                       device=buf.device)
+        buf.index_copy_(1, slots, val)
+
+
 def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               *, window: int, cache: Optional[dict] = None,
               cache_index: Optional[int] = None):
     """Returns (out, new_cache). Prefill: cache None, full S, flash
     attention kernel. Decode: x is [B,1,D] and ``cache`` holds k/v as
     [B, L, K·h]; this step's k/v are written into it IN PLACE at
-    ``cache_index`` (a Python int), and the returned cache is the same
-    dict of the same tensors."""
+    ``cache_index`` (a Python int, or a 0-d integer tensor on the cache's
+    device, which a captured step replays with new values), and the
+    returned cache is the same dict of the same tensors.
+
+    A sliding-window layer whose cache has no more slots than its window
+    (L <= window) keeps a ring: the step's k/v go to slot
+    ``cache_index mod L`` and slot j is attended iff ``j <= min(index,
+    L - 1)``: every slot once the ring has filled, until then only the
+    slots written so far, so the slots hold exactly the window's keys
+    when L = window. The reference masks its ring with ``max`` in place
+    of ``min`` (``repro/models/decode.py:121``), which attends the
+    never-written zero slots until the ring fills (ROADMAP.md queue 3)."""
     B, S, D = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, h)
@@ -193,10 +215,18 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         new_cache = None
     else:
         ck, cv = cache["k"], cache["v"]
-        ck[:, cache_index:cache_index + S] = k.reshape(B, S, K * h)
-        cv[:, cache_index:cache_index + S] = v.reshape(B, S, K * h)
         Skv = ck.shape[1]
-        m = _causal_window_mask(S, Skv, window, cache_index, x.device)
+        if 0 < window and Skv <= window:                 # the ring
+            write_slots(ck, cache_index % Skv, k.reshape(B, S, K * h))
+            write_slots(cv, cache_index % Skv, v.reshape(B, S, K * h))
+            last = min(cache_index, Skv - 1) \
+                if isinstance(cache_index, int) \
+                else torch.clamp(cache_index, max=Skv - 1)
+            m = torch.arange(Skv, device=x.device)[None, :] <= last
+        else:
+            write_slots(ck, cache_index, k.reshape(B, S, K * h))
+            write_slots(cv, cache_index, v.reshape(B, S, K * h))
+            m = _causal_window_mask(S, Skv, window, cache_index, x.device)
         out = attend(q, ck.reshape(B, Skv, K, h), cv.reshape(B, Skv, K, h),
                      m)
         new_cache = cache

@@ -1,29 +1,34 @@
 """LM assembly for the ported families: dense GQA stacks (yi-6b; and
 qwen2-vl-7b, whose vision-language backbone is the dense block with
 M-RoPE over stub embeddings), llama4-maverick's dense and MoE layers in
-pairs (``moe_interleave=2``), and the attention-free RWKV6 stack
-(rwkv6-3b). Counterpart of ``repro.models.transformer`` for those
-families.
+pairs (``moe_interleave=2``), hymba's hybrid blocks (attention and Mamba
+heads in parallel on the same input, sliding-window attention except in
+the global layers, 128 meta tokens before the sequence) and the
+attention-free RWKV6 stack (rwkv6-3b). Counterpart of
+``repro.models.transformer`` for those families.
 
 The reference stacks each homogeneous segment's parameters along a
 leading layer axis and runs it under ``lax.scan``; the port keeps one
 parameter tree per layer (an ``nn.ModuleList`` per segment; a pair
 segment holds one ``{"dense", "moe"}`` tree per pair) and loops over the
-layers in Python. MLA, the MoE stack with a dense prefix (deepseek-v3),
-the hybrid (hymba) and encoder-decoder (whisper) families are not ported
-yet (ROADMAP.md queue 1 item 12).
+layers in Python. A segment the reference does not scan (hymba's global
+layers) is one layer's tree with no layer axis, as in the reference: a
+``ParamTree``, whose leaves ``reference_leaves`` reports unstacked. MLA,
+the MoE stack with a dense prefix (deepseek-v3) and the encoder-decoder
+(whisper) family are not ported yet (ROADMAP.md queue 1 item 12).
 
 Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
-the reference's for the dense, vision-language, MoE-pair and RWKV6
-families. The reference saves nothing inside a layer (``REMAT_POLICY =
-nothing_saveable`` on each scanned block or pair); the port runs each
-block under non-reentrant ``torch.utils.checkpoint`` whenever grad is
-enabled, so the backward recomputes the block's forward (flash kernel
-and MoE routing included) from the block's input, and the loss runs
-each 512-token chunk of the head and log-softmax under its own
-checkpoint, never holding the [B,S,V] f32 logits. The recomputed routing
-is the forward's: the same ops on the same input (deterministic on the
-card, where a train step runs in PyTorch's deterministic mode).
+the reference's for the dense, vision-language, MoE-pair, hybrid and
+RWKV6 families. The reference saves nothing inside a layer
+(``REMAT_POLICY = nothing_saveable`` on each scanned block or pair); the
+port runs each block under non-reentrant ``torch.utils.checkpoint``
+whenever grad is enabled, so the backward recomputes the block's forward
+(flash kernel, Mamba scan and MoE routing included) from the block's
+input, and the loss runs each 512-token chunk of the head and
+log-softmax under its own checkpoint, never holding the [B,S,V] f32
+logits. The recomputed routing is the forward's: the same ops on the
+same input (deterministic on the card, where a train step runs in
+PyTorch's deterministic mode).
 """
 from __future__ import annotations
 
@@ -41,26 +46,37 @@ from .common import ModelConfig, ParamFactory, ParamTree
 # ---------------------------------------------------------------------------
 
 
+META_TOKENS = 128      # hymba's learned prefix (``meta_tokens`` [128, D])
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    """GQA blocks of the dense and vision-language families, or dense and
-    MoE layers in pairs (``moe_interleave`` > 1); anything else raises."""
+    """GQA blocks of the dense and vision-language families, dense and
+    MoE layers in pairs (``moe_interleave`` > 1), or hybrid blocks with
+    Mamba heads; anything else raises."""
     dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
     pairs = cfg.family == "moe" and cfg.n_experts and cfg.moe_interleave > 1
-    if cfg.attn_kind != "gqa" or not (dense or pairs):
+    hybrid = cfg.family == "hybrid" and cfg.ssm_kind == "mamba" \
+        and not cfg.n_experts
+    if cfg.attn_kind != "gqa" or not (dense or pairs or hybrid):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA blocks, dense or in dense/MoE pairs, are "
-            f"ported (attn_kind {cfg.attn_kind!r}, family {cfg.family!r}, "
-            f"moe_interleave {cfg.moe_interleave}); ROADMAP.md queue 1 "
-            f"item 12")
+            f"{cfg.name}: only GQA blocks, dense, in dense/MoE pairs or "
+            f"beside Mamba heads, are ported (attn_kind "
+            f"{cfg.attn_kind!r}, family {cfg.family!r}, moe_interleave "
+            f"{cfg.moe_interleave}); ROADMAP.md queue 1 item 12")
 
 
 def init_block(pf: ParamFactory, cfg: ModelConfig, *, moe: bool) -> dict:
     """GQA block: pre-norm attention, then the SwiGLU MLP, or the MoE
-    with ``moe``."""
+    with ``moe``. The hybrid family adds the Mamba heads (``ssm``, d_inner
+    = d_model) and the two norms of the heads' outputs."""
     _check_ported(cfg)
     p = {"ln1": L.init_rmsnorm(pf, cfg.d_model),
          "ln2": L.init_rmsnorm(pf, cfg.d_model),
          "attn": L.init_gqa(pf, cfg)}
+    if cfg.family == "hybrid":
+        p["ssm"] = S.init_mamba(pf, cfg, d_inner=cfg.d_model)
+        p["ssm_norm"] = L.init_rmsnorm(pf, cfg.d_model)
+        p["attn_norm"] = L.init_rmsnorm(pf, cfg.d_model)
     if moe:
         p["moe"] = L.init_moe(pf, cfg)
     else:
@@ -72,11 +88,24 @@ def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, moe: bool, window: int,
                 cache=None, cache_index=None):
     """One transformer block. Returns (x, new_cache, aux): aux is the
-    MoE's auxiliary loss with ``moe``, else an f32 zero."""
+    MoE's auxiliary loss with ``moe``, else an f32 zero. With a cache
+    (one decode step; ``layers.gqa_apply``, a ring in a sliding-window
+    layer) the cache is updated IN PLACE and returned: a hybrid block
+    also steps its Mamba state ``cache["ssm"]``. The hybrid block runs
+    the attention and the Mamba heads on the same normed input, RMS-norms
+    each output and averages them (arXiv:2411.13676 eq. 3)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, nc = L.gqa_apply(p["attn"], cfg, h, positions, window=window,
                         cache=None if cache is None else cache["attn"],
                         cache_index=cache_index)
+    if cfg.family == "hybrid":
+        if cache is None:
+            m = S.mamba_scan(p["ssm"], cfg, h)
+        else:
+            m, state = S.mamba_decode_step(p["ssm"], cfg, h, cache["ssm"])
+            cache["ssm"].copy_(state)
+        a = 0.5 * (L.rmsnorm(p["attn_norm"], a, cfg.norm_eps)
+                   + L.rmsnorm(p["ssm_norm"], m, cfg.norm_eps))
     x = x + a
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if moe:
@@ -84,7 +113,7 @@ def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = L.mlp_apply(p["mlp"], h2)
         aux = torch.zeros((), device=x.device)
-    return x + y, (None if nc is None else {"attn": nc}), aux
+    return x + y, (None if nc is None else cache), aux
 
 
 # rwkv6 block -----------------------------------------------------------------
@@ -123,10 +152,31 @@ def plan_segments(cfg: ModelConfig) -> list[dict]:
     """Layer plan → list of segments, each {kind, n, ...}, as the
     reference plans them for the ported families. With
     ``moe_interleave`` > 1 (llama4) one ``"pair"`` segment of
-    ``n_layers // moe_interleave`` (dense block, MoE block) pairs."""
+    ``n_layers // moe_interleave`` (dense block, MoE block) pairs. The
+    hybrid family (hymba): each global layer (``global_layers``, default
+    the first, middle and last) is an unscanned segment of one
+    full-attention block, and each run of layers between them one
+    scanned segment at ``window``."""
     if cfg.family == "ssm" and cfg.ssm_kind == "rwkv6":
         return [{"kind": "rwkv", "n": cfg.n_layers, "scanned": True}]
     _check_ported(cfg)
+    if cfg.family == "hybrid":
+        glb = set(cfg.global_layers or
+                  (0, cfg.n_layers // 2, cfg.n_layers - 1))
+        segs, i = [], 0
+        while i < cfg.n_layers:
+            if i in glb:
+                segs.append({"kind": "block", "n": 1, "moe": False,
+                             "window": -1, "scanned": False})
+                i += 1
+                continue
+            j = i
+            while j < cfg.n_layers and j not in glb:
+                j += 1
+            segs.append({"kind": "block", "n": j - i, "moe": False,
+                         "window": cfg.window, "scanned": True})
+            i = j
+        return segs
     if cfg.n_experts:
         if cfg.n_layers % cfg.moe_interleave:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
@@ -137,8 +187,11 @@ def plan_segments(cfg: ModelConfig) -> list[dict]:
              "window": cfg.window, "scanned": True}]
 
 
-def init_segment(pf: ParamFactory, cfg: ModelConfig, seg: dict) -> list:
-    """One parameter tree per layer (per pair) of the segment."""
+def init_segment(pf: ParamFactory, cfg: ModelConfig, seg: dict):
+    """One parameter tree per layer (per pair) of the segment; an
+    unscanned segment's one tree, with no layer axis."""
+    if not seg["scanned"]:
+        return init_block(pf, cfg, moe=seg["moe"])
     if seg["kind"] == "rwkv":
         return [init_rwkv_block(pf, cfg) for _ in range(seg["n"])]
     if seg["kind"] == "pair":
@@ -153,10 +206,12 @@ def init_segment(pf: ParamFactory, cfg: ModelConfig, seg: dict) -> list:
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """The language model's parameters: ``embed``, ``ln_f`` and
-    ``segments["seg<i>"]``, a list of per-layer trees. Indexes like the
-    reference's parameter dict (``lm["embed"]["tok"]``);
-    ``forward(tokens)`` returns the final hidden states."""
+    """The language model's parameters: ``embed``, ``ln_f``,
+    ``segments["seg<i>"]`` (a list of per-layer trees, or one layer's
+    tree for an unscanned segment) and, for the hybrid family,
+    ``meta_tokens`` [128, D]. Indexes like the reference's parameter dict
+    (``lm["embed"]["tok"]``); ``forward(tokens)`` returns the tokens'
+    final hidden states (:func:`lm_hidden`)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict) -> None:
         super().__init__()
@@ -164,24 +219,47 @@ class LM(nn.Module):
         self.embed = ParamTree(tree["embed"])
         self.ln_f = ParamTree(tree["ln_f"])
         self.segments = nn.ModuleDict({
-            name: nn.ModuleList(ParamTree(layer) for layer in layers)
+            name: ParamTree(layers) if isinstance(layers, dict)
+            else nn.ModuleList(ParamTree(layer) for layer in layers)
             for name, layers in tree["segments"].items()})
+        if "meta_tokens" in tree:
+            self.meta_tokens = nn.Parameter(tree["meta_tokens"])
 
     def __getitem__(self, key: str):
-        if key not in ("embed", "ln_f", "segments"):
+        if key not in self.keys():
             raise KeyError(key)
         return getattr(self, key)
 
     def keys(self) -> list:
-        return ["embed", "ln_f", "segments"]
+        return ["embed", "ln_f", "segments"] + (
+            ["meta_tokens"] if "meta_tokens" in self._parameters else [])
+
+    def tree(self) -> dict:
+        """The parameter tensors in the layout :class:`LM` is built from:
+        nested dicts, a list of layer dicts per scanned segment."""
+        out = {k: self[k].to_dict() for k in ("embed", "ln_f")}
+        out["segments"] = {
+            name: seg.to_dict() if isinstance(seg, ParamTree)
+            else [layer.to_dict() for layer in seg]
+            for name, seg in self.segments.items()}
+        if "meta_tokens" in self.keys():
+            out["meta_tokens"] = self.meta_tokens.data
+        return out
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
-        return backbone_forward(self, self.cfg,
-                                L.embed_apply(self["embed"], tokens),
-                                positions)[0]
+        return lm_hidden(self, self.cfg,
+                         L.embed_apply(self["embed"], tokens), positions)[0]
+
+
+def segment_layers(seg_params) -> list:
+    """The per-layer trees of a segment's parameters (or of its cache):
+    the list itself, or ``[tree]`` for an unscanned segment."""
+    if isinstance(seg_params, (list, tuple, nn.ModuleList)):
+        return list(seg_params)
+    return [seg_params]
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -194,6 +272,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
             "ln_f": L.init_rmsnorm(pf, cfg.d_model)}
     tree["segments"] = {f"seg{i}": init_segment(pf, cfg, s)
                         for i, s in enumerate(plan_segments(cfg))}
+    if cfg.family == "hybrid":
+        tree["meta_tokens"] = pf.leaf((META_TOKENS, cfg.d_model))
     return LM(cfg, tree)
 
 
@@ -229,7 +309,7 @@ def backbone_forward(params, cfg: ModelConfig, x: torch.Tensor,
         return body
 
     for i, seg in enumerate(plan_segments(cfg)):
-        for lp in params["segments"][f"seg{i}"]:
+        for lp in segment_layers(params["segments"][f"seg{i}"]):
             if seg["kind"] == "rwkv":
                 x = remat(lambda h, lp=lp: rwkv_block_apply(lp, cfg, h)[0],
                           x)
@@ -243,6 +323,35 @@ def backbone_forward(params, cfg: ModelConfig, x: torch.Tensor,
                 x, a = remat(body, x)
                 aux = aux + a
     return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def with_meta_tokens(params, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor):
+    """hymba: the 128 meta tokens before the sequence ``x`` [B,S,D] (in
+    x.dtype, the same for every row), at position 0, with the sequence's
+    2-D positions shifted by 128. Returns (x [B,128+S,D], positions)."""
+    B = x.shape[0]
+    meta = params["meta_tokens"].to(x.dtype)[None].expand(B, -1, -1)
+    x = torch.cat([meta, x], dim=1)
+    if positions.dim() == 2:
+        positions = torch.cat([
+            torch.zeros((B, META_TOKENS), dtype=positions.dtype,
+                        device=positions.device),
+            positions + META_TOKENS], dim=1)
+    return x, positions
+
+
+def lm_hidden(params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor):
+    """:func:`backbone_forward` of the sequence x [B,S,D]: for the hybrid
+    family with the meta tokens before it (:func:`with_meta_tokens`) and
+    their hidden states dropped, as the reference's ``lm_loss`` runs it.
+    Returns (hidden [B,S,D], aux)."""
+    if cfg.family != "hybrid":
+        return backbone_forward(params, cfg, x, positions)
+    x, positions = with_meta_tokens(params, cfg, x, positions)
+    hidden, aux = backbone_forward(params, cfg, x, positions)
+    return hidden[:, META_TOKENS:], aux
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +410,18 @@ def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token loss of the dense, vision-language, MoE-pair and RWKV6
-    families. batch: tokens [B,S], or the stub frontend's embeds [B,S,D]
-    (then labels [B,S]); optional positions ([B,S], or [3,B,S] for
-    M-RoPE), labels, loss_weights. Returns (ce + 0.01·aux, metrics) with
-    metrics ``ce`` and ``aux`` (the MoE auxiliary loss summed over the MoE
-    layers; 0 without MoE). The hybrid, encoder-decoder and MTP branches
-    of the reference raise."""
-    if cfg.is_encoder_decoder or cfg.family == "hybrid" or cfg.mtp:
+    """Next-token loss of the dense, vision-language, MoE-pair, hybrid and
+    RWKV6 families. batch: tokens [B,S], or the stub frontend's embeds
+    [B,S,D] (then labels [B,S]); optional positions ([B,S], or [3,B,S] for
+    M-RoPE), labels, loss_weights. The hybrid family runs the sequence
+    behind its meta tokens (:func:`lm_hidden`). Returns (ce + 0.01·aux,
+    metrics) with metrics ``ce`` and ``aux`` (the MoE auxiliary loss
+    summed over the MoE layers; 0 without MoE). The encoder-decoder and
+    MTP branches of the reference raise."""
+    if cfg.is_encoder_decoder or cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: lm_loss of the {cfg.family} family (encoder-"
-            f"decoder, hybrid or MTP) is not ported: ROADMAP.md queue 1 "
-            f"item 12")
+            f"decoder or MTP) is not ported: ROADMAP.md queue 1 item 12")
     if "embeds" in batch:                         # vlm stub frontend
         x = batch["embeds"].to(cfg.dtype)
         B, Sq = x.shape[:2]
@@ -322,7 +431,7 @@ def lm_loss(params, cfg: ModelConfig, batch: dict):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    hidden, aux = backbone_forward(params, cfg, x, positions)
+    hidden, aux = lm_hidden(params, cfg, x, positions)
     targets = batch["labels"] if "labels" in batch else batch["tokens"]
     loss = ce_loss_seqchunk(params["embed"], hidden, targets,
                             cfg.tie_embeddings,

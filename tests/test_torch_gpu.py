@@ -8,7 +8,9 @@ and eager, against the CPU, and a replay after a state change), the
 pipeline and adaptive passes captured and eager, the smoke models' serving
 path and train step on the card against the same runs on the CPU, the
 MoE (llama4's smoke config) on the card against the CPU under the
-flip-aware routing rule, its train step in deterministic mode and its
+flip-aware routing rule, hymba's smoke config (the forward behind its
+meta tokens, the captured decode past the ring's wrap, a train
+step) on the card against the CPU, its train step in deterministic mode and its
 checkpointed gradients against un-checkpointed ones, and two trainer
 pods on the card ending bitwise equal.
 Every test is marked ``gpu`` and skips without a card.
@@ -320,7 +322,10 @@ FLASH_CASES = [
     (1, 256, 256, 40, 8, 128, 128, True, -1),       # its f32 checks
     (4, 1024, 1024, 28, 4, 128, 128, True, -1),     # qwen2-vl-7b, G = 7
     (1, 4096, 4096, 28, 4, 128, 128, True, -1),     # its train microbatch
-    (4, 192, 192, 28, 4, 128, 128, True, -1)]       # its f32 check
+    (4, 192, 192, 28, 4, 128, 128, True, -1),       # its f32 check
+    (4, 1152, 1152, 25, 5, 64, 64, True, 1024),     # hymba prefill, window
+    (1, 4224, 4224, 25, 5, 64, 64, True, 1024),     # its train microbatch
+    (1, 1228, 1228, 25, 5, 64, 64, True, 1024)]     # its f32 check
 # f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
 # of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
 # a long non-causal case
@@ -413,6 +418,86 @@ def test_smoke_model_on_card_matches_cpu(cuda, arch, kernel):
                  for t in range(4)]
         outs.append(torch.stack([logits, *steps]).cpu())
     assert float((outs[0] - outs[1]).abs().max()) < 1e-4
+
+
+def test_hymba_smoke_on_card_matches_cpu(cuda):
+    """hymba's smoke config in f32 on one set of weights: the forward
+    behind the meta tokens (one f32 flash launch per layer, windowed and
+    global) and ``generate``'s logits (one captured CUDA graph a step on
+    the card), past the ring's wrap, on the card equal the CPU's; the
+    decode launches no model kernel."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    cfg = registry.get_smoke("hymba-1.5b").replace(dtype=torch.float32)
+    lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    lm_dev = convert.lm_params_from_jax(convert.lm_params_to_numpy(lm_cpu),
+                                        cfg, cuda)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))
+    outs = {}
+    for name, lm, dev in (("cpu", lm_cpu, "cpu"), ("card", lm_dev, cuda)):
+        prompts = torch.from_numpy(toks).to(dev)
+        before = kf.KERNEL.launches
+        logits, _ = D.prefill(lm, cfg, {"tokens": prompts})
+        assert kf.KERNEL.launches - before == (0 if dev == "cpu"
+                                               else cfg.n_layers)
+        before = kf.KERNEL.launches
+        gen, steps = serve.generate(lm, cfg, prompts, 4, return_logits=True)
+        assert kf.KERNEL.launches == before
+        outs[name] = (logits.cpu(), steps.cpu(), gen.cpu())
+    assert float((outs["card"][0] - outs["cpu"][0]).abs().max()) < 1e-4
+    assert float((outs["card"][1] - outs["cpu"][1]).abs().max()) < 1e-4
+    assert float((outs["cpu"][1][:, 47] - outs["cpu"][0]).abs().max()) \
+        < 1e-4
+
+
+def test_hymba_train_step_on_card_matches_cpu(cuda):
+    """hymba's smoke config in f32 on one set of weights, card against
+    CPU: every leaf's gradient within 1e-4 of the leaf's largest
+    magnitude (floored at 1e-2; the meta tokens, A_log and w_dt
+    nonzero), then one AdamW step: loss and grad_norm within 1e-4
+    relative, and the parameters after it within lr/10 wherever the
+    CPU's gradient exceeds 10 times the gradient tolerance. There the
+    step moves each parameter by lr·sign(g) and the two devices' signs
+    agree, so one update of the wrong sign (a gap of 2·lr) fails; below
+    it the first AdamW step g/(|g| + eps) turns gradient rounding into
+    any value up to lr."""
+    from repro_torch import convert
+    from repro_torch.models.common import reference_leaves
+    cfg = registry.get_smoke("hymba-1.5b").replace(dtype=torch.float32)
+    lr = 1e-3
+    opt = O.OptConfig(kind="adamw", lr=lr)
+    cpu = TR.make_state(cfg, opt, torch.Generator().manual_seed(0), "cpu")
+    dev = convert.train_state_from_jax(convert.train_state_to_numpy(cpu),
+                                       cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)))
+    grad_fn = TR.make_grad_fn(cfg, global_batch=2)
+    g_cpu, _ = grad_fn(cpu["params"], {"tokens": toks})
+    g_dev, _ = grad_fn(dev["params"], {"tokens": toks.to(cuda)})
+    paths = [p for p, _, _ in reference_leaves(cpu["params"])]
+    assert len(g_cpu) == len(g_dev) == len(paths)
+    clear = []
+    for path, a, b in zip(paths, g_dev, g_cpu):
+        for x, y in zip(a, b):
+            tol = 1e-4 * max(1e-2, float(y.abs().max()))
+            assert float((x.cpu() - y).abs().max()) <= tol, path
+            if path[-1] in ("meta_tokens", "A_log", "w_dt"):
+                assert float(y.abs().max()) > 0, path
+            clear.append(y.abs() > 10 * tol)
+    step = TR.make_train_step(cfg, opt, global_batch=2)
+    cpu, m_cpu = step(cpu, {"tokens": toks})
+    dev, m_dev = step(dev, {"tokens": toks.to(cuda)})
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_dev[k]) - float(m_cpu[k])) \
+            <= 1e-4 * abs(float(m_cpu[k]))
+    after = [t for _, ts, _ in reference_leaves(cpu["params"]) for t in ts]
+    after_dev = [t for _, ts, _ in reference_leaves(dev["params"])
+                 for t in ts]
+    assert len(after) == len(after_dev) == len(clear)
+    assert sum(int(m.sum()) for m in clear) > 0
+    for x, y, m in zip(after_dev, after, clear):
+        gap = (x.detach().cpu() - y.detach()).abs()
+        assert not bool((gap[m] > lr / 10).any())
 
 
 def test_model_entry_points_default_to_the_card(cuda):
@@ -655,7 +740,9 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (1, 256, 256, 40, 8, 128, 128, True, -1),     # its f32 step
              (4, 1024, 1024, 28, 4, 128, 128, True, -1),   # qwen2-vl-7b
              (1, 4096, 4096, 28, 4, 128, 128, True, -1),   # its microbatch
-             (1, 256, 256, 28, 4, 128, 128, True, -1)]     # its f32 step
+             (1, 256, 256, 28, 4, 128, 128, True, -1),     # its f32 step
+             (1, 4224, 4224, 25, 5, 64, 64, True, 1024),   # hymba train
+             (1, 384, 384, 25, 5, 64, 64, True, 1024)]     # its f32 step
 
 
 def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):
