@@ -2312,6 +2312,15 @@ FLASH_CASES = [
     (4, 1152, 1152, 25, 5, 64, 64, True, -1, BF16),     # its global layers
     (1, 4224, 4224, 25, 5, 64, 64, True, 1024, BF16),   # its microbatch
     (1, 1228, 1228, 25, 5, 64, 64, True, 1024, F32),    # its f32 check
+    (4, 1500, 1500, 12, 12, 64, 64, False, -1, BF16),   # whisper encoder
+    (4, 1024, 1500, 12, 12, 64, 64, False, -1, BF16),   # its cross, serving
+    (4, 1024, 1024, 12, 12, 64, 64, True, -1, BF16),    # its decoder
+    (2, 4096, 1500, 12, 12, 64, 64, False, -1, BF16),   # its cross, train
+    (2, 4096, 4096, 12, 12, 64, 64, True, -1, BF16),    # its train decoder
+    (2, 1500, 1500, 12, 12, 64, 64, False, -1, BF16),   # its train encoder
+    (1, 1500, 1500, 12, 12, 64, 64, False, -1, F32),    # its f32 checks
+    (1, 256, 1500, 12, 12, 64, 64, False, -1, F32),
+    (1, 256, 256, 12, 12, 64, 64, True, -1, F32),
 ]
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
@@ -2473,12 +2482,13 @@ def teacher_forced(lm, cfg, prompts):
 
 
 def generate_timed(lm, cfg, prompts, new_tokens: int,
-                   keep_logits: bool = True) -> dict:
+                   keep_logits: bool = True, frames=None) -> dict:
     """``launch.serve.generate`` (with every logit kept, if
-    ``keep_logits``), each part timed with CUDA events (``part_ms``:
-    "step" the capture, "meta" the hybrid family's meta tokens, "prompt"
-    the teacher-forced prompt, "greedy" the greedy steps after the first
-    token), and its host seconds."""
+    ``keep_logits``; the encoder-decoder's ``frames``), each part timed
+    with CUDA events (``part_ms``: "encode" the encoder-decoder's frames
+    and cross cache, "step" the capture, "meta" the hybrid family's meta
+    tokens, "prompt" the teacher-forced prompt, "greedy" the greedy steps
+    after the first token), and its host seconds."""
     from repro_torch.launch import serve
     marks = []
 
@@ -2488,7 +2498,7 @@ def generate_timed(lm, cfg, prompts, new_tokens: int,
         marks.append((name, ev))
     mark("start")
     t0 = time.perf_counter()
-    out = serve.generate(lm, cfg, prompts, new_tokens,
+    out = serve.generate(lm, cfg, prompts, new_tokens, frames=frames,
                          return_logits=keep_logits, on_phase=mark)
     gen, logits = out if keep_logits else (out, None)
     torch.cuda.synchronize()
@@ -2786,16 +2796,18 @@ def serve_cli(dev) -> None:
 
 
 def attention_bound(B, Sq, Skv, H, K, h, hv, itemsize,
-                    backward=False, window=-1) -> dict:
+                    backward=False, window=-1, causal=True) -> dict:
     """Causal attention with Sq = Skv: the visible (query, key) pairs
     (i - w < j <= i with a window w > 0) need 2 h + 2 hv flops each (S =
     Q K^T, P V), at the bf16 tensor-core rate (itemsize 2) or the f32
     rate of the CUDA cores (itemsize 4); q, k, v read once and the output
-    written once. ``backward``: the five products S, dP = dO V^T, dV =
-    P^T dO, dQ = dS K and dK = dS^T Q, 6 h + 4 hv flops a pair; q, k, v,
-    o and do read once, dq, dk and dv written once."""
+    written once. ``causal=False`` (no window): every one of the Sq x Skv
+    pairs is visible. ``backward``: the five products S, dP = dO V^T,
+    dV = P^T dO, dQ = dS K and dK = dS^T Q, 6 h + 4 hv flops a pair; q,
+    k, v, o and do read once, dq, dk and dv written once."""
     w = min(window, Sq) if window > 0 else Sq
-    pairs = B * H * (w * (w + 1) // 2 + (Sq - w) * w)
+    pairs = B * H * (w * (w + 1) // 2 + (Sq - w) * w) if causal else \
+        B * H * Sq * Skv
     flops = pairs * ((6 * h + 4 * hv) if backward else 2 * (h + hv))
     elems = (B * Sq * H * h + B * Skv * K * (h + hv) + B * Sq * H * hv)
     nbytes = itemsize * elems * (2 if backward else 1)
@@ -2939,6 +2951,11 @@ BWD_CASES = [
     (1, 256, 256, 28, 4, 128, 128, True, -1, F32),      # its f32 step
     (1, 4224, 4224, 25, 5, 64, 64, True, 1024, BF16),   # hymba microbatch
     (1, 384, 384, 25, 5, 64, 64, True, 1024, F32),      # its f32 step
+    (2, 1500, 1500, 12, 12, 64, 64, False, -1, BF16),   # whisper encoder
+    (2, 4096, 1500, 12, 12, 64, 64, False, -1, BF16),   # its cross
+    (2, 4096, 4096, 12, 12, 64, 64, True, -1, BF16),    # its decoder
+    (1, 1500, 1500, 12, 12, 64, 64, False, -1, F32),    # its f32 step
+    (1, 256, 1500, 12, 12, 64, 64, False, -1, F32),
 ]
 # each backward route's three CUDA kernels, as torch.profiler names them
 # (no name holds another's), and its library and info export; the bf16
@@ -3278,7 +3295,8 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
     ``card`` on the card, on the same ``batch`` (on the CPU): loss,
     grad_norm, every gradient leaf and the parameters after the step
     (F32_STEP_TOL), and exactly 2 L forward and L backward f32 flash
-    launches on the card. With ``flip_aware_of``, an active
+    launches on the card, L the flash calls of a forward
+    (:func:`flash_calls`). With ``flip_aware_of``, an active
     :class:`MoeRecorder`, the MoE dispatches of the two runs (the card's
     first) are held to the flip-aware rule first; the step's checks then
     hold only where no token flipped, so a flip fails them, and the log
@@ -3332,8 +3350,8 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
                        capacity=routes[0].capacity)
     card_launched = out["card"]["launched"]
     check(card_launched == {**dict.fromkeys(card_launched, 0),
-                            "flash_attention_f32": 2 * cfg.n_layers,
-                            "flash_attention_bwd_f32": cfg.n_layers},
+                            "flash_attention_f32": 2 * flash_calls(cfg),
+                            "flash_attention_bwd_f32": flash_calls(cfg)},
           f"{phase}: launches {card_launched}")
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
@@ -3366,6 +3384,15 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
     del cpu, card, out
     torch.cuda.empty_cache()
     return res
+
+
+def flash_calls(cfg) -> int:
+    """The flash attention calls of one forward of ``cfg``: one a
+    decoder layer; the encoder-decoder adds one an encoder layer and one
+    a cross-attention (a decoder layer's second)."""
+    if cfg.is_encoder_decoder:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
 
 
 def checkpoint_phase(dev) -> dict:
@@ -5052,6 +5079,403 @@ def hymba_train_phase(dev) -> dict:
     return res
 
 
+# -- the encoder-decoder family -----------------------------------------------
+
+WHISPER_ARCH = "whisper-small"
+# serve/whisper-small: full width and depth (12 encoder and 12 decoder
+# layers), bf16, SERVE_B rows of encoder_len (1,500) seeded frame
+# embeddings (the stub audio frontend's) and SERVE_P prompt tokens:
+# prefill (12 bidirectional encoder flash calls over the frames, 12 causal
+# over the prompt, 12 cross of the prompt against the frames), then
+# launch.serve.generate (the frames encoded once into the cross cache,
+# SERVE_P teacher-forced and SERVE_NEW - 1 greedy steps, each one captured
+# CUDA graph)
+# the f32 checks: full width, WHISPER_F32_LAYERS encoder and decoder
+# layers, WHISPER_F32_B x WHISPER_F32_P tokens against the 1,500 frames
+WHISPER_F32_LAYERS = 2
+WHISPER_F32_B, WHISPER_F32_P = 1, 256
+# train/whisper-small: full width and depth, train_4k's 4,096 tokens with
+# the batch cut 256 -> TRAIN_B in the registry's one microbatch, each row
+# against 1,500 frames, Adafactor at TRAIN_LR; the leaves whose gradients
+# must be nonzero (the encoder's and the cross-attention's)
+WHISPER_TRAIN_STEPS = 4       # 1 warm-up + 3 timed
+WHISPER_GRAD_TREES = ("encoder", "cross")
+
+
+def whisper_config(n_layers: int = 0, dtype=None):
+    """whisper-small at full width with ``n_layers`` encoder and decoder
+    layers each (0: its own 12 and 12)."""
+    from repro_torch.configs import registry
+    full = registry.get(WHISPER_ARCH)
+    n = n_layers or full.n_layers
+    return full.replace(n_layers=n, encoder_layers=n,
+                        dtype=dtype or full.dtype)
+
+
+def whisper_inputs(cfg, batch: int, prompt: int, seed: int, dev):
+    """Seeded prompt tokens [batch, prompt] and the stub frontend's frame
+    embeddings [batch, encoder_len, D] (standard normal, in
+    ``cfg.dtype``)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
+                         generator=gen)
+    return toks, randn(gen, (batch, cfg.encoder_len, cfg.d_model), dev,
+                       cfg.dtype)
+
+
+def whisper_flash_timing(dev, cfg) -> dict:
+    """The bf16 flash kernel at whisper's shapes: the encoder (SERVE_B x
+    1,500 frames, bidirectional), the prefill's cross-attention (SERVE_P
+    queries against 1,500 frames) and causal decoder, and the train
+    microbatch's cross-attention (TRAIN_B x TRAIN_S against 1,500): per
+    call (CUDA events), device time a call (torch.profiler), the plain
+    version and ``scaled_dot_product_attention`` on the same inputs,
+    with the bound of the visible pairs."""
+    import torch.nn.functional as F
+    kf, _ = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 43)
+    H, K, h, Te = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.encoder_len
+    rows = {}
+    for key, B, Sq, Skv, causal in (
+            ("encoder", SERVE_B, Te, Te, False),
+            ("cross", SERVE_B, SERVE_P, Te, False),
+            ("decoder", SERVE_B, SERVE_P, SERVE_P, True),
+            ("train_cross", TRAIN_B, TRAIN_S, Te, False)):
+        q = randn(gen, (B, Sq, H, h), dev, BF16)
+        k = randn(gen, (B, Skv, K, h), dev, BF16)
+        v = randn(gen, (B, Skv, K, h), dev, BF16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        plain = kf.flash_attention_plain(q, k, v, causal=causal).float()
+        lib_err = float((sdpa().transpose(1, 2).float() - plain).abs().max())
+        check(lib_err <= FLASH_TOL[BF16], f"sdpa disagrees: {lib_err}")
+        del plain
+        before = model_counts()["flash_attention"]
+        ms = time_cuda(lambda: kf.flash_attention(q, k, v, causal=causal),
+                       reps=20, warmup=3)
+        check(model_counts()["flash_attention"] - before == 23,
+              "whisper flash timing: the calls did not launch the kernel")
+        row = dict(shape=[B, Sq, Skv, H, K, h], causal=causal,
+                   dtype="bfloat16", ms=ms, plain_ms=time_cuda(
+                       lambda: kf.flash_attention_plain(q, k, v,
+                                                        causal=causal),
+                       reps=3, warmup=1),
+                   library_ms=time_cuda(sdpa, reps=20, warmup=3),
+                   library="torch.nn.functional.scaled_dot_product_"
+                           f"attention(is_causal={causal})",
+                   library_vs_plain_err=lib_err,
+                   **attention_bound(B, Sq, Skv, H, K, h, h, 2,
+                                     causal=causal))
+        row["device_us"], _ = traced_kernel_us(
+            lambda: [kf.flash_attention(q, k, v, causal=causal)
+                     for _ in range(5)], "flash_attention", 5)
+        row["tflops_per_s"] = row["flops"] / (ms * 1e9)
+        rows[key] = row
+        log(phase="timing/whisper_flash", name=key, **row)
+        del q, k, v, qt, kt, vt
+    return rows
+
+
+def whisper_f32_checks(dev) -> dict:
+    """WHISPER_F32_LAYERS encoder and decoder layers at full width in
+    f32: the forward over WHISPER_F32_P tokens against 1,500 frames and
+    the prefill (each 3 L f32 flash launches: encoder, causal, cross)
+    against the CPU port's prefill (CPU_LOGIT_TOL) and against the
+    captured teacher-forced decode of ``launch.serve.generate`` at every
+    position (F32_LOGIT_TOL; its only model kernels are the encoder's)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = whisper_config(WHISPER_F32_LAYERS, F32)
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    toks, frames = whisper_inputs(cfg, WHISPER_F32_B, WHISPER_F32_P,
+                                  SEED + 44, dev)
+    before = model_counts()
+    with torch.no_grad():
+        full = L.logits_apply(lm["embed"], lm(toks, frames),
+                              cfg.tie_embeddings)
+    pre, _ = D.prefill(lm, cfg, {"tokens": toks, "frames": frames})
+    launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "flash_attention_f32": 2 * flash_calls(cfg)},
+          f"serve/{WHISPER_ARCH}/f32: forward and prefill launched "
+          f"{launched}")
+    lm_cpu = f32_copy(lm, "cpu")
+    t0 = time.perf_counter()
+    pre_cpu, _ = D.prefill(lm_cpu, cfg, {"tokens": toks.cpu(),
+                                         "frames": frames.cpu()})
+    cpu_s = time.perf_counter() - t0
+    cpu_err = float((pre.cpu() - pre_cpu).abs().max())
+    del lm_cpu
+    before = model_counts()
+    t0 = time.perf_counter()
+    _, dec = serve.generate(lm, cfg, toks, 1, frames=frames,
+                            return_logits=True)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    gen_launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(gen_launched == {**dict.fromkeys(gen_launched, 0),
+                           "flash_attention_f32": cfg.encoder_layers},
+          f"serve/{WHISPER_ARCH}/f32: generate launched {gen_launched}, "
+          f"expected the encoder's {cfg.encoder_layers}")
+    dec_err = float((dec - full).abs().max())
+    last_err = float((dec[:, -1] - pre).abs().max())
+    res = dict(layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+               batch=WHISPER_F32_B, prompt=WHISPER_F32_P,
+               frames=cfg.encoder_len, card_vs_cpu_prefill=cpu_err,
+               cpu_prefill_seconds=cpu_s, decode_vs_forward=dec_err,
+               decode_vs_prefill=last_err, decode_seconds=dec_s,
+               tolerance=dict(cpu=CPU_LOGIT_TOL, decode=F32_LOGIT_TOL),
+               logits_max_abs=float(full.abs().max()),
+               launches=launched["flash_attention_f32"],
+               generate_launches=gen_launched["flash_attention_f32"])
+    check(cpu_err <= CPU_LOGIT_TOL and dec_err <= F32_LOGIT_TOL
+          and last_err <= F32_LOGIT_TOL
+          and bool(torch.isfinite(dec).all()),
+          f"serve/{WHISPER_ARCH}/f32: {res}")
+    del lm, full, dec
+    torch.cuda.empty_cache()
+    return res
+
+
+def whisper_serve_phase(dev) -> dict:
+    """serve/whisper-small: full width and depth, bf16, SERVE_B rows of
+    1,500 seeded frames and SERVE_P prompt tokens. (a) Prefill: exactly
+    36 bf16 flash launches (12 encoder, 12 causal, 12 cross) and no other
+    model kernel, finite logits; (b) ``launch.serve.generate``: the
+    frames encoded once (12 launches) into the cross cache, then each
+    step one captured CUDA graph (no model kernel), the prompt
+    teacher-forced and SERVE_NEW greedy tokens, finite logits, each part
+    timed with CUDA events; (c) both bf16 paths at the prompt's last
+    token against the f32 forward of the same weights (neither more than
+    BF16_PATH_RATIO times further from it than the other); (d) timing:
+    prefill, the flash kernel at whisper's shapes; (e)
+    :func:`whisper_f32_checks`."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = whisper_config()
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts, frames = whisper_inputs(cfg, SERVE_B, SERVE_P, SEED + 40, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    batch = {"tokens": prompts, "frames": frames}
+    per_prefill = flash_calls(cfg)
+
+    # (a) the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits_p, _ = D.prefill(lm, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    launches = model_counts()
+    check(launches["flash_attention"] == per_prefill
+          and sum(launches.values()) == per_prefill,
+          f"{WHISPER_ARCH} prefill launched {launches}, expected "
+          f"{per_prefill} x flash_attention")
+    check(tuple(logits_p.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{WHISPER_ARCH}: prefill logits not finite")
+
+    # (b) generate: every part timed with CUDA events
+    run = generate_timed(lm, cfg, prompts, SERVE_NEW, frames=frames)
+    gen, logits = run["gen"], run["logits"]
+    generate_s, part_ms = run["seconds"], run["part_ms"]
+    del run
+    encode = {n: c - launches[n] for n, c in model_counts().items()}
+    check(encode == {**dict.fromkeys(encode, 0),
+                     "flash_attention": cfg.encoder_layers},
+          f"{WHISPER_ARCH}: generate launched {encode}, expected the "
+          f"encoder's {cfg.encoder_layers} and no decode kernel")
+    logits_d = logits[:, SERVE_P - 1]
+    check(tuple(gen.shape) == (SERVE_B, SERVE_NEW)
+          and tuple(logits.shape) == (SERVE_B, SERVE_P + SERVE_NEW - 1,
+                                      cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{WHISPER_ARCH}: generate gave {tuple(gen.shape)}, logits "
+          f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    del logits
+    peak = torch.cuda.max_memory_allocated()
+
+    # (c) both bf16 paths against the f32 forward of the same weights
+    lm32 = f32_copy(lm)
+    before = model_counts()["flash_attention_f32"]
+    logits_f, _ = D.prefill(lm32, lm32.cfg, {"tokens": prompts,
+                                             "frames": frames.float()})
+    f32_launches = model_counts()["flash_attention_f32"] - before
+    check(f32_launches == per_prefill,
+          f"{WHISPER_ARCH}: the f32 forward launched {f32_launches}")
+    del lm32
+    torch.cuda.empty_cache()
+    lp, ld, lf = logits_p.float(), logits_d.float(), logits_f
+
+    def rms(x):
+        return float(x.square().mean().sqrt())
+    agree = dict(prefill_vs_decode=float((lp - ld).abs().max()),
+                 prefill_vs_f32=float((lp - lf).abs().max()),
+                 decode_vs_f32=float((ld - lf).abs().max()),
+                 rms_prefill_vs_decode=rms(lp - ld),
+                 rms_prefill_vs_f32=rms(lp - lf),
+                 rms_decode_vs_f32=rms(ld - lf), rms_f32_logits=rms(lf),
+                 max_abs_f32_logit=float(lf.abs().max()))
+    tokens = {name: x.argmax(-1).tolist()
+              for name, x in (("prefill", lp), ("decode", ld), ("f32", lf))}
+    a, b = agree["prefill_vs_f32"], agree["decode_vs_f32"]
+    check(max(a, b) <= BF16_PATH_RATIO * min(a, b),
+          f"{WHISPER_ARCH}: one bf16 path is further from the f32 forward "
+          f"than the other: {agree}")
+
+    # (d) timing
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, batch), reps=3,
+                           warmup=1)
+    del lm, batch
+    torch.cuda.empty_cache()
+    flash = whisper_flash_timing(dev, cfg)
+
+    # (e) exactness at WHISPER_F32_LAYERS layers in f32
+    exact = whisper_f32_checks(dev)
+    steps = {"prompt": SERVE_P, "greedy": SERVE_NEW - 1}
+    res = dict(arch=WHISPER_ARCH, params=n_params, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers, frames=cfg.encoder_len,
+               cuts={"none": "full width and depth; the conv audio "
+                             "frontend is a stub (seeded frame "
+                             "embeddings), as in the reference"},
+               batch=SERVE_B, prompt=SERVE_P, new_tokens=SERVE_NEW,
+               init_seconds=init_s, prefill_first_seconds=prefill_first_s,
+               launches={"flash_attention": launches["flash_attention"]},
+               flash_calls_per_prefill=launches["flash_attention"],
+               generate_encode_launches=encode["flash_attention"],
+               **agree, greedy_tokens=tokens,
+               generate_seconds=generate_s, generate_part_ms=part_ms,
+               decode_steps=steps,
+               teacher_forced_ms_per_step=part_ms["prompt"] / SERVE_P,
+               decode_ms_per_step=part_ms["greedy"] / (SERVE_NEW - 1),
+               decode_tokens_per_s=SERVE_B * (SERVE_NEW - 1)
+               / (part_ms["greedy"] / 1e3),
+               prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
+               flash=flash, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident, f32=exact,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"serve/{WHISPER_ARCH}", **res)
+    return res
+
+
+def whisper_train_phase(dev) -> dict:
+    """train/whisper-small: full width and depth, bf16, Adafactor at
+    TRAIN_LR; one fixed batch of TRAIN_B x TRAIN_S tokens against 1,500
+    frames a row, in the registry's one microbatch. WHISPER_TRAIN_STEPS
+    steps timed with CUDA events: each loss below the one before, finite
+    grad norms, exactly 2 x 36 forward (the forward and the recompute)
+    and 36 backward bf16 flash launches a step. Then every gradient leaf
+    of the encoder and the cross-attention: nonzero and finite; and one
+    f32 AdamW step at WHISPER_F32_LAYERS encoder and decoder layers, card
+    vs CPU (:func:`f32_step_vs_cpu`)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.common import reference_leaves
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    cfg = whisper_config()
+    micro = registry.microbatches(WHISPER_ARCH, "train_4k")
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    resident = fresh_peak()
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    batch = ShardedBatchSource(cfg.vocab, TRAIN_B, TRAIN_S, seed=SEED + 45,
+                               device=dev, d_model=cfg.d_model,
+                               encoder_len=cfg.encoder_len).batch(0)
+    want = {"flash_attention": 2 * flash_calls(cfg) * micro,
+            "flash_attention_bwd": flash_calls(cfg) * micro}
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    steps = []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                          launches=launched, loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"])))
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train/{WHISPER_ARCH} step {len(steps)} launched "
+              f"{launched}, expected {want}")
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    check(all(np.isfinite([st[k] for st in steps
+                           for k in ("loss", "grad_norm")]))
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train/{WHISPER_ARCH}: losses {losses}, grad norms "
+          f"{[st['grad_norm'] for st in steps]}")
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+
+    # the encoder's and the cross-attention's gradients
+    grads, _ = TR.make_grad_fn(cfg, microbatches=micro,
+                               global_batch=TRAIN_B)(state["params"], batch)
+    grad_max = {}
+    for (path, _, _), leaf in zip(reference_leaves(state["params"]), grads):
+        if path[0] in WHISPER_GRAD_TREES:
+            grad_max["/".join(path)] = [float(g.abs().max()) for g in leaf]
+    check(len(grad_max) > 0
+          and all(0 < x < float("inf") for v in grad_max.values()
+                  for x in v),
+          f"train/{WHISPER_ARCH}: gradients {grad_max}")
+    grad_leaves = len(grad_max)
+    grad_range = [min(min(v) for v in grad_max.values()),
+                  max(max(v) for v in grad_max.values())]
+    del state, grads, batch
+    torch.cuda.empty_cache()
+
+    # the f32 step, card vs CPU, on one set of weights (drawn on the card)
+    cfg32 = whisper_config(WHISPER_F32_LAYERS, F32)
+    opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    card = TR.make_state(cfg32, opt32,
+                         torch.Generator(dev).manual_seed(SEED), dev)
+    params = f32_copy(card["params"], "cpu")
+    cpu = {"params": params, "opt": O.init_opt(opt32, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    tokens = ShardedBatchSource(cfg32.vocab, F32_TRAIN_B, F32_TRAIN_S,
+                                seed=SEED + 46, device="cpu",
+                                d_model=cfg32.d_model,
+                                encoder_len=cfg32.encoder_len).batch(0)
+    f32 = f32_step_vs_cpu(f"train/{WHISPER_ARCH}/f32", cfg32, opt32, cpu,
+                          card, tokens)
+    del card, cpu
+    res = dict(arch=WHISPER_ARCH, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers, frames=cfg.encoder_len,
+               cuts={"batch": [256, TRAIN_B]},
+               batch=TRAIN_B, seq=TRAIN_S, microbatches=micro,
+               optimizer=opt.kind, lr=opt.lr, steps=steps,
+               seconds_per_step=sec, tokens_per_s=TRAIN_B * TRAIN_S / sec,
+               frames_per_s=TRAIN_B * cfg.encoder_len / sec,
+               peak_mem_bytes=peak, resident_at_start_bytes=resident,
+               encoder_cross_grad_leaves=grad_leaves,
+               encoder_cross_grad_max_abs_range=grad_range,
+               launches_per_step=want, launches=counts, f32=f32,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{WHISPER_ARCH}", **res)
+    return res
+
+
 def time_bwd_kernel(dev, info: dict) -> dict:
     """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
@@ -5267,6 +5691,11 @@ def main() -> int:
     mark(f"serve/{HYMBA_ARCH}")
     hymba_train = hymba_train_phase(dev)
     mark(f"train/{HYMBA_ARCH}")
+    # the encoder-decoder family: each drive resets the counts first
+    whisper_serve = whisper_serve_phase(dev)
+    mark(f"serve/{WHISPER_ARCH}")
+    whisper_train = whisper_train_phase(dev)
+    mark(f"train/{WHISPER_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
     mark("timing/flash_bwd")
 
@@ -5347,6 +5776,14 @@ def main() -> int:
                   f"train/{HYMBA_ARCH} ({hymba_train['layers']} layers, "
                   f"{HYMBA_TRAIN_STEPS} steps of {TRAIN_B} x "
                   f"{hymba_train['positions']} positions)")
+    whisper_path = (f"serve/{WHISPER_ARCH} prefill ("
+                    f"{whisper_serve['encoder_layers']} encoder and "
+                    f"{whisper_serve['layers']} decoder layers, {SERVE_B} x "
+                    f"{whisper_serve['frames']} frames and {SERVE_P} "
+                    f"tokens: encoder, causal and cross calls); "
+                    f"train/{WHISPER_ARCH} ({WHISPER_TRAIN_STEPS} steps of "
+                    f"{TRAIN_B} x {TRAIN_S} tokens against "
+                    f"{whisper_train['frames']} frames)")
     moe_path = (f"serve/{MOE_ARCH} prefill ({moe_serve['layers']} layers, "
                 f"{moe_serve['experts']} experts, {SERVE_B} x {SERVE_P} "
                 f"tokens); train/{MOE_ARCH} ({moe_train['layers']} layers, "
@@ -5422,6 +5859,19 @@ def main() -> int:
                                       *hymba_f32.values())),
                   f"flash was not launched on every {HYMBA_ARCH} path: "
                   f"{hymba_fwd}, {hymba_f32}")
+            whisper_fwd = {f"serve/{WHISPER_ARCH} prefill":
+                           whisper_serve["launches"][name],
+                           f"train/{WHISPER_ARCH}":
+                           whisper_train["launches"][name]}
+            whisper_f32 = {f"serve/{WHISPER_ARCH}/f32 forward and prefill":
+                           whisper_serve["f32"]["launches"],
+                           f"train/{WHISPER_ARCH}/f32":
+                           whisper_train["f32"]["launches"]
+                           ["flash_attention_f32"]}
+            check(all(v > 0 for v in (*whisper_fwd.values(),
+                                      *whisper_f32.values())),
+                  f"flash was not launched on every {WHISPER_ARCH} path: "
+                  f"{whisper_fwd}, {whisper_f32}")
             hymba_win = hymba_serve["flash"]["window"]
             entry.update(
                 train_launches=train["launches"][name],
@@ -5445,6 +5895,12 @@ def main() -> int:
                                               "plain_ms", "library_ms",
                                               "bound_ms", "bound_by")}
                    for key in ("global", "train_window")},
+                whisper_launches=whisper_fwd,
+                whisper_path=whisper_path,
+                **{f"whisper_{key}": {k: row[k] for k in (
+                    "shape", "causal", "device_us", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")}
+                   for key, row in whisper_serve["flash"].items()},
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 f32=dict(source=f32_src, launches=f32_launches,
@@ -5452,6 +5908,7 @@ def main() -> int:
                          vlm_launches=vlm_f32,
                          moe_launches=moe_f32,
                          hymba_launches=hymba_f32,
+                         whisper_launches=whisper_f32,
                          max_abs_err=model_errors["flash_attention_f32"],
                          **{k: f32[k] for k in (
                              "ms", "plain_ms", "bound_ms",
@@ -5468,7 +5925,10 @@ def main() -> int:
           and moe_train["launches"]["flash_attention_bwd"] > 0
           and moe_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0
           and hymba_train["launches"]["flash_attention_bwd"] > 0
-          and hymba_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0,
+          and hymba_train["f32"]["launches"]["flash_attention_bwd_f32"] > 0
+          and whisper_train["launches"]["flash_attention_bwd"] > 0
+          and whisper_train["f32"]["launches"]["flash_attention_bwd_f32"]
+          > 0,
           "a flash backward kernel was "
           f"not launched on its train path: bf16 {launches}, f32 "
           f"{f32_launches}")
@@ -5493,6 +5953,9 @@ def main() -> int:
         hymba_launches={f"train/{HYMBA_ARCH}":
                         hymba_train["launches"]["flash_attention_bwd"]},
         hymba_path=hymba_path,
+        whisper_launches={f"train/{WHISPER_ARCH}":
+                          whisper_train["launches"]["flash_attention_bwd"]},
+        whisper_path=whisper_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -5517,6 +5980,9 @@ def main() -> int:
                                ["launches"]["flash_attention_bwd_f32"]},
                  hymba_launches={f"train/{HYMBA_ARCH}/f32": hymba_train[
                      "f32"]["launches"]["flash_attention_bwd_f32"]},
+                 whisper_launches={f"train/{WHISPER_ARCH}/f32":
+                                   whisper_train["f32"]["launches"]
+                                   ["flash_attention_bwd_f32"]},
                  max_abs_err=bwd_check["max_abs_err"]
                  ["flash_attention_bwd_f32"],
                  max_err_over_scale=bwd_check["worst_err_over_scale"]
@@ -5569,7 +6035,8 @@ def main() -> int:
               for tag, ranks in mesh.items()})
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
-        for s in (*serves.values(), vlm_serve, moe_serve, hymba_serve)},
+        for s in (*serves.values(), vlm_serve, moe_serve, hymba_serve,
+                  whisper_serve)},
         vlm={f"serve/{VLM_ARCH}": {k: vlm_serve[k] for k in (
             "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
             "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
@@ -5592,6 +6059,13 @@ def main() -> int:
             "mamba_share": {"prefill": hymba_serve["mamba"]["prefill_share"],
                             "train_step": hymba_train["mamba"]
                             ["step_share"]}},
+        whisper={f"serve/{WHISPER_ARCH}": {k: whisper_serve[k] for k in (
+            "prefill_ms", "prefill_tokens_per_s",
+            "teacher_forced_ms_per_step", "decode_ms_per_step",
+            "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
+            f"train/{WHISPER_ARCH}": {k: whisper_train[k] for k in (
+                "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+                "seconds")}},
         profile_retries=PROFILE_RETRIES,
         seconds=time.perf_counter() - START)
     print(nvidia_smi(), flush=True)

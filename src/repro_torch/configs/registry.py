@@ -7,21 +7,22 @@ The port has the dense GQA architectures ``yi-6b``, ``yi-34b``,
 ``qwen2-vl-7b`` (a dense GQA backbone with M-RoPE over stub embeddings),
 the MoE ``llama4-maverick-400b-a17b`` (dense and MoE layers in pairs,
 capacity-routed top-1), the hybrid ``hymba-1.5b`` (attention and Mamba
-heads in parallel, sliding windows, meta tokens) and the RWKV6
-``rwkv6-3b``, for serving and training. Every other
-architecture of the reference registry raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+heads in parallel, sliding windows, meta tokens), the encoder-decoder
+``whisper-small`` (a bidirectional encoder over stub frames and
+cross-attention) and the RWKV6 ``rwkv6-3b``, for serving and training.
+Every other architecture of the reference registry raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "qwen2-vl-7b",
-         "llama4-maverick-400b-a17b", "hymba-1.5b", "rwkv6-3b"]
+         "llama4-maverick-400b-a17b", "hymba-1.5b", "whisper-small",
+         "rwkv6-3b"]
 
 # the reference's other architectures → the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "whisper-small": "queue 1 item 12(d) (encoder-decoder)",
     "deepseek-v3-671b": "queue 1 item 12(e) (MLA, the MTP head and the "
                         "192-wide flash; its MoE is ported)",
 }

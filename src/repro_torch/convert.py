@@ -198,20 +198,6 @@ def queue_to_numpy(queue: TrafficQueue,
 
 # -- model weights ------------------------------------------------------------
 
-def _weights_like(tree, tmpl: dict, path: str, device) -> dict:
-    if tree.keys() != tmpl.keys():
-        raise ValueError(f"{path}: keys {sorted(tree)} != "
-                         f"{sorted(tmpl)}")
-    out = {}
-    for k, want in tmpl.items():
-        if isinstance(want, dict):
-            out[k] = _weights_like(tree[k], want, f"{path}.{k}", device)
-            continue
-        out[k] = tensor_from_numpy(tree[k], want.dtype, device,
-                                   tuple(want.shape), f"{path}.{k}")
-    return out
-
-
 def tensor_from_numpy(a, dtype: torch.dtype, device, shape=None,
                       name: str = "array") -> torch.Tensor:
     """A numpy (or JAX) array → a tensor of ``dtype`` on ``device``. A
@@ -248,38 +234,48 @@ def tensor_to_numpy(t: torch.Tensor, native: bool = False) -> np.ndarray:
 def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
     """The reference's ``init_lm`` parameter tree (of a dense, a
     vision-language, whose tree is the dense one, a dense/MoE-pair, a
-    hybrid or an RWKV6 config), as nested dicts of numpy arrays (bf16
-    arrays too), → the port's :class:`LM` on ``device``. Each stacked
-    ``[n, ...]`` segment leaf is sliced into the per-layer trees (a pair
-    segment's ``{"dense", "moe"}`` leaves, expert weights ``[n, E, D,
-    F]``, into one tree per pair); an unscanned segment (hymba's global
-    layers) and ``meta_tokens`` have no layer axis and cross as they are;
-    every leaf goes through f32 to ``cfg.dtype``, which is exact for
-    bf16. Raises ``ValueError`` if a key or shape does not fit ``cfg``."""
-    tmpl = init_lm(cfg, device="meta").tree()
-    if tree.keys() != tmpl.keys():
-        raise ValueError(f"keys {sorted(tree)} != {sorted(tmpl)}")
-    out = {}
-    for part in ("embed", "ln_f"):
-        out[part] = _weights_like(tree[part], tmpl[part], part, device)
-    if "meta_tokens" in tmpl:
-        want = tmpl["meta_tokens"]
-        out["meta_tokens"] = tensor_from_numpy(
-            tree["meta_tokens"], want.dtype, device, tuple(want.shape),
-            "meta_tokens")
-    out["segments"] = {}
-    if tree["segments"].keys() != tmpl["segments"].keys():
-        raise ValueError(f"segments {sorted(tree['segments'])} != "
-                         f"{sorted(tmpl['segments'])}")
-    for name, layers in tmpl["segments"].items():
-        got = tree["segments"][name]
-        out["segments"][name] = _weights_like(
-            got, layers, f"segments.{name}", device) \
-            if isinstance(layers, dict) else [
-            _weights_like(_layer(got, i), layer, f"segments.{name}[{i}]",
-                          device)
-            for i, layer in enumerate(layers)]
-    return LM(cfg, out)
+    hybrid, an encoder-decoder or an RWKV6 config), as nested dicts of
+    numpy arrays (bf16 arrays too), → the port's :class:`LM` on
+    ``device``. Each stacked ``[n, ...]`` leaf of a scanned segment, of
+    the encoder's ``blocks`` and of ``cross`` is sliced into the
+    per-layer trees (a pair segment's ``{"dense", "moe"}`` leaves, expert
+    weights ``[n, E, D, F]``, into one tree per pair); an unscanned
+    segment (hymba's global layers), ``meta_tokens`` and the encoder's
+    ``ln`` have no layer axis and cross as they are; every leaf goes
+    through f32 to ``cfg.dtype``, which is exact for bf16. Raises
+    ``ValueError`` if a key or shape does not fit ``cfg``."""
+    return LM(cfg, _params_like(tree, init_lm(cfg, device="meta").tree(),
+                                "", device))
+
+
+def _params_like(tree, tmpl, path: str, device):
+    """``tree`` (numpy, stacked where ``tmpl`` has a list of per-layer
+    trees) in the layout of ``tmpl`` (the port's tree on the meta
+    device), on ``device``."""
+    if isinstance(tmpl, list):
+        for leaf in _leaves(tree):
+            if np.shape(leaf)[:1] != (len(tmpl),):
+                raise ValueError(f"{path}: {len(tmpl)} layers, got a leaf "
+                                 f"of shape {np.shape(leaf)}")
+        return [_params_like(_layer(tree, i), layer, f"{path}[{i}]", device)
+                for i, layer in enumerate(tmpl)]
+    if isinstance(tmpl, dict):
+        if not isinstance(tree, dict) or tree.keys() != tmpl.keys():
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'params'}: keys {got} != "
+                             f"{sorted(tmpl)}")
+        return {k: _params_like(tree[k], v, f"{path}.{k}" if path else k,
+                                device) for k, v in tmpl.items()}
+    return tensor_from_numpy(tree, tmpl.dtype, device, tuple(tmpl.shape),
+                             path)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _layer(stacked: dict, i: int) -> dict:
@@ -289,25 +285,22 @@ def _layer(stacked: dict, i: int) -> dict:
 
 def lm_params_to_numpy(lm: LM, native: bool = False) -> dict:
     """The port's :class:`LM` → the reference's parameter layout as numpy
-    arrays, scanned segments' leaves stacked along a leading layer axis:
-    f32, or with ``native`` each leaf in its own dtype (bf16 as
-    ``|V2``)."""
+    arrays, the leaves of each list of per-layer trees (a scanned
+    segment, the encoder's blocks, ``cross``) stacked along a leading
+    layer axis: f32, or with ``native`` each leaf in its own dtype (bf16
+    as ``|V2``)."""
     def arrays(tree):
-        if not isinstance(tree, dict):
-            return tensor_to_numpy(tree, native)
-        return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return stack([arrays(layer) for layer in tree])
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        return tensor_to_numpy(tree, native)
 
     def stack(trees: list) -> dict:
         return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k],
                                                               dict)
                 else np.stack([t[k] for t in trees]) for k in trees[0]}
-    tree = lm.tree()
-    out = {k: arrays(v) for k, v in tree.items() if k != "segments"}
-    out["segments"] = {
-        name: arrays(seg) if isinstance(seg, dict)
-        else stack([arrays(layer) for layer in seg])
-        for name, seg in tree["segments"].items()}
-    return out
+    return arrays(lm.tree())
 
 
 # -- train state --------------------------------------------------------------

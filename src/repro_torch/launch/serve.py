@@ -19,6 +19,13 @@ loss runs it: ``generate`` sizes every cache at 128 + P + N slots and
 writes the meta tokens first. The reference's launcher sizes the caches
 at P + N and never writes them, so its decode is not the model's
 (ROADMAP.md queue 3).
+
+The encoder-decoder (whisper) takes the stub frontend's frame
+embeddings: ``generate`` encodes them once, writes the cross-attention
+keys and values into the cache (``decode.fill_cross_cache``) before the
+step is captured, and decodes with ``decode.decode_step_encdec``, whose
+graph reads those same cross tensors at every replay. ``main`` draws the
+frames from a seed, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -35,20 +42,23 @@ from ..models import transformer as T
 
 
 def _decode_fn(params, cfg, cache: dict, batch: int, dev: torch.device):
-    """``step(x, index, position) -> logits``: one ``decode_step`` of the
-    inputs' embeddings x [batch,1,D] at cache slot ``index`` with 2-D
-    positions ``position`` (ints), the cache (on ``dev``) updated in
-    place. On a CUDA device the step is one CUDA graph, captured once
+    """``step(x, index, position) -> logits``: one ``decode_step`` (for
+    the encoder-decoder ``decode_step_encdec``, whose position is its
+    index) of the inputs' embeddings x [batch,1,D] at cache slot
+    ``index`` with 2-D positions ``position`` (ints), the cache (on
+    ``dev``) updated in place. On a CUDA device the step is one CUDA
+    graph, captured once
     against ``cache`` after a warm-up step on a copy of it (on a side
     stream), and each call copies its inputs into the graph's buffers
     and replays it; the logits it returns are the graph's output buffer,
     which the next call overwrites. Elsewhere the step runs eagerly."""
+    fn = D.decode_step_encdec if cfg.is_encoder_decoder else D.decode_step
     if dev.type != "cuda":
         def eager(x, index, position):
             pos = torch.full((batch, 1), position, dtype=torch.int32,
                              device=dev)
-            return D.decode_step(params, cfg, {"embeds": x, "index": index,
-                                               "positions": pos}, cache)[0]
+            return fn(params, cfg, {"embeds": x, "index": index,
+                                    "positions": pos}, cache)[0]
         return eager
     inputs = {"embeds": torch.zeros((batch, 1, cfg.d_model),
                                     dtype=cfg.dtype, device=dev),
@@ -59,12 +69,12 @@ def _decode_fn(params, cfg, cache: dict, batch: int, dev: torch.device):
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         scratch = _map(lambda t: t.clone(), cache)
-        D.decode_step(params, cfg, inputs, scratch)
+        fn(params, cfg, inputs, scratch)
         del scratch
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        logits, _ = D.decode_step(params, cfg, inputs, cache)
+        logits, _ = fn(params, cfg, inputs, cache)
 
     def replay(x, index, position):
         inputs["embeds"].copy_(x)
@@ -82,24 +92,37 @@ def _map(fn, tree):
 
 
 def generate(params, cfg, prompts: torch.Tensor, new_tokens: int, *,
+             frames: torch.Tensor | None = None,
              return_logits: bool = False, on_phase=None):
     """prompts [B,P] → greedy continuation [B,new_tokens]. The prompt is
     fed token by token through ``decode_step`` (teacher forcing); the
     logits of its last token give the first new token. A hybrid model
     first writes its 128 meta tokens (``embeds`` at index -128 ... -1,
     positions -128: rotation 0, as ``lm_loss`` places them) into caches
-    of 128 + P + new_tokens slots. On the card each step replays one
-    captured CUDA graph (:func:`_decode_fn`). With ``return_logits``
-    also returns the logits of every step after the meta tokens,
-    [B, P + new_tokens - 1, V] in the model's dtype. ``on_phase(name)``,
-    if given, is called after the step is ready ("step"), after the meta
-    tokens ("meta"), the prompt ("prompt") and the greedy steps
-    ("greedy"): a caller records CUDA events there to time each part."""
+    of 128 + P + new_tokens slots. An encoder-decoder takes ``frames``
+    [B,T,D]: it encodes them once (``transformer.encoder_forward``) and
+    fills the cache's cross keys and values (``decode.fill_cross_cache``)
+    before the step is built, then decodes with ``decode_step_encdec``.
+    On the card each step replays one captured CUDA graph
+    (:func:`_decode_fn`). With ``return_logits`` also returns the logits
+    of every step after the meta tokens, [B, P + new_tokens - 1, V] in
+    the model's dtype. ``on_phase(name)``, if given, is called after the
+    frames are encoded ("encode", encoder-decoder only), after the step
+    is ready ("step"), after the meta tokens ("meta"), the prompt
+    ("prompt") and the greedy steps ("greedy"): a caller records CUDA
+    events there to time each part."""
     B, P = prompts.shape
     meta = T.META_TOKENS if cfg.family == "hybrid" else 0
     cache = D.cache_zeros(D.cache_spec(cfg, B, meta + P + new_tokens),
                           prompts.device)
     phase = on_phase or (lambda name: None)
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name} generates from frames [B,T,D]")
+        with torch.no_grad():
+            D.fill_cross_cache(params, cfg,
+                               T.encoder_forward(params, cfg, frames), cache)
+        phase("encode")
     step = _decode_fn(params, cfg, cache, B, prompts.device)
     phase("step")
     with torch.no_grad():
@@ -142,10 +165,15 @@ def main(argv=None) -> None:
     B, P, N = args.batch, args.prompt_len, args.new_tokens
     prompts = torch.randint(0, cfg.vocab, (B, P), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
+    frames = None
+    if cfg.is_encoder_decoder:      # the stub frontend's frame embeddings
+        frames = torch.randn((B, cfg.encoder_len, cfg.d_model), device=dev,
+                             generator=torch.Generator(dev).manual_seed(2)
+                             ).to(cfg.dtype)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    gen = generate(params, cfg, prompts, N)
+    gen = generate(params, cfg, prompts, N, frames=frames)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -12,9 +12,10 @@ on the card the step runs with deterministic algorithms
 one card, and sharding the train state is ROADMAP.md queue 1 item 14.
 The MoE family (llama4-maverick) trains on token batches and logs its
 auxiliary loss. The token batches (and, for the vision-language family,
-the stub frontend's embeddings, 3-D positions and labels, as the
-reference's launcher makes them) come from a ``torch.Generator`` (seed
-1), not the reference's ``jax.random`` key.
+the stub frontend's embeddings, 3-D positions and labels, for the
+encoder-decoder the stub frontend's ``encoder_len`` frame embeddings,
+as the reference's launcher makes them) come from a ``torch.Generator``
+(seed 1), not the reference's ``jax.random`` key.
 """
 from __future__ import annotations
 
@@ -84,6 +85,10 @@ def main(argv=None) -> None:
                 args.seq, dtype=torch.int32)[None, None].expand(
                     3, args.batch, args.seq)
             batch["labels"] = batch["tokens"]
+        if cfg.is_encoder_decoder:  # the stub frontend's frame embeddings
+            batch["frames"] = torch.randn(
+                (args.batch, cfg.encoder_len, cfg.d_model),
+                generator=gen).to(cfg.dtype)
         batch = {k: v.to(dev) for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         if (i + 1) % 10 == 0 or i == start:

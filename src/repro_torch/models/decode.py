@@ -8,7 +8,10 @@ The cache keeps the reference's pytree (``cache_spec``):
 ``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack, and
 for the hybrid family (hymba) one entry per segment with the Mamba state
 beside the attention cache, ``{"attn": {"k", "v"}, "ssm": [B, d, N]}``
-(f32), with no layer axis for an unscanned (global) layer. A
+(f32), with no layer axis for an unscanned (global) layer; the
+encoder-decoder (whisper) adds the cross-attention's keys and values of
+the encoder memory, ``{"cross": {"k", "v": [n, B, T, K·h]}}``, filled
+once (:func:`fill_cross_cache`) and only read by the decode steps. A
 sliding-window layer's cache holds ``min(window, L)`` slots: a ring
 buffer (``layers.gqa_apply``). :func:`decode_step` updates the cache
 IN PLACE (the reference returns a new one) and returns the same dict;
@@ -24,10 +27,17 @@ puts the meta tokens before the prompt. The reference's ring mask, its
 prefill and its serving launcher differ (ROADMAP.md queue 3): see
 ``layers.gqa_apply`` and :func:`prefill`.
 
+The encoder-decoder's step (:func:`decode_step_encdec`) runs each
+decoder layer's sublayers in the order of ``transformer.encdec_forward``,
+the model ``lm_loss`` trains: self-attention, the MLP, then
+cross-attention. The reference's ``decode_step_encdec`` runs the
+cross-attention before the MLP, so its decode is not its forward
+(ROADMAP.md queue 3).
+
 ``index`` is a Python int, or a 0-d integer tensor on the card: then no
-op of :func:`decode_step` reads a value back to the host, and a captured
-CUDA graph of the step replays with the index buffer's new value
-(``launch.serve.generate`` on the card).
+op of :func:`decode_step` or :func:`decode_step_encdec` reads a value
+back to the host, and a captured CUDA graph of the step replays with the
+index buffer's new value (``launch.serve.generate`` on the card).
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ from ..device import resolve_device
 from . import layers as L
 from . import ssm as S
 from .common import ModelConfig
-from .transformer import (META_TOKENS, block_apply, lm_hidden,
-                          plan_segments, rwkv_block_apply, segment_layers)
+from .transformer import (META_TOKENS, block_apply, encdec_forward,
+                          lm_hidden, plan_segments, rwkv_block_apply,
+                          segment_layers)
 
 # ---------------------------------------------------------------------------
 # cache specs
@@ -79,7 +90,9 @@ def _prepend(spec, n: int):
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Full cache spec: nested dicts of (shape, dtype) leaves. ``seq_len``
     is the number of slots of a full-length cache; a hybrid model's
-    sequence needs 128 more for its meta tokens."""
+    sequence needs 128 more for its meta tokens. The encoder-decoder's
+    ``"cross"`` holds k and v [n_layers, batch, encoder_len, K·h] in
+    ``cfg.dtype``."""
     out = {}
     for i, seg in enumerate(plan_segments(cfg)):
         if seg["kind"] == "rwkv":
@@ -95,6 +108,10 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
             if seg["scanned"]:
                 leaf = _prepend(leaf, seg["n"])
         out[f"seg{i}"] = leaf
+    if cfg.is_encoder_decoder:
+        kv = ((cfg.n_layers, batch, cfg.encoder_len,
+               cfg.n_kv_heads * cfg.hd), cfg.dtype)
+        out["cross"] = {"k": kv, "v": kv}
     return out
 
 
@@ -128,6 +145,15 @@ def _inputs(params, cfg: ModelConfig, batch: dict, key: str) -> torch.Tensor:
     return L.embed_apply(params["embed"], ref)
 
 
+def _index_positions(index, batch: int, device) -> torch.Tensor:
+    """int32 [batch, 1] 2-D positions equal to ``index`` (an int, or a 0-d
+    tensor read on the device, not on the host)."""
+    if isinstance(index, int):
+        return torch.full((batch, 1), index, dtype=torch.int32,
+                          device=device)
+    return index.to(torch.int32).reshape(1, 1).expand(batch, 1)
+
+
 def _layer_cache(c: dict, n: int | None) -> dict:
     """Layer n's views of a segment's stacked cache (the cache itself for
     an unscanned segment, n None)."""
@@ -145,6 +171,8 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
     hybrid family offsets the slot and 2-D positions by 128 (its meta
     tokens; index -128 is slot 0). Returns (logits [B,V], cache) with
     the cache updated in place."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} decodes with decode_step_encdec")
     index = batch["index"]
     if not torch.is_tensor(index):
         index = int(index)
@@ -152,10 +180,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
     B = x.shape[0]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.full((B, 1), index, dtype=torch.int32,
-                               device=x.device) \
-            if isinstance(index, int) else \
-            index.to(torch.int32).reshape(1, 1).expand(B, 1)
+        positions = _index_positions(index, B, x.device)
     if cfg.family == "hybrid":
         index = index + META_TOKENS
         if positions.dim() == 2:
@@ -187,6 +212,56 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache: dict):
     return logits[:, 0], cache
 
 
+@torch.no_grad()
+def fill_cross_cache(params, cfg: ModelConfig, mem: torch.Tensor,
+                     cache: dict) -> dict:
+    """Write each decoder layer's cross-attention keys and values of the
+    encoder memory mem [B, T, D] (``mem @ wk``, ``mem @ wv``, not
+    rotated, as the reference's launcher computes them) into
+    ``cache["cross"]`` IN PLACE; returns the cache."""
+    for n, xp in enumerate(params["cross"]):
+        cache["cross"]["k"][n].copy_(mem @ xp["attn"]["wk"])
+        cache["cross"]["v"][n].copy_(mem @ xp["attn"]["wv"])
+    return cache
+
+
+@torch.no_grad()
+def decode_step_encdec(params, cfg: ModelConfig, batch: dict, cache: dict):
+    """The encoder-decoder's step. batch: {"token": [B,1] int (or
+    "embeds": [B,1,D]), "index": cache slot and position of the token (an
+    int, or a 0-d integer tensor on the cache's device); any other key,
+    such as "positions", is not read}; ``cache`` holds the self-attention
+    caches and the filled ``"cross"`` keys and values
+    (:func:`fill_cross_cache`). Each decoder layer runs its block
+    (self-attention against the cache, written IN PLACE at ``index``,
+    then the MLP) and then cross-attention of the normed stream to every
+    encoder frame (plain ``layers.attend``), the order of
+    ``transformer.encdec_forward``. Returns (logits [B,V], cache)."""
+    index = batch["index"]
+    if not torch.is_tensor(index):
+        index = int(index)
+    x = _inputs(params, cfg, batch, "token")
+    B = x.shape[0]
+    positions = _index_positions(index, B, x.device)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+    Te = ck.shape[2]
+    visible = torch.ones((1, Te), dtype=torch.bool, device=x.device)
+    layers = segment_layers(params["segments"]["seg0"])
+    for n, (lp, xp) in enumerate(zip(layers, params["cross"])):
+        x, _, _ = block_apply(lp, cfg, x, positions, moe=False, window=-1,
+                              cache=_layer_cache(cache["seg0"], n),
+                              cache_index=index)
+        h = L.rmsnorm(xp["ln"], x, cfg.norm_eps)
+        q = (h @ xp["attn"]["wq"]).reshape(B, 1, H, hd)
+        o = L.attend(q, ck[n].reshape(B, Te, K, hd),
+                     cv[n].reshape(B, Te, K, hd), visible)
+        x = x + o.reshape(B, 1, H * hd) @ xp["attn"]["wo"]
+    hidden = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = L.logits_apply(params["embed"], hidden, cfg.tie_embeddings)
+    return logits[:, 0], cache
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -201,7 +276,9 @@ def _batch_rows(batch: dict, rows: slice) -> dict:
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
     """batch: {"tokens": [B,S] int, or the stub frontend's "embeds":
-    [B,S,D]; optional "positions": [B,S], or [3,B,S] for M-RoPE}. Returns
+    [B,S,D]; optional "positions": [B,S], or [3,B,S] for M-RoPE; for the
+    encoder-decoder "frames": [B,T,D], which a chunk takes on axis 0 and
+    the forward encodes (``transformer.encdec_forward``)}. Returns
     (last-token logits [B,V], None): the reference's prefill runs the
     full-sequence forward and fills no cache, and so does this one. The
     hybrid family's forward runs the prompt behind its 128 meta tokens,
@@ -230,6 +307,14 @@ def prefill(params, cfg: ModelConfig, batch: dict, batch_chunks: int = 0):
                                                            (c + 1) * n)),
                     batch_chunks=1)[0]
             for c in range(batch_chunks)]), None
+    if cfg.is_encoder_decoder:
+        _check_device(params, batch["frames"])
+        _check_device(params, batch["tokens"])
+        hidden, _ = encdec_forward(params, cfg, batch["frames"],
+                                   batch["tokens"])
+        logits = L.logits_apply(params["embed"], hidden[:, -1:],
+                                cfg.tie_embeddings)
+        return logits[:, 0], None
     x = _inputs(params, cfg, batch, "tokens")
     positions = batch.get("positions")
     if positions is None:

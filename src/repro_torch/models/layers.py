@@ -1,7 +1,8 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention with its
 decode cache, the SwiGLU MLP, the capacity-routed MoE, embeddings and the
 head. Counterpart of ``repro.models.layers`` (only what the ported
-families call, M-RoPE and the MoE included; MLA is not ported yet).
+families call, M-RoPE, the MoE and the bidirectional attention of
+whisper's encoder included; MLA is not ported yet).
 
 All shapes use: B batch, S sequence, D d_model, H heads, K kv heads,
 h head_dim, F ffn dim, E experts, C expert capacity, V vocab.
@@ -13,10 +14,11 @@ operations that have deterministic CUDA implementations (the train step
 runs in PyTorch's deterministic mode).
 
 The full-sequence (prefill) branch of :func:`gqa_apply` calls the flash
-attention kernel through ``kernels.ops.attention`` at every S; the
-reference switches from the direct softmax to its blockwise form at
-S >= 1024, and both compute the same function. The decode branch stays
-plain PyTorch, as it is plain jnp in the reference.
+attention kernel through ``kernels.ops.attention`` at every S, causal or
+bidirectional; the reference switches from the direct softmax to its
+blockwise form at S >= 1024 (and computes the bidirectional branch with
+the direct softmax), and both compute the same function. The decode
+branch stays plain PyTorch, as it is plain jnp in the reference.
 
 ``repro.models.pconstraint`` (activation sharding constraints) has no
 counterpart: it is a no-op without a device mesh, and the port has none
@@ -184,9 +186,12 @@ def write_slots(buf: torch.Tensor, start, val: torch.Tensor) -> None:
 
 def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               *, window: int, cache: Optional[dict] = None,
-              cache_index: Optional[int] = None):
+              cache_index: Optional[int] = None, causal: bool = True):
     """Returns (out, new_cache). Prefill: cache None, full S, flash
-    attention kernel. Decode: x is [B,1,D] and ``cache`` holds k/v as
+    attention kernel. ``causal=False`` is the bidirectional branch of the
+    reference's ``_gqa_maybe_noncausal`` (whisper's encoder): q and k
+    rotated by ``positions``, every key visible (no window), no cache.
+    Decode: x is [B,1,D] and ``cache`` holds k/v as
     [B, L, K·h]; this step's k/v are written into it IN PLACE at
     ``cache_index`` (a Python int, or a 0-d integer tensor on the cache's
     device, which a captured step replays with new values), and the
@@ -210,8 +215,11 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if not causal and cache is not None:
+        raise ValueError("bidirectional attention has no decode cache")
     if cache is None:
-        out = ops.attention(q, k, v, causal=True, window=window)
+        out = ops.attention(q, k, v, causal=causal,
+                            window=window if causal else -1)
         new_cache = None
     else:
         ck, cv = cache["k"], cache["v"]

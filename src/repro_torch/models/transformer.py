@@ -3,8 +3,10 @@ qwen2-vl-7b, whose vision-language backbone is the dense block with
 M-RoPE over stub embeddings), llama4-maverick's dense and MoE layers in
 pairs (``moe_interleave=2``), hymba's hybrid blocks (attention and Mamba
 heads in parallel on the same input, sliding-window attention except in
-the global layers, 128 meta tokens before the sequence) and the
-attention-free RWKV6 stack (rwkv6-3b). Counterpart of
+the global layers, 128 meta tokens before the sequence), whisper's
+encoder-decoder (bidirectional dense blocks over stub frame embeddings,
+then decoder blocks each followed by cross-attention to the encoder's
+output) and the attention-free RWKV6 stack (rwkv6-3b). Counterpart of
 ``repro.models.transformer`` for those families.
 
 The reference stacks each homogeneous segment's parameters along a
@@ -13,22 +15,25 @@ parameter tree per layer (an ``nn.ModuleList`` per segment; a pair
 segment holds one ``{"dense", "moe"}`` tree per pair) and loops over the
 layers in Python. A segment the reference does not scan (hymba's global
 layers) is one layer's tree with no layer axis, as in the reference: a
-``ParamTree``, whose leaves ``reference_leaves`` reports unstacked. MLA,
-the MoE stack with a dense prefix (deepseek-v3) and the encoder-decoder
-(whisper) family are not ported yet (ROADMAP.md queue 1 item 12).
+``ParamTree``, whose leaves ``reference_leaves`` reports unstacked. The
+encoder-decoder keeps the reference's ``encoder`` (``{"blocks": one
+tree per layer, "ln"}``) and ``cross`` (one ``{"ln", "attn"}`` tree per
+decoder layer) beside them. MLA and the MoE stack with a dense prefix
+(deepseek-v3) are not ported yet (ROADMAP.md queue 1 item 12).
 
 Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
-the reference's for the dense, vision-language, MoE-pair, hybrid and
-RWKV6 families. The reference saves nothing inside a layer
-(``REMAT_POLICY = nothing_saveable`` on each scanned block or pair); the
-port runs each block under non-reentrant ``torch.utils.checkpoint``
-whenever grad is enabled, so the backward recomputes the block's forward
-(flash kernel, Mamba scan and MoE routing included) from the block's
-input, and the loss runs each 512-token chunk of the head and
-log-softmax under its own checkpoint, never holding the [B,S,V] f32
-logits. The recomputed routing is the forward's: the same ops on the
-same input (deterministic on the card, where a train step runs in
-PyTorch's deterministic mode).
+the reference's for the dense, vision-language, MoE-pair, hybrid,
+encoder-decoder and RWKV6 families. The reference saves nothing inside a
+layer (``REMAT_POLICY = nothing_saveable`` on each scanned block, pair,
+or decoder block with its cross-attention); the port runs each block
+(each decoder block with its cross-attention) under non-reentrant
+``torch.utils.checkpoint`` whenever grad is enabled, so the backward
+recomputes the block's forward (flash kernel, Mamba scan and MoE
+routing included) from the block's input, and the loss runs each
+512-token chunk of the head and log-softmax under its own checkpoint,
+never holding the [B,S,V] f32 logits. The recomputed routing is the
+forward's: the same ops on the same input (deterministic on the card,
+where a train step runs in PyTorch's deterministic mode).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels import ops
 from . import layers as L
 from . import ssm as S
 from .common import ModelConfig, ParamFactory, ParamTree
@@ -51,18 +57,24 @@ META_TOKENS = 128      # hymba's learned prefix (``meta_tokens`` [128, D])
 
 def _check_ported(cfg: ModelConfig) -> None:
     """GQA blocks of the dense and vision-language families, dense and
-    MoE layers in pairs (``moe_interleave`` > 1), or hybrid blocks with
-    Mamba heads; anything else raises."""
+    MoE layers in pairs (``moe_interleave`` > 1), hybrid blocks with
+    Mamba heads, or the encoder-decoder's dense blocks (family "audio"
+    with ``is_encoder_decoder``); anything else (MLA, an MTP head)
+    raises."""
     dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
     pairs = cfg.family == "moe" and cfg.n_experts and cfg.moe_interleave > 1
     hybrid = cfg.family == "hybrid" and cfg.ssm_kind == "mamba" \
         and not cfg.n_experts
-    if cfg.attn_kind != "gqa" or not (dense or pairs or hybrid):
+    encdec = cfg.family == "audio" and cfg.is_encoder_decoder \
+        and not cfg.n_experts
+    if cfg.attn_kind != "gqa" or cfg.mtp \
+            or not (dense or pairs or hybrid or encdec):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA blocks, dense, in dense/MoE pairs or "
-            f"beside Mamba heads, are ported (attn_kind "
-            f"{cfg.attn_kind!r}, family {cfg.family!r}, moe_interleave "
-            f"{cfg.moe_interleave}); ROADMAP.md queue 1 item 12")
+            f"{cfg.name}: only GQA blocks, dense, in dense/MoE pairs, "
+            f"beside Mamba heads or in an encoder-decoder, are ported "
+            f"(attn_kind {cfg.attn_kind!r}, family {cfg.family!r}, "
+            f"moe_interleave {cfg.moe_interleave}, mtp {cfg.mtp}); "
+            f"ROADMAP.md queue 1 item 12")
 
 
 def init_block(pf: ParamFactory, cfg: ModelConfig, *, moe: bool) -> dict:
@@ -86,9 +98,11 @@ def init_block(pf: ParamFactory, cfg: ModelConfig, *, moe: bool) -> dict:
 
 def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, moe: bool, window: int,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, causal: bool = True):
     """One transformer block. Returns (x, new_cache, aux): aux is the
-    MoE's auxiliary loss with ``moe``, else an f32 zero. With a cache
+    MoE's auxiliary loss with ``moe``, else an f32 zero. ``causal=False``
+    makes its attention bidirectional (whisper's encoder; no cache,
+    ``layers.gqa_apply``). With a cache
     (one decode step; ``layers.gqa_apply``, a ring in a sliding-window
     layer) the cache is updated IN PLACE and returned: a hybrid block
     also steps its Mamba state ``cache["ssm"]``. The hybrid block runs
@@ -97,7 +111,7 @@ def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, nc = L.gqa_apply(p["attn"], cfg, h, positions, window=window,
                         cache=None if cache is None else cache["attn"],
-                        cache_index=cache_index)
+                        cache_index=cache_index, causal=causal)
     if cfg.family == "hybrid":
         if cache is None:
             m = S.mamba_scan(p["ssm"], cfg, h)
@@ -205,13 +219,38 @@ def init_segment(pf: ParamFactory, cfg: ModelConfig, seg: dict):
 # model
 # ---------------------------------------------------------------------------
 
+def _module(tree):
+    """A layout node as a module: a dict of tensors and dicts a
+    :class:`ParamTree`, a list of per-layer dicts an ``nn.ModuleList``,
+    a dict holding a list an ``nn.ModuleDict``."""
+    if isinstance(tree, list):
+        return nn.ModuleList(_module(layer) for layer in tree)
+    if any(isinstance(v, list) for v in tree.values()):
+        return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+    return ParamTree(tree)
+
+
+def _layout(module):
+    """The inverse of :func:`_module`: nested dicts and lists of the
+    parameter tensors."""
+    if isinstance(module, nn.ModuleList):
+        return [_layout(m) for m in module]
+    if isinstance(module, nn.ModuleDict):
+        return {k: _layout(m) for k, m in module.items()}
+    return module.to_dict()
+
+
 class LM(nn.Module):
     """The language model's parameters: ``embed``, ``ln_f``,
     ``segments["seg<i>"]`` (a list of per-layer trees, or one layer's
-    tree for an unscanned segment) and, for the hybrid family,
-    ``meta_tokens`` [128, D]. Indexes like the reference's parameter dict
-    (``lm["embed"]["tok"]``); ``forward(tokens)`` returns the tokens'
-    final hidden states (:func:`lm_hidden`)."""
+    tree for an unscanned segment); for the hybrid family
+    ``meta_tokens`` [128, D]; for the encoder-decoder ``encoder``
+    (``{"blocks": a list of per-layer trees, "ln"}``) and ``cross`` (a
+    list of ``{"ln", "attn"}`` trees, one per decoder layer). Indexes like
+    the reference's parameter dict (``lm["embed"]["tok"]``);
+    ``forward(tokens)`` returns the tokens' final hidden states
+    (:func:`lm_hidden`; the encoder-decoder's need ``frames``,
+    :func:`encdec_forward`)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict) -> None:
         super().__init__()
@@ -219,11 +258,13 @@ class LM(nn.Module):
         self.embed = ParamTree(tree["embed"])
         self.ln_f = ParamTree(tree["ln_f"])
         self.segments = nn.ModuleDict({
-            name: ParamTree(layers) if isinstance(layers, dict)
-            else nn.ModuleList(ParamTree(layer) for layer in layers)
+            name: _module(layers)
             for name, layers in tree["segments"].items()})
         if "meta_tokens" in tree:
             self.meta_tokens = nn.Parameter(tree["meta_tokens"])
+        if "encoder" in tree:
+            self.encoder = _module(tree["encoder"])
+            self.cross = _module(tree["cross"])
 
     def __getitem__(self, key: str):
         if key not in self.keys():
@@ -232,22 +273,24 @@ class LM(nn.Module):
 
     def keys(self) -> list:
         return ["embed", "ln_f", "segments"] + (
-            ["meta_tokens"] if "meta_tokens" in self._parameters else [])
+            ["meta_tokens"] if "meta_tokens" in self._parameters else []) + (
+            ["encoder", "cross"] if "encoder" in self._modules else [])
 
     def tree(self) -> dict:
         """The parameter tensors in the layout :class:`LM` is built from:
-        nested dicts, a list of layer dicts per scanned segment."""
-        out = {k: self[k].to_dict() for k in ("embed", "ln_f")}
-        out["segments"] = {
-            name: seg.to_dict() if isinstance(seg, ParamTree)
-            else [layer.to_dict() for layer in seg]
-            for name, seg in self.segments.items()}
+        nested dicts, a list of layer dicts per scanned segment (and for
+        the encoder's blocks and the cross-attention)."""
+        out = {k: _layout(self[k]) for k in self.keys()
+               if k != "meta_tokens"}
         if "meta_tokens" in self.keys():
             out["meta_tokens"] = self.meta_tokens.data
         return out
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                frames: torch.Tensor | None = None) -> torch.Tensor:
+        if self.cfg.is_encoder_decoder:
+            return encdec_forward(self, self.cfg, frames, tokens)[0]
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
         return lm_hidden(self, self.cfg,
@@ -274,6 +317,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
                         for i, s in enumerate(plan_segments(cfg))}
     if cfg.family == "hybrid":
         tree["meta_tokens"] = pf.leaf((META_TOKENS, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        tree["encoder"] = {
+            "blocks": [init_block(pf, cfg, moe=False)
+                       for _ in range(cfg.encoder_layers)],
+            "ln": L.init_rmsnorm(pf, cfg.d_model)}
+        tree["cross"] = [{"ln": L.init_rmsnorm(pf, cfg.d_model),
+                          "attn": L.init_gqa(pf, cfg)}
+                         for _ in range(cfg.n_layers)]
     return LM(cfg, tree)
 
 
@@ -354,6 +405,65 @@ def lm_hidden(params, cfg: ModelConfig, x: torch.Tensor,
     return hidden[:, META_TOKENS:], aux
 
 
+def encoder_forward(params, cfg: ModelConfig,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the stub frontend's frame embeddings
+    [B, T, D] (any float dtype; run in ``cfg.dtype``): the encoder blocks,
+    bidirectional (``block_apply(causal=False)``: q and k rotated by the
+    frame index, one flash call a block), each under :func:`remat`, then
+    the encoder's RMSNorm. Returns the memory [B, T, D]."""
+    B, T_ = frames.shape[:2]
+    positions = torch.arange(T_, device=frames.device)[None].expand(B, T_)
+    x = frames.to(cfg.dtype)
+    for lp in params["encoder"]["blocks"]:
+        x = remat(lambda h, lp=lp: block_apply(
+            lp, cfg, h, positions, moe=False, window=-1, causal=False)[0], x)
+    return L.rmsnorm(params["encoder"]["ln"], x, cfg.norm_eps)
+
+
+def cross_attend(xp, cfg: ModelConfig, x: torch.Tensor,
+                 mem: torch.Tensor) -> torch.Tensor:
+    """One cross-attention sublayer, residual included: q from the
+    RMS-normed stream x [B, S, D], k and v from the encoder memory mem
+    [B, T, D], none rotated, every frame visible (one flash call,
+    ``causal=False``, Sq = S against Skv = T)."""
+    B, Sq = x.shape[:2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Te = mem.shape[1]
+    h = L.rmsnorm(xp["ln"], x, cfg.norm_eps)
+    q = (h @ xp["attn"]["wq"]).reshape(B, Sq, H, hd)
+    k = (mem @ xp["attn"]["wk"]).reshape(B, Te, K, hd)
+    v = (mem @ xp["attn"]["wv"]).reshape(B, Te, K, hd)
+    o = ops.attention(q, k, v, causal=False)
+    return x + o.reshape(B, Sq, H * hd) @ xp["attn"]["wo"]
+
+
+def encdec_forward(params, cfg: ModelConfig, frames: torch.Tensor,
+                   tokens: torch.Tensor):
+    """Whisper's forward: the encoder over ``frames`` [B, T, D], then for
+    each decoder layer, in the reference's order, the whole decoder block
+    (causal self-attention, then the MLP) and after it the
+    cross-attention to the memory (:func:`cross_attend`), the two under
+    one :func:`remat`, as the reference checkpoints its scanned body.
+    Returns (final-normed decoder hidden [B, S, D], memory [B, T, D])."""
+    B, Sd = tokens.shape
+    mem = encoder_forward(params, cfg, frames)
+    x = L.embed_apply(params["embed"], tokens)
+    positions = torch.arange(Sd, device=x.device)[None].expand(B, Sd)
+
+    def body(lp, xp):
+        def run(h, m):
+            y, _, _ = block_apply(lp, cfg, h, positions, moe=False,
+                                  window=-1)
+            return cross_attend(xp, cfg, y, m)
+        return run
+
+    for lp, xp in zip(segment_layers(params["segments"]["seg0"]),
+                      params["cross"]):
+        x = remat(body(lp, xp), x, mem)
+    return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), mem
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
@@ -410,28 +520,37 @@ def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token loss of the dense, vision-language, MoE-pair, hybrid and
-    RWKV6 families. batch: tokens [B,S], or the stub frontend's embeds
-    [B,S,D] (then labels [B,S]); optional positions ([B,S], or [3,B,S] for
-    M-RoPE), labels, loss_weights. The hybrid family runs the sequence
-    behind its meta tokens (:func:`lm_hidden`). Returns (ce + 0.01·aux,
-    metrics) with metrics ``ce`` and ``aux`` (the MoE auxiliary loss
-    summed over the MoE layers; 0 without MoE). The encoder-decoder and
-    MTP branches of the reference raise."""
-    if cfg.is_encoder_decoder or cfg.mtp:
+    """Next-token loss of the dense, vision-language, MoE-pair, hybrid,
+    encoder-decoder and RWKV6 families. batch: tokens [B,S], or the stub
+    frontend's embeds [B,S,D] (then labels [B,S]); for the
+    encoder-decoder also frames [B,T,D]; optional positions ([B,S], or
+    [3,B,S] for M-RoPE), labels, loss_weights. The hybrid family runs the
+    sequence behind its meta tokens (:func:`lm_hidden`), the
+    encoder-decoder the tokens against the encoded frames
+    (:func:`encdec_forward`). Returns (ce + 0.01·aux, metrics) with
+    metrics ``ce`` and ``aux`` (the MoE auxiliary loss summed over the
+    MoE layers; 0 without MoE). The MTP branch of the reference
+    raises."""
+    if cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: lm_loss of the {cfg.family} family (encoder-"
-            f"decoder or MTP) is not ported: ROADMAP.md queue 1 item 12")
-    if "embeds" in batch:                         # vlm stub frontend
-        x = batch["embeds"].to(cfg.dtype)
-        B, Sq = x.shape[:2]
+            f"{cfg.name}: lm_loss with the MTP head is not ported: "
+            f"ROADMAP.md queue 1 item 12")
+    if cfg.is_encoder_decoder:
+        hidden, _ = encdec_forward(params, cfg, batch["frames"],
+                                   batch["tokens"])
+        aux = torch.zeros((), device=hidden.device)
     else:
-        x = L.embed_apply(params["embed"], batch["tokens"])
-        B, Sq = batch["tokens"].shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
-    hidden, aux = lm_hidden(params, cfg, x, positions)
+        if "embeds" in batch:                     # vlm stub frontend
+            x = batch["embeds"].to(cfg.dtype)
+            B, Sq = x.shape[:2]
+        else:
+            x = L.embed_apply(params["embed"], batch["tokens"])
+            B, Sq = batch["tokens"].shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(Sq, device=x.device)[None].expand(B,
+                                                                        Sq)
+        hidden, aux = lm_hidden(params, cfg, x, positions)
     targets = batch["labels"] if "labels" in batch else batch["tokens"]
     loss = ce_loss_seqchunk(params["embed"], hidden, targets,
                             cfg.tie_embeddings,

@@ -35,17 +35,19 @@ class ShardedBatchSource:
     vision-language family (``family="vlm"``, with ``d_model``) the stub
     frontend's fields come too, as in the reference: ``embeds`` [B,S,D]
     standard normal (f32), ``positions`` [3,B,S] int32 (the token index
-    in all three streams) and ``labels`` (the tokens); every other family
-    (the MoE family too) takes the tokens alone. The reference's
-    ``encoder_len`` (encoder frames) waits for the encoder-decoder family
-    (ROADMAP.md queue 1 item 12)."""
+    in all three streams) and ``labels`` (the tokens). With
+    ``encoder_len`` (and ``d_model``), for the encoder-decoder family,
+    ``frames`` [B, encoder_len, D] standard normal (f32), the stub audio
+    frontend's frame embeddings, as in the reference; every other family
+    (the MoE family too) takes the tokens alone."""
     vocab: int
     global_batch: int
     seq_len: int
     seed: int = 0
     device: Optional[str] = None
-    d_model: int = 0          # for the stub-frontend family (vlm)
+    d_model: int = 0          # for the stub-frontend families (vlm, audio)
     family: str = "dense"
+    encoder_len: int = 0      # encoder frames (the encoder-decoder family)
 
     def batch(self, index: int) -> dict:
         seed = int(np.random.SeedSequence([self.seed, index])
@@ -59,6 +61,9 @@ class ShardedBatchSource:
             out["positions"] = torch.arange(S, dtype=torch.int32)[
                 None, None].expand(3, B, S).contiguous()
             out["labels"] = out["tokens"]
+        if self.encoder_len:
+            out["frames"] = torch.randn((B, self.encoder_len, self.d_model),
+                                        generator=gen)
         dev = resolve_device(self.device)
         return {k: v.to(dev) for k, v in out.items()}
 

@@ -67,7 +67,7 @@ def _split_microbatch(x: torch.Tensor, m: int, global_batch: int):
     (the microbatch axis first, the rest in their order); a tensor with no
     such axis is repeated over the m microbatches. The reference's rule:
     M-RoPE positions [3, B, S] split on axis 1 (where B != 3), embeddings
-    [B, S, D] on axis 0."""
+    [B, S, D] and the encoder-decoder's frames [B, T, D] on axis 0."""
     for ax in range(x.dim()):
         if x.shape[ax] == global_batch:
             moved = torch.movedim(x, ax, 0)
@@ -198,7 +198,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     microbatches, is 0 without MoE; the reference's step reports loss and
     grad_norm only); ``batch["tokens"]`` is [global_batch, S], or for the
     vision-language family ``batch`` holds ``embeds`` [global_batch, S,
-    D], ``positions`` [3, global_batch, S] and ``labels``."""
+    D], ``positions`` [3, global_batch, S] and ``labels``; the
+    encoder-decoder's also holds ``frames`` [global_batch, T, D]."""
     grads_of = _grads_and_aux_fn(cfg, microbatches, global_batch,
                                  grad_dtype)
 

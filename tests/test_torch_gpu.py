@@ -325,7 +325,12 @@ FLASH_CASES = [
     (4, 192, 192, 28, 4, 128, 128, True, -1),       # its f32 check
     (4, 1152, 1152, 25, 5, 64, 64, True, 1024),     # hymba prefill, window
     (1, 4224, 4224, 25, 5, 64, 64, True, 1024),     # its train microbatch
-    (1, 1228, 1228, 25, 5, 64, 64, True, 1024)]     # its f32 check
+    (1, 1228, 1228, 25, 5, 64, 64, True, 1024),     # its f32 check
+    (4, 1500, 1500, 12, 12, 64, 64, False, -1),     # whisper encoder, G = 1
+    (4, 1024, 1500, 12, 12, 64, 64, False, -1),     # its cross, Sq < Skv
+    (2, 4096, 1500, 12, 12, 64, 64, False, -1),     # its train cross
+    (2, 4096, 4096, 12, 12, 64, 64, True, -1),      # its train decoder
+    (1, 256, 1500, 12, 12, 64, 64, False, -1)]      # its f32 check
 # f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
 # of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
 # a long non-causal case
@@ -498,6 +503,79 @@ def test_hymba_train_step_on_card_matches_cpu(cuda):
     for x, y, m in zip(after_dev, after, clear):
         gap = (x.detach().cpu() - y.detach()).abs()
         assert not bool((gap[m] > lr / 10).any())
+
+
+def test_whisper_smoke_on_card_matches_cpu(cuda):
+    """whisper's smoke config in f32 on one set of weights, card against
+    CPU: the prefill (encoder, causal and cross f32 flash launches, 3 a
+    layer) and ``generate``'s logits (the frames encoded once, then one
+    captured CUDA graph a step on the card, which launches no model
+    kernel and reads the cross cache written before the capture)."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    cfg = registry.get_smoke("whisper-small").replace(dtype=torch.float32)
+    lm_cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    lm_dev = convert.lm_params_from_jax(convert.lm_params_to_numpy(lm_cpu),
+                                        cfg, cuda)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 24))
+    frames = rng.standard_normal((2, cfg.encoder_len, cfg.d_model)) \
+        .astype(np.float32)
+    layers = cfg.encoder_layers + 2 * cfg.n_layers
+    outs = {}
+    for name, lm, dev in (("cpu", lm_cpu, "cpu"), ("card", lm_dev, cuda)):
+        prompts = torch.from_numpy(toks).to(dev)
+        fr = torch.from_numpy(frames).to(dev)
+        before = kf.KERNEL.launches
+        logits, _ = D.prefill(lm, cfg, {"tokens": prompts, "frames": fr})
+        assert kf.KERNEL.launches - before == (0 if dev == "cpu"
+                                               else layers)
+        before = kf.KERNEL.launches
+        gen, steps = serve.generate(lm, cfg, prompts, 4, frames=fr,
+                                    return_logits=True)
+        assert kf.KERNEL.launches - before == (0 if dev == "cpu"
+                                               else cfg.encoder_layers)
+        outs[name] = (logits.cpu(), steps.cpu(), gen.cpu())
+    assert float((outs["card"][0] - outs["cpu"][0]).abs().max()) < 1e-4
+    assert float((outs["card"][1] - outs["cpu"][1]).abs().max()) < 1e-4
+    assert float((outs["cpu"][1][:, 23] - outs["cpu"][0]).abs().max()) \
+        < 1e-4
+
+
+def test_whisper_train_step_on_card_matches_cpu(cuda):
+    """whisper's smoke config in f32 on one set of weights, card against
+    CPU: every leaf's gradient within 1e-4 of the leaf's largest
+    magnitude (floored at 1e-2; the encoder's and the cross-attention's
+    nonzero), with 2 x 3 L forward and 3 L backward f32 flash launches
+    on the card, and the loss within 1e-4 relative."""
+    from repro_torch import convert
+    from repro_torch.models.common import reference_leaves
+    cfg = registry.get_smoke("whisper-small").replace(dtype=torch.float32)
+    opt = O.OptConfig(kind="adamw", lr=1e-3)
+    cpu = TR.make_state(cfg, opt, torch.Generator().manual_seed(0), "cpu")
+    dev = convert.train_state_from_jax(convert.train_state_to_numpy(cpu),
+                                       cfg, cuda)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.encoder_len, cfg.d_model)).astype(np.float32))}
+    grad_fn = TR.make_grad_fn(cfg, global_batch=2)
+    g_cpu, l_cpu = grad_fn(cpu["params"], batch)
+    before = (kf.KERNEL.launches, kf.KERNEL_BWD.launches)
+    g_dev, l_dev = grad_fn(dev["params"],
+                           {k: v.to(cuda) for k, v in batch.items()})
+    layers = cfg.encoder_layers + 2 * cfg.n_layers
+    assert (kf.KERNEL.launches - before[0],
+            kf.KERNEL_BWD.launches - before[1]) == (2 * layers, layers)
+    assert abs(float(l_dev) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+    paths = [p for p, _, _ in reference_leaves(cpu["params"])]
+    assert len(g_cpu) == len(g_dev) == len(paths)
+    for path, a, b in zip(paths, g_dev, g_cpu):
+        for x, y in zip(a, b):
+            tol = 1e-4 * max(1e-2, float(y.abs().max()))
+            assert float((x.cpu() - y).abs().max()) <= tol, path
+            if path[0] in ("encoder", "cross"):
+                assert float(y.abs().max()) > 0, path
 
 
 def test_model_entry_points_default_to_the_card(cuda):
@@ -742,7 +820,10 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (1, 4096, 4096, 28, 4, 128, 128, True, -1),   # its microbatch
              (1, 256, 256, 28, 4, 128, 128, True, -1),     # its f32 step
              (1, 4224, 4224, 25, 5, 64, 64, True, 1024),   # hymba train
-             (1, 384, 384, 25, 5, 64, 64, True, 1024)]     # its f32 step
+             (1, 384, 384, 25, 5, 64, 64, True, 1024),     # its f32 step
+             (2, 1500, 1500, 12, 12, 64, 64, False, -1),   # whisper encoder
+             (2, 4096, 1500, 12, 12, 64, 64, False, -1),   # its cross
+             (1, 256, 1500, 12, 12, 64, 64, False, -1)]    # its f32 step
 
 
 def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):

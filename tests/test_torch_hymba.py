@@ -216,7 +216,7 @@ def test_registry_has_the_hybrid_config():
     assert ARCH in registry.ARCHS and ARCH not in registry.NOT_PORTED
     assert registry.microbatches(ARCH, "train_4k") \
         == jregistry.microbatches(ARCH, "train_4k") == 4
-    for arch in ("whisper-small", "deepseek-v3-671b"):
+    for arch in ("deepseek-v3-671b",):
         with pytest.raises(NotImplementedError, match=r"item 12\("):
             registry.get(arch)
 

@@ -442,8 +442,9 @@ def test_serve_main_on_cpu(capsys):
 
 def test_port_imports_without_jax_or_reference():
     """Every repro_torch module, chip_smoke.py and the port's example
-    twin (examples/torch_train_smr_service.py) import with jax and repro
-    blocked; the modules include the DES, its baselines and the training
+    twins (examples/torch_train_smr_service.py,
+    examples/torch_serve_engine.py) import with jax and repro blocked;
+    the modules include the DES, its baselines and the training
     service."""
     code = (
         "import importlib, importlib.util, json, pkgutil, sys\n"
@@ -456,7 +457,9 @@ def test_port_imports_without_jax_or_reference():
         "    importlib.import_module(m)\n"
         "for name, path in (('chip_smoke', "
         f"{str(ROOT / 'chip_smoke.py')!r}), ('torch_smr_example', "
-        f"{str(ROOT / 'examples' / 'torch_train_smr_service.py')!r})):\n"
+        f"{str(ROOT / 'examples' / 'torch_train_smr_service.py')!r}), "
+        "('torch_serve_example', "
+        f"{str(ROOT / 'examples' / 'torch_serve_engine.py')!r})):\n"
         "    spec = importlib.util.spec_from_file_location(name, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

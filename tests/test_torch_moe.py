@@ -180,7 +180,7 @@ def test_registry_has_the_moe_config():
     assert ARCH in registry.ARCHS and ARCH not in registry.NOT_PORTED
     assert registry.microbatches(ARCH, "train_4k") \
         == jregistry.microbatches(ARCH, "train_4k") == 16
-    for arch in ("deepseek-v3-671b", "whisper-small"):
+    for arch in ("deepseek-v3-671b",):
         with pytest.raises(NotImplementedError, match=r"item 12\("):
             registry.get(arch)
 
