@@ -8,7 +8,8 @@ Usage, from the repository root on a machine with a CUDA card and nvcc:
 Phases, each of which must pass or the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (set-up),
-   log each one's registers and spills, check in the SASS of the bf16
+   log each one's registers and spills (no flash instantiation may
+   spill), check in the SASS of the bf16
    flash libraries (forward and backward) that the tensor cores do their
    work (HMMA) and in the f32 ones' (forward and backward) that they do
    none (no HMMA), and log blocks per SM and shared memory per block of
@@ -113,7 +114,10 @@ Phases, each of which must pass or the script exits non-zero:
    the serving path's shapes, the shapes of the reference kernel tests,
    sliding-window, non-causal, ragged, G = 8 and hv != h cases (flash;
    in f32 also h, hv not multiples of 4, q/k/v 4 bytes past a 16-byte
-   boundary, so that both copy paths run, and a long non-causal case),
+   boundary, so that both copy paths run, and a long non-causal case;
+   q/k width 192 with v width 128 at deepseek-v3's MLA serving prefill
+   and train microbatch, and 176 / 96, the plain version over groups of
+   heads where its scores would pass 4 GB),
    and ragged lengths (one token, a chunk +- 1, 128 chunks), head dim
    128 and decay ranges where the reference's chunked form overflows
    (WKV6);
@@ -150,7 +154,8 @@ Phases, each of which must pass or the script exits non-zero:
    without it the backward raises), f32 through the CUDA-core kernel;
    one launch of the dtype's kernel a call, two launches at the train
    shape byte-equal; registers, spills, shared memory and blocks per SM
-   of both kernels' three CUDA kernels;
+   of both kernels' CUDA kernels at every instantiation (the bf16 one's
+   four at q/k width 192: D, the dk and dv passes, dq);
 14. ``train/yi-6b``: full width and depth, bf16, 2 x 4096 tokens a step
    (the reference's train_4k cell with its batch cut to 2), 2
    microbatches, Adafactor, through ``make_train_step`` inside a
@@ -224,7 +229,13 @@ Phases, each of which must pass or the script exits non-zero:
    bf16 (the tensor-core kernel) and at the serving shape in f32 (the
    CUDA-core kernel): kernel, its device time per pass, plain version,
    the backward of ``scaled_dot_product_attention``, with the bound of
-   its five products.
+   its five products;
+17. the q/k width 192, v width 128 instantiations at deepseek-v3's
+   shapes (no model path runs them yet): bf16 forward at the MLA serving
+   prefill and train microbatch, bf16 backward at the microbatch, f32
+   forward and backward at the f32 check shape; each per call, device
+   time by CUDA kernel, plain version, ``scaled_dot_product_attention``
+   (forward and backward) with the kernels it launched, and the bound.
 
 The next-to-last line is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
@@ -238,6 +249,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -314,6 +326,40 @@ def make_traffic(ticks: int, seed: int):
 
 # -- phases -------------------------------------------------------------------
 
+SMEM_PER_BLOCK = 232_448     # an H100 block's shared memory at most
+
+
+def ptxas_entries(text: str) -> dict:
+    """``{mangled entry: (registers, spill store bytes, spill load
+    bytes)}`` from an ``nvcc -Xptxas=-v`` log."""
+    out, entry, spills = {}, None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out[entry] = (int(m.group(1)), *spills)
+            entry = None
+    return out
+
+
+def flash_instantiations() -> list:
+    """Each flash kernel's (padded q/k width, padded v width) pairs."""
+    from repro_torch.kernels import flash_attention as kf
+    return [(w, kf.v_width(w)) for w in kf.WIDTHS]
+
+
+def width_key(width: int, vwidth: int):
+    """A flash instantiation's key in the logs: its width where the q/k
+    and v widths agree, else "192x128"."""
+    return width if width == vwidth else f"{width}x{vwidth}"
+
+
 def build_kernels() -> float:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -325,6 +371,14 @@ def build_kernels() -> float:
         ptxas = [ln.strip() for ln in text.splitlines()
                  if "ptxas" in ln or "spill" in ln]
         log(build=source, ptxas=ptxas)
+        if source.startswith("flash_attention"):
+            # every flash instantiation: registers and spills by entry
+            # point; none may spill
+            entries = ptxas_entries(text)
+            log(build=source, registers_and_spills=entries)
+            for entry, (regs, stores, loads) in entries.items():
+                check(stores == 0 and loads == 0, f"{source}: {entry} "
+                      f"spills ({stores} B stored, {loads} B loaded)")
     log(phase="build", seconds=seconds)
     # the tensor cores do the bf16 flash kernels' products (forward and
     # backward): their SASS holds HMMA instructions; the f32 kernels'
@@ -346,7 +400,8 @@ def build_kernels() -> float:
             check(n == 0, f"{source}: {n} HMMA instructions in the f32 "
                   "kernel's SASS")
     # blocks per SM and shared memory per block of each flash
-    # instantiation (f32: its 16-byte copy path)
+    # instantiation (f32: its 16-byte copy path), keyed by its padded
+    # q/k width, or "192x128" for q/k width 192 with v width 128
     occupancy = {}
     for source, symbol in (("flash_attention_bf16.cu",
                             "flash_attention_bf16_occupancy"),
@@ -354,12 +409,15 @@ def build_kernels() -> float:
                             "flash_attention_occupancy")):
         fn = getattr(ctypes.CDLL(str(_build.library_path(source))), symbol)
         occupancy[source] = {}
-        for width in (32, 64, 128):
+        for width, vwidth in flash_instantiations():
             blocks, smem = ctypes.c_int(), ctypes.c_int()
-            err = fn(width, ctypes.byref(blocks), ctypes.byref(smem))
-            check(err == 0, f"{symbol}({width}): {err}")
-            occupancy[source][width] = dict(blocks_per_sm=blocks.value,
-                                            smem_bytes_per_block=smem.value)
+            err = fn(width, vwidth, ctypes.byref(blocks), ctypes.byref(smem))
+            check(err == 0, f"{symbol}({width}, {vwidth}): {err}")
+            check(smem.value <= SMEM_PER_BLOCK and blocks.value >= 1,
+                  f"{symbol}({width}, {vwidth}): {smem.value} shared bytes, "
+                  f"{blocks.value} blocks an SM")
+            occupancy[source][width_key(width, vwidth)] = dict(
+                blocks_per_sm=blocks.value, smem_bytes_per_block=smem.value)
     # the WKV6 passes: blocks per SM and shared memory per block; and the
     # wrapper sizes the workspace as the kernel lays it out
     from repro_torch.kernels import rwkv6_scan as kw
@@ -2321,7 +2379,22 @@ FLASH_CASES = [
     (1, 1500, 1500, 12, 12, 64, 64, False, -1, F32),    # its f32 checks
     (1, 256, 1500, 12, 12, 64, 64, False, -1, F32),
     (1, 256, 256, 12, 12, 64, 64, True, -1, F32),
+    # q/k width 192 with v width 128: deepseek-v3's MLA prefill (the rope
+    # key folded into each head, G = 1), and a padded q/k width under 192
+    (4, 1024, 1024, 128, 128, 192, 128, True, -1, BF16),  # MLA serve
+    (1, 4096, 4096, 128, 128, 192, 128, True, -1, BF16),  # its microbatch
+    (1, 256, 256, 128, 128, 192, 128, True, -1, F32),     # its f32 check
+    *[(2, 100, 130, 4, 2, 192, 128, True, -1, dt)         # ragged, G = 2
+      for dt in (BF16, F32)],
+    *[(2, 256, 300, 8, 4, h, hv, causal, w, dt)           # masks, Sq < Skv
+      for dt in (BF16, F32)
+      for (h, hv, causal, w) in ((192, 128, True, 100),
+                                 (176, 96, False, -1))],
+    (2, 100, 130, 4, 2, 190, 126, True, -1, F32, "misaligned"),
 ]
+# above this many bytes of f32 scores the plain versions run over groups
+# of kv heads (the MLA microbatch: 128 heads x 4,096^2 is 8.6 GB a tensor)
+PLAIN_SCORE_BYTES = 4_000_000_000
 WKV_CASES = [  # (B, S, H, hd, dtype, std of the raw decay)
     (4, 1024, 40, 64, BF16, 0.3),                       # rwkv6-3b prefill
     (4, 1024, 40, 64, F32, 0.3),                        # serve/f32
@@ -2366,6 +2439,44 @@ def wkv_inputs(gen, B, S, H, hd, dtype, w_std, dev):
     return r, k, v, wlog, randn(gen, (H, hd), dev, scale=0.1)
 
 
+def head_groups(q, k) -> list:
+    """(query-head slice, kv-head slice) pairs that split attention over
+    kv heads with their query heads, each group's f32 scores at most
+    PLAIN_SCORE_BYTES; one pair where the whole fits."""
+    B, Sq, H, _ = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    per_kv = 4 * B * G * Sq * Skv
+    step = max(1, min(K, PLAIN_SCORE_BYTES // per_kv))
+    return [(slice(k0 * G, min(K, k0 + step) * G),
+             slice(k0, min(K, k0 + step))) for k0 in range(0, K, step)]
+
+
+def plain_flash(q, k, v, **mask) -> torch.Tensor:
+    """``flash_attention_plain`` over :func:`head_groups`."""
+    kf, _ = model_kernel_modules()
+    return torch.cat([kf.flash_attention_plain(q[:, :, a], k[:, :, b],
+                                               v[:, :, b], **mask)
+                      for a, b in head_groups(q, k)], dim=2)
+
+
+def plain_lse(q, k, **mask) -> torch.Tensor:
+    """``flash_attention_lse_plain`` over :func:`head_groups`."""
+    kf, _ = model_kernel_modules()
+    return torch.cat([kf.flash_attention_lse_plain(q[:, :, a], k[:, :, b],
+                                                   **mask)
+                      for a, b in head_groups(q, k)], dim=1)
+
+
+def plain_bwd(q, k, v, o, do, **mask) -> tuple:
+    """``flash_attention_bwd_plain`` over :func:`head_groups`."""
+    kf, _ = model_kernel_modules()
+    parts = [kf.flash_attention_bwd_plain(q[:, :, a], k[:, :, b], v[:, :, b],
+                                          o[:, :, a], do[:, :, a], **mask)
+             for a, b in head_groups(q, k)]
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
 def model_kernel_phase(dev) -> dict:
     """Both model kernels against their plain versions on the card;
     returns the worst absolute error per kernel. Any miss of a stated
@@ -2386,8 +2497,7 @@ def model_kernel_phase(dev) -> dict:
         before = model_counts()
         got = kf.flash_attention(q, k, v, causal=causal, window=window)
         launched = {n: c - before[n] for n, c in model_counts().items()}
-        want = kf.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window)
+        want = plain_flash(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         case = [B, Sq, Skv, H, K, h, hv, causal, window, str(dt), *how]
         check(launched == {**dict.fromkeys(launched, 0), name: 1},
@@ -2405,7 +2515,7 @@ def model_kernel_phase(dev) -> dict:
                                         v.data_ptr(), got.data_ptr())
         cases.append(dict(kernel=name, case=case, err=err,
                           tol=FLASH_TOL[dt], **extra))
-    paths = {c["plan"][1] for c in cases if "plan" in c}
+    paths = {c["plan"][-1] for c in cases if "plan" in c}
     check(paths == {0, 1}, f"the f32 flash cases ran copy paths {paths}, "
           "not both the 16-byte and the 4-byte one")
     for (B, S, H, hd, dt, w_std) in WKV_CASES:
@@ -2956,6 +3066,15 @@ BWD_CASES = [
     (2, 4096, 4096, 12, 12, 64, 64, True, -1, BF16),    # its decoder
     (1, 1500, 1500, 12, 12, 64, 64, False, -1, F32),    # its f32 step
     (1, 256, 1500, 12, 12, 64, 64, False, -1, F32),
+    # q/k width 192, v width 128: deepseek-v3's MLA train microbatch and
+    # f32 step, ragged GQA, the masks at a padded q/k width under 192, and
+    # the f32 kernel's 4-byte copies at the new width
+    (1, 4096, 4096, 128, 128, 192, 128, True, -1, BF16),  # MLA train
+    (1, 256, 256, 128, 128, 192, 128, True, -1, F32),     # its f32 step
+    *[(2, 100, 130, 4, 2, 192, 128, True, -1, dt) for dt in (BF16, F32)],
+    (2, 256, 300, 8, 4, 192, 128, True, 100, F32),      # window
+    (2, 256, 300, 8, 4, 176, 96, False, -1, BF16),      # bidirectional
+    (2, 100, 130, 4, 2, 190, 126, True, -1, F32),       # 4-byte copies
 ]
 # each backward route's three CUDA kernels, as torch.profiler names them
 # (no name holds another's), and its library and info export; the bf16
@@ -2986,30 +3105,44 @@ def bwd_route(dt) -> str:
 
 def bwd_kernel_info() -> dict:
     """Registers a thread, spill (local) bytes a thread, dynamic shared
-    bytes a block and blocks an SM of each backward route's three CUDA
-    kernels at each padded width (``flash_attention_bwd_bf16_info``,
-    ``flash_attention_bwd_info``; the f32 kernels on both copy paths,
-    keyed ``name/width`` for 16-byte copies and ``name/width/4byte``).
-    No kernel may spill."""
+    bytes a block and blocks an SM of each backward route's CUDA kernels
+    at each instantiation (``flash_attention_bwd_bf16_info``,
+    ``flash_attention_bwd_info``; the f32 kernels on both copy paths),
+    keyed ``name/width`` for 16-byte copies and ``name/width/4byte``,
+    width as :func:`width_key` gives it. At q/k width 192 the bf16 route
+    runs dk and dv as two passes: ``.../192x128/dk`` and ``.../dv``.
+    No kernel may spill, and none may ask for more shared memory than a
+    block has."""
     from repro_torch.kernels import _build
     out = {}
     for route, (source, symbol) in BWD_LIBS.items():
         fn = getattr(ctypes.CDLL(str(_build.library_path(source))), symbol)
-        plans = ((None, ""),) if route == "flash_attention_bwd" else \
-            ((1, ""), (0, "/4byte"))
-        for width in (32, 64, 128):
+        bf16 = route == "flash_attention_bwd"
+        plans = ((None, ""),) if bf16 else ((1, ""), (0, "/4byte"))
+        for width, vwidth in flash_instantiations():
+            kernels = list(enumerate(BWD_KERNELS[route], start=1))
+            if bf16 and width != vwidth:   # the dK pass, then the dV pass
+                dkdv = BWD_KERNELS[route][1]
+                wk = width_key(width, vwidth)
+                kernels[1] = (2, f"{dkdv}/{wk}/dk")
+                kernels.append((4, f"{dkdv}/{wk}/dv"))
             for vec, suffix in plans:
-                for which, name in enumerate(BWD_KERNELS[route], start=1):
+                for which, name in kernels:
                     vals = [ctypes.c_int() for _ in range(4)]
-                    args = (which, width) + (() if vec is None else (vec,))
+                    args = (which, width, vwidth) + (() if vec is None
+                                                     else (vec,))
                     err = fn(*args, *map(ctypes.byref, vals))
                     check(err == 0, f"{symbol}{args}: {err}")
-                    key = f"{name}/{width}{suffix}"
+                    key = (name if "/" in name else
+                           f"{name}/{width_key(width, vwidth)}") + suffix
                     out[key] = info = dict(zip(
                         ("registers", "spill_bytes", "smem_bytes_per_block",
                          "blocks_per_sm"), (v.value for v in vals)))
                     check(info["spill_bytes"] == 0,
                           f"{key} spills: {info}")
+                    check(info["smem_bytes_per_block"] <= SMEM_PER_BLOCK
+                          and info["blocks_per_sm"] >= 1,
+                          f"{key} does not fit an SM: {info}")
     return out
 
 
@@ -3048,8 +3181,7 @@ def bwd_kernel_phase(dev) -> dict:
         extra["same_bytes_without_lse"] = torch.equal(o, o_bare)
         check(extra["same_bytes_without_lse"], f"flash_attention "
               f"{case}: the output differs with and without the LSE")
-        lse_want = kf.flash_attention_lse_plain(q, k, causal=causal,
-                                                window=window)
+        lse_want = plain_lse(q, k, causal=causal, window=window)
         extra["lse_err"] = float((lse - lse_want).abs().max())
         check(extra["lse_err"] <= LSE_TOL[dt], f"flash_attention {case}: "
               f"LSE max abs err {extra['lse_err']} > {LSE_TOL[dt]}")
@@ -3063,14 +3195,12 @@ def bwd_kernel_phase(dev) -> dict:
             extra["raised_without_lse"] = True
         check(extra["raised_without_lse"], f"flash_attention_bwd {case}: "
               "a backward without the LSE did not raise")
-        o_want = kf.flash_attention_plain(q, k, v, causal=causal,
-                                          window=window)
+        o_want = plain_flash(q, k, v, causal=causal, window=window)
         before = model_counts()
         got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                      window=window, lse=lse)
         launched = {n: c - before[n] for n, c in model_counts().items()}
-        want = kf.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
-                                            window=window)
+        want = plain_bwd(q, k, v, o, do, causal=causal, window=window)
         torch.cuda.synchronize()
         check(o.dtype == dt and o.shape == o_want.shape,
               f"flash_attention {case}: output {o.dtype}{tuple(o.shape)}")
@@ -5571,6 +5701,137 @@ def time_bwd_kernel(dev, info: dict) -> dict:
     return rows
 
 
+# deepseek-v3's attention at full width (configs/deepseek_v3_671b.py): 128
+# heads, MLA prefill folds the 64-wide rope key into each head's 128-wide
+# key (q/k width 192, v width 128, G = 1)
+MLA_H, MLA_QK, MLA_V = 128, 192, 128
+MLA_F32_S = 256               # the f32 check path's sequence
+
+
+def mla_entry(mla: dict, direction: str, dt, cases: list, tags: tuple,
+              info: dict | None = None) -> dict:
+    """The kernels line's record of a flash kernel's q/k width 192, v
+    width 128 instantiation: no model path launches it yet (item 12(e)
+    of ROADMAP.md will), its cases in ``cases`` of dtype ``dt``, and its
+    timing at deepseek-v3's shapes (``mla``, from
+    :func:`time_mla_flash`); for a backward route, each pass's registers,
+    spills, shared bytes and blocks an SM at that width (``info``)."""
+    out = dict(launches_main_path=0,
+               checked_cases=sum(c[5] > 128 and c[9] == dt for c in cases))
+    for tag in tags:
+        out[tag] = {k: mla[tag]["shape"] if k == "shape" else
+                    mla[tag][direction][k] for k in (
+            "shape", "ms", "device_us", "plain_ms", "library_ms",
+            "library_kernels", "bound_ms", "bound_by", "flops", "bytes",
+            "over_bound")}
+    if info is not None:
+        wide = width_key(MLA_QK, MLA_V)
+        out["kernel_info"] = {n: i for n, i in info.items()
+                              if f"/{wide}" in n and "4byte" not in n
+                              and ("bf16" in n) == (dt == BF16)}
+    return out
+
+
+def sdpa_kernels(fn) -> list:
+    """The CUDA kernels one call of ``fn`` launches, by name: which of
+    scaled_dot_product_attention's backends ran."""
+    _, events = traced(fn)
+    return sorted({name[:120] for name, _ in events})
+
+
+def time_mla_flash(dev) -> dict:
+    """The flash kernels' q/k width 192, v width 128 instantiations at
+    deepseek-v3's shapes (G = 1, causal): the bf16 forward at the serving
+    prefill (q [4, 1024, 128, 192]) and at the train microbatch ([1,
+    4096, 128, 192]), the bf16 backward at the microbatch, and the f32
+    forward and backward at the f32 check shape ([1, 256, 128, 192]).
+    Each: per call (CUDA events), device time by CUDA kernel
+    (``torch.profiler``), the plain version (over :func:`head_groups`),
+    one scaled_dot_product_attention(is_causal=True) call on the same
+    inputs (its backward: one ``autograd.grad`` of that call's output,
+    the forward outside the timed calls) with the kernels it launched,
+    and the bound (:func:`attention_bound`)."""
+    import torch.nn.functional as F
+    kf, _ = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    rows = {}
+    for tag, B, S, dt in (("serve", SERVE_B, SERVE_P, BF16),
+                          ("train", 1, TRAIN_S, BF16),
+                          ("f32", 1, MLA_F32_S, F32)):
+        H, h, hv = MLA_H, MLA_QK, MLA_V
+        q = randn(gen, (B, S, H, h), dev, dt)
+        k = randn(gen, (B, S, H, h), dev, dt)
+        v = randn(gen, (B, S, H, hv), dev, dt)
+        do = randn(gen, (B, S, H, hv), dev, dt)
+        fwd_kernel = kf.KERNEL_BF16 if dt == BF16 else kf.KERNEL
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        reps = 20 if tag == "serve" else 10
+        before = fwd_kernel.launches
+        ms = time_cuda(lambda: kf.flash_attention(q, k, v), reps=reps,
+                       warmup=3)
+        check(fwd_kernel.launches - before == reps + 3,
+              f"mla {tag}: timed calls did not launch the forward kernel")
+        _, events = traced(lambda: kf.flash_attention(q, k, v))
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - kf.flash_attention(q, k, v).float()).abs().max())
+        row = dict(
+            shape=[B, S, H, H, h, hv], dtype=str(dt).replace("torch.", ""),
+            forward=dict(
+                ms=ms, device_us=sum(us for _, us in events),
+                plain_ms=time_cuda(lambda: plain_flash(q, k, v, causal=True),
+                                   reps=2 if tag == "serve" else 1,
+                                   warmup=1),
+                library_ms=time_cuda(sdpa, reps=reps, warmup=3),
+                library="scaled_dot_product_attention(is_causal=True)",
+                library_kernels=sdpa_kernels(sdpa),
+                library_vs_kernel_err=lib_err,
+                **attention_bound(B, S, S, H, H, h, hv, dt.itemsize)))
+        row["forward"]["over_bound"] = ms / row["forward"]["bound_ms"]
+        if tag != "serve":
+            bwd_kernel = kf.KERNEL_BWD_BF16 if dt == BF16 else kf.KERNEL_BWD
+            o, lse = kf.flash_attention_fwd_lse(q, k, v)
+
+            def bwd():
+                return kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+            before = bwd_kernel.launches
+            bms = time_cuda(bwd, reps=5, warmup=2)
+            check(bwd_kernel.launches - before == 7,
+                  f"mla {tag}: timed calls did not launch the backward")
+            _, events = traced(bwd)
+            by_kernel = {}
+            for name, us in events:
+                m = re.search(r"flash_bwd_\w+?_kernel(<[^>]*>)?", name)
+                key = m.group(0) if m else name[:80]
+                by_kernel[key] = by_kernel.get(key, 0.0) + us
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            dout = do.transpose(1, 2)
+            row["backward"] = dict(
+                ms=bms, device_us=by_kernel,
+                plain_ms=time_cuda(lambda: plain_bwd(q, k, v, o, do,
+                                                     causal=True),
+                                   reps=1, warmup=1),
+                library_ms=time_cuda(lambda: torch.autograd.grad(
+                    out, (qg, kg, vg), dout, retain_graph=True), reps=5,
+                    warmup=2),
+                library="torch.autograd.grad of scaled_dot_product_attention"
+                        "(is_causal=True)",
+                library_kernels=sdpa_kernels(lambda: torch.autograd.grad(
+                    out, (qg, kg, vg), dout, retain_graph=True)),
+                **attention_bound(B, S, S, H, H, h, hv, dt.itemsize,
+                                  backward=True))
+            row["backward"]["over_bound"] = bms / row["backward"]["bound_ms"]
+            del o, lse, qg, kg, vg, out
+        rows[tag] = row
+        log(phase="timing/mla_flash", name=tag, **row)
+        del q, k, v, do, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5698,6 +5959,8 @@ def main() -> int:
     mark(f"train/{WHISPER_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
     mark("timing/flash_bwd")
+    mla = time_mla_flash(dev)
+    mark("timing/mla_flash")
 
     cells = f"gloo{MESH_GLOO_WORLDS[0]}"    # the mesh's adaptive, pipeline
     by_name = {}
@@ -5903,8 +6166,12 @@ def main() -> int:
                    for key, row in whisper_serve["flash"].items()},
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
+                mla_192x128=mla_entry(mla, "forward", BF16, FLASH_CASES,
+                                      ("serve", "train")),
                 f32=dict(source=f32_src, launches=f32_launches,
                          path="serve/f32 yi-6b prefill",
+                         mla_192x128=mla_entry(mla, "forward", F32,
+                                               FLASH_CASES, ("f32",)),
                          vlm_launches=vlm_f32,
                          moe_launches=moe_f32,
                          hymba_launches=hymba_f32,
@@ -5970,6 +6237,8 @@ def main() -> int:
             "library_ms")} for k, r in bwd_timing.items()
             if r["kernel"] == "flash_attention_bwd" and k != "train"},
         kernel_info=row["kernel_info"],
+        mla_192x128=mla_entry(mla, "backward", BF16, BWD_CASES, ("train",),
+                              info=bwd_check["info"]),
         sources=[bwd_src, bwd_f32_src],
         launches_by_source={bwd_src: launches, bwd_f32_src: f32_launches},
         f32=dict(source=bwd_f32_src, launches=f32_launches,
@@ -5990,6 +6259,8 @@ def main() -> int:
                  lse_max_abs_err=bwd_check["lse_max_abs_err"]
                  ["flash_attention_bwd_f32"],
                  kernel_info=f32_row["kernel_info"],
+                 mla_192x128=mla_entry(mla, "backward", F32, BWD_CASES,
+                                       ("f32",), info=bwd_check["info"]),
                  **{k: f32_row[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "shape", "dtype", "device_us", "pass_tflops_per_s",

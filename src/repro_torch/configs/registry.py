@@ -23,8 +23,8 @@ ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "qwen2-vl-7b",
 
 # the reference's other architectures → the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "deepseek-v3-671b": "queue 1 item 12(e) (MLA, the MTP head and the "
-                        "192-wide flash; its MoE is ported)",
+    "deepseek-v3-671b": "queue 1 item 12(e) (MLA and the MTP head; its MoE "
+                        "and its q/k width 192 flash are ported)",
 }
 
 

@@ -68,11 +68,21 @@
 //   output's arithmetic does not depend on it, so its bytes are the same
 //   with and without it; serving passes null.
 //
-// Shapes: h, hv <= 128, any values; the kernel is instantiated at a
-// padded head width D of 32, 64 or 128 (zero-filled past h and hv).
-// Shared memory: (64 + 2 * 2 * 32) * (D + 4) * 4 + 32 * 68 * 4 bytes,
-// 110,080 at D = 128 (above the 48 KB default, set per launch): 2 blocks
-// per SM.
+// Shapes: h <= 192 and hv <= 128, any values. The kernel is instantiated
+// at a padded q/k width DQ and v width DV (zero-filled past h and hv):
+// DQ = DV = D of 32, 64 or 128, or DQ = 192 with DV = 128 (deepseek-v3's
+// MLA prefill, h = 128 + 64, hv = 128). Q and K rows are DQ + 4 floats in
+// shared memory, V rows DV + 4; the score tile (64 x 32) and the 4 x 16
+// output register tile (DV = 128) are the same at every width, and S
+// walks DQ along d. Shared memory: (64 (DQ + 4) + 2 * 32 (DQ + 4 + DV +
+// 4)) * 4 + 32 * 68 * 4 bytes, above the 48 KB default and set per
+// launch: 110,080 at D = 128 (2 blocks per SM) and 142,848 at (192, 128),
+// one block (4 warps) per SM: the 50 KB Q tile and the 192-float K rows
+// do not fit twice in the SM's 228 KB. A row of 192 floats is copied as
+// a 128-float and a 64-float part, so that each part's copies are whole
+// rounds of the block's threads (16- or 4-byte copies alike). Bound at
+// the f32 check shape (q [1, 256, 128, 192], v width 128, causal): 2.7
+// GFLOP on the CUDA cores, 40.2 us at 67 TFLOP/s.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -119,21 +129,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy kR rows of `width` floats from rows row0.. of a [n_rows,
-// row_stride] global matrix into shared rows of D + 4 floats, columns
-// 0 .. D - 1; rows past n_rows and columns past width are zero-filled.
-// kVec: 16-byte copies (width % 4 == 0, 16-byte aligned rows), else
-// 4-byte copies of the same elements.
-template <int D, int kR, bool kVec>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+// row_stride] global matrix into columns kC0 .. kC0 + kW - 1 of shared
+// rows of D + 4 floats; rows past n_rows and columns past width are
+// zero-filled. kVec: 16-byte copies (width % 4 == 0, 16-byte aligned
+// rows), else 4-byte copies of the same elements. A thread keeps one
+// column and steps down the rows.
+template <int D, int kR, bool kVec, int kC0, int kW>
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
                                           int row0, int n_rows, int width,
                                           size_t row_stride, int tid) {
   constexpr int kS = D + 4;
   constexpr int kPer = kVec ? 4 : 1;          // floats a copy
-  constexpr int kCols = D / kPer;             // copies a row
+  constexpr int kCols = kW / kPer;            // copies a row
   constexpr int kStep = kThreads / kCols;     // rows a round
   static_assert(kThreads % kCols == 0 && kR % kStep == 0,
                 "whole rounds of copies");
-  const int c = kPer * (tid % kCols), r = tid / kCols;
+  const int c = kC0 + kPer * (tid % kCols), r = tid / kCols;
   const bool col_in = c < width;
   size_t off = (size_t)(row0 + r) * row_stride + c;
   uint32_t to = smem_addr(dst + r * kS + c);
@@ -149,20 +160,39 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-template <int D, bool kVec>
+// All D columns of the rows: in one part, or at D = 192 as columns
+// 0 .. 127 and 128 .. 191.
+template <int D, int kR, bool kVec>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n_rows, int width,
+                                          size_t row_stride, int tid) {
+  if constexpr (D == 192) {
+    load_cols<D, kR, kVec, 0, 128>(dst, src, row0, n_rows, width,
+                                   row_stride, tid);
+    load_cols<D, kR, kVec, 128, 64>(dst, src, row0, n_rows, width,
+                                    row_stride, tid);
+  } else {
+    load_cols<D, kR, kVec, 0, D>(dst, src, row0, n_rows, width, row_stride,
+                                 tid);
+  }
+}
+
+template <int DQ, int DV, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Skv, int H, int KH,
                      int h, int hv, int causal, int window,
                      float scale_log2) {
-  constexpr int kS = D + 4;           // floats per shared row
-  constexpr int kTile = kBK * kS;     // floats per K or V tile
-  constexpr int kChunksO = D / 32;    // float4 output chunks per row
+  constexpr int kS = DQ + 4;          // floats per Q or K shared row
+  constexpr int kSV = DV + 4;         // floats per V shared row
+  constexpr int kTile = kBK * kS;     // floats per K tile
+  constexpr int kStage = kTile + kBK * kSV;  // a K tile and a V tile
+  constexpr int kChunksO = DV / 32;   // float4 output chunks per row
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                          // [kBQ][kS]
   float* skv = sq + kBQ * kS;                // kStages x (K tile, V tile)
-  float* sp = skv + kStages * 2 * kTile;     // [kBK][kPStride], P^T
+  float* sp = skv + kStages * kStage;        // [kBK][kPStride], P^T
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ry = lane / 8, kx = lane % 8;
@@ -185,11 +215,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* kg = k + ((size_t)b * Skv * KH + kvh) * h;
   const float* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
 
-  load_rows<D, kBQ, kVec>(sq, qg, q0, Sq, h, q_rs, tid);
+  load_rows<DQ, kBQ, kVec>(sq, qg, q0, Sq, h, q_rs, tid);
   if (kt_begin <= kt_end) {
-    load_rows<D, kBK, kVec>(skv, kg, kt_begin * kBK, Skv, h, k_rs, tid);
-    load_rows<D, kBK, kVec>(skv + kTile, vg, kt_begin * kBK, Skv, hv, v_rs,
-                            tid);
+    load_rows<DQ, kBK, kVec>(skv, kg, kt_begin * kBK, Skv, h, k_rs, tid);
+    load_rows<DV, kBK, kVec>(skv + kTile, vg, kt_begin * kBK, Skv, hv, v_rs,
+                             tid);
   }
   cp_async_commit();
 
@@ -211,13 +241,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();      // for every thread, and no warp still reads the
                           // other stage
     if (kt < kt_end) {    // the next tile into the other stage
-      float* nk = skv + (stage ^ 1) * 2 * kTile;
-      load_rows<D, kBK, kVec>(nk, kg, (kt + 1) * kBK, Skv, h, k_rs, tid);
-      load_rows<D, kBK, kVec>(nk + kTile, vg, (kt + 1) * kBK, Skv, hv, v_rs,
-                              tid);
+      float* nk = skv + (stage ^ 1) * kStage;
+      load_rows<DQ, kBK, kVec>(nk, kg, (kt + 1) * kBK, Skv, h, k_rs, tid);
+      load_rows<DV, kBK, kVec>(nk + kTile, vg, (kt + 1) * kBK, Skv, hv, v_rs,
+                               tid);
     }
     cp_async_commit();
-    const float* sk = skv + stage * 2 * kTile;
+    const float* sk = skv + stage * kStage;
     const float* sv = sk + kTile;
     const int k0 = kt * kBK;
 
@@ -228,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQ; d += 4) {
       float4 qv[kRows], kv[kKeys];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -298,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int jj = 0; jj < kChunksO; ++jj) {
         const float4 vv = *reinterpret_cast<const float4*>(
-            sv + c * kS + 4 * (kx + 8 * jj));
+            sv + c * kSV + 4 * (kx + 8 * jj));
         const float pr[kRows] = {p.x, p.y, p.z, p.w};
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
@@ -345,57 +375,71 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // Dynamic shared memory of one block: the Q tile, the K/V ring and P^T.
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_bytes() {
-  return sizeof(float) *
-         ((kBQ + 2 * kStages * kBK) * (D + 4) + kBK * kPStride);
+  return sizeof(float) * (kBQ * (DQ + 4) +
+                          kStages * kBK * ((DQ + 4) + (DV + 4)) +
+                          kBK * kPStride);
 }
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(flash_f32_kernel<D, kVec>,
+  return cudaFuncSetAttribute(flash_f32_kernel<DQ, DV, kVec>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<D>());
+                              smem_bytes<DQ, DV>());
 }
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 int occupancy(int* blocks, int* smem) {
-  cudaError_t err = allow_smem<D, kVec>();
+  cudaError_t err = allow_smem<DQ, DV, kVec>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  *smem = smem_bytes<D>();
+  *smem = smem_bytes<DQ, DV>();
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_f32_kernel<D, kVec>, kThreads, smem_bytes<D>()));
+      blocks, flash_f32_kernel<DQ, DV, kVec>, kThreads,
+      smem_bytes<DQ, DV>()));
 }
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Skv, int H, int KH, int h, int hv,
            int causal, int window, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem<D, kVec>();
+  cudaError_t err = allow_smem<DQ, DV, kVec>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_f32_kernel<D, kVec><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, H,
-      KH, h, hv, causal, window, scale * kLog2e);
+  flash_f32_kernel<DQ, DV, kVec>
+      <<<grid, kThreads, smem_bytes<DQ, DV>(), stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), lse, Sq,
+          Skv, H, KH, h, hv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation index of padded widths (width, vwidth): 0..3 for
+// (32, 32), (64, 64), (128, 128), (192, 128); -1 for any other pair.
+int instantiation(int width, int vwidth) {
+  if (width == vwidth && (width == 32 || width == 64 || width == 128))
+    return width == 32 ? 0 : width == 64 ? 1 : 2;
+  return width == 192 && vwidth == 128 ? 3 : -1;
+}
+
 template <bool kVec>
-int launch_width(int width, const void* q, const void* k, const void* v,
+int launch_width(int which, const void* q, const void* k, const void* v,
                  void* out, float* lse, int B, int Sq, int Skv, int H, int KH,
                  int h, int hv, int causal, int window, float scale,
                  cudaStream_t s) {
-  switch (width) {
-    case 32:
-      return launch<32, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
-                              causal, window, scale, s);
-    case 64:
-      return launch<64, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
-                              causal, window, scale, s);
-    case 128:
-      return launch<128, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h, hv,
-                               causal, window, scale, s);
+  switch (which) {
+    case 0:
+      return launch<32, 32, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h,
+                                  hv, causal, window, scale, s);
+    case 1:
+      return launch<64, 64, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h,
+                                  hv, causal, window, scale, s);
+    case 2:
+      return launch<128, 128, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h,
+                                    hv, causal, window, scale, s);
+    case 3:
+      return launch<192, 128, kVec>(q, k, v, out, lse, B, Sq, Skv, H, KH, h,
+                                    hv, causal, window, scale, s);
     default:
       return 1001;
   }
@@ -407,31 +451,35 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// q, k, v and out are f32; width is the padded head width (32, 64 or 128)
-// that holds h and hv; vec = 1 takes 16-byte copies and needs h and hv
-// multiples of 4 and all four pointers 16-byte aligned, vec = 0 takes
-// 4-byte copies of any shape. lse is null or an f32 [B, H, Sq] array that
-// receives each row's log2-domain log-sum-exp. Returns a cudaError_t;
-// 1001 for an unsupported argument.
+// q, k, v and out are f32; width and vwidth are the padded q/k and v
+// widths that hold h and hv: (32, 32), (64, 64), (128, 128) or (192,
+// 128); vec = 1 takes 16-byte copies and needs h and hv multiples of 4 and
+// all four pointers 16-byte aligned, vec = 0 takes 4-byte copies of any
+// shape. lse is null or an f32 [B, H, Sq] array that receives each row's
+// log2-domain log-sum-exp. Returns a cudaError_t; 1001 for an unsupported
+// argument.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int Sq, int Skv, int H, int KH,
                                           int h, int hv, int causal,
                                           int window, float scale, int width,
-                                          int vec, void* lse, void* stream) {
-  if (h < 1 || hv < 1 || h > width || hv > width || KH < 1 ||
+                                          int vwidth, int vec, void* lse,
+                                          void* stream) {
+  if (h < 1 || hv < 1 || h > width || hv > vwidth || KH < 1 ||
       H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
       (vec != 0 && vec != 1))
     return 1001;
   if (vec && (h % 4 || hv % 4 || !aligned16(q) || !aligned16(k) ||
               !aligned16(v) || !aligned16(out)))
     return 1001;
+  const int which = instantiation(width, vwidth);
+  if (which < 0) return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return vec ? launch_width<true>(width, q, k, v, out, l, B, Sq, Skv, H, KH,
+  return vec ? launch_width<true>(which, q, k, v, out, l, B, Sq, Skv, H, KH,
                                   h, hv, causal, window, scale, s)
-             : launch_width<false>(width, q, k, v, out, l, B, Sq, Skv, H, KH,
+             : launch_width<false>(which, q, k, v, out, l, B, Sq, Skv, H, KH,
                                    h, hv, causal, window, scale, s);
 }
 
@@ -440,23 +488,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int H, int KH, int h, int hv,
                                       int causal, int window, float scale,
-                                      int width, int vec, void* stream) {
+                                      int width, int vwidth, int vec,
+                                      void* stream) {
   return flash_attention_lse_launch(q, k, v, out, B, Sq, Skv, H, KH, h, hv,
-                                    causal, window, scale, width, vec,
+                                    causal, window, scale, width, vwidth, vec,
                                     nullptr, stream);
 }
 
-// The blocks of the kernel at padded head width `width` (16-byte copies)
-// that one SM holds at once, and its dynamic shared memory per block.
-// Returns a cudaError_t; 1001 for an unsupported width.
-extern "C" int flash_attention_occupancy(int width, int* blocks, int* smem) {
-  switch (width) {
-    case 32:
-      return occupancy<32, true>(blocks, smem);
-    case 64:
-      return occupancy<64, true>(blocks, smem);
-    case 128:
-      return occupancy<128, true>(blocks, smem);
+// The blocks of the kernel at padded widths (width, vwidth) (16-byte
+// copies) that one SM holds at once, and its dynamic shared memory per
+// block. Returns a cudaError_t; 1001 for an unsupported pair.
+extern "C" int flash_attention_occupancy(int width, int vwidth, int* blocks,
+                                         int* smem) {
+  switch (instantiation(width, vwidth)) {
+    case 0:
+      return occupancy<32, 32, true>(blocks, smem);
+    case 1:
+      return occupancy<64, 64, true>(blocks, smem);
+    case 2:
+      return occupancy<128, 128, true>(blocks, smem);
+    case 3:
+      return occupancy<192, 128, true>(blocks, smem);
     default:
       return 1001;
   }

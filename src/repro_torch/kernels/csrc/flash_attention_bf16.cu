@@ -28,7 +28,9 @@
 //   and v of kv head `head / G` in place, with no repeat over the group.
 // - Q is copied once with cp.async to shared memory and moved with
 //   ldmatrix.x4 into registers (the A fragments of m16n8k16), where it
-//   stays for the block's life.
+//   stays for the block's life; at q/k width 192 it stays in shared
+//   memory instead and each key tile reads its fragments again by
+//   ldmatrix (below).
 // - K and V come in 64-row tiles through a ring of 2 stages, filled with
 //   16-byte cp.async.cg copies: the next tile loads while this one is
 //   multiplied. Shared-memory rows are padded by 16 bytes, so the 8 rows
@@ -53,10 +55,23 @@
 //   null pointer nothing is written; the output's arithmetic is the same
 //   either way, so its bytes do not depend on it.
 //
-// Shapes: h and hv multiples of 16 up to 128; the kernel is instantiated
-// at a padded head width D of 32, 64 or 128, zero-filled past h and hv.
-// Shared memory: (64 + 2 * 2 * 64) * (D + 8) * 2 bytes, 87,040 at D = 128
-// (above the 48 KB default, set per launch): 2 blocks per SM.
+// Shapes: h up to 192 and hv up to 128, multiples of 16. The kernel is
+// instantiated at a padded q/k width DQ and v width DV, zero-filled past
+// h and hv: DQ = DV = D of 32, 64 or 128, or DQ = 192 with DV = 128
+// (deepseek-v3's MLA prefill: h = 128 + 64 with the rope key folded into
+// each head, hv = 128). Shared memory: (64 (DQ + 8) + 2 * 64 (DQ + 8 +
+// DV + 8)) * 2 bytes, above the 48 KB default and set per launch: 87,040
+// at D = 128 and 111,616 at (192, 128), 2 blocks per SM either way.
+//
+// At (192, 128) the 48 registers a lane of Q's fragments would not fit
+// beside S (32), the 128-wide O accumulator (64) and the addressing under
+// 255 (the D = 128 kernel already holds 254), so the wide instantiation
+// reads Q's A fragments from its shared tile by ldmatrix at each key tile
+// (12 ldmatrix.x4 a warp against the tile's 48 for K and 32 for V). Its
+// bound at the MLA serving shape (q [4, 1024, 128, 192], v width 128,
+// causal, G = 1) is bytes: 671.1 MB in and out take 200.3 us at 3.35
+// TB/s against 172.0 GFLOP's 173.9 us; K and V are as wide as Q there,
+// so each block reads a whole head's K and V for 64 query rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -133,8 +148,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Copy `kRows` rows of `width` bf16 (a multiple of 8) from rows row0.. of
-// a [n_rows, row_stride] global matrix into shared rows of D + 8 bf16;
-// rows past n_rows and columns past width are zero-filled.
+// a [n_rows, row_stride] global matrix into shared rows of D + 8 bf16,
+// columns 0 .. D - 1; rows past n_rows and columns past width are
+// zero-filled.
 template <int D, int kRows>
 __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
                                           int row0, int n_rows, int width,
@@ -151,15 +167,19 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       float* __restrict__ lse, int Sq, int Skv, int H,
                       int KH, int h, int hv, int causal, int window,
                       float scale_log2) {
-  constexpr int kStride = D + 8;         // bf16 per shared row (+16 bytes)
-  constexpr int kTile = kBK * kStride;   // bf16 per K or V tile
+  static_assert(DV <= DQ, "the output is staged in Q's rows");
+  constexpr int kStride = DQ + 8;        // bf16 per Q or K shared row
+  constexpr int kStrideV = DV + 8;       // bf16 per V shared row
+  constexpr int kTile = kBK * kStride;   // bf16 per K tile
+  constexpr int kStage = kTile + kBK * kStrideV;  // a K tile and a V tile
+  constexpr bool kHoldQ = DQ <= 128;     // Q's fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][kStride]
   bf16* skv = sq + kBQ * kStride;  // kStages x ([kBK][kStride] K, then V)
@@ -184,27 +204,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* kg = k + ((size_t)b * Skv * KH + kvh) * h;
   const bf16* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
 
-  load_rows<D, kBQ>(smem_addr(sq), qg, q0, Sq, h, q_rs, tid);
+  load_rows<DQ, kBQ>(smem_addr(sq), qg, q0, Sq, h, q_rs, tid);
   if (kt_begin <= kt_end) {
-    load_rows<D, kBK>(smem_addr(skv), kg, kt_begin * kBK, Skv, h, k_rs, tid);
-    load_rows<D, kBK>(smem_addr(skv + kTile), vg, kt_begin * kBK, Skv, hv,
-                      v_rs, tid);
+    load_rows<DQ, kBK>(smem_addr(skv), kg, kt_begin * kBK, Skv, h, k_rs, tid);
+    load_rows<DV, kBK>(smem_addr(skv + kTile), vg, kt_begin * kBK, Skv, hv,
+                       v_rs, tid);
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16 columns
-  uint32_t qf[D / 16][4];
+  // this warp's 16 query rows as A fragments, one per 16 columns (held
+  // only where they fit; else read from sq at each key tile)
+  const bf16* wq = sq + (warp * 16 + lane % 16) * kStride + (lane / 16) * 8;
+  uint32_t qf[kHoldQ ? DQ / 16 : 1][4];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(smem_addr(sq + (warp * 16 + lane % 16) * kStride + kk * 16 +
-                          (lane / 16) * 8),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+    for (int kk = 0; kk < DQ / 16; ++kk)
+      ldmatrix_x4(smem_addr(wq + kk * 16), qf[kk][0], qf[kk][1], qf[kk][2],
+                  qf[kk][3]);
+  }
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t)
+  for (int t = 0; t < DV / 8; ++t)
     o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
   // rows row0 (accumulator elements 0, 1) and row0 + 8 (elements 2, 3)
   float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
@@ -213,13 +236,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   int stage = 0;
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     if (kt < kt_end) {  // the next tile into the other stage
-      bf16* nk = skv + (stage ^ 1) * 2 * kTile;
-      load_rows<D, kBK>(smem_addr(nk), kg, (kt + 1) * kBK, Skv, h, k_rs, tid);
-      load_rows<D, kBK>(smem_addr(nk + kTile), vg, (kt + 1) * kBK, Skv, hv,
-                        v_rs, tid);
+      bf16* nk = skv + (stage ^ 1) * kStage;
+      load_rows<DQ, kBK>(smem_addr(nk), kg, (kt + 1) * kBK, Skv, h, k_rs,
+                         tid);
+      load_rows<DV, kBK>(smem_addr(nk + kTile), vg, (kt + 1) * kBK, Skv, hv,
+                         v_rs, tid);
     }
     cp_async_commit();
-    const bf16* sk = skv + stage * 2 * kTile;
+    const bf16* sk = skv + stage * kStage;
     const bf16* sv = sk + kTile;
     const int k0 = kt * kBK;
 
@@ -228,7 +252,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQ / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kHoldQ) {
+        qa[0] = qf[kk][0];
+        qa[1] = qf[kk][1];
+        qa[2] = qf[kk][2];
+        qa[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(smem_addr(wq + kk * 16), qa[0], qa[1], qa[2], qa[3]);
+      }
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         uint32_t b0, b1, b2, b3;
@@ -236,8 +269,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                                        kStride +
                               kk * 16 + ((lane / 8) % 2) * 8),
                     b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[kk], b0, b1);
-        mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
+        mma_bf16(s[2 * np], qa, b0, b1);
+        mma_bf16(s[2 * np + 1], qa, b2, b3);
       }
     }
 
@@ -281,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + sum[r];
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
+    for (int t = 0; t < DV / 8; ++t) {
       o[t][0] *= corr[0];
       o[t][1] *= corr[0];
       o[t][2] *= corr[1];
@@ -296,11 +329,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t b0, b1, b2, b3;
         ldmatrix_x4_trans(
             smem_addr(sv + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                               kStride +
+                               kStrideV +
                       dp * 16 + (lane / 16) * 8),
             b0, b1, b2, b3);
         mma_bf16(o[2 * dp], a, b0, b1);
@@ -329,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   bf16* so = sq + warp * 16 * kStride;
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
+  for (int t = 0; t < DV / 8; ++t) {
     *reinterpret_cast<uint32_t*>(so + g * kStride + 8 * t + 2 * tg) =
         pack_bf16(o[t][0] / l_run[0], o[t][1] / l_run[0]);
     *reinterpret_cast<uint32_t*>(so + (g + 8) * kStride + 8 * t + 2 * tg) =
@@ -348,87 +381,102 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // Dynamic shared memory of one block: the Q tile and the K/V ring.
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_bytes() {
-  return sizeof(bf16) * (kBQ + 2 * kStages * kBK) * (D + 8);
+  return sizeof(bf16) *
+         (kBQ * (DQ + 8) + kStages * kBK * ((DQ + 8) + (DV + 8)));
 }
 
-template <int D>
+template <int DQ, int DV>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(flash_bf16_kernel<D>,
+  return cudaFuncSetAttribute(flash_bf16_kernel<DQ, DV>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<D>());
+                              smem_bytes<DQ, DV>());
 }
 
-template <int D>
+template <int DQ, int DV>
 int occupancy(int* blocks, int* smem) {
-  cudaError_t err = allow_smem<D>();
+  cudaError_t err = allow_smem<DQ, DV>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  *smem = smem_bytes<D>();
+  *smem = smem_bytes<DQ, DV>();
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_bf16_kernel<D>, kThreads, smem_bytes<D>()));
+      blocks, flash_bf16_kernel<DQ, DV>, kThreads, smem_bytes<DQ, DV>()));
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Skv, int H, int KH, int h, int hv,
            int causal, int window, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem<D>();
+  cudaError_t err = allow_smem<DQ, DV>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_bf16_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_bf16_kernel<DQ, DV><<<grid, kThreads, smem_bytes<DQ, DV>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Skv, H,
       KH, h, hv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation index of padded widths (width, vwidth): 0..3 for
+// (32, 32), (64, 64), (128, 128), (192, 128); -1 for any other pair.
+int instantiation(int width, int vwidth) {
+  if (width == vwidth && (width == 32 || width == 64 || width == 128))
+    return width == 32 ? 0 : width == 64 ? 1 : 2;
+  return width == 192 && vwidth == 128 ? 3 : -1;
+}
+
 }  // namespace
 
-// q, k, v and out are bf16; width is the padded head width (32, 64 or
-// 128) that holds h and hv, both multiples of 16. lse is null or an f32
-// [B, H, Sq] output for each row's log2-domain log-sum-exp. Pointers must
-// be 16-byte aligned. Returns a cudaError_t; 1001 for an unsupported
-// argument.
+// q, k, v and out are bf16; width and vwidth are the padded q/k and v
+// widths that hold h and hv, both multiples of 16: (32, 32), (64, 64),
+// (128, 128) or (192, 128). lse is null or an f32 [B, H, Sq] output for
+// each row's log2-domain log-sum-exp. Pointers must be 16-byte aligned.
+// Returns a cudaError_t; 1001 for an unsupported argument.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int Sq, int Skv, int H, int KH,
                                            int h, int hv, int causal,
                                            int window, float scale, int width,
-                                           void* lse, void* stream) {
-  if (h < 16 || hv < 16 || h % 16 || hv % 16 || h > width || hv > width ||
+                                           int vwidth, void* lse,
+                                           void* stream) {
+  if (h < 16 || hv < 16 || h % 16 || hv % 16 || h > width || hv > vwidth ||
       KH < 1 || H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535)
     return 1001;
+  const int which = instantiation(width, vwidth);
+  if (which < 0) return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (width) {
-    case 32:
-      return launch<32>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
-                        window, scale, s);
-    case 64:
-      return launch<64>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
-                        window, scale, s);
-    case 128:
-      return launch<128>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
-                         window, scale, s);
+  switch (which) {
+    case 0:
+      return launch<32, 32>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
+                            window, scale, s);
+    case 1:
+      return launch<64, 64>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv, causal,
+                            window, scale, s);
+    case 2:
+      return launch<128, 128>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv,
+                              causal, window, scale, s);
     default:
-      return 1001;
+      return launch<192, 128>(q, k, v, out, l, B, Sq, Skv, H, KH, h, hv,
+                              causal, window, scale, s);
   }
 }
 
-// The blocks of the kernel at padded head width `width` that one SM holds
-// at once, and its dynamic shared memory per block. Returns a cudaError_t;
-// 1001 for an unsupported width.
-extern "C" int flash_attention_bf16_occupancy(int width, int* blocks,
-                                              int* smem) {
-  switch (width) {
-    case 32:
-      return occupancy<32>(blocks, smem);
-    case 64:
-      return occupancy<64>(blocks, smem);
-    case 128:
-      return occupancy<128>(blocks, smem);
+// The blocks of the kernel at padded widths (width, vwidth) that one SM
+// holds at once, and its dynamic shared memory per block. Returns a
+// cudaError_t; 1001 for an unsupported pair.
+extern "C" int flash_attention_bf16_occupancy(int width, int vwidth,
+                                              int* blocks, int* smem) {
+  switch (instantiation(width, vwidth)) {
+    case 0:
+      return occupancy<32, 32>(blocks, smem);
+    case 1:
+      return occupancy<64, 64>(blocks, smem);
+    case 2:
+      return occupancy<128, 128>(blocks, smem);
+    case 3:
+      return occupancy<192, 128>(blocks, smem);
     default:
       return 1001;
   }

@@ -102,12 +102,31 @@
 // trainer (repro_torch.runtime.statemachine) rely on that to end bitwise
 // equal. dq is its own pass for that reason.
 //
-// Shapes: h, hv <= 128, any values; instantiated at a padded head width D
-// of 32, 64 or 128 (zero-filled past h and hv), with 16-byte copies and
-// stores (vec = 1: h and hv multiples of 4, every tensor 16-byte aligned)
-// or 4-byte ones of the same elements (vec = 0). flash_attention_bwd_info
-// reports each kernel's registers, spill bytes, shared memory and blocks
-// an SM.
+// Shapes: h <= 192 and hv <= 128, any values; instantiated at a padded
+// q/k width DQ and v width DV (zero-filled past h and hv): DQ = DV = D of
+// 32, 64 or 128, or DQ = 192 with DV = 128 (deepseek-v3's MLA prefill,
+// h = 128 + 64, hv = 128); with 16-byte copies and stores (vec = 1: h and
+// hv multiples of 4, every tensor 16-byte aligned) or 4-byte ones of the
+// same elements (vec = 0). flash_attention_bwd_info reports each kernel's
+// registers, spill bytes, shared memory and blocks an SM.
+//
+// At (192, 128) the D = 128 tiles would not fit: dk/dv's K and V tiles,
+// its 64-row Q/dO ring, statistics and slices would take 269,312 bytes
+// and dq's resident Q and dO with its 32-key K/V ring 268,800, against
+// 232,448 a block. So the wide
+// instantiation halves the dk/dv step to 32 query rows (a thread's S^T
+// tile is 4 keys x 2 rows: keys 4 ry + i, rows kx + 16 j, j < 2) and the
+// dq K/V tile to 16 keys (4 rows x 2 keys: rows ry + 4 i, keys kx + 8 j,
+// j < 2): dk/dv 176,640 bytes, dq 218,368, one block of 8 warps an SM as
+// at D = 128. The key tile stays 64 and the causal pairing of key tiles t
+// and n - 1 - t stays. A dk/dv thread then holds 4 keys x 12 columns of
+// dK (a 192-float row is 48 float4 over 16 column groups, 3 a thread) and
+// 4 x 8 of dV; a dq thread 4 rows x 24 columns of dQ. Each product still
+// reads float4 along d from rows of stride DQ + 4 or DV + 4 floats (49 and
+// 33 16-byte chunks: 8 consecutive rows fall in 8 distinct bank groups).
+// Rows of 192 floats are copied as a 128-float and a 64-float part.
+// Bound at the f32 check shape (q [1, 256, 128, 192], v width 128,
+// causal): 6 h + 4 hv flops a pair, 7.0 GFLOP, 104.6 us at 67 TFLOP/s.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -118,11 +137,15 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;       // the cp.async rings
 constexpr int kKT = 64;          // keys a dk/dv tile, 8 a warp
-constexpr int kQS = 64;          // query rows a dk/dv step
 constexpr int kSlice = 8;        // floats a row of a dk/dv warp's P^T slice
 constexpr int kQT = 128;         // query rows a dq block, 16 a warp
-constexpr int kKS = 32;          // keys a dq K/V tile
 constexpr int kPStride = kQT + 4;  // floats a key row of dq's dS^T
+
+// query rows a dk/dv step and keys a dq K/V tile at padded q/k width DQ
+template <int DQ>
+constexpr int kStepQ = DQ > 128 ? 32 : 64;
+template <int DQ>
+constexpr int kTileK = DQ > 128 ? 16 : 32;
 constexpr int kDotThreads = 256;   // 8 rows a block in the D pass
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -155,21 +178,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy kR rows of `width` floats from rows row0.. of a [n_rows,
-// row_stride] global matrix into shared rows of D + 4 floats, columns
-// 0 .. D - 1; rows past n_rows and columns past width are zero-filled.
-// kVec: 16-byte copies, else 4-byte copies of the same elements. A thread
-// keeps one column and steps down the rows, as the forward's load_rows.
-template <int D, int kR, bool kVec>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+// row_stride] global matrix into columns kC0 .. kC0 + kW - 1 of shared
+// rows of D + 4 floats; rows past n_rows and columns past width are
+// zero-filled. kVec: 16-byte copies, else 4-byte copies of the same
+// elements. A thread keeps one column and steps down the rows, as the
+// forward's load_cols.
+template <int D, int kR, bool kVec, int kC0, int kW>
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
                                           int row0, int n_rows, int width,
                                           size_t row_stride, int tid) {
   constexpr int kS = D + 4;
   constexpr int kPer = kVec ? 4 : 1;          // floats a copy
-  constexpr int kCols = D / kPer;             // copies a row
+  constexpr int kCols = kW / kPer;            // copies a row
   constexpr int kStep = kThreads / kCols;     // rows a round
   static_assert(kThreads % kCols == 0 && kR % kStep == 0,
                 "whole rounds of copies");
-  const int c = kPer * (tid % kCols), r = tid / kCols;
+  const int c = kC0 + kPer * (tid % kCols), r = tid / kCols;
   const bool col_in = c < width;
   size_t off = (size_t)(row0 + r) * row_stride + c;
   uint32_t to = smem_addr(dst + r * kS + c);
@@ -185,30 +209,48 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// c[i][j] = sum_d a[row kA i][d] * b[row kB j][d] over d < D, for shared
-// row-major tiles of stride D + 4, d ascending: a fixed FMA order, so both
-// passes compute the same S (and the same dP) bit for bit.
-template <int D, int kA, int kB>
-__device__ __forceinline__ void dot4x4(float (&c)[4][4], const float* a,
-                                       const float* b) {
+// All D columns of kR rows: in one part, or at D = 192 as columns 0 .. 127
+// and 128 .. 191.
+template <int D, int kR, bool kVec>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n_rows, int width,
+                                          size_t row_stride, int tid) {
+  if constexpr (D == 192) {
+    load_cols<D, kR, kVec, 0, 128>(dst, src, row0, n_rows, width,
+                                   row_stride, tid);
+    load_cols<D, kR, kVec, 128, 64>(dst, src, row0, n_rows, width,
+                                    row_stride, tid);
+  } else {
+    load_cols<D, kR, kVec, 0, D>(dst, src, row0, n_rows, width, row_stride,
+                                 tid);
+  }
+}
+
+// c[i][j] = sum_d a[row kA i][d] * b[row kB j][d] over d < D, i < 4,
+// j < kJ, for shared row-major tiles of stride D + 4, d ascending: a
+// fixed FMA order, so both passes compute the same S (and the same dP)
+// bit for bit.
+template <int D, int kJ, int kA, int kB>
+__device__ __forceinline__ void dot4(float (&c)[4][kJ], const float* a,
+                                     const float* b) {
   constexpr int kS = D + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < kJ; ++j) c[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[4], bv[kJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       av[i] = *reinterpret_cast<const float4*>(a + kA * i * kS + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kJ; ++j)
       bv[j] = *reinterpret_cast<const float4*>(b + kB * j * kS + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         c[i][j] = fmaf(av[i].x, bv[j].x, c[i][j]);
         c[i][j] = fmaf(av[i].y, bv[j].y, c[i][j]);
         c[i][j] = fmaf(av[i].z, bv[j].z, c[i][j]);
@@ -296,7 +338,7 @@ struct KvMap {
 
 // acc[e][4 jj + x] += slice[r][kg kKeys + e] * rows[r][4 (cg + kCG jj) + x]
 // over the step's kQS rows, in row order.
-template <int D>
+template <int D, int kQS>
 __device__ __forceinline__ void accumulate(
     float (&acc)[KvMap<D>::kKeys][4 * KvMap<D>::kCPT], const float* slice,
     const float* rows, int kg, int cg) {
@@ -333,7 +375,7 @@ __device__ __forceinline__ void accumulate(
   }
 }
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_f32_dkdv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -345,15 +387,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                               int Sq, int Skv, int H, int KH, int h, int hv,
                               int causal, int window, float scale_log2,
                               float scale, int paired) {
-  constexpr int kS = D + 4;
-  constexpr int kKTile = kKT * kS;   // floats a K or V tile
-  constexpr int kQTile = kQS * kS;   // floats a Q or dO tile of a step
-  using M = KvMap<D>;
+  constexpr int kQS = kStepQ<DQ>;  // query rows a step
+  constexpr int kJ = kQS / 16;       // S^T rows a thread: kx + 16 j
+  constexpr int kS = DQ + 4;         // floats a Q or K shared row
+  constexpr int kSV = DV + 4;        // floats a dO or V shared row
+  constexpr int kStep = kQS * (kS + kSV);  // floats a ring stage (Q, dO)
+  using M = KvMap<DQ>;
+  using MV = KvMap<DV>;
+  static_assert(M::kCG == MV::kCG, "dK and dV share the lane map");
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;                             // [kKT][kS]
-  float* sv = sk + kKTile;                      // [kKT][kS]
-  float* ring = sv + kKTile;                    // kStages x (Q, dO)
-  float* stats = ring + kStages * 2 * kQTile;   // kStages x (lse, D)[kQS]
+  float* sv = sk + kKT * kS;                    // [kKT][kSV]
+  float* ring = sv + kKT * kSV;                 // kStages x (Q, dO)
+  float* stats = ring + kStages * kStep;        // kStages x (lse, D)[kQS]
   float* slices = stats + kStages * 2 * kQS;    // kWarps x [kQS][kSlice]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -368,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wk = warp * kSlice;                 // the warp's first key
   float* slice = slices + warp * kQS * kSlice;
   const float* wsk = sk + (wk + 4 * ry) * kS;   // the thread's S^T keys
-  const float* wsv = sv + (wk + 4 * ry) * kS;
+  const float* wsv = sv + (wk + 4 * ry) * kSV;
 
   for (int pass = 0; pass < (paired ? 2 : 1); ++pass) {
     const int kt = pass == 0 ? (int)blockIdx.z : n_kt - 1 - (int)blockIdx.z;
@@ -387,13 +433,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto load_step = [&](int s, int st) {
       const int head = kvh * G + s / n_qt;
       const int q0 = (qt_begin + s % n_qt) * kQS;
-      float* dst = ring + st * 2 * kQTile;
-      load_rows<D, kQS, kVec>(dst, q + ((size_t)b * Sq * H + head) * h, q0,
-                              Sq, h, q_rs, tid);
-      load_rows<D, kQS, kVec>(dst + kQTile,
-                              dout + ((size_t)b * Sq * H + head) * hv, q0,
-                              Sq, hv, o_rs, tid);
-      // one 4-byte copy a thread: threads 0..63 the lse, 64..127 D
+      float* dst = ring + st * kStep;
+      load_rows<DQ, kQS, kVec>(dst, q + ((size_t)b * Sq * H + head) * h, q0,
+                               Sq, h, q_rs, tid);
+      load_rows<DV, kQS, kVec>(dst + kQS * kS,
+                               dout + ((size_t)b * Sq * H + head) * hv, q0,
+                               Sq, hv, o_rs, tid);
+      // one 4-byte copy a thread: threads 0..kQS-1 the lse, then D
       if (tid < 2 * kQS) {
         const float* src =
             (tid < kQS ? lse : delta) + ((size_t)b * H + head) * Sq;
@@ -405,18 +451,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     if (pass == 1) __syncthreads();  // every warp is done with tile 1's
                                      // K, V and ring
-    load_rows<D, kKT, kVec>(sk, k + ((size_t)b * Skv * KH + kvh) * h, k0,
-                            Skv, h, k_rs, tid);
-    load_rows<D, kKT, kVec>(sv, v + ((size_t)b * Skv * KH + kvh) * hv, k0,
-                            Skv, hv, v_rs, tid);
+    load_rows<DQ, kKT, kVec>(sk, k + ((size_t)b * Skv * KH + kvh) * h, k0,
+                             Skv, h, k_rs, tid);
+    load_rows<DV, kKT, kVec>(sv, v + ((size_t)b * Skv * KH + kvh) * hv, k0,
+                             Skv, hv, v_rs, tid);
     if (n_steps > 0) load_step(0, 0);
     cp_async_commit();
 
-    float dk_acc[M::kKeys][4 * M::kCPT], dv_acc[M::kKeys][4 * M::kCPT];
+    float dk_acc[M::kKeys][4 * M::kCPT], dv_acc[MV::kKeys][4 * MV::kCPT];
 #pragma unroll
     for (int e = 0; e < M::kKeys; ++e)
 #pragma unroll
-      for (int c = 0; c < 4 * M::kCPT; ++c) dk_acc[e][c] = dv_acc[e][c] = 0.f;
+      for (int c = 0; c < 4 * M::kCPT; ++c) dk_acc[e][c] = 0.f;
+#pragma unroll
+    for (int e = 0; e < MV::kKeys; ++e)
+#pragma unroll
+      for (int c = 0; c < 4 * MV::kCPT; ++c) dv_acc[e][c] = 0.f;
 
     int stage = 0;
     for (int s = 0; s < n_steps; ++s) {
@@ -426,8 +476,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (s + 1 < n_steps) load_step(s + 1, stage ^ 1);
       cp_async_commit();
       const int q0 = (qt_begin + s % n_qt) * kQS;
-      const float* sq = ring + stage * 2 * kQTile;
-      const float* sdo = sq + kQTile;
+      const float* sq = ring + stage * kStep;
+      const float* sdo = sq + kQS * kS;
       const float* slse = stats + stage * 2 * kQS;
       const float* sdel = slse + kQS;
       stage ^= 1;
@@ -440,18 +490,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                         wk0 + kSlice > Skv || q0 + kQS > Sq;
 
       // S^T = K Q^T, then P^T into the slice
-      float pt[4][4];
-      dot4x4<D, 1, 16>(pt, wsk, sq + kx * kS);
-      float lse_j[4], del_j[4];
+      float pt[4][kJ];
+      dot4<DQ, kJ, 1, 16>(pt, wsk, sq + kx * kS);
+      float lse_j[kJ], del_j[kJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         lse_j[j] = slse[kx + 16 * j];
         del_j[j] = sdel[kx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           float p = exp2f(pt[i][j] * scale_log2 - lse_j[j]);
           if (edge && !visible(q0 + kx + 16 * j, wk0 + 4 * ry + i, Sq, Skv,
                                causal, window))
@@ -459,32 +509,33 @@ __global__ void __launch_bounds__(kThreads, 1)
           pt[i][j] = p;
         }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJ; ++j)
         *reinterpret_cast<float4*>(slice + (kx + 16 * j) * kSlice + 4 * ry) =
             make_float4(pt[0][j], pt[1][j], pt[2][j], pt[3][j]);
 
       // dP^T = V dO^T, then dS^T in its place
-      float dst[4][4];
-      dot4x4<D, 1, 16>(dst, wsv, sdo + kx * kS);
+      float dst[4][kJ];
+      dot4<DV, kJ, 1, 16>(dst, wsv, sdo + kx * kSV);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kJ; ++j)
           dst[i][j] = pt[i][j] * (dst[i][j] - del_j[j]);
 
       __syncwarp();  // the warp's P^T is in its slice
-      accumulate<D>(dv_acc, slice, sdo, kg, cg);
+      accumulate<DV, kQS>(dv_acc, slice, sdo, kg, cg);
       __syncwarp();  // every lane has read P^T
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJ; ++j)
         *reinterpret_cast<float4*>(slice + (kx + 16 * j) * kSlice + 4 * ry) =
             make_float4(dst[0][j], dst[1][j], dst[2][j], dst[3][j]);
       __syncwarp();  // the warp's dS^T is in its slice
-      accumulate<D>(dk_acc, slice, sq, kg, cg);
+      accumulate<DQ, kQS>(dk_acc, slice, sq, kg, cg);
     }
     cp_async_wait_all();  // no copy outlives the tile
 
     // dk (scaled) and dv: each element of the tile's keys once
+    constexpr int kCPT = M::kCPT > MV::kCPT ? M::kCPT : MV::kCPT;
 #pragma unroll
     for (int e = 0; e < M::kKeys; ++e) {
       const int key = wk0 + kg * M::kKeys + e;
@@ -492,14 +543,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       float* dkr = dk + ((size_t)b * Skv + key) * k_rs + (size_t)kvh * h;
       float* dvr = dv + ((size_t)b * Skv + key) * v_rs + (size_t)kvh * hv;
 #pragma unroll
-      for (int jj = 0; jj < M::kCPT; ++jj) {
-        const int col = 4 * (cg + M::kCG * jj);
-        store4<kVec>(dkr, col, h, dk_acc[e][4 * jj] * scale,
-                     dk_acc[e][4 * jj + 1] * scale,
-                     dk_acc[e][4 * jj + 2] * scale,
-                     dk_acc[e][4 * jj + 3] * scale);
-        store4<kVec>(dvr, col, hv, dv_acc[e][4 * jj], dv_acc[e][4 * jj + 1],
-                     dv_acc[e][4 * jj + 2], dv_acc[e][4 * jj + 3]);
+      for (int jj = 0; jj < kCPT; ++jj) {
+        if (jj < M::kCPT)
+          store4<kVec>(dkr, 4 * (cg + M::kCG * jj), h,
+                       dk_acc[e][4 * jj] * scale,
+                       dk_acc[e][4 * jj + 1] * scale,
+                       dk_acc[e][4 * jj + 2] * scale,
+                       dk_acc[e][4 * jj + 3] * scale);
+        if (jj < MV::kCPT)
+          store4<kVec>(dvr, 4 * (cg + MV::kCG * jj), hv, dv_acc[e][4 * jj],
+                       dv_acc[e][4 * jj + 1], dv_acc[e][4 * jj + 2],
+                       dv_acc[e][4 * jj + 3]);
       }
     }
   }
@@ -508,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // 3. dq, one 128-row query tile of one head a block
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_f32_dq_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -519,14 +573,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                             float* __restrict__ dq, int Sq, int Skv, int H,
                             int KH, int h, int hv, int causal, int window,
                             float scale_log2, float scale) {
-  constexpr int kS = D + 4;
-  constexpr int kTile = kKS * kS;     // floats a K or V tile
-  constexpr int kChunks = D / 32;     // float4 output chunks a row a thread
+  constexpr int kKS = kTileK<DQ>;   // keys a K/V tile
+  constexpr int kJ = kKS / 8;         // S keys a thread: kx + 8 j
+  constexpr int kS = DQ + 4;          // floats a Q or K shared row
+  constexpr int kSV = DV + 4;         // floats a dO or V shared row
+  constexpr int kTile = kKS * kS;     // floats a K tile
+  constexpr int kStage = kTile + kKS * kSV;  // a K tile and a V tile
+  constexpr int kChunks = DQ / 32;    // float4 output chunks a row a thread
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                        // [kQT][kS]
-  float* sdo = sq + kQT * kS;              // [kQT][kS]
-  float* skv = sdo + kQT * kS;             // kStages x (K tile, V tile)
-  float* sds = skv + kStages * 2 * kTile;  // [kKS][kPStride], dS^T
+  float* sdo = sq + kQT * kS;              // [kQT][kSV]
+  float* skv = sdo + kQT * kSV;            // kStages x (K tile, V tile)
+  float* sds = skv + kStages * kStage;     // [kKS][kPStride], dS^T
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ry = lane / 8, kx = lane % 8;  // rows ry + 4 i, keys kx + 8 j
@@ -548,14 +606,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* kg = k + ((size_t)b * Skv * KH + kvh) * h;
   const float* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
 
-  load_rows<D, kQT, kVec>(sq, q + ((size_t)b * Sq * H + head) * h, q0, Sq,
-                          h, q_rs, tid);
-  load_rows<D, kQT, kVec>(sdo, dout + ((size_t)b * Sq * H + head) * hv, q0,
-                          Sq, hv, o_rs, tid);
+  load_rows<DQ, kQT, kVec>(sq, q + ((size_t)b * Sq * H + head) * h, q0, Sq,
+                           h, q_rs, tid);
+  load_rows<DV, kQT, kVec>(sdo, dout + ((size_t)b * Sq * H + head) * hv, q0,
+                           Sq, hv, o_rs, tid);
   if (kt_begin <= kt_end) {
-    load_rows<D, kKS, kVec>(skv, kg, kt_begin * kKS, Skv, h, k_rs, tid);
-    load_rows<D, kKS, kVec>(skv + kTile, vg, kt_begin * kKS, Skv, hv, v_rs,
-                            tid);
+    load_rows<DQ, kKS, kVec>(skv, kg, kt_begin * kKS, Skv, h, k_rs, tid);
+    load_rows<DV, kKS, kVec>(skv + kTile, vg, kt_begin * kKS, Skv, hv, v_rs,
+                             tid);
   }
   cp_async_commit();
 
@@ -574,7 +632,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < 4 * kChunks; ++c) acc[i][c] = 0.f;
   const float* sq_t = sq + (wrow + ry) * kS;   // row ry; + 4 i rows
-  const float* sdo_t = sdo + (wrow + ry) * kS;
+  const float* sdo_t = sdo + (wrow + ry) * kSV;
   float* sds_t = sds + wrow + 4 * ry;          // dS^T column of row 0
 
   int stage = 0;
@@ -583,13 +641,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();      // thread, for every thread, and no warp still
                           // reads the other stage
     if (kt < kt_end) {    // the next tile into the other stage
-      float* nk = skv + (stage ^ 1) * 2 * kTile;
-      load_rows<D, kKS, kVec>(nk, kg, (kt + 1) * kKS, Skv, h, k_rs, tid);
-      load_rows<D, kKS, kVec>(nk + kTile, vg, (kt + 1) * kKS, Skv, hv, v_rs,
-                              tid);
+      float* nk = skv + (stage ^ 1) * kStage;
+      load_rows<DQ, kKS, kVec>(nk, kg, (kt + 1) * kKS, Skv, h, k_rs, tid);
+      load_rows<DV, kKS, kVec>(nk + kTile, vg, (kt + 1) * kKS, Skv, hv, v_rs,
+                               tid);
     }
     cp_async_commit();
-    const float* sk = skv + stage * 2 * kTile;
+    const float* sk = skv + stage * kStage;
     const float* sv = sk + kTile;
     const int k0 = kt * kKS;
     stage ^= 1;
@@ -602,26 +660,26 @@ __global__ void __launch_bounds__(kThreads, 1)
                       k0 + kKS > Skv || wq0 + 16 > Sq;
 
     // S = Q K^T, P, dP = dO V^T and dS = P o (dP - D) in registers
-    float ds[4][4], dp[4][4];
-    dot4x4<D, 4, 8>(ds, sq_t, sk + kx * kS);
+    float ds[4][kJ], dp[4][kJ];
+    dot4<DQ, kJ, 4, 8>(ds, sq_t, sk + kx * kS);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         float p = exp2f(ds[i][j] * scale_log2 - lse_r[i]);
         if (edge && !visible(wq0 + ry + 4 * i, k0 + kx + 8 * j, Sq, Skv,
                              causal, window))
           p = 0.f;
         ds[i][j] = p;
       }
-    dot4x4<D, 4, 8>(dp, sdo_t, sv + kx * kS);
+    dot4<DV, kJ, 4, 8>(dp, sdo_t, sv + kx * kSV);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJ; ++j)
         ds[i][j] = ds[i][j] * (dp[i][j] - del_r[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kJ; ++j)
       *reinterpret_cast<float4*>(sds_t + (kx + 8 * j) * kPStride) =
           make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
     __syncwarp();  // the warp reads back only its own rows of dS^T
@@ -664,20 +722,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_dkdv() {
-  return sizeof(float) * ((2 * kKT + kStages * 2 * kQS) * (D + 4) +
+  constexpr int kQS = kStepQ<DQ>;
+  return sizeof(float) * (kKT * ((DQ + 4) + (DV + 4)) +
+                          kStages * kQS * ((DQ + 4) + (DV + 4)) +
                           kStages * 2 * kQS + kWarps * kQS * kSlice);
 }
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_dq() {
-  return sizeof(float) * ((2 * kQT + kStages * 2 * kKS) * (D + 4) +
+  constexpr int kKS = kTileK<DQ>;
+  return sizeof(float) * (kQT * ((DQ + 4) + (DV + 4)) +
+                          kStages * kKS * ((DQ + 4) + (DV + 4)) +
                           kKS * kPStride);
 }
 
-// Kernel `which` (1 D, 2 dk/dv, 3 dq) of one width and copy path, with its
-// dynamic shared memory (set as the kernel's limit) and threads a block.
-template <int D, bool kVec>
+// Kernel `which` (1 D, 2 dk/dv, 3 dq) of one width pair and copy path,
+// with its dynamic shared memory (set as the kernel's limit) and threads a
+// block.
+template <int DQ, int DV, bool kVec>
 cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
   switch (which) {
     case 1:
@@ -686,12 +749,14 @@ cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
       *threads = kDotThreads;
       return cudaSuccess;
     case 2:
-      *fn = reinterpret_cast<const void*>(flash_bwd_f32_dkdv_kernel<D, kVec>);
-      *smem = smem_dkdv<D>();
+      *fn = reinterpret_cast<const void*>(
+          flash_bwd_f32_dkdv_kernel<DQ, DV, kVec>);
+      *smem = smem_dkdv<DQ, DV>();
       break;
     case 3:
-      *fn = reinterpret_cast<const void*>(flash_bwd_f32_dq_kernel<D, kVec>);
-      *smem = smem_dq<D>();
+      *fn = reinterpret_cast<const void*>(
+          flash_bwd_f32_dq_kernel<DQ, DV, kVec>);
+      *smem = smem_dq<DQ, DV>();
       break;
     default:
       return cudaErrorInvalidValue;
@@ -701,7 +766,7 @@ cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
                               *smem);
 }
 
-template <int D, bool kVec>
+template <int DQ, int DV, bool kVec>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* dq, float* dk,
            float* dv, float* delta, int B, int Sq, int Skv, int H, int KH,
@@ -710,7 +775,8 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const void* fn;
   int smem[4], threads;
   for (int which = 2; which <= 3; ++which) {
-    cudaError_t err = kernel_of<D, kVec>(which, &fn, &smem[which], &threads);
+    cudaError_t err =
+        kernel_of<DQ, DV, kVec>(which, &fn, &smem[which], &threads);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sl2 = scale * kLog2e;
@@ -724,49 +790,72 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const int n_kt = (Skv + kKT - 1) / kKT;
   const int paired = causal && n_kt > 1;
   const dim3 keys(KH, B, paired ? (n_kt + 1) / 2 : n_kt);
-  flash_bwd_f32_dkdv_kernel<D, kVec><<<keys, kThreads, smem[2], stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
-      window, sl2, scale, paired);
+  flash_bwd_f32_dkdv_kernel<DQ, DV, kVec>
+      <<<keys, kThreads, smem[2], stream>>>(
+          q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
+          window, sl2, scale, paired);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 queries(H, B, (Sq + kQT - 1) / kQT);
-  flash_bwd_f32_dq_kernel<D, kVec><<<queries, kThreads, smem[3], stream>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Skv, H, KH, h, hv, causal, window,
-      sl2, scale);
+  flash_bwd_f32_dq_kernel<DQ, DV, kVec>
+      <<<queries, kThreads, smem[3], stream>>>(
+          q, k, v, dout, lse, delta, dq, Sq, Skv, H, KH, h, hv, causal,
+          window, sl2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation index of padded widths (width, vwidth): 0..3 for
+// (32, 32), (64, 64), (128, 128), (192, 128); -1 for any other pair.
+int instantiation(int width, int vwidth) {
+  if (width == vwidth && (width == 32 || width == 64 || width == 128))
+    return width == 32 ? 0 : width == 64 ? 1 : 2;
+  return width == 192 && vwidth == 128 ? 3 : -1;
+}
+
 template <bool kVec>
-int launch_width(int width, const float* q, const float* k, const float* v,
+int launch_width(int which, const float* q, const float* k, const float* v,
                  const float* o, const float* dout, const float* lse,
                  float* dq, float* dk, float* dv, float* ws, int B, int Sq,
                  int Skv, int H, int KH, int h, int hv, int causal,
                  int window, float scale, cudaStream_t s) {
-  switch (width) {
-    case 32:
-      return launch<32, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B, Sq,
-                              Skv, H, KH, h, hv, causal, window, scale, s);
-    case 64:
-      return launch<64, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B, Sq,
-                              Skv, H, KH, h, hv, causal, window, scale, s);
-    case 128:
-      return launch<128, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B, Sq,
-                               Skv, H, KH, h, hv, causal, window, scale, s);
+  switch (which) {
+    case 0:
+      return launch<32, 32, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B,
+                                  Sq, Skv, H, KH, h, hv, causal, window,
+                                  scale, s);
+    case 1:
+      return launch<64, 64, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B,
+                                  Sq, Skv, H, KH, h, hv, causal, window,
+                                  scale, s);
+    case 2:
+      return launch<128, 128, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B,
+                                    Sq, Skv, H, KH, h, hv, causal, window,
+                                    scale, s);
+    case 3:
+      return launch<192, 128, kVec>(q, k, v, o, dout, lse, dq, dk, dv, ws, B,
+                                    Sq, Skv, H, KH, h, hv, causal, window,
+                                    scale, s);
     default:
       return 1001;
   }
 }
 
 template <bool kVec>
-int info_width(int which, int width, const void** fn, int* smem,
+int info_width(int which, int pair, const void** fn, int* smem,
                int* threads) {
-  switch (width) {
-    case 32:
-      return static_cast<int>(kernel_of<32, kVec>(which, fn, smem, threads));
-    case 64:
-      return static_cast<int>(kernel_of<64, kVec>(which, fn, smem, threads));
-    case 128:
-      return static_cast<int>(kernel_of<128, kVec>(which, fn, smem, threads));
+  switch (pair) {
+    case 0:
+      return static_cast<int>(
+          kernel_of<32, 32, kVec>(which, fn, smem, threads));
+    case 1:
+      return static_cast<int>(
+          kernel_of<64, 64, kVec>(which, fn, smem, threads));
+    case 2:
+      return static_cast<int>(
+          kernel_of<128, 128, kVec>(which, fn, smem, threads));
+    case 3:
+      return static_cast<int>(
+          kernel_of<192, 128, kVec>(which, fn, smem, threads));
     default:
       return 1001;
   }
@@ -781,18 +870,20 @@ bool aligned16(const void* p) {
 // q, k, v, o, dout are the forward's f32 inputs, its output and the
 // output's gradient, contiguous; lse is the f32 forward's [B, H, Sq]
 // log2-domain log-sum-exp; dq, dk, dv are written in f32. ws holds
-// B * H * Sq floats (D). width is the padded head width (32, 64 or 128)
-// that holds h and hv; vec = 1 takes 16-byte copies and stores and needs h
-// and hv multiples of 4 and the eight tensors 16-byte aligned, vec = 0
-// takes 4-byte ones of any shape; scale is 1 / sqrt(h). Returns a
-// cudaError_t; 1001 for an unsupported argument.
+// B * H * Sq floats (D). width and vwidth are the padded q/k and v widths
+// that hold h and hv: (32, 32), (64, 64), (128, 128) or (192, 128); vec =
+// 1 takes 16-byte copies and stores and needs h and hv multiples of 4 and
+// the eight tensors 16-byte aligned, vec = 0 takes 4-byte ones of any
+// shape; scale is 1 / sqrt(h). Returns a cudaError_t; 1001 for an
+// unsupported argument.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* ws, int B, int Sq, int Skv, int H, int KH, int h, int hv,
-    int causal, int window, float scale, int width, int vec, void* stream) {
-  if (h < 1 || hv < 1 || h > width || hv > width || KH < 1 || H % KH != 0 ||
-      B > 65535 || (Sq + kQT - 1) / kQT > 65535 ||
+    int causal, int window, float scale, int width, int vwidth, int vec,
+    void* stream) {
+  if (h < 1 || hv < 1 || h > width || hv > vwidth || KH < 1 ||
+      H % KH != 0 || B > 65535 || (Sq + kQT - 1) / kQT > 65535 ||
       (Skv + kKT - 1) / kKT > 65535 ||
       (long long)B * Sq * H > 0x7fffffffLL - kDotThreads ||
       (vec != 0 && vec != 1))
@@ -801,6 +892,8 @@ extern "C" int flash_attention_bwd_launch(
               !aligned16(v) || !aligned16(o) || !aligned16(dout) ||
               !aligned16(dq) || !aligned16(dk) || !aligned16(dv)))
     return 1001;
+  const int which = instantiation(width, vwidth);
+  if (which < 0) return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *tq = static_cast<const float*>(q),
@@ -811,26 +904,28 @@ extern "C" int flash_attention_bwd_launch(
               *tl = static_cast<const float*>(lse);
   float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
         *gv = static_cast<float*>(dv), *w = static_cast<float*>(ws);
-  return vec ? launch_width<true>(width, tq, tk, tv, to, tdo, tl, gq, gk, gv,
+  return vec ? launch_width<true>(which, tq, tk, tv, to, tdo, tl, gq, gk, gv,
                                   w, B, Sq, Skv, H, KH, h, hv, causal, window,
                                   scale, s)
-             : launch_width<false>(width, tq, tk, tv, to, tdo, tl, gq, gk,
+             : launch_width<false>(which, tq, tk, tv, to, tdo, tl, gq, gk,
                                    gv, w, B, Sq, Skv, H, KH, h, hv, causal,
                                    window, scale, s);
 }
 
 // Registers a thread, local (spill) bytes a thread, dynamic shared bytes a
 // block and blocks an SM holds of kernel `which` (1 D, 2 dk/dv, 3 dq) at
-// padded width `width` on copy path `vec` (1: 16-byte, 0: 4-byte).
-// Returns a cudaError_t; 1001 for an unsupported argument.
-extern "C" int flash_attention_bwd_info(int which, int width, int vec,
-                                        int* regs, int* local_bytes,
-                                        int* smem, int* blocks) {
+// padded widths (width, vwidth) on copy path `vec` (1: 16-byte, 0:
+// 4-byte). Returns a cudaError_t; 1001 for an unsupported argument.
+extern "C" int flash_attention_bwd_info(int which, int width, int vwidth,
+                                        int vec, int* regs,
+                                        int* local_bytes, int* smem,
+                                        int* blocks) {
   const void* fn = nullptr;
   int threads = 0;
+  const int pair = instantiation(width, vwidth);
   const int err =
-      vec ? info_width<true>(which, width, &fn, smem, &threads)
-          : info_width<false>(which, width, &fn, smem, &threads);
+      vec ? info_width<true>(which, pair, &fn, smem, &threads)
+          : info_width<false>(which, pair, &fn, smem, &threads);
   if (err != 0) return err;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);

@@ -22,7 +22,8 @@
 //     dq_i    = sum_j dS[i, j] k_j / sqrt(h)
 //     dk_j    = sum_i dS[i, j] q_i / sqrt(h)      (dk, dv summed over G)
 //
-// One C call, flash_attention_bwd_bf16_launch, runs three kernels:
+// One C call, flash_attention_bwd_bf16_launch, runs three kernels (four
+// at q/k width 192, below):
 //
 // 1. flash_bwd_bf16_dot_kernel: D_i in f32 into a workspace of B H Sq
 //    floats, 16 lanes a row with 16-byte loads (memory-bound: o and do
@@ -85,12 +86,36 @@
 // flash_attention_bwd_bf16_info reports each kernel's registers and spill
 // bytes.
 //
-// Shapes: h and hv multiples of 16 up to 128 (the forward bf16 kernel's
-// rule); instantiated at a padded head width D of 32, 64 or 128,
-// zero-filled past h and hv. Rows past Sq and keys past Skv are masked;
-// neither length has to divide a tile. A query row that sees no key has
-// no defined gradient (its P is 0 here). Pointers must be 16-byte
-// aligned.
+// Shapes: h up to 192 and hv up to 128, multiples of 16 (the forward
+// bf16 kernel's rule); instantiated at a padded q/k width DQ and v width
+// DV, zero-filled past h and hv: DQ = DV = D of 32, 64 or 128, or DQ =
+// 192 with DV = 128 (deepseek-v3's MLA prefill, h = 128 + 64, hv = 128).
+// Rows past Sq and keys past Skv are masked; neither length has to divide
+// a tile. A query row that sees no key has no defined gradient (its P is
+// 0 here). Pointers must be 16-byte aligned.
+//
+// At (192, 128) a dk/dv warp would hold dK (16 keys x 192 columns, 96 f32
+// registers a lane) and dV (64) beside S^T and dP^T (32): 192 before any
+// fragment or address, where the D = 128 kernel already uses 255. So the
+// wide instantiation runs dk and dv as two passes over the same grid and
+// schedule (flash_bwd_bf16_dkdv_kernel<192, 128, pass>): pass 1 computes
+// S^T = K Q^T and P^T and accumulates only dV (64 registers; no V tile,
+// 112,640 shared bytes, 2 blocks an SM); pass 2 computes S^T and dP^T
+// again and accumulates only dK (96 registers; 130,048 bytes, 1 block an
+// SM). Each stays deterministic; the cost is one more S^T product per
+// visible pair (8 in all instead of 7). The dq pass holds dQ (96
+// registers) and reads Q's A fragments from shared memory, as it reads
+// dO's (129,024 bytes, 1 block an SM). Its first build spilled 64 bytes:
+// ptxas had hoisted the addresses of the loop's 20 cp.async copies and
+// of every unrolled fragment load out of the loops and held them in
+// registers. So at this width the copies' thread index passes through
+// an empty asm (pin) in the loop, the loop over d in S and dP is not
+// unrolled, and a 192-wide row is copied as a 128- and a 64-wide part
+// (power-of-two chunk counts): 216 registers, no spill.
+//
+// Bound at the MLA train shape (q [1, 4096, 128, 192], v width 128,
+// causal, G = 1): 6 h + 4 hv flops a pair, 1,787.1 GFLOP, 1,807 us at 989
+// TFLOP/s (bytes: 1.34 GB, 401 us).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -170,6 +195,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// An empty asm that the compiler must take to change x: what is derived
+// from x afterwards is computed there, not hoisted out of the loop and
+// held in registers across it.
+__device__ __forceinline__ void pin(int& x) { asm volatile("" : "+r"(x)); }
+
 // Two floats as one bf16x2 register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -177,21 +207,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Copy `kRows` rows of `width` bf16 (a multiple of 8) from rows row0.. of
-// a [n_rows, row_stride] global matrix into shared rows of D + 8 bf16;
-// rows past n_rows and columns past width are zero-filled.
-template <int D, int kRows>
-__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+// a [n_rows, row_stride] global matrix into columns kC0 .. kC0 + kW - 1 of
+// shared rows of D + 8 bf16; rows past n_rows and columns past width are
+// zero-filled.
+template <int D, int kRows, int kC0, int kW>
+__device__ __forceinline__ void load_cols(uint32_t dst, const bf16* src,
                                           int row0, int n_rows, int width,
                                           size_t row_stride, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kChunks = kW / 8;  // 16-byte chunks per row
   static_assert(kRows * kChunks % kThreads == 0, "whole rounds of copies");
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
     const int i = tid + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
+    const int r = i / kChunks, c = kC0 / 8 + i % kChunks;
     const bool in = row0 + r < n_rows && c * 8 < width;
     const bf16* p = in ? src + (size_t)(row0 + r) * row_stride + c * 8 : src;
     cp_async16(dst + (r * (D + 8) + c * 8) * 2, p, in ? 16 : 0);
+  }
+}
+
+// All D columns of the rows: in one part, or at D = 192 as columns
+// 0 .. 127 and 128 .. 191 (chunk counts that are powers of two).
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+                                          int row0, int n_rows, int width,
+                                          size_t row_stride, int tid) {
+  if constexpr (D == 192) {
+    load_cols<D, kRows, 0, 128>(dst, src, row0, n_rows, width, row_stride,
+                                tid);
+    load_cols<D, kRows, 128, 64>(dst, src, row0, n_rows, width, row_stride,
+                                 tid);
+  } else {
+    load_cols<D, kRows, 0, D>(dst, src, row0, n_rows, width, row_stride,
+                              tid);
   }
 }
 
@@ -247,19 +295,20 @@ __device__ __forceinline__ bool visible(int row, int key, int Sq, int Skv,
 }
 
 // A warp's 16 accumulator rows (m16n8 layout, `acc[t]` = columns 8 t ..)
-// times `mul`, in bf16 through its 16 shared rows at `rows`, then to
-// `n_rows` valid global rows of `width` bf16 at `dst` (row r at
-// dst + r * row_stride), 16 bytes a lane.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+// times `mul`, in bf16 through its 16 shared rows at `rows` (stride DS +
+// 8, DS >= DA), then to `n_rows` valid global rows of `width` bf16 at
+// `dst` (row r at dst + r * row_stride), 16 bytes a lane.
+template <int DA, int DS>
+__device__ __forceinline__ void store_rows(const float (&acc)[DA / 8][4],
                                            float mul, bf16* rows, bf16* dst,
                                            size_t row_stride, int n_rows,
                                            int width, int lane) {
-  constexpr int kStride = D + 8;
+  static_assert(DA <= DS, "the accumulator fits the staging rows");
+  constexpr int kStride = DS + 8;
   const int g = lane / 4, tg = lane % 4;
   __syncwarp();
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
+  for (int t = 0; t < DA / 8; ++t) {
     *reinterpret_cast<uint32_t*>(rows + g * kStride + 8 * t + 2 * tg) =
         pack_bf16(acc[t][0] * mul, acc[t][1] * mul);
     *reinterpret_cast<uint32_t*>(rows + (g + 8) * kStride + 8 * t + 2 * tg) =
@@ -319,7 +368,11 @@ __global__ void __launch_bounds__(kDotThreads)
 // ---------------------------------------------------------------------------
 // 2. dk and dv, one 64-key tile of one kv head a block
 
-template <int D>
+// What a dk/dv launch accumulates: both (DQ = DV), or at q/k width 192
+// dV alone (pass 1) or dK alone (pass 2).
+constexpr int kBoth = 0, kOnlyDV = 1, kOnlyDK = 2;
+
+template <int DQ, int DV, int kPass>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_bf16_dkdv_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -328,14 +381,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H,
         int KH, int h, int hv, int causal, int window, float scale_log2,
         float scale) {
-  constexpr int kStride = D + 8;        // bf16 a shared row (+16 bytes)
-  constexpr int kTile = kBQ * kStride;  // bf16 a Q or dO tile
+  static_assert(DV <= DQ, "dV is staged in K's rows in pass 1");
+  constexpr bool kDoDV = kPass != kOnlyDK, kDoDK = kPass != kOnlyDV;
+  constexpr int kStride = DQ + 8;       // bf16 a Q or K shared row
+  constexpr int kStrideV = DV + 8;      // bf16 a dO or V shared row
+  constexpr int kQTile = kBQ * kStride;    // bf16 a Q tile
+  constexpr int kStage = kQTile + kBQ * kStrideV;  // a Q and a dO tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // [kBK][kStride]
-  bf16* sv = sk + kBK * kStride;                  // [kBK][kStride]
-  bf16* ring = sv + kBK * kStride;  // kStages x (Q tile, dO tile)
+  bf16* sv = sk + kBK * kStride;  // [kBK][kStrideV], where dP is computed
+  bf16* ring = sv + (kDoDK ? kBK * kStrideV : 0);  // kStages x (Q, dO)
   // kStages x (lse[kBQ], D[kBQ])
-  float* stats = reinterpret_cast<float*>(ring + kStages * 2 * kTile);
+  float* stats = reinterpret_cast<float*>(ring + kStages * kStage);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
@@ -356,12 +413,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto load_step = [&](int s, int st) {
     const int head = kvh * G + s / n_qt;
     const int q0 = (qt_begin + s % n_qt) * kBQ;
-    bf16* dst = ring + st * 2 * kTile;
-    load_rows<D, kBQ>(smem_addr(dst), q + ((size_t)b * Sq * H + head) * h,
-                      q0, Sq, h, q_rs, tid);
-    load_rows<D, kBQ>(smem_addr(dst + kTile),
-                      dout + ((size_t)b * Sq * H + head) * hv, q0, Sq, hv,
-                      o_rs, tid);
+    bf16* dst = ring + st * kStage;
+    load_rows<DQ, kBQ>(smem_addr(dst), q + ((size_t)b * Sq * H + head) * h,
+                       q0, Sq, h, q_rs, tid);
+    load_rows<DV, kBQ>(smem_addr(dst + kQTile),
+                       dout + ((size_t)b * Sq * H + head) * hv, q0, Sq, hv,
+                       o_rs, tid);
     // one 4-byte copy a thread: threads 0..63 the lse, 64..127 D
     static_assert(kThreads == 2 * kBQ, "one statistic a thread");
     const float* src =
@@ -371,32 +428,41 @@ __global__ void __launch_bounds__(kThreads, 2)
               row < Sq ? src + row : src, row < Sq ? 4 : 0);
   };
 
-  load_rows<D, kBK>(smem_addr(sk), k + ((size_t)b * Skv * KH + kvh) * h, k0,
-                    Skv, h, k_rs, tid);
-  load_rows<D, kBK>(smem_addr(sv), v + ((size_t)b * Skv * KH + kvh) * hv, k0,
-                    Skv, hv, v_rs, tid);
+  load_rows<DQ, kBK>(smem_addr(sk), k + ((size_t)b * Skv * KH + kvh) * h,
+                     k0, Skv, h, k_rs, tid);
+  if constexpr (kDoDK)
+    load_rows<DV, kBK>(smem_addr(sv), v + ((size_t)b * Skv * KH + kvh) * hv,
+                       k0, Skv, hv, v_rs, tid);
   if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kDoDK ? DQ / 8 : 1][4], dv_acc[kDoDV ? DV / 8 : 1][4];
+  if constexpr (kDoDK) {
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t)
+    for (int t = 0; t < DQ / 8; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk_acc[t][e] = 0.f;
+  }
+  if constexpr (kDoDV) {
+#pragma unroll
+    for (int t = 0; t < DV / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[t][e] = 0.f;
+  }
 
   const int wk0 = k0 + warp * 16;  // the warp's first key
   const bf16* wk = sk + warp * 16 * kStride;
-  const bf16* wv = sv + warp * 16 * kStride;
+  const bf16* wv = sv + warp * 16 * kStrideV;
 
   int stage = 0;
   for (int s = 0; s < n_steps; ++s) {
     if (s + 1 < n_steps) load_step(s + 1, stage ^ 1);
     cp_async_commit();
     const int q0 = (qt_begin + s % n_qt) * kBQ;
-    const bf16* sq = ring + stage * 2 * kTile;
-    const bf16* sdo = sq + kTile;
+    const bf16* sq = ring + stage * kStage;
+    const bf16* sdo = sq + kQTile;
     const float* slse = stats + stage * 2 * kBQ;
     const float* sdelta = slse + kBQ;
 
@@ -409,26 +475,29 @@ __global__ void __launch_bounds__(kThreads, 2)
           (window > 0 && wk0 + 15 <= qs - window))
         continue;
 
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries
+      // S^T = K Q^T and (for dK) dP^T = V dO^T: 16 keys x 32 queries
       float st[kHalf / 8][4], dpt[kHalf / 8][4];
 #pragma unroll
       for (int n = 0; n < kHalf / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
+        const bool with_dp = kDoDK && kk < DV / 16;
         uint32_t ka[4], va[4];
-        a_frag<D>(ka, wk, kk, lane);
-        a_frag<D>(va, wv, kk, lane);
+        a_frag<DQ>(ka, wk, kk, lane);
+        if (with_dp) a_frag<DV>(va, wv, kk, lane);
 #pragma unroll
         for (int np = 0; np < kHalf / 16; ++np) {
           uint32_t bq[4], bo[4];
-          b_frag_rows<D>(bq, sq, r0 + np * 16, kk, lane);
+          b_frag_rows<DQ>(bq, sq, r0 + np * 16, kk, lane);
           mma_bf16(st[2 * np], ka, bq[0], bq[1]);
           mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
-          b_frag_rows<D>(bo, sdo, r0 + np * 16, kk, lane);
-          mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
-          mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+          if (with_dp) {
+            b_frag_rows<DV>(bo, sdo, r0 + np * 16, kk, lane);
+            mma_bf16(dpt[2 * np], va, bo[0], bo[1]);
+            mma_bf16(dpt[2 * np + 1], va, bo[2], bo[3]);
+          }
         }
       }
 
@@ -441,7 +510,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int n = 0; n < kHalf / 8; ++n) {
         const int c = r0 + 8 * n + 2 * tg;
         const float2 l2 = *reinterpret_cast<const float2*>(slse + c);
-        const float2 d2 = *reinterpret_cast<const float2*>(sdelta + c);
+        float2 d2 = make_float2(0.f, 0.f);
+        if constexpr (kDoDK)
+          d2 = *reinterpret_cast<const float2*>(sdelta + c);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float p = exp2f(st[n][e] * scale_log2 - (e % 2 ? l2.y : l2.x));
@@ -449,7 +520,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                                Skv, causal, window))
             p = 0.f;
           st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - (e % 2 ? d2.y : d2.x));
+          if constexpr (kDoDK)
+            dpt[n][e] = p * (dpt[n][e] - (e % 2 ? d2.y : d2.x));
         }
       }
 
@@ -457,17 +529,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kc = 0; kc < kHalf / 16; ++kc) {
         uint32_t pa[4], da[4];
-        acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
-        acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+        if constexpr (kDoDV) acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
+        if constexpr (kDoDK) acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DQ / 16; ++dp) {
           uint32_t bo[4], bq[4];
-          b_frag_cols<D>(bo, sdo, r0 + kc * 16, dp, lane);
-          mma_bf16(dv_acc[2 * dp], pa, bo[0], bo[1]);
-          mma_bf16(dv_acc[2 * dp + 1], pa, bo[2], bo[3]);
-          b_frag_cols<D>(bq, sq, r0 + kc * 16, dp, lane);
-          mma_bf16(dk_acc[2 * dp], da, bq[0], bq[1]);
-          mma_bf16(dk_acc[2 * dp + 1], da, bq[2], bq[3]);
+          if (kDoDV && dp < DV / 16) {
+            b_frag_cols<DV>(bo, sdo, r0 + kc * 16, dp, lane);
+            mma_bf16(dv_acc[2 * dp], pa, bo[0], bo[1]);
+            mma_bf16(dv_acc[2 * dp + 1], pa, bo[2], bo[3]);
+          }
+          if (kDoDK) {
+            b_frag_cols<DQ>(bq, sq, r0 + kc * 16, dp, lane);
+            mma_bf16(dk_acc[2 * dp], da, bq[0], bq[1]);
+            mma_bf16(dk_acc[2 * dp + 1], da, bq[2], bq[3]);
+          }
         }
       }
     }
@@ -477,19 +553,28 @@ __global__ void __launch_bounds__(kThreads, 2)
     stage ^= 1;
   }
 
-  // dk (scaled) and dv through the warp's own K and V rows
+  // dk (scaled) and dv through the warp's own K and V rows (pass 1 has no
+  // V tile: dv goes through its K rows)
   const int n_keys = min(16, Skv - wk0);
   const size_t key0 = (size_t)b * Skv + wk0;
-  store_rows<D>(dk_acc, scale, sk + warp * 16 * kStride,
-                dk + key0 * k_rs + (size_t)kvh * h, k_rs, n_keys, h, lane);
-  store_rows<D>(dv_acc, 1.f, sv + warp * 16 * kStride,
-                dv + key0 * v_rs + (size_t)kvh * hv, v_rs, n_keys, hv, lane);
+  if constexpr (kDoDK)
+    store_rows<DQ, DQ>(dk_acc, scale, sk + warp * 16 * kStride,
+                       dk + key0 * k_rs + (size_t)kvh * h, k_rs, n_keys, h,
+                       lane);
+  if constexpr (kDoDV && kDoDK)
+    store_rows<DV, DV>(dv_acc, 1.f, sv + warp * 16 * kStrideV,
+                       dv + key0 * v_rs + (size_t)kvh * hv, v_rs, n_keys, hv,
+                       lane);
+  if constexpr (kDoDV && !kDoDK)
+    store_rows<DV, DQ>(dv_acc, 1.f, sk + warp * 16 * kStride,
+                       dv + key0 * v_rs + (size_t)kvh * hv, v_rs, n_keys, hv,
+                       lane);
 }
 
 // ---------------------------------------------------------------------------
 // 3. dq, one 64-row query tile of one head a block
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_bf16_dq_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -497,12 +582,15 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float* __restrict__ lse, const float* __restrict__ delta,
         bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, int h, int hv,
         int causal, int window, float scale_log2, float scale) {
-  constexpr int kStride = D + 8;
-  constexpr int kTile = kBK * kStride;  // bf16 a K or V tile
+  constexpr int kStride = DQ + 8;       // bf16 a Q or K shared row
+  constexpr int kStrideV = DV + 8;      // bf16 a dO or V shared row
+  constexpr int kTile = kBK * kStride;  // bf16 a K tile
+  constexpr int kStage = kTile + kBK * kStrideV;  // a K and a V tile
+  constexpr bool kHoldQ = DQ <= 128;    // Q's fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][kStride]
-  bf16* sdo = sq + kBQ * kStride;                 // [kBQ][kStride]
-  bf16* skv = sdo + kBQ * kStride;  // kStages x (K tile, then V tile)
+  bf16* sdo = sq + kBQ * kStride;                 // [kBQ][kStrideV]
+  bf16* skv = sdo + kBQ * kStrideV;  // kStages x (K tile, then V tile)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
@@ -522,26 +610,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* kg = k + ((size_t)b * Skv * KH + kvh) * h;
   const bf16* vg = v + ((size_t)b * Skv * KH + kvh) * hv;
 
-  load_rows<D, kBQ>(smem_addr(sq), q + ((size_t)b * Sq * H + head) * h, q0,
-                    Sq, h, q_rs, tid);
-  load_rows<D, kBQ>(smem_addr(sdo), dout + ((size_t)b * Sq * H + head) * hv,
-                    q0, Sq, hv, o_rs, tid);
+  load_rows<DQ, kBQ>(smem_addr(sq), q + ((size_t)b * Sq * H + head) * h, q0,
+                     Sq, h, q_rs, tid);
+  load_rows<DV, kBQ>(smem_addr(sdo), dout + ((size_t)b * Sq * H + head) * hv,
+                     q0, Sq, hv, o_rs, tid);
   if (kt_begin <= kt_end) {
-    load_rows<D, kBK>(smem_addr(skv), kg, kt_begin * kBK, Skv, h, k_rs, tid);
-    load_rows<D, kBK>(smem_addr(skv + kTile), vg, kt_begin * kBK, Skv, hv,
-                      v_rs, tid);
+    load_rows<DQ, kBK>(smem_addr(skv), kg, kt_begin * kBK, Skv, h, k_rs,
+                       tid);
+    load_rows<DV, kBK>(smem_addr(skv + kTile), vg, kt_begin * kBK, Skv, hv,
+                       v_rs, tid);
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  // this warp's 16 rows of Q as A fragments, for the block's life; its
-  // rows of dO stay in shared memory
-  uint32_t qf[D / 16][4];
+  // this warp's 16 rows of Q as A fragments, for the block's life where
+  // they fit (else read from sq at each half tile); its rows of dO stay
+  // in shared memory
+  const bf16* wq = sq + warp * 16 * kStride;
+  uint32_t qf[kHoldQ ? DQ / 16 : 1][4];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    a_frag<D>(qf[kk], sq + warp * 16 * kStride, kk, lane);
-  const bf16* wdo = sdo + warp * 16 * kStride;
+    for (int kk = 0; kk < DQ / 16; ++kk) a_frag<DQ>(qf[kk], wq, kk, lane);
+  }
+  const bf16* wdo = sdo + warp * 16 * kStrideV;
   // rows wq0 + g (accumulator elements 0, 1) and wq0 + g + 8 (2, 3)
   const int wq0 = q0 + warp * 16;
   const size_t stat0 = ((size_t)b * H + head) * Sq;
@@ -553,22 +645,26 @@ __global__ void __launch_bounds__(kThreads, 2)
     d_r[r] = row < Sq ? delta[stat0 + row] : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[DQ / 8][4];
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t)
+  for (int t = 0; t < DQ / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
   int stage = 0;
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     if (kt < kt_end) {  // the next tile into the other stage
-      bf16* nk = skv + (stage ^ 1) * 2 * kTile;
-      load_rows<D, kBK>(smem_addr(nk), kg, (kt + 1) * kBK, Skv, h, k_rs, tid);
-      load_rows<D, kBK>(smem_addr(nk + kTile), vg, (kt + 1) * kBK, Skv, hv,
-                        v_rs, tid);
+      bf16* nk = skv + (stage ^ 1) * kStage;
+      // at q/k width 192 the copies' addresses are computed here: hoisted
+      // out of the loop, the 20 of them took the registers dQ needs
+      int t = tid;
+      if constexpr (!kHoldQ) pin(t);
+      load_rows<DQ, kBK>(smem_addr(nk), kg, (kt + 1) * kBK, Skv, h, k_rs, t);
+      load_rows<DV, kBK>(smem_addr(nk + kTile), vg, (kt + 1) * kBK, Skv, hv,
+                         v_rs, t);
     }
     cp_async_commit();
-    const bf16* sk = skv + stage * 2 * kTile;
+    const bf16* sk = skv + stage * kStage;
     const bf16* sv = sk + kTile;
 
 #pragma unroll 1
@@ -579,25 +675,37 @@ __global__ void __launch_bounds__(kThreads, 2)
           (window > 0 && ks + kHalf - 1 <= wq0 - window))
         continue;
 
-      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys
+      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys (a loop over d at
+      // q/k width 192: unrolled, its fragments took dQ's registers)
       float s[kHalf / 8][4], dp[kHalf / 8][4];
 #pragma unroll
       for (int n = 0; n < kHalf / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t da[4];
-        a_frag<D>(da, wdo, kk, lane);
+#pragma unroll(kHoldQ ? DQ / 16 : 1)
+      for (int kk = 0; kk < DQ / 16; ++kk) {
+        const bool with_dp = kk < DV / 16;
+        uint32_t qa[4], da[4];
+        if constexpr (kHoldQ) {
+          qa[0] = qf[kk][0];
+          qa[1] = qf[kk][1];
+          qa[2] = qf[kk][2];
+          qa[3] = qf[kk][3];
+        } else {
+          a_frag<DQ>(qa, wq, kk, lane);
+        }
+        if (with_dp) a_frag<DV>(da, wdo, kk, lane);
 #pragma unroll
         for (int np = 0; np < kHalf / 16; ++np) {
           uint32_t bk[4], bv[4];
-          b_frag_rows<D>(bk, sk, r0 + np * 16, kk, lane);
-          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          b_frag_rows<D>(bv, sv, r0 + np * 16, kk, lane);
-          mma_bf16(dp[2 * np], da, bv[0], bv[1]);
-          mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+          b_frag_rows<DQ>(bk, sk, r0 + np * 16, kk, lane);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          if (with_dp) {
+            b_frag_rows<DV>(bv, sv, r0 + np * 16, kk, lane);
+            mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+            mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+          }
         }
       }
 
@@ -624,9 +732,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         uint32_t a[4];
         acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
+        for (int dd = 0; dd < DQ / 16; ++dd) {
           uint32_t bk[4];
-          b_frag_cols<D>(bk, sk, r0 + kc * 16, dd, lane);
+          b_frag_cols<DQ>(bk, sk, r0 + kc * 16, dd, lane);
           mma_bf16(acc[2 * dd], a, bk[0], bk[1]);
           mma_bf16(acc[2 * dd + 1], a, bk[2], bk[3]);
         }
@@ -639,27 +747,33 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // dq (scaled) through the warp's own Q rows
-  store_rows<D>(acc, scale, sq + warp * 16 * kStride,
-                dq + ((size_t)b * Sq + wq0) * q_rs + (size_t)head * h, q_rs,
-                min(16, Sq - wq0), h, lane);
+  store_rows<DQ, DQ>(acc, scale, sq + warp * 16 * kStride,
+                     dq + ((size_t)b * Sq + wq0) * q_rs + (size_t)head * h,
+                     q_rs, min(16, Sq - wq0), h, lane);
 }
 
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQ, int DV, int kPass>
 constexpr int smem_dkdv() {
-  return sizeof(bf16) * (2 * kBK + kStages * 2 * kBQ) * (D + 8) +
+  return sizeof(bf16) * (kBK * (DQ + 8) +
+                         (kPass == kOnlyDV ? 0 : kBK * (DV + 8)) +
+                         kStages * kBQ * ((DQ + 8) + (DV + 8))) +
          sizeof(float) * kStages * 2 * kBQ;
 }
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_dq() {
-  return sizeof(bf16) * (2 * kBQ + kStages * 2 * kBK) * (D + 8);
+  return sizeof(bf16) * (kBQ * ((DQ + 8) + (DV + 8)) +
+                         kStages * kBK * ((DQ + 8) + (DV + 8)));
 }
 
-// Kernel `which` (1 D, 2 dk/dv, 3 dq) of one width, with its dynamic
-// shared memory (set as the kernel's limit) and threads a block.
-template <int D>
+// Kernel `which` of one width pair, with its dynamic shared memory (set as
+// the kernel's limit) and threads a block: 1 D, 2 dk/dv (at q/k width 192
+// its dK pass), 3 dq, 4 the dV pass (q/k width 192 only).
+template <int DQ, int DV>
 cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
+  constexpr bool kSplit = DQ != DV;
+  constexpr int kPass = kSplit ? kOnlyDK : kBoth;
   switch (which) {
     case 1:
       *fn = reinterpret_cast<const void*>(flash_bwd_bf16_dot_kernel);
@@ -667,13 +781,23 @@ cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
       *threads = kDotThreads;
       return cudaSuccess;
     case 2:
-      *fn = reinterpret_cast<const void*>(flash_bwd_bf16_dkdv_kernel<D>);
-      *smem = smem_dkdv<D>();
+      *fn = reinterpret_cast<const void*>(
+          flash_bwd_bf16_dkdv_kernel<DQ, DV, kPass>);
+      *smem = smem_dkdv<DQ, DV, kPass>();
       break;
     case 3:
-      *fn = reinterpret_cast<const void*>(flash_bwd_bf16_dq_kernel<D>);
-      *smem = smem_dq<D>();
+      *fn = reinterpret_cast<const void*>(flash_bwd_bf16_dq_kernel<DQ, DV>);
+      *smem = smem_dq<DQ, DV>();
       break;
+    case 4:
+      if constexpr (kSplit) {
+        *fn = reinterpret_cast<const void*>(
+            flash_bwd_bf16_dkdv_kernel<DQ, DV, kOnlyDV>);
+        *smem = smem_dkdv<DQ, DV, kOnlyDV>();
+        break;
+      } else {
+        return cudaErrorInvalidValue;
+      }
     default:
       return cudaErrorInvalidValue;
   }
@@ -682,15 +806,16 @@ cudaError_t kernel_of(int which, const void** fn, int* smem, int* threads) {
                               *smem);
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, bf16* dq, bf16* dk, bf16* dv,
            float* delta, int B, int Sq, int Skv, int H, int KH, int h, int hv,
            int causal, int window, float scale, cudaStream_t stream) {
+  constexpr bool kSplit = DQ != DV;
   const void* fn;
-  int smem[4], threads;
-  for (int which = 2; which <= 3; ++which) {
-    cudaError_t err = kernel_of<D>(which, &fn, &smem[which], &threads);
+  int smem[5], threads;
+  for (int which = 2; which <= (kSplit ? 4 : 3); ++which) {
+    cudaError_t err = kernel_of<DQ, DV>(which, &fn, &smem[which], &threads);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sl2 = scale * kLog2e;
@@ -702,27 +827,51 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 keys(KH, B, (Skv + kBK - 1) / kBK);
-  flash_bwd_bf16_dkdv_kernel<D><<<keys, kThreads, smem[2], stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
-      window, sl2, scale);
+  if constexpr (kSplit) {
+    flash_bwd_bf16_dkdv_kernel<DQ, DV, kOnlyDV>
+        <<<keys, kThreads, smem[4], stream>>>(
+            q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
+            window, sl2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_bf16_dkdv_kernel<DQ, DV, kOnlyDK>
+        <<<keys, kThreads, smem[2], stream>>>(
+            q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
+            window, sl2, scale);
+  } else {
+    flash_bwd_bf16_dkdv_kernel<DQ, DV, kBoth>
+        <<<keys, kThreads, smem[2], stream>>>(
+            q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KH, h, hv, causal,
+            window, sl2, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 queries(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_bwd_bf16_dq_kernel<D><<<queries, kThreads, smem[3], stream>>>(
+  flash_bwd_bf16_dq_kernel<DQ, DV><<<queries, kThreads, smem[3], stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Skv, H, KH, h, hv, causal, window,
       sl2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int info_width(int which, int width, const void** fn, int* smem,
+// The instantiation index of padded widths (width, vwidth): 0..3 for
+// (32, 32), (64, 64), (128, 128), (192, 128); -1 for any other pair.
+int instantiation(int width, int vwidth) {
+  if (width == vwidth && (width == 32 || width == 64 || width == 128))
+    return width == 32 ? 0 : width == 64 ? 1 : 2;
+  return width == 192 && vwidth == 128 ? 3 : -1;
+}
+
+int info_width(int which, int pair, const void** fn, int* smem,
                int* threads) {
-  switch (width) {
-    case 32:
-      return static_cast<int>(kernel_of<32>(which, fn, smem, threads));
-    case 64:
-      return static_cast<int>(kernel_of<64>(which, fn, smem, threads));
-    case 128:
-      return static_cast<int>(kernel_of<128>(which, fn, smem, threads));
+  switch (pair) {
+    case 0:
+      return static_cast<int>(kernel_of<32, 32>(which, fn, smem, threads));
+    case 1:
+      return static_cast<int>(kernel_of<64, 64>(which, fn, smem, threads));
+    case 2:
+      return static_cast<int>(kernel_of<128, 128>(which, fn, smem, threads));
+    case 3:
+      return static_cast<int>(kernel_of<192, 128>(which, fn, smem, threads));
     default:
       return 1001;
   }
@@ -733,19 +882,23 @@ int info_width(int which, int width, const void** fn, int* smem,
 // q, k, v, o, dout are the forward's bf16 inputs, its output and the
 // output's gradient, contiguous and 16-byte aligned; lse is the forward's
 // f32 [B, H, Sq] log2-domain log-sum-exp; dq, dk, dv are written in bf16.
-// ws holds B * H * Sq floats (D). width is the padded head width (32, 64
-// or 128) that holds h and hv, both multiples of 16; scale is 1 / sqrt(h).
-// Returns a cudaError_t; 1001 for an unsupported argument.
+// ws holds B * H * Sq floats (D). width and vwidth are the padded q/k and
+// v widths that hold h and hv, both multiples of 16: (32, 32), (64, 64),
+// (128, 128) or (192, 128); scale is 1 / sqrt(h). Returns a cudaError_t;
+// 1001 for an unsupported argument.
 extern "C" int flash_attention_bwd_bf16_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* ws, int B, int Sq, int Skv, int H, int KH, int h, int hv,
-    int causal, int window, float scale, int width, void* stream) {
-  if (h < 16 || hv < 16 || h % 16 || hv % 16 || h > width || hv > width ||
+    int causal, int window, float scale, int width, int vwidth,
+    void* stream) {
+  if (h < 16 || hv < 16 || h % 16 || hv % 16 || h > width || hv > vwidth ||
       KH < 1 || H % KH != 0 || B > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
       (Skv + kBK - 1) / kBK > 65535 ||
       (long long)B * Sq * H > 0x7fffffffLL - kDotThreads)
     return 1001;
+  const int which = instantiation(width, vwidth);
+  if (which < 0) return 1001;
   if (B == 0 || Sq == 0 || Skv == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *tq = static_cast<const bf16*>(q),
@@ -757,31 +910,35 @@ extern "C" int flash_attention_bwd_bf16_launch(
   bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk),
        *gv = static_cast<bf16*>(dv);
   float* w = static_cast<float*>(ws);
-  switch (width) {
-    case 32:
-      return launch<32>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq, Skv, H,
-                        KH, h, hv, causal, window, scale, s);
-    case 64:
-      return launch<64>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq, Skv, H,
-                        KH, h, hv, causal, window, scale, s);
-    case 128:
-      return launch<128>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq, Skv,
-                         H, KH, h, hv, causal, window, scale, s);
+  switch (which) {
+    case 0:
+      return launch<32, 32>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq,
+                            Skv, H, KH, h, hv, causal, window, scale, s);
+    case 1:
+      return launch<64, 64>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq,
+                            Skv, H, KH, h, hv, causal, window, scale, s);
+    case 2:
+      return launch<128, 128>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq,
+                              Skv, H, KH, h, hv, causal, window, scale, s);
     default:
-      return 1001;
+      return launch<192, 128>(tq, tk, tv, to, tdo, tl, gq, gk, gv, w, B, Sq,
+                              Skv, H, KH, h, hv, causal, window, scale, s);
   }
 }
 
 // Registers a thread, local (spill) bytes a thread, dynamic shared bytes a
-// block and blocks an SM holds of kernel `which` (1 D, 2 dk/dv, 3 dq) at
-// padded width `width`. Returns a cudaError_t; 1001 for an unsupported
+// block and blocks an SM holds of kernel `which` (1 D, 2 dk/dv or at q/k
+// width 192 its dK pass, 3 dq, 4 the dV pass at q/k width 192) at padded
+// widths (width, vwidth). Returns a cudaError_t; 1001 for an unsupported
 // argument.
-extern "C" int flash_attention_bwd_bf16_info(int which, int width, int* regs,
+extern "C" int flash_attention_bwd_bf16_info(int which, int width,
+                                             int vwidth, int* regs,
                                              int* local_bytes, int* smem,
                                              int* blocks) {
   const void* fn = nullptr;
   int threads = 0;
-  const int err = info_width(which, width, &fn, smem, &threads);
+  const int err =
+      info_width(which, instantiation(width, vwidth), &fn, smem, &threads);
   if (err != 0) return err;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);

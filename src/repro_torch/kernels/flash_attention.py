@@ -7,17 +7,22 @@ with H = K·G; the output is ``[B, Sq, H, hv]`` in q's dtype. The wrapper
 dispatches on the device, then on the dtype:
 
 - a bf16 CUDA tensor launches ``csrc/flash_attention_bf16.cu``
-  (:data:`KERNEL_BF16`, the tensor cores; h and hv multiples of 16 up to
-  128, anything else raises);
+  (:data:`KERNEL_BF16`, the tensor cores; h up to 192 and hv up to 128,
+  both multiples of 16, anything else raises);
 - an f32 CUDA tensor launches ``csrc/flash_attention.cu``
   (:data:`KERNEL`, the CUDA cores: the f32 check path, which TF32 tensor
-  cores would not keep within its tolerances). Any h, hv <= 128: the
-  kernel runs at a padded width of 32, 64 or 128 and copies its tiles
-  with 16-byte ``cp.async`` where h and hv are multiples of 4 and every
-  pointer is 16-byte aligned, else with 4-byte copies into the same
-  layout (:func:`f32_plan`);
-- a CPU tensor runs the plain version (:func:`flash_attention_plain`);
-  any other device raises.
+  cores would not keep within its tolerances). Any h <= 192 and hv <=
+  128, and it copies its tiles with 16-byte ``cp.async`` where h and hv
+  are multiples of 4 and every pointer is 16-byte aligned, else with
+  4-byte copies into the same layout (:func:`f32_plan`);
+- a CPU tensor runs the plain version (:func:`flash_attention_plain`) at
+  any width; any other device raises.
+
+Every kernel is instantiated at a padded q/k width and a padded v width
+(:func:`padded_widths`): one width D of 32, 64 or 128 that holds both h
+and hv, or q/k width 192 with v width 128 where 128 < h <= 192 and hv <=
+128 (deepseek-v3's MLA prefill: h = 128 + 64, hv = 128). Padding is
+zero-filled; an h above 192 or an hv above 128 raises.
 
 :func:`flash_attention` is a ``torch.autograd.Function``
 (:class:`FlashAttention`): its backward is :func:`flash_attention_bwd`,
@@ -30,17 +35,18 @@ which dispatches the same way (:func:`select_bwd_kernel`):
   returns it too); without it the backward raises, it never recomputes
   it. The same head widths as the bf16 forward;
 - an f32 CUDA tensor launches ``csrc/flash_attention_bwd.cu``
-  (:data:`KERNEL_BWD`, f32 arithmetic on the CUDA cores; any h, hv <=
-  128, 16- or 4-byte copies as :func:`f32_plan` chooses). It takes the
-  f32 forward's log-sum-exp the same way and raises without it;
+  (:data:`KERNEL_BWD`, f32 arithmetic on the CUDA cores; any h <= 192,
+  hv <= 128, 16- or 4-byte copies as :func:`f32_plan` chooses). It takes
+  the f32 forward's log-sum-exp the same way and raises without it;
 - a CPU tensor runs :func:`flash_attention_bwd_plain`.
 
 Both forward kernels write the LSE (f32 [B,H,Sq], log2 domain) when
 :class:`FlashAttention` saves it for a gradient, and not when serving;
 the output's bytes are the same either way. Each backward call is one
-count, which runs three CUDA kernels (D = do·o, dk/dv, dq) over an f32
-workspace of :func:`bwd_workspace_floats` values (each row's D). The JAX
-package has no backward kernel: it takes ``jax.vjp`` through
+count, which runs three CUDA kernels (D = do·o, dk/dv, dq; the bf16
+route at q/k width 192 runs dk and dv as two kernels, four in all) over
+an f32 workspace of :func:`bwd_workspace_floats` values (each row's D).
+The JAX package has no backward kernel: it takes ``jax.vjp`` through
 ``repro.models.layers.flash_attend``. A failed build or launch raises;
 nothing falls back to a plain version.
 """
@@ -58,31 +64,38 @@ from .ref import flash_attention_ref as flash_attention_plain
 
 __all__ = ["KERNEL", "KERNEL_BF16", "KERNEL_BWD", "KERNEL_BWD_BF16",
            "FlashAttention", "bf16_head_width", "bwd_workspace_floats",
-           "f32_plan", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_fwd_lse",
-           "flash_attention_lse_plain", "flash_attention_plain",
-           "select_bwd_kernel", "select_kernel"]
+           "f32_bwd_tiles", "f32_plan", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_fwd_lse", "flash_attention_lse_plain",
+           "flash_attention_plain", "padded_widths", "select_bwd_kernel",
+           "select_kernel", "v_width"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float]
-# ... scale; padded width; copy plan; lse (f32 [B,H,Sq] or null); stream
+# ... scale; padded q/k and v widths; copy plan; lse (f32 [B,H,Sq] or
+# null); stream
 KERNEL = CudaKernel("flash_attention.cu", "flash_attention_lse_launch",
-                    _ARGS + [_I, _I, _P, _P])
-# ... scale; padded width; lse (f32 [B,H,Sq] or null); stream
+                    _ARGS + [_I, _I, _I, _P, _P])
+# ... scale; padded q/k and v widths; lse (f32 [B,H,Sq] or null); stream
 KERNEL_BF16 = CudaKernel("flash_attention_bf16.cu",
-                         "flash_attention_bf16_launch", _ARGS + [_I, _P, _P])
+                         "flash_attention_bf16_launch",
+                         _ARGS + [_I, _I, _P, _P])
 # q, k, v, o, do, lse, dq, dk, dv, workspace; B, Sq, Skv, H, K, h, hv,
-# causal, window; scale; padded width; copy plan; stream
+# causal, window; scale; padded q/k and v widths; copy plan; stream
 KERNEL_BWD = CudaKernel("flash_attention_bwd.cu",
                         "flash_attention_bwd_launch",
-                        [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _I, _P])
+                        [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _I, _I,
+                                                _P])
 # q, k, v, o, do, lse, dq, dk, dv, workspace; the same ints; scale; padded
-# width; stream
+# q/k and v widths; stream
 KERNEL_BWD_BF16 = CudaKernel("flash_attention_bwd_bf16.cu",
                              "flash_attention_bwd_bf16_launch",
-                             [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P])
-MAX_HEAD = 128
-WIDTHS = (32, 64, 128)   # the padded head widths every kernel is built at
+                             [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _I,
+                                                     _P])
+MAX_H, MAX_HV = 192, 128   # the widest q/k and v widths any kernel takes
+# the padded q/k widths every kernel is built at; each instantiation's v
+# width is v_width(width): 32/32, 64/64, 128/128 and 192/128
+WIDTHS = (32, 64, 128, 192)
 # the f32 kernel's tiling, as csrc/flash_attention.cu: query rows per
 # block, keys per K/V tile, threads per block
 F32_BLOCK_Q, F32_BLOCK_K, F32_THREADS = 64, 32, 128
@@ -93,42 +106,70 @@ BWD_BLOCK_K, BWD_BLOCK_Q, BWD_HALF, BWD_WARPS = 64, 64, 32, 4
 # the f32 backward's tiling, as csrc/flash_attention_bwd.cu: keys a dk/dv
 # tile (8 a warp) and query rows a dk/dv step; query rows a dq block (16 a
 # warp) and keys a dq K/V tile; warps a block. A causal dk/dv launch gives
-# each block key tiles t and n - 1 - t
+# each block key tiles t and n - 1 - t. At q/k width 192 a dk/dv step
+# takes 32 query rows and a dq K/V tile 16 keys, so that the tiles fit
+# the SM's shared memory
 F32_BWD_BLOCK_K, F32_BWD_STEP_Q, F32_BWD_BLOCK_Q, F32_BWD_TILE_K = \
     64, 64, 128, 32
+F32_BWD_STEP_Q_192, F32_BWD_TILE_K_192 = 32, 16
 F32_BWD_WARPS = 8
 
 
-def bf16_head_width(h: int, hv: int) -> int:
-    """The padded head width the bf16 kernel runs q/k width h and v width
-    hv at: the least of 32, 64 and 128 that holds both. Raises
-    ValueError unless h and hv are multiples of 16 in [16, 128]."""
-    for n, name in ((h, "h"), (hv, "hv")):
-        if n < 16 or n > MAX_HEAD or n % 16:
-            raise ValueError(f"the bf16 kernel takes head dims that are "
-                             f"multiples of 16 up to {MAX_HEAD}, got "
-                             f"{name}={n}")
-    return next(w for w in WIDTHS if w >= max(h, hv))
+def v_width(width: int) -> int:
+    """The padded v width of the instantiation at padded q/k width
+    ``width``."""
+    return min(width, MAX_HV)
 
 
-def f32_plan(h: int, hv: int, *ptrs: int) -> tuple[int, int]:
-    """``(width, vec)`` of the f32 kernels: the least of 32, 64 and 128
-    that holds h and hv, and 1 (16-byte copies) where h and hv are
-    multiples of 4 and every pointer in ``ptrs`` (the forward's q, k, v,
-    out; the backward's q, k, v, o, do, dq, dk, dv) is 16-byte aligned,
-    else 0 (4-byte copies)."""
-    if max(h, hv) > MAX_HEAD:
-        raise ValueError(f"the f32 kernel takes head dims up to {MAX_HEAD}, "
-                         f"got h={h}, hv={hv}")
+def f32_bwd_tiles(width: int) -> tuple[int, int]:
+    """``(query rows a dk/dv step, keys a dq K/V tile)`` of the f32
+    backward at padded q/k width ``width``."""
+    if width > 128:
+        return F32_BWD_STEP_Q_192, F32_BWD_TILE_K_192
+    return F32_BWD_STEP_Q, F32_BWD_TILE_K
+
+
+def padded_widths(h: int, hv: int) -> tuple[int, int]:
+    """``(q/k width, v width)`` of the instantiation that runs q/k width
+    h and v width hv: the least D of 32, 64 and 128 that holds both as
+    (D, D), else (192, 128) where 128 < h <= 192 and hv <= 128. Raises
+    ValueError for h > 192 or hv > 128."""
+    if h < 1 or hv < 1 or h > MAX_H or hv > MAX_HV:
+        raise ValueError(f"the flash kernels take q/k widths h up to "
+                         f"{MAX_H} and v widths hv up to {MAX_HV}, got "
+                         f"h={h}, hv={hv}")
     width = next(w for w in WIDTHS if w >= max(h, hv))
+    return width, v_width(width)
+
+
+def bf16_head_width(h: int, hv: int) -> tuple[int, int]:
+    """The padded ``(q/k width, v width)`` the bf16 kernels run q/k width
+    h and v width hv at (:func:`padded_widths`). Raises ValueError unless
+    h and hv are multiples of 16 with 16 <= h <= 192 and 16 <= hv <=
+    128."""
+    if h < 16 or hv < 16 or h % 16 or hv % 16 or h > MAX_H or hv > MAX_HV:
+        raise ValueError(f"the bf16 kernels take q/k widths h up to "
+                         f"{MAX_H} and v widths hv up to {MAX_HV}, both "
+                         f"multiples of 16, got h={h}, hv={hv}")
+    return padded_widths(h, hv)
+
+
+def f32_plan(h: int, hv: int, *ptrs: int) -> tuple[int, int, int]:
+    """``(width, vwidth, vec)`` of the f32 kernels: the padded q/k and v
+    widths that hold h and hv (:func:`padded_widths`), and 1 (16-byte
+    copies) where h and hv are multiples of 4 and every pointer in
+    ``ptrs`` (the forward's q, k, v, out; the backward's q, k, v, o, do,
+    dq, dk, dv) is 16-byte aligned, else 0 (4-byte copies)."""
+    width, vwidth = padded_widths(h, hv)
     vec = int(h % 4 == 0 and hv % 4 == 0 and not any(p % 16 for p in ptrs))
-    return width, vec
+    return width, vwidth, vec
 
 
 def select_kernel(dtype: torch.dtype, h: int, hv: int) -> CudaKernel:
     """The kernel that a CUDA tensor of ``dtype`` launches: bf16 →
     :data:`KERNEL_BF16` (raises for a head width it does not take; never
-    the f32 kernel), f32 → :data:`KERNEL`."""
+    the f32 kernel), f32 → :data:`KERNEL` (raises past q/k width 192 or
+    v width 128)."""
     if dtype == torch.bfloat16:
         bf16_head_width(h, hv)
         return KERNEL_BF16
@@ -191,7 +232,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("the bf16 kernel copies 16-byte chunks: q, k "
                              "and v must start on 16-byte boundaries")
-        args += [bf16_head_width(h, hv), stats_ptr]
+        args += [*bf16_head_width(h, hv), stats_ptr]
     else:
         args += [*f32_plan(h, hv, *args[:4]), stats_ptr]
     with torch.cuda.device(q.device):
@@ -222,16 +263,15 @@ def select_bwd_kernel(dtype: torch.dtype, h: int, hv: int,
                       lse: torch.Tensor | None) -> CudaKernel:
     """The backward kernel that a CUDA tensor of ``dtype`` launches: bf16
     → :data:`KERNEL_BWD_BF16` (raises for a head width the bf16 forward
-    does not take), f32 → :data:`KERNEL_BWD` (any h, hv <= 128). Either
+    does not take), f32 → :data:`KERNEL_BWD` (any h <= 192, hv <= 128).
+    Either
     raises without the forward's ``lse``: it is never recomputed and
     nothing falls back."""
     if dtype == torch.bfloat16:
         bf16_head_width(h, hv)
         kernel = KERNEL_BWD_BF16
     elif dtype == torch.float32:
-        if max(h, hv) > MAX_HEAD:
-            raise ValueError(f"the backward kernel takes head dims up to "
-                             f"{MAX_HEAD}, got h={h}, hv={hv}")
+        padded_widths(h, hv)
         kernel = KERNEL_BWD
     else:
         raise TypeError(f"no attention backward kernel for {dtype}")
@@ -286,7 +326,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("the bf16 backward kernel copies 16-byte "
                              "chunks: q, k, v, o and do must start on "
                              "16-byte boundaries")
-        plan = [bf16_head_width(h, hv)]
+        plan = list(bf16_head_width(h, hv))
     else:
         plan = list(f32_plan(h, hv, *ptrs, *outs))
     with torch.cuda.device(q.device):

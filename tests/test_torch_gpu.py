@@ -330,7 +330,16 @@ FLASH_CASES = [
     (4, 1024, 1500, 12, 12, 64, 64, False, -1),     # its cross, Sq < Skv
     (2, 4096, 1500, 12, 12, 64, 64, False, -1),     # its train cross
     (2, 4096, 4096, 12, 12, 64, 64, True, -1),      # its train decoder
-    (1, 256, 1500, 12, 12, 64, 64, False, -1)]      # its f32 check
+    (1, 256, 1500, 12, 12, 64, 64, False, -1),      # its f32 check
+    # q/k width 192 with v width 128 (deepseek-v3's MLA prefill) and a
+    # padded q/k width under 192
+    (2, 100, 130, 4, 2, 192, 128, True, -1),        # ragged, G = 2
+    (2, 256, 300, 8, 4, 192, 128, True, 100),       # window, Sq < Skv
+    (2, 256, 300, 8, 4, 192, 128, False, -1),       # bidirectional
+    (2, 256, 300, 8, 4, 176, 96, False, -1),
+    (2, 256, 300, 8, 4, 176, 96, True, 100),
+    (1, 256, 256, 128, 128, 192, 128, True, -1),    # MLA f32 check, G = 1
+    (4, 1024, 1024, 128, 128, 192, 128, True, -1)]  # MLA serve prefill
 # f32 only: h and hv not multiples of 4 (the bf16 kernel takes multiples
 # of 16), q/k/v 4 bytes past a 16-byte boundary (the 4-byte copy path),
 # a long non-causal case
@@ -338,7 +347,9 @@ F32_CASES = [(2, 200, 300, 4, 2, 50, 36, True, -1, "aligned"),
              (2, 130, 170, 3, 1, 7, 5, False, 40, "aligned"),
              (2, 256, 256, 8, 2, 128, 128, True, -1, "misaligned"),
              (2, 100, 130, 4, 2, 64, 48, True, 40, "misaligned"),
-             (1, 2048, 2048, 8, 2, 128, 128, False, -1, "aligned")]
+             (1, 2048, 2048, 8, 2, 128, 128, False, -1, "aligned"),
+             (2, 100, 130, 4, 2, 190, 126, True, -1, "misaligned"),
+             (2, 100, 130, 4, 2, 130, 100, True, -1, "aligned")]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window,offset,dtype", [
@@ -371,7 +382,30 @@ def test_flash_bf16_rejects_other_head_widths(cuda):
     before = (kf.KERNEL.launches, kf.KERNEL_BF16.launches)
     with pytest.raises(ValueError, match="multiples of 16"):
         kf.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros((1, 64, 2, 192), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros((1, 64, 2, 144), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kf.flash_attention(q, q, v)                  # hv 144 > 128
     assert (kf.KERNEL.launches, kf.KERNEL_BF16.launches) == before
+
+
+@pytest.mark.parametrize("h,hv", [(193, 128), (192, 129), (256, 64),
+                                  (64, 144)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_rejects_widths_past_192_and_128(cuda, h, hv, dtype):
+    """A q/k width above 192 or a v width above 128 raises, forward and
+    backward, in either dtype, and launches nothing."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros((1, 64, 2, h), dtype=dt, device=cuda)
+    v = torch.zeros((1, 64, 2, hv), dtype=dt, device=cuda)
+    counts = (kf.KERNEL, kf.KERNEL_BF16, kf.KERNEL_BWD, kf.KERNEL_BWD_BF16)
+    before = [c.launches for c in counts]
+    with pytest.raises(ValueError, match="up to"):
+        kf.flash_attention(q, q, v)
+    with pytest.raises(ValueError, match="up to"):
+        kf.flash_attention_bwd(q, q, v, v, v, lse=torch.zeros(
+            (1, 2, 64), device=cuda))
+    assert [c.launches for c in counts] == before
 
 
 @pytest.mark.parametrize("B,S,H,hd,w_std", [
@@ -823,7 +857,12 @@ BWD_CASES = [(2, 256, 256, 8, 4, 64, 64, True, 100),
              (1, 384, 384, 25, 5, 64, 64, True, 1024),     # its f32 step
              (2, 1500, 1500, 12, 12, 64, 64, False, -1),   # whisper encoder
              (2, 4096, 1500, 12, 12, 64, 64, False, -1),   # its cross
-             (1, 256, 1500, 12, 12, 64, 64, False, -1)]    # its f32 step
+             (1, 256, 1500, 12, 12, 64, 64, False, -1),    # its f32 step
+             # q/k width 192, v width 128 (deepseek-v3's MLA)
+             (2, 100, 130, 4, 2, 192, 128, True, -1),      # ragged, G = 2
+             (2, 256, 300, 8, 4, 192, 128, True, 100),     # window
+             (2, 256, 300, 8, 4, 176, 96, False, -1),      # bidirectional
+             (1, 256, 256, 128, 128, 192, 128, True, -1)]  # MLA f32 step
 
 
 def bwd_inputs(seed, B, Sq, Skv, H, K, h, hv, dt, dev):
@@ -890,9 +929,61 @@ def test_flash_bwd_is_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_deterministic_at_192(cuda, dtype):
+    """The same at q/k width 192 and v width 128 (the bf16 route's two
+    dk/dv passes): two launches give the same bytes."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = bwd_inputs(8, 1, 512, 512, 16, 16, 192, 128, dt, cuda)
+    o, lse = kf.flash_attention_fwd_lse(q, k, v)
+    before = bwd_counts()
+    first = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    second = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert bwd_counts() == (before[0] + 2 * (dt == torch.float32),
+                            before[1] + 2 * (dt == torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def by_head_groups(fn, tensors, H, n):
+    """``fn`` (a plain version) on heads [i, i + H / n) of each tensor,
+    concatenated over the head axis: at G = 1 a head's output depends on
+    that head alone, and the groups bound the plain scores' memory."""
+    step = H // n
+    outs = [fn(*(t[:, :, i:i + step] for t in tensors))
+            for i in range(0, H, step)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=2)
+    return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
+
+
+def test_flash_mla_train_shape_matches_plain(cuda):
+    """deepseek-v3's train microbatch (q [1, 4096, 128, 192], v width 128,
+    causal, G = 1) in bf16: the forward with its LSE and the backward, one
+    launch each, against the plain versions taken over 8 groups of 16
+    heads, within the bf16 tolerances."""
+    q, k, v, do = bwd_inputs(9, 1, 4096, 4096, 128, 128, 192, 128,
+                             torch.bfloat16, cuda)
+    before = (kf.KERNEL_BF16.launches, kf.KERNEL_BWD_BF16.launches)
+    o, lse = kf.flash_attention_fwd_lse(q, k, v)
+    got = kf.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert (kf.KERNEL_BF16.launches, kf.KERNEL_BWD_BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_o = by_head_groups(kf.flash_attention_plain, (q, k, v), 128, 8)
+    assert float((o.float() - want_o.float()).abs().max()) < 2e-2
+    del want_o
+    want = by_head_groups(kf.flash_attention_bwd_plain, (q, k, v, o, do),
+                          128, 8)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        scale = max(1.0, float(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale, \
+            name
+
+
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window",
                          [(2, 200, 300, 4, 2, 50, 36, True, -1),
-                          (2, 256, 256, 8, 2, 128, 128, True, -1)])
+                          (2, 256, 256, 8, 2, 128, 128, True, -1),
+                          (2, 100, 130, 4, 2, 190, 126, True, -1)])
 def test_f32_bwd_takes_misaligned_inputs(cuda, B, Sq, Skv, H, K, h, hv,
                                          causal, window):
     """q, k, v, o and do 4 bytes past a 16-byte boundary: the f32
@@ -903,7 +994,7 @@ def test_f32_bwd_takes_misaligned_inputs(cuda, B, Sq, Skv, H, K, h, hv,
     o, lse = kf.flash_attention_fwd_lse(q, k, v, causal=causal,
                                         window=window)
     o = misaligned(o)
-    assert kf.f32_plan(h, hv, q.data_ptr(), o.data_ptr())[1] == 0
+    assert kf.f32_plan(h, hv, q.data_ptr(), o.data_ptr())[-1] == 0
     before = bwd_counts()
     got = kf.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                  window=window, lse=lse)

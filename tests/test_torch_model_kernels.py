@@ -139,18 +139,25 @@ def test_flash_wrapper_rejects_bad_inputs():
 @pytest.mark.parametrize("h,hv,width", [(16, 16, 32), (32, 32, 32),
                                          (48, 32, 64), (64, 64, 64),
                                          (64, 48, 64), (32, 128, 128),
-                                         (128, 128, 128)])
+                                         (128, 128, 128), (192, 128, 192),
+                                         (176, 96, 192), (144, 128, 192),
+                                         (160, 16, 192)])
 def test_bf16_kernel_takes_multiples_of_16(h, hv, width):
-    assert fa.bf16_head_width(h, hv) == width
+    """Multiples of 16: one padded width D that holds h and hv, or q/k
+    width 192 with v width 128 where 128 < h <= 192 and hv <= 128."""
+    assert fa.bf16_head_width(h, hv) == (width, min(width, 128))
+    assert fa.padded_widths(h, hv) == (width, fa.v_width(width))
     assert fa.select_kernel(torch.bfloat16, h, hv) is fa.KERNEL_BF16
     assert fa.select_kernel(torch.float32, h, hv) is fa.KERNEL
 
 
 @pytest.mark.parametrize("h,hv", [(40, 40), (160, 160), (8, 8), (64, 40),
-                                  (128, 144), (72, 64)])
+                                  (128, 144), (72, 64), (208, 128),
+                                  (192, 144), (200, 128), (256, 64)])
 def test_bf16_kernel_rejects_other_head_widths(h, hv):
-    """A bf16 head width the tensor-core kernel does not take raises; it
-    is never routed to the f32 kernel."""
+    """A bf16 head width the tensor-core kernel does not take (not a
+    multiple of 16, h above 192 or hv above 128) raises; it is never
+    routed to the f32 kernel."""
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.bf16_head_width(h, hv)
     with pytest.raises(ValueError, match="multiples of 16"):
@@ -158,8 +165,12 @@ def test_bf16_kernel_rejects_other_head_widths(h, hv):
 
 
 def test_select_kernel_rejects_other_dtypes():
-    with pytest.raises(ValueError):
-        fa.select_kernel(torch.float32, 160, 64)
+    """f32 raises past q/k width 192 or v width 128; f16 is no kernel's
+    dtype."""
+    with pytest.raises(ValueError, match="up to 192"):
+        fa.select_kernel(torch.float32, 193, 64)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.select_kernel(torch.float32, 160, 144)
     with pytest.raises(TypeError):
         fa.select_kernel(torch.float16, 64, 64)
 
@@ -202,7 +213,8 @@ def _bf16_kernel_arithmetic(q, k, v, *, causal=True, window=-1, tile=64):
 
 @pytest.mark.parametrize("S,H,K,h,hv,window", [
     (128, 4, 4, 32, 32, -1), (256, 8, 4, 64, 64, 100),
-    (128, 4, 2, 48, 32, -1), (128, 8, 1, 128, 128, -1)])
+    (128, 4, 2, 48, 32, -1), (128, 8, 1, 128, 128, -1),
+    (128, 4, 4, 192, 128, -1), (128, 4, 2, 176, 96, 40)])
 def test_bf16_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
     """Rounding the unnormalised P to bf16 before P·V, as the tensor-core
     kernel does, stays within the bf16 tolerance of the Pallas kernel
@@ -222,7 +234,9 @@ def test_bf16_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
 # -- the f32 kernel's maps and arithmetic, emulated ---------------------------
 
 # (B, Sq, Skv, H, K, h, hv, causal, window): the f32 cases of chip_smoke.py's
-# FLASH_CASES, with ragged lengths, hv != h and h % 4 != 0
+# FLASH_CASES, with ragged lengths, hv != h and h % 4 != 0, and at q/k
+# width 192 with v width 128 (deepseek-v3's MLA prefill; a padded q/k width
+# under 192; odd widths there)
 F32_CASES = [(4, 1024, 1024, 32, 4, 128, 128, True, -1),
              (2, 128, 128, 4, 4, 32, 32, True, -1),
              (2, 256, 256, 8, 4, 64, 64, True, 100),
@@ -234,7 +248,11 @@ F32_CASES = [(4, 1024, 1024, 32, 4, 128, 128, True, -1),
              (2, 200, 300, 4, 2, 50, 36, True, -1),
              (2, 200, 300, 4, 2, 50, 36, False, 70),
              (1, 2048, 2048, 8, 2, 128, 128, False, -1),
-             (1, 33, 45, 3, 1, 7, 5, False, -1)]
+             (1, 33, 45, 3, 1, 7, 5, False, -1),
+             (2, 100, 130, 4, 2, 192, 128, True, -1),
+             (2, 256, 300, 8, 4, 176, 96, False, -1),
+             (2, 256, 300, 8, 4, 192, 128, True, 100),
+             (2, 100, 130, 4, 2, 190, 126, True, -1)]
 BQ, BK, THREADS = fa.F32_BLOCK_Q, fa.F32_BLOCK_K, fa.F32_THREADS
 P_STRIDE = BQ + 4
 
@@ -242,9 +260,9 @@ P_STRIDE = BQ + 4
 def _f32_lanes(width):
     """The kernel's thread map (``flash_f32_kernel``), per thread of a
     block: its 4 query rows of the tile, its 4 keys of S, its output
-    columns, and the float offsets into the transposed P tile where it
-    stores P[row i, key j] (``[t, i, j]``) and reads P[row i, key c]
-    (``[t, i, c]``)."""
+    columns of the padded v width ``width``, and the float offsets into
+    the transposed P tile where it stores P[row i, key j] (``[t, i, j]``)
+    and reads P[row i, key c] (``[t, i, c]``)."""
     tid = np.arange(THREADS)
     warp, ry, kx = tid // 32, tid % 32 // 8, tid % 8
     i4 = np.arange(4)
@@ -274,41 +292,46 @@ def _kv_tiles(q0, Sq, Skv, causal, window):
     return tiles, edge
 
 
-def _copy(src, row0, n_tile, width, vec):
+def _copy(src, row0, n_tile, width, vec, threads=THREADS):
     """``load_rows``: a [n_tile, width + 4] shared tile filled from rows
-    row0.. of ``src`` [n_rows, w] (thread t copies column chunk t % cols
-    of rows t // cols + step * it); NaN where no copy wrote. Returns the
-    tile and how often each element was written."""
+    row0.. of ``src`` [n_rows, w], in parts of columns (all ``width``, or
+    at width 192 columns 0..127 and 128..191: ``load_cols``); in a part
+    of kW columns thread t copies column chunk t % cols of rows t // cols
+    + step * it; NaN where no copy wrote. Returns the tile and how often
+    each element was written."""
     n_rows, w = src.shape
     dst = np.full((n_tile, width + 4), np.nan, np.float32)
     hits = np.zeros(dst.shape, np.int64)
-    tid = np.arange(THREADS)
+    tid = np.arange(threads)
     per = 4 if vec else 1
-    cols = width // per
-    step = THREADS // cols
-    assert THREADS % cols == 0 and n_tile % step == 0
-    c0, r = per * (tid % cols), tid // cols
-    for it in range(n_tile // step):
-        row = r + it * step
-        inside = (c0 < w) & (row0 + row < n_rows)
-        for e in range(per):
-            if vec:   # a 16-byte chunk is whole or zero: w % 4 == 0
-                assert not (inside & (c0 + e >= w)).any()
-            val = src[np.minimum(row0 + row, n_rows - 1),
-                      np.minimum(c0 + e, w - 1)]
-            dst[row, c0 + e] = np.where(inside, val, 0.0)
-            np.add.at(hits, (row, c0 + e), 1)
+    for first, part in ([(0, 128), (128, 64)] if width == 192
+                        else [(0, width)]):
+        cols = part // per
+        step = threads // cols
+        assert threads % cols == 0 and n_tile % step == 0
+        c0, r = first + per * (tid % cols), tid // cols
+        for it in range(n_tile // step):
+            row = r + it * step
+            inside = (c0 < w) & (row0 + row < n_rows)
+            for e in range(per):
+                if vec:   # a 16-byte chunk is whole or zero: w % 4 == 0
+                    assert not (inside & (c0 + e >= w)).any()
+                val = src[np.minimum(row0 + row, n_rows - 1),
+                          np.minimum(c0 + e, w - 1)]
+                dst[row, c0 + e] = np.where(inside, val, 0.0)
+                np.add.at(hits, (row, c0 + e), 1)
     return dst, hits
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_CASES)
 def test_f32_thread_map_covers_every_element_once(B, Sq, Skv, H, K, h, hv,
                                                   causal, window):
-    """Each score of a 64 x 32 tile and each output element of a 64 x D
-    tile belongs to one thread; over the query tiles each output element
-    of [Sq, hv] has one writer; P goes through the transposed tile and
-    comes back to the same (row, key), in the warp that wrote it."""
-    width, _ = fa.f32_plan(h, hv)
+    """Each score of a 64 x 32 tile and each output element of a 64 x DV
+    tile (DV the padded v width) belongs to one thread; over the query
+    tiles each output element of [Sq, hv] has one writer; P goes through
+    the transposed tile and comes back to the same (row, key), in the
+    warp that wrote it."""
+    _, width, _ = fa.f32_plan(h, hv)
     rows, keys, cols, p_store, p_load = _f32_lanes(width)
     s_hits = np.zeros((BQ, BK), np.int64)
     np.add.at(s_hits, (rows[:, :, None], keys[:, None, :]), 1)
@@ -348,21 +371,23 @@ def _bank_groups_distinct(addr, lanes):
 
 @pytest.mark.parametrize("width", fa.WIDTHS)
 def test_f32_shared_accesses_are_conflict_free(width):
-    """Every float4 shared access of the kernel's products, per warp: a
-    load touches at most 8 distinct 16-byte chunks in 8 distinct bank
+    """Every float4 shared access of the kernel's products, per warp, at
+    each instantiation (q/k width ``width``, v width ``v_width(width)``):
+    a load touches at most 8 distinct 16-byte chunks in 8 distinct bank
     groups (one 128-byte wavefront, the rest broadcast), a store of P is
     conflict-free within each quarter-warp; at least 8 FMAs per float4
     load in both products."""
-    rows, keys, cols, p_store, p_load = _f32_lanes(width)
-    stride = width + 4
+    vwidth = fa.v_width(width)
+    rows, keys, cols, p_store, p_load = _f32_lanes(vwidth)
+    stride, vstride = width + 4, vwidth + 4
     for w in range(4):
         warp = np.arange(32 * w, 32 * w + 32)
         loads = [rows[:, i] * stride + d for i in range(4)
                  for d in range(0, width, 4)]
         loads += [keys[:, j] * stride + d for j in range(4)
                   for d in range(0, width, 4)]
-        loads += [c * stride + cols[:, 4 * jj] for c in range(BK)
-                  for jj in range(width // 32)]
+        loads += [c * vstride + cols[:, 4 * jj] for c in range(BK)
+                  for jj in range(vwidth // 32)]
         loads += [p_load[:, 0, c] for c in range(BK)]
         for addr in loads:
             assert (np.asarray(addr) % 4 == 0).all()
@@ -386,9 +411,9 @@ def test_f32_copy_map_fills_each_tile_once(B, Sq, Skv, H, K, h, hv, causal,
     input inside [rows, h | hv] and zero outside, the 4 padding floats of
     a row never written; 16-byte copies only where h and hv are multiples
     of 4 (the plan's choice for aligned pointers)."""
-    width, plan_vec = fa.f32_plan(h, hv, 0, 16, 32, 48)
+    width, vwidth, plan_vec = fa.f32_plan(h, hv, 0, 16, 32, 48)
     assert plan_vec == int(h % 4 == 0 and hv % 4 == 0)
-    assert fa.f32_plan(h, hv, 0, 4, 32, 48)[1] == 0       # misaligned k
+    assert fa.f32_plan(h, hv, 0, 4, 32, 48)[-1] == 0      # misaligned k
     q, k, v = _qkv(Sq + Skv + h, 1, Sq, Skv, 1, 1, h, hv)
     q, k, v = q[0, :, 0], k[0, :, 0], v[0, :, 0]
     for q0 in range(0, Sq, BQ):
@@ -399,14 +424,14 @@ def test_f32_copy_map_fills_each_tile_once(B, Sq, Skv, H, K, h, hv, causal,
         assert (hits[:, :width] == 1).all() and (hits[:, width:] == 0).all()
         assert np.array_equal(got[:, :width], want)
         for kt in _kv_tiles(q0, Sq, Skv, causal, window)[0]:
-            for src, w in ((k, h), (v, hv)):
-                got, hits = _copy(src, kt * BK, BK, width, vec)
-                want = np.zeros((BK, width), np.float32)
+            for src, w, pw in ((k, h, width), (v, hv, vwidth)):
+                got, hits = _copy(src, kt * BK, BK, pw, vec)
+                want = np.zeros((BK, pw), np.float32)
                 n = min(BK, Skv - kt * BK)
                 want[:n, :w] = src[kt * BK:kt * BK + n]
-                assert (hits[:, :width] == 1).all()
-                assert (hits[:, width:] == 0).all()
-                assert np.array_equal(got[:, :width], want)
+                assert (hits[:, :pw] == 1).all()
+                assert (hits[:, pw:] == 0).all()
+                assert np.array_equal(got[:, :pw], want)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_CASES)
@@ -480,7 +505,8 @@ def _f32_kernel_arithmetic(q, k, v, *, causal=True, window=-1):
 
 @pytest.mark.parametrize("S,H,K,h,hv,window", [
     *FLASH_SHAPES, (128, 8, 1, 128, 128, -1), (128, 4, 2, 50, 36, -1),
-    (192, 4, 2, 50, 36, 70)])
+    (192, 4, 2, 50, 36, 70), (128, 4, 4, 192, 128, -1),
+    (128, 4, 2, 130, 100, 40)])
 def test_f32_kernel_arithmetic_matches_pallas(S, H, K, h, hv, window):
     """The kernel's tiling (32-key tiles, a query tile's visited tiles
     only) and log2-domain softmax stay within 2e-5 of the Pallas kernel
@@ -526,20 +552,30 @@ def test_f32_kernel_arithmetic_ragged_matches_oracle(B, Sq, Skv, H, K, h, hv,
 
 
 @pytest.mark.parametrize("h,hv,ptrs,want", [
-    (128, 128, (0, 256, 512, 768), (128, 1)),
-    (128, 128, (4, 256, 512, 768), (128, 0)),
-    (64, 48, (0, 16, 32, 48), (64, 1)),
-    (50, 36, (0, 16, 32, 48), (64, 0)),
-    (7, 5, (0, 16, 32, 48), (32, 0)),
-    (32, 33, (0, 16, 32, 48), (64, 0)),
-    (16, 128, (0, 16, 32, 52), (128, 0))])
+    (128, 128, (0, 256, 512, 768), (128, 128, 1)),
+    (128, 128, (4, 256, 512, 768), (128, 128, 0)),
+    (64, 48, (0, 16, 32, 48), (64, 64, 1)),
+    (50, 36, (0, 16, 32, 48), (64, 64, 0)),
+    (7, 5, (0, 16, 32, 48), (32, 32, 0)),
+    (32, 33, (0, 16, 32, 48), (64, 64, 0)),
+    (16, 128, (0, 16, 32, 52), (128, 128, 0)),
+    (192, 128, (0, 16, 32, 48), (192, 128, 1)),
+    (192, 128, (0, 16, 36, 48), (192, 128, 0)),
+    (130, 100, (0, 16, 32, 48), (192, 128, 0)),
+    (176, 96, (0, 16, 32, 48), (192, 128, 1)),
+    (190, 126, (0, 16, 32, 48), (192, 128, 0)),
+    (129, 1, (0, 16, 32, 48), (192, 128, 0))])
 def test_f32_plan(h, hv, ptrs, want):
     assert fa.f32_plan(h, hv, *ptrs) == want
 
 
-def test_f32_plan_rejects_wide_heads():
-    with pytest.raises(ValueError):
-        fa.f32_plan(129, 64)
+@pytest.mark.parametrize("h,hv,limit", [(193, 64, "192"), (256, 128, "192"),
+                                        (64, 129, "128"), (192, 144, "128"),
+                                        (0, 64, "192")])
+def test_f32_plan_rejects_wide_heads(h, hv, limit):
+    """A q/k width past 192 or a v width past 128 has no f32 kernel."""
+    with pytest.raises(ValueError, match=f"up to {limit}"):
+        fa.f32_plan(h, hv)
 
 
 # -- WKV6 ---------------------------------------------------------------------
@@ -793,6 +829,29 @@ def test_flash_bwd_noncausal_window_matches_autograd():
     assert all(_close(a, b) for a, b in zip(got, auto))
 
 
+@pytest.mark.parametrize("window", [-1, 50])
+def test_flash_plain_at_192_matches_pallas_and_jax_vjp(window):
+    """deepseek-v3's MLA prefill widths (q/k 192 = 128 + 64, v 128; G =
+    1) at q [1, 128, 4, 192]: the plain forward against the Pallas kernel
+    in interpret mode within 2e-5, the plain backward against ``jax.vjp``
+    through the reference's ``flash_attend`` within 2e-5 x max(1, the
+    gradient's largest magnitude), causal and windowed."""
+    import jax
+    from repro.models.layers import flash_attend
+    q, k, v, do = _bwd_inputs(31 + window, 1, 128, 128, 4, 4, 192, 128)
+    got = fa.flash_attention(*_t(q, k, v), window=window)
+    pallas = pl_flash(*_j(q, k, v), window=window, block_q=64, block_k=64,
+                      interpret=True)
+    assert got.shape == (1, 128, 4, 128)
+    assert _err(got.numpy(), pallas) < 2e-5
+    grads = fa.flash_attention_bwd(*_t(q, k, v), got, torch.from_numpy(do),
+                                   window=window)
+    _, vjp = jax.vjp(lambda *x: flash_attend(*x, causal=True,
+                                             window=window), *_j(q, k, v))
+    for a, b in zip(grads, vjp(jnp.asarray(do))):
+        assert a.shape == b.shape and _close(a, b)
+
+
 def test_flash_bwd_plain_bf16_is_f32_math_rounded():
     """bf16 inputs: the same f32 formulas on the bf16 values, each
     gradient rounded once to bf16."""
@@ -829,6 +888,11 @@ F32_BK, F32_QS = fa.F32_BWD_BLOCK_K, fa.F32_BWD_STEP_Q
 F32_BQ, F32_KS = fa.F32_BWD_BLOCK_Q, fa.F32_BWD_TILE_K
 F32_WK = F32_BK // fa.F32_BWD_WARPS    # keys a dk/dv warp
 F32_WQ = F32_BQ // fa.F32_BWD_WARPS    # rows a dq warp
+# (B, Sq, Skv, H, K, h, hv, causal, window) at q/k width 192, v width 128:
+# the f32 backward's 32-row dk/dv steps and 16-key dq tiles there
+F32_WIDE_BWD_CASES = [(2, 100, 130, 4, 2, 192, 128, True, -1),
+                      (1, 96, 150, 4, 4, 176, 96, False, 40),
+                      (1, 140, 140, 2, 1, 190, 126, True, 50)]
 
 
 def _f32_dkdv_slots(Skv, causal):
@@ -842,48 +906,49 @@ def _f32_dkdv_slots(Skv, causal):
     return [(z,) for z in range(n)]
 
 
-def _f32_dkdv_steps(k0, Sq, Skv, causal, window):
+def _f32_dkdv_steps(k0, Sq, Skv, causal, window, qs=F32_QS):
     """The dk/dv block's steps for the key tile at k0 (the same for each
-    head of the group): each 64-row query tile's first row, and for each
-    warp's 8 keys whether it skips the step and whether it masks it."""
+    head of the group): each ``qs``-row query tile's first row (64, or 32
+    at q/k width 192), and for each warp's 8 keys whether it skips the
+    step and whether it masks it."""
     k_last = min(k0 + F32_BK, Skv) - 1
-    qt_begin = k0 // F32_QS if causal else 0
-    qt_end = -(-Sq // F32_QS) - 1
+    qt_begin = k0 // qs if causal else 0
+    qt_end = -(-Sq // qs) - 1
     if window > 0:
-        qt_end = min(qt_end, (k_last + window - 1) // F32_QS)
+        qt_end = min(qt_end, (k_last + window - 1) // qs)
     for qt in range(qt_begin, qt_end + 1):
-        q0 = qt * F32_QS
+        q0 = qt * qs
         warps = []
         for wk0 in range(k0, k0 + F32_BK, F32_WK):
             skip = (q0 >= Sq or wk0 >= Skv
-                    or (causal and q0 + F32_QS - 1 < wk0)
+                    or (causal and q0 + qs - 1 < wk0)
                     or (window > 0 and wk0 + F32_WK - 1 <= q0 - window))
             edge = ((causal and wk0 + F32_WK - 1 > q0)
-                    or (window > 0 and wk0 <= q0 + F32_QS - 1 - window)
-                    or wk0 + F32_WK > Skv or q0 + F32_QS > Sq)
+                    or (window > 0 and wk0 <= q0 + qs - 1 - window)
+                    or wk0 + F32_WK > Skv or q0 + qs > Sq)
             warps.append((wk0, skip, edge))
         yield q0, warps
 
 
-def _f32_dq_tiles(q0, Sq, Skv, causal, window):
-    """The dq block's 32-key tiles for the 128-row query tile at q0: each
-    tile's first key, and for each warp's 16 rows whether it skips the
-    tile and whether it masks it."""
+def _f32_dq_tiles(q0, Sq, Skv, causal, window, ks=F32_KS):
+    """The dq block's ``ks``-key tiles (32, or 16 at q/k width 192) for
+    the 128-row query tile at q0: each tile's first key, and for each
+    warp's 16 rows whether it skips the tile and whether it masks it."""
     q_last = min(q0 + F32_BQ, Sq) - 1
-    kt_end = -(-Skv // F32_KS) - 1
+    kt_end = -(-Skv // ks) - 1
     if causal:
-        kt_end = min(kt_end, q_last // F32_KS)
-    kt_begin = (q0 - window + 1) // F32_KS \
+        kt_end = min(kt_end, q_last // ks)
+    kt_begin = (q0 - window + 1) // ks \
         if window > 0 and q0 - window + 1 > 0 else 0
     for kt in range(kt_begin, kt_end + 1):
-        k0 = kt * F32_KS
+        k0 = kt * ks
         warps = []
         for wq0 in range(q0, q0 + F32_BQ, F32_WQ):
             skip = (wq0 >= Sq or (causal and k0 > wq0 + F32_WQ - 1)
-                    or (window > 0 and k0 + F32_KS - 1 <= wq0 - window))
-            edge = ((causal and k0 + F32_KS - 1 > wq0)
+                    or (window > 0 and k0 + ks - 1 <= wq0 - window))
+            edge = ((causal and k0 + ks - 1 > wq0)
                     or (window > 0 and k0 <= wq0 + F32_WQ - 1 - window)
-                    or k0 + F32_KS > Skv or wq0 + F32_WQ > Sq)
+                    or k0 + ks > Skv or wq0 + F32_WQ > Sq)
             warps.append((wq0, skip, edge))
         yield k0, warps
 
@@ -892,17 +957,19 @@ def _bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
     """A plain emulation of csrc/flash_attention_bwd.cu (a test helper,
     on no path), in f32: D = do . o; the dk/dv pass over the grid's
     key-tile slots (:func:`_f32_dkdv_slots`), each tile's steps over the
-    G heads, then its 64-row query tiles, and each warp's 8 keys; the dq
-    pass over the 128-row query tiles, heaviest first, their 32-key tiles
-    and each warp's 16 rows; with the kernel's skips and masks and P =
-    exp2(s log2(e)/sqrt(h) - lse) from the forward's ``lse``, 0 where
-    masked. Asserts on the way that each key tile is taken by one slot,
-    that every visible (query, key) pair is visited exactly once in each
-    pass, that a skipped warp-step holds no visible pair and that one the
+    G heads, then its query tiles of 64 rows (32 at q/k width 192), and
+    each warp's 8 keys; the dq pass over the 128-row query tiles,
+    heaviest first, their key tiles of 32 (16 at q/k width 192) and each
+    warp's 16 rows; with the kernel's skips and masks and P = exp2(s
+    log2(e)/sqrt(h) - lse) from the forward's ``lse``, 0 where masked.
+    Asserts on the way that each key tile is taken by one slot, that
+    every visible (query, key) pair is visited exactly once in each pass,
+    that a skipped warp-step holds no visible pair and that one the
     kernel does not mask holds no invisible one."""
     B, Sq, H, h = q.shape
     Skv, K, hv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
+    F32_QS, F32_KS = fa.f32_bwd_tiles(fa.f32_plan(h, hv)[0])
     sl2, scale = math.log2(math.e) / math.sqrt(h), 1.0 / math.sqrt(h)
     delta = (do * o).sum(-1).permute(0, 2, 1)                  # [B,H,Sq]
 
@@ -919,7 +986,7 @@ def _bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
     for slot in slots:
         for kt in slot:
             steps = list(_f32_dkdv_steps(kt * F32_BK, Sq, Skv, causal,
-                                         window))
+                                         window, F32_QS))
             for g in range(G):
                 for q0, warps in steps:
                     for wk0, skip, edge in warps:
@@ -949,7 +1016,8 @@ def _bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
     n_qt = -(-Sq // F32_BQ)
     for z in range(n_qt):
         q0 = (n_qt - 1 - z) * F32_BQ                 # heaviest first
-        for k0, warps in _f32_dq_tiles(q0, Sq, Skv, causal, window):
+        for k0, warps in _f32_dq_tiles(q0, Sq, Skv, causal, window,
+                                       F32_KS):
             for wq0, skip, edge in warps:
                 vis = _visible(range(wq0, wq0 + F32_WQ),
                                range(k0, k0 + F32_KS), Sq, Skv, causal,
@@ -973,7 +1041,7 @@ def _bwd_kernel_arithmetic(q, k, v, o, do, lse, *, causal, window):
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", [
     *BWD_CASES, (1, 96, 96, 4, 2, 32, 32, False, 40),
-    (1, 150, 40, 2, 1, 16, 16, True, -1)])
+    (1, 150, 40, 2, 1, 16, 16, True, -1), *F32_WIDE_BWD_CASES])
 def test_flash_bwd_kernel_tiles_match_plain(B, Sq, Skv, H, K, h, hv, causal,
                                             window):
     """The f32 backward kernel's schedule (the dk/dv grid's key-tile
@@ -1014,7 +1082,9 @@ def test_wkv6_trains_on_cpu():
 
 BWD_BK, BWD_BQ, BWD_HALF = fa.BWD_BLOCK_K, fa.BWD_BLOCK_Q, fa.BWD_HALF
 # (B, Sq, Skv, H, K, h, hv, causal, window): GQA, G = 1, windows, not
-# causal, Sq != Skv both ways, hv != h, h 16 and 128, lengths off the tiles
+# causal, Sq != Skv both ways, hv != h, h 16 and 128, lengths off the tiles;
+# q/k width 192 (and 176) with v width 128 (96), which the kernel runs as a
+# dV pass and a dK pass over the same schedule (the same sums)
 BF16_BWD_CASES = [(2, 128, 128, 8, 4, 64, 64, True, -1),
                   (2, 96, 96, 4, 4, 32, 32, True, -1),
                   (2, 128, 128, 8, 2, 64, 64, True, 40),
@@ -1023,7 +1093,9 @@ BF16_BWD_CASES = [(2, 128, 128, 8, 4, 64, 64, True, -1),
                   (2, 100, 130, 4, 2, 64, 48, True, -1),
                   (2, 130, 100, 4, 2, 32, 32, True, -1),
                   (2, 77, 77, 8, 8, 16, 16, True, 30),
-                  (1, 96, 96, 4, 2, 128, 128, True, -1)]
+                  (1, 96, 96, 4, 2, 128, 128, True, -1),
+                  (2, 100, 130, 4, 2, 192, 128, True, -1),
+                  (1, 96, 96, 4, 2, 176, 96, False, 40)]
 BF16_BWD_TOL = 2e-2   # bf16, times max(1, the gradient's largest magnitude)
 
 
@@ -1238,25 +1310,29 @@ def _store_writers(n_rows_total, row0s, width, chunks_of, lanes=32):
 def test_bf16_bwd_grid_writes_every_element_once(B, Sq, Skv, H, K, h, hv,
                                                  causal, window):
     """Under the bf16 backward's grid, each element of dk and dv (per kv
-    head: one block a 64-key tile, 16 keys a warp) and of dq (per head:
-    one block a 64-row query tile, 16 rows a warp) has exactly one
-    writer, whether or not any query reaches its key."""
-    width = fa.bf16_head_width(h, hv)
+    head: one block a 64-key tile, 16 keys a warp; at q/k width 192 one
+    such block in each of the two passes) and of dq (per head: one block
+    a 64-row query tile, 16 rows a warp) has exactly one writer, whether
+    or not any query reaches its key; dk's and dq's accumulators are the
+    padded q/k width wide, dv's the padded v width."""
+    width, vwidth = fa.bf16_head_width(h, hv)
     key_warps = [k0 + 16 * w for k0 in range(0, Skv, BWD_BK)
                  for w in range(fa.BWD_WARPS)]
     row_warps = [q0 + 16 * w for q0 in range(0, Sq, BWD_BQ)
                  for w in range(fa.BWD_WARPS)]
     assert BWD_BK == BWD_BQ == 16 * fa.BWD_WARPS
-    for n, row0s, w in ((Skv, key_warps, h), (Skv, key_warps, hv),
-                        (Sq, row_warps, h)):
-        assert (_store_writers(n, row0s, w, width // 8) == 1).all()
+    for n, row0s, w, pw in ((Skv, key_warps, h, width),
+                            (Skv, key_warps, hv, vwidth),
+                            (Sq, row_warps, h, width)):
+        assert (_store_writers(n, row0s, w, pw // 8) == 1).all()
 
 
 # the f32 backward's grid on BWD_CASES and on odd widths, an odd count of
 # key tiles (a middle tile alone) and Skv < Sq
 F32_GRID_CASES = [*BWD_CASES, (1, 33, 45, 3, 1, 7, 5, False, -1),
                   (1, 300, 260, 4, 2, 128, 128, True, -1),
-                  (2, 200, 300, 4, 2, 50, 36, True, 70)]
+                  (2, 200, 300, 4, 2, 50, 36, True, 70),
+                  *F32_WIDE_BWD_CASES, (1, 300, 260, 4, 2, 192, 128, True, -1)]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,h,hv,causal,window", F32_GRID_CASES)
@@ -1264,16 +1340,17 @@ def test_f32_bwd_grid_writes_every_element_once(B, Sq, Skv, H, K, h, hv,
                                                 causal, window):
     """Under the f32 backward's grid, each element of dk and dv (per kv
     head: the key-tile slots, 8 keys a warp, 32 lanes over key groups x
-    16-byte column chunks) and of dq (per head: one block a 128-row
-    query tile, 16 rows a warp, rows ry + 4 i, columns 4 (kx + 8 jj) + x)
-    has exactly one writer, whether or not any query reaches its key."""
-    width, _ = fa.f32_plan(h, hv)
-    chunks = width // 4
-    cgs = min(chunks, 16)
-    keys_pt, cpt = F32_WK // (32 // cgs), chunks // cgs
+    16-byte column chunks of the padded q/k or v width) and of dq (per
+    head: one block a 128-row query tile, 16 rows a warp, rows ry + 4 i,
+    columns 4 (kx + 8 jj) + x) has exactly one writer, whether or not any
+    query reaches its key."""
+    width, vwidth, _ = fa.f32_plan(h, hv)
     lane = np.arange(32)
-    kg, cg = lane // cgs, lane % cgs
-    for w in (h, hv):
+    for w, pw in ((h, width), (hv, vwidth)):
+        chunks = pw // 4
+        cgs = min(chunks, 16)
+        keys_pt, cpt = F32_WK // (32 // cgs), chunks // cgs
+        kg, cg = lane // cgs, lane % cgs
         writers = np.zeros((Skv, w), np.int64)
         for slot in _f32_dkdv_slots(Skv, causal):
             for kt in slot:
@@ -1332,41 +1409,52 @@ def _wavefronts(addr, lanes):
 @pytest.mark.parametrize("width", fa.WIDTHS)
 def test_f32_bwd_shared_accesses_are_conflict_free(width):
     """Every float4 shared access of the f32 backward's products, per
-    warp, takes the fewest wavefronts its distinct chunks need: dk/dv's
-    K and V rows (2 a load) and Q and dO rows (16) in S^T and dP^T, the
-    stores of P^T and dS^T into the warp's [64][8] slice and their
-    read-back beside dO and Q rows; dq's Q and dO rows (4), K and V rows
-    (8), the dS^T store and its read-back beside K rows."""
-    S = width + 4
+    warp, at each instantiation (q/k width ``width``, v width
+    ``v_width(width)``, rows of width + 4 and v_width + 4 floats), takes
+    the fewest wavefronts its distinct chunks need: dk/dv's K and V rows
+    (2 a load) and Q and dO rows (16) in S^T and dP^T, the stores of P^T
+    and dS^T into the warp's [step rows][8] slice and their read-back
+    beside dO and Q rows; dq's Q and dO rows (4), K and V rows (8), the
+    dS^T store and its read-back beside K rows."""
+    vwidth = fa.v_width(width)
+    qs, ks = fa.f32_bwd_tiles(width)
+    S, SV = width + 4, vwidth + 4
     lane = np.arange(32)
     ry, kx = lane // 16, lane % 16                       # dk/dv S^T map
-    chunks = width // 4
-    cgs = min(chunks, 16)
-    kg, cg = lane // cgs, lane % cgs
     accesses = []
     for warp in range(fa.F32_BWD_WARPS):
         wk = warp * F32_WK
-        for d in range(0, width, 4):
+        for d in range(0, width, 4):                     # S^T = K Q^T
             accesses += [(wk + 4 * ry + i) * S + d for i in range(4)]
-            accesses += [(kx + 16 * j) * S + d for j in range(4)]
-        slice0 = F32_QS * F32_WK * warp
+            accesses += [(kx + 16 * j) * S + d for j in range(qs // 16)]
+        for d in range(0, vwidth, 4):                    # dP^T = V dO^T
+            accesses += [(wk + 4 * ry + i) * SV + d for i in range(4)]
+            accesses += [(kx + 16 * j) * SV + d for j in range(qs // 16)]
+        slice0 = qs * F32_WK * warp
         accesses += [slice0 + (kx + 16 * j) * F32_WK + 4 * ry
-                     for j in range(4)]
-        for r in range(F32_QS):
-            if F32_WK // (32 // cgs) == 4:
-                accesses.append(slice0 + r * F32_WK + 4 * kg)
-            accesses += [r * S + 4 * (cg + cgs * jj)
-                         for jj in range(chunks // cgs)]
+                     for j in range(qs // 16)]
+        for pw, stride in ((vwidth, SV), (width, S)):    # dV, then dK
+            chunks = pw // 4
+            cgs = min(chunks, 16)
+            kg, cg = lane // cgs, lane % cgs
+            for r in range(qs):
+                if F32_WK // (32 // cgs) == 4:
+                    accesses.append(slice0 + r * F32_WK + 4 * kg)
+                accesses += [r * stride + 4 * (cg + cgs * jj)
+                             for jj in range(chunks // cgs)]
     dq_ry, dq_kx = lane // 8, lane % 8                   # dq map
     P = F32_BQ + 4
     for warp in range(fa.F32_BWD_WARPS):
         wrow = warp * F32_WQ
-        for d in range(0, width, 4):
+        for d in range(0, width, 4):                     # S = Q K^T
             accesses += [(wrow + dq_ry + 4 * i) * S + d for i in range(4)]
-            accesses += [(dq_kx + 8 * j) * S + d for j in range(4)]
+            accesses += [(dq_kx + 8 * j) * S + d for j in range(ks // 8)]
+        for d in range(0, vwidth, 4):                    # dP = dO V^T
+            accesses += [(wrow + dq_ry + 4 * i) * SV + d for i in range(4)]
+            accesses += [(dq_kx + 8 * j) * SV + d for j in range(ks // 8)]
         accesses += [(dq_kx + 8 * j) * P + wrow + 4 * dq_ry
-                     for j in range(4)]
-        for c in range(F32_KS):
+                     for j in range(ks // 8)]
+        for c in range(ks):
             accesses.append(c * P + wrow + 4 * dq_ry)
             accesses += [c * S + 4 * (dq_kx + 8 * jj)
                          for jj in range(width // 32)]
@@ -1376,11 +1464,13 @@ def test_f32_bwd_shared_accesses_are_conflict_free(width):
         assert got == least
 
 
-@pytest.mark.parametrize("h,hv", [(40, 40), (50, 36), (8, 8), (144, 128),
-                                  (64, 24)])
+@pytest.mark.parametrize("h,hv", [(40, 40), (50, 36), (8, 8), (208, 128),
+                                  (64, 24), (192, 144), (256, 64),
+                                  (144, 136)])
 def test_bf16_bwd_rejects_other_head_widths(h, hv):
-    """A bf16 head width the tensor-core kernels do not take raises, with
-    or without an LSE; it is never routed to the f32 kernel."""
+    """A bf16 head width the tensor-core kernels do not take (not a
+    multiple of 16, h above 192 or hv above 128) raises, with or without
+    an LSE; it is never routed to the f32 kernel."""
     lse = torch.zeros((1, 1, 1))
     for given in (None, lse):
         with pytest.raises(ValueError, match="multiples of 16"):
@@ -1397,12 +1487,20 @@ def test_bf16_bwd_without_lse_raises():
 
 
 @pytest.mark.parametrize("h,hv", [(1, 1), (7, 5), (50, 36), (64, 64),
-                                  (128, 100), (128, 128)])
+                                  (128, 100), (128, 128), (192, 128),
+                                  (130, 100), (190, 126)])
 def test_f32_bwd_takes_any_width_up_to_128(h, hv):
+    """The f32 backward takes any h up to 192 with any hv up to 128; a
+    wider h or hv raises, naming the limit."""
     lse = torch.zeros((1, 1, 1))
     assert fa.select_bwd_kernel(torch.float32, h, hv, lse) is fa.KERNEL_BWD
+    if h + 64 <= 192:
+        assert fa.select_bwd_kernel(torch.float32, h + 64, hv,
+                                    lse) is fa.KERNEL_BWD
+    with pytest.raises(ValueError, match="up to 192"):
+        fa.select_bwd_kernel(torch.float32, h + 192, hv, lse)
     with pytest.raises(ValueError, match="up to 128"):
-        fa.select_bwd_kernel(torch.float32, h + 128, hv, lse)
+        fa.select_bwd_kernel(torch.float32, h, hv + 128, lse)
     with pytest.raises(TypeError):
         fa.select_bwd_kernel(torch.float16, h, hv, lse)
 
