@@ -224,16 +224,39 @@ Phases, each of which must pass or the script exits non-zero:
    before, 64 forward and 32 backward bf16 flash launches a step, the
    meta tokens', A_log's and w_dt's gradients nonzero and finite, the
    Mamba scan's share of a step, and the f32 step at 2 layers against
-   the CPU;
+   the CPU; ``serve/whisper-small`` and ``train/whisper-small``: the
+   encoder-decoder family (``whisper_serve_phase``,
+   ``whisper_train_phase``);
+   ``serve/deepseek-v3-671b``: multi-head latent attention, a dense
+   prefix and top-8 MoE layers with a shared expert, at full width with
+   the depth cut 61 -> 2 (one dense block, one MoE block with all 256
+   experts; 29.3 GB of bf16 parameters), B=4 x 1024 prompt tokens:
+   prefill (2 bf16 flash launches at q/k width 192, v width 128; the MoE
+   layer's capacity 160, drops, largest load, aux), then
+   ``launch.serve.generate`` (the absorbed MLA decode against the
+   compressed cache, one captured CUDA graph a step; no model kernel,
+   nothing dropped at C = 8); in f32 at a reduced width that keeps MLA's
+   (d 1024, 16 heads, 16 experts at top-8): the forward and prefill (the
+   f32 (192, 128) kernel) against the CPU under the flip-aware rule,
+   the captured decode against the forward where it kept every choice,
+   and absorbed decode steps against the CPU's; ``train/deepseek-v3-
+   671b``: the same 2 layers and the MTP head, 256 -> 32 experts at
+   top-8, 2 x 4096 tokens in 2 microbatches, Adafactor, 1 warm-up and 3
+   timed steps, each loss below the one before, 12 forward and 6
+   backward bf16 flash launches a step (``flash_calls``: 3 attention
+   layers x 2 microbatches), every dispatch deterministic and each
+   recompute routed as its forward; the f32 AdamW step at the reduced
+   width against the CPU under the flip-aware rule;
 16. backward timing at the train cell's shape and the serving shape in
    bf16 (the tensor-core kernel) and at the serving shape in f32 (the
    CUDA-core kernel): kernel, its device time per pass, plain version,
    the backward of ``scaled_dot_product_attention``, with the bound of
    its five products;
 17. the q/k width 192, v width 128 instantiations at deepseek-v3's
-   shapes (no model path runs them yet): bf16 forward at the MLA serving
-   prefill and train microbatch, bf16 backward at the microbatch, f32
-   forward and backward at the f32 check shape; each per call, device
+   shapes (the deepseek-v3 phases run them on its model paths): bf16
+   forward at the MLA serving prefill and train microbatch, bf16
+   backward at the microbatch, f32 forward and backward at the f32
+   check shape; each per call, device
    time by CUDA kernel, plain version, ``scaled_dot_product_attention``
    (forward and backward) with the kernels it launched, and the bound.
 
@@ -3519,10 +3542,11 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
 def flash_calls(cfg) -> int:
     """The flash attention calls of one forward of ``cfg``: one a
     decoder layer; the encoder-decoder adds one an encoder layer and one
-    a cross-attention (a decoder layer's second)."""
+    a cross-attention (a decoder layer's second); the MTP head's block
+    (``lm_loss`` with ``cfg.mtp``) one more."""
     if cfg.is_encoder_decoder:
         return cfg.encoder_layers + 2 * cfg.n_layers
-    return cfg.n_layers
+    return cfg.n_layers + int(cfg.mtp)
 
 
 def checkpoint_phase(dev) -> dict:
@@ -4386,23 +4410,34 @@ class MoeRecorder:
 
 
 def flip_aware(cpu_routes, card_routes) -> tuple:
-    """The flip-aware routing rule, card against CPU: (1) the expert and
-    the keep mask of every token; (2) a token whose expert differs must
-    have a top-2 router margin (on the CPU) below MOE_FLIP_MARGIN;
-    returns (bool [T] per dispatch: the tokens whose expert and keep
+    """The flip-aware routing rule, card against CPU, for top-k routing:
+    (1) each token's set of k experts and the keep mask of its choices
+    (each choice taken by its expert, so the order of a token's choices,
+    which no slot depends on, may differ); (2) a token whose set differs
+    must have a router margin (on the CPU) between its k-th and (k+1)-th
+    probabilities below MOE_FLIP_MARGIN (for k = 1 the top-2 margin);
+    returns (bool [T] per dispatch: the tokens whose experts and keep
     agree, the flipped count, the largest flipped margin)."""
     rows, flips, worst = [], 0, 0.0
     check(len(cpu_routes) == len(card_routes),
           f"{len(cpu_routes)} dispatches on the CPU, {len(card_routes)} on "
           "the card")
     for a, b in zip(cpu_routes, card_routes):
-        top2 = torch.topk(a.probs, 2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]).reshape(-1)
-        flipped = a.expert != b.expert.cpu()
+        T_, k = a.gate.shape
+        top = torch.topk(a.probs, k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+
+        def by_expert(r):
+            e = r.expert.cpu().reshape(T_, k)
+            order = torch.argsort(e, dim=-1)
+            return (torch.gather(e, 1, order),
+                    torch.gather(r.keep.cpu().reshape(T_, k), 1, order))
+        (ea, ka), (eb, kb) = by_expert(a), by_expert(b)
+        flipped = (ea != eb).any(dim=-1)
         if bool(flipped.any()):
             flips += int(flipped.sum())
             worst = max(worst, float(gap[flipped].max()))
-        rows.append(~flipped & (a.keep == b.keep.cpu()))
+        rows.append(~flipped & (ka == kb).all(dim=-1))
     check(worst < MOE_FLIP_MARGIN,
           f"a token took another expert at a top-2 margin of {worst} "
           f"(rule: < {MOE_FLIP_MARGIN})")
@@ -5606,6 +5641,419 @@ def whisper_train_phase(dev) -> dict:
     return res
 
 
+# -- the MLA family: deepseek-v3-671b -----------------------------------------
+
+DS_ARCH = "deepseek-v3-671b"
+# serve/deepseek-v3 and train/deepseek-v3: full width with the depth cut
+# 61 -> DS_LAYERS and the dense prefix 3 -> DS_DENSE: one dense MLA block,
+# then one MoE block (all 256 experts at top-8 and the shared expert when
+# serving: ~29.3 GB of bf16 parameters), and the MTP head
+DS_LAYERS, DS_DENSE = 2, 1
+# train/deepseek-v3: the experts cut 256 -> DS_TRAIN_EXPERTS (top-8 kept;
+# bf16 weights, f32 accumulators, .grad and Adafactor's state fit one
+# card); train_4k's sequence with its batch cut 256 -> TRAIN_B, and its 16
+# microbatches cut to the batch
+DS_TRAIN_EXPERTS = 32
+DS_TRAIN_STEPS = 4           # 1 warm-up + 3 timed
+# the f32 checks (card against CPU; the train step's host half is AdamW):
+# MLA's widths kept (q/k 128 + 64, v 128, kv_lora_rank 512, q_lora_rank
+# 1536), so that the f32 (192, 128) flash kernels run on the model path,
+# and top-8 routing kept; the rest of the width cut
+DS_F32_CUT = dict(d_model=1024, n_heads=16, n_kv_heads=16, d_ff=2048,
+                  moe_d_ff=512, n_experts=16, vocab=16384)
+DS_F32_B, DS_F32_S = 1, 256
+DS_F32_DECODE = 8            # absorbed decode steps, card against CPU
+
+
+def ds_config(dtype=None, **cut):
+    """deepseek-v3 at full width (unless ``cut``) with DS_LAYERS layers,
+    DS_DENSE of them dense."""
+    from repro_torch.configs import registry
+    full = registry.get(DS_ARCH)
+    return full.replace(n_layers=DS_LAYERS, n_dense_layers=DS_DENSE,
+                        dtype=dtype or full.dtype, **cut)
+
+
+def ds_cuts(cfg, **more) -> dict:
+    """Each cut of ``cfg`` from the published config: [published,
+    run]; ``more`` adds cuts of the run's inputs."""
+    from repro_torch.configs import registry
+    full = registry.get(DS_ARCH)
+    out = {k: [getattr(full, k), getattr(cfg, k)] for k in (
+        "n_layers", "n_dense_layers", "d_model", "n_heads", "d_ff",
+        "moe_d_ff", "n_experts", "vocab") if getattr(full, k)
+        != getattr(cfg, k)}
+    return {**out, **more}
+
+
+def ds_f32_checks(dev) -> dict:
+    """deepseek-v3 in f32 at DS_F32_CUT's width, DS_LAYERS layers and the
+    MTP head, DS_F32_B x DS_F32_S tokens. (a) The forward's logits at
+    every position (DS_LAYERS f32 flash launches at q/k width 192, v
+    width 128) and the prefill's last token; the CPU port's forward on
+    the same weights under the flip-aware routing rule (CPU_LOGIT_TOL at
+    the tokens whose experts and keep agree) and aux. (b) The captured
+    teacher-forced decode of ``launch.serve.generate`` (absorbed MLA, no
+    model kernel, nothing dropped) against the forward at the positions
+    the forward kept (F32_LOGIT_TOL). (c) DS_F32_DECODE eager absorbed
+    decode steps on the card against the same steps on the CPU: each
+    dispatch under the flip-aware rule, the logits within
+    CPU_LOGIT_TOL."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls must not run in TF32")
+    cfg = ds_config(F32, **DS_F32_CUT)
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    toks = torch.randint(0, cfg.vocab, (DS_F32_B, DS_F32_S), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 51))
+    pos = torch.arange(DS_F32_S, device=dev)[None].expand(DS_F32_B,
+                                                          DS_F32_S)
+
+    def forward(model, d):
+        with torch.no_grad(), MoeRecorder() as rec:
+            x = L.embed_apply(model["embed"], toks.to(d))
+            hidden, aux = T.backbone_forward(model, cfg, x, pos.to(d))
+            logits = L.logits_apply(model["embed"], hidden,
+                                    cfg.tie_embeddings)
+        return logits, float(aux), rec
+
+    before = model_counts()
+    full, aux, rec = forward(lm, dev)
+    last, _ = D.prefill(lm, cfg, {"tokens": toks})
+    launched = {n: c - before[n] for n, c in model_counts().items()}
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "flash_attention_f32": 2 * DS_LAYERS},
+          f"serve/{DS_ARCH}/f32: the forward and prefill launched {launched}")
+    (route,) = rec.routes
+    keep = route.keep.reshape(DS_F32_B * DS_F32_S, -1).all(-1).reshape(
+        DS_F32_B, DS_F32_S)
+    # (a) the card against the CPU port, on one set of weights
+    lm_cpu = f32_copy(lm, "cpu")
+    t0 = time.perf_counter()
+    full_cpu, aux_cpu, rec_cpu = forward(lm_cpu, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    (rows,), flips, worst = flip_aware(rec_cpu.routes, rec.routes)
+    rows = rows.reshape(DS_F32_B, DS_F32_S)
+    cpu_err = float((full.cpu() - full_cpu).abs().amax(-1)[rows].max())
+    aux_err = abs(aux - aux_cpu) / aux_cpu
+    last_err = float((last - full[:, -1]).abs().max())
+    check(cpu_err <= CPU_LOGIT_TOL and aux_err <= F32_STEP_TOL["loss"]
+          and last_err <= F32_LOGIT_TOL and bool(torch.isfinite(full).all()),
+          f"serve/{DS_ARCH}/f32: card vs CPU max abs err {cpu_err}, aux "
+          f"{aux} vs {aux_cpu}, prefill vs forward {last_err}")
+    # (b) the captured teacher-forced decode against the forward
+    before = model_counts()
+    with MoeRecorder() as drec:
+        _, dec = serve.generate(lm, cfg, toks, 1, return_logits=True)
+    check(model_counts() == before,
+          f"serve/{DS_ARCH}/f32: the decode launched a model kernel")
+    check(all(s["dropped"] == 0 and s["capacity"] == L.moe_capacity(
+        DS_F32_B, cfg) for s in drec.stats()),
+        f"serve/{DS_ARCH}/f32: a decode step dropped a token")
+    diff = (full - dec[:, :DS_F32_S]).abs().amax(dim=-1)       # [B, S]
+    kept_err = float(diff[keep].max())
+    check(kept_err <= F32_LOGIT_TOL,
+          f"serve/{DS_ARCH}/f32: forward vs captured decode at the kept "
+          f"positions: max abs err {kept_err}")
+    # (c) absorbed decode steps, card against CPU
+    steps = {}
+    for name, model, d in (("card", lm, dev), ("cpu", lm_cpu, "cpu")):
+        cache = D.cache_zeros(D.cache_spec(cfg, DS_F32_B, DS_F32_DECODE), d)
+        outs = []
+        with MoeRecorder() as srec:
+            for t in range(DS_F32_DECODE):
+                lg, cache = D.decode_step(model, cfg, {
+                    "token": toks[:, t:t + 1].to(d), "index": t}, cache)
+                outs.append(lg.cpu())
+        steps[name] = (torch.stack(outs, 1), srec.routes)
+    srows, sflips, sworst = flip_aware(steps["cpu"][1], steps["card"][1])
+    agree = torch.stack(srows).T.reshape(DS_F32_B, DS_F32_DECODE)
+    step_err = float((steps["card"][0] - steps["cpu"][0]).abs()
+                     .amax(-1)[agree].max())
+    check(step_err <= CPU_LOGIT_TOL,
+          f"serve/{DS_ARCH}/f32: absorbed decode card vs CPU {step_err}")
+    res = dict(cuts=ds_cuts(cfg), batch=DS_F32_B,
+               positions=DS_F32_S, capacity=route.capacity,
+               launches=launched["flash_attention_f32"],
+               dropped_positions=int((~keep).sum()),
+               cpu=dict(max_abs_err=cpu_err, tolerance=CPU_LOGIT_TOL,
+                        compared_positions=int(rows.sum()), flips=flips,
+                        largest_flipped_margin=worst,
+                        flip_margin=MOE_FLIP_MARGIN, aux=aux,
+                        aux_cpu=aux_cpu, aux_rel_err=aux_err,
+                        cpu_seconds=cpu_s),
+               prefill_vs_forward=last_err,
+               captured_decode_vs_forward=kept_err,
+               tolerance=F32_LOGIT_TOL,
+               absorbed_steps=dict(steps=DS_F32_DECODE, max_abs_err=step_err,
+                                   compared=int(agree.sum()), flips=sflips,
+                                   largest_flipped_margin=sworst))
+    del lm, lm_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def ds_serve_phase(dev) -> dict:
+    """serve/deepseek-v3-671b: full width, DS_LAYERS layers (DS_DENSE
+    dense), all 256 experts at top-8 and the shared expert, bf16,
+    SERVE_B x SERVE_P prompt tokens. (a) The prefill: exactly DS_LAYERS
+    bf16 flash launches (q [4, 1024, 128, 192], v width 128) and no other
+    model kernel, finite logits; the MoE layer's capacity, drops, largest
+    expert load and aux; CUDA-event time. (b) ``launch.serve.generate``:
+    the prompt teacher-forced through ``decode_step`` (absorbed MLA, one
+    captured CUDA graph a step), then SERVE_NEW greedy steps, no model
+    kernel, no token dropped. (c) :func:`ds_f32_checks`."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = ds_config()
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    lm = T.init_lm(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 50))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+
+    # (a) the path: counts set to 0 right before, read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    with MoeRecorder() as rec:
+        logits_p, _ = D.prefill(lm, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    launches = model_counts()
+    check(launches["flash_attention"] == cfg.n_layers
+          and sum(launches.values()) == cfg.n_layers,
+          f"{DS_ARCH} prefill launched {launches}, expected "
+          f"{cfg.n_layers} x flash_attention")
+    check(tuple(logits_p.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{DS_ARCH}: prefill logits {tuple(logits_p.shape)} not finite")
+    moe = [dict(s, aux=float(a)) for s, a in zip(rec.stats(), rec.auxs)]
+    check(len(moe) == len(rec.routes) == cfg.n_layers - cfg.n_dense_layers
+          and all(s["tokens"] == SERVE_B * SERVE_P
+                  and s["capacity"] == L.moe_capacity(SERVE_B * SERVE_P, cfg)
+                  and np.isfinite(s["aux"]) and s["aux"] > 0 for s in moe),
+          f"{DS_ARCH}: prefill dispatches {moe}")
+    prefill_ms = time_cuda(lambda: D.prefill(lm, cfg, {"tokens": prompts}),
+                           reps=3, warmup=1)
+    _, events = traced(lambda: D.prefill(lm, cfg, {"tokens": prompts}))
+    check(model_counts()["flash_attention"] == 6 * cfg.n_layers,
+          f"{DS_ARCH}: timed and traced prefills launched {model_counts()}")
+    counts = model_counts()
+    breakdown = ds_kernel_classes(events)
+
+    # (b) generate: the prompt teacher-forced, then greedy steps
+    steps = SERVE_P + SERVE_NEW - 1
+    with MoeRecorder() as drec:
+        run = generate_timed(lm, cfg, prompts, SERVE_NEW, keep_logits=False)
+    gen, part_ms = run["gen"], run["part_ms"]
+    check(model_counts() == counts,
+          f"{DS_ARCH}: decode launched a model kernel: {model_counts()}")
+    check(tuple(gen.shape) == (SERVE_B, SERVE_NEW)
+          and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"{DS_ARCH}: generated {tuple(gen.shape)}")
+    # the recorder sees the capture's warm-up step and the capture; a
+    # token's k choices go to k different experts, so an expert takes at
+    # most B choices of a step: a capacity of at least B drops none
+    dstats = drec.stats()
+    cap = L.moe_capacity(SERVE_B, cfg)
+    check(len(dstats) == 2 and cap >= SERVE_B and all(
+        s["tokens"] == SERVE_B and s["capacity"] == cap
+        and s["dropped"] == 0 for s in dstats),
+        f"{DS_ARCH}: decode dispatches {dstats} (capacity {cap})")
+    cache_bytes = sum(int(np.prod(shape)) * dt.itemsize
+                      for shape, dt in _spec_leaves(D.cache_spec(
+                          cfg, SERVE_B, SERVE_P + SERVE_NEW)))
+    peak = torch.cuda.max_memory_allocated()
+    del lm, prompts, rec, drec
+    torch.cuda.empty_cache()
+
+    # (c) exactness in f32 at the reduced width
+    exact = ds_f32_checks(dev)
+    res = dict(arch=DS_ARCH, params=n_params, param_bytes=param_bytes,
+               layers=cfg.n_layers, dense_layers=cfg.n_dense_layers,
+               experts=cfg.n_experts, top_k=cfg.experts_per_token,
+               cuts=ds_cuts(cfg, f32_checks=exact["cuts"]),
+               batch=SERVE_B, prompt=SERVE_P, new_tokens=SERVE_NEW,
+               init_seconds=init_s, init_peak_bytes=init_peak,
+               prefill_first_seconds=prefill_first_s,
+               launches={"flash_attention": launches["flash_attention"]},
+               moe=moe, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SERVE_B * SERVE_P / (prefill_ms / 1e3),
+               prefill_device_us=breakdown,
+               prefill_device_busy_share=breakdown["all"] / 1e3
+               / prefill_ms,
+               generate_seconds=run["seconds"], decode_steps=steps,
+               generate_part_ms=part_ms,
+               teacher_forced_ms_per_step=part_ms["prompt"] / SERVE_P,
+               decode_ms_per_step=part_ms["greedy"] / (SERVE_NEW - 1),
+               decode_tokens_per_s=SERVE_B * (SERVE_NEW - 1)
+               / (part_ms["greedy"] / 1e3),
+               decode_capacity=cap, cache_bytes=cache_bytes,
+               greedy_tokens=gen[:, :8].tolist(),
+               peak_mem_bytes=peak, resident_at_start_bytes=resident,
+               f32=exact, seconds=time.perf_counter() - t_phase)
+    log(phase=f"serve/{DS_ARCH}", **res)
+    return res
+
+
+# CUDA kernels by what they do, by name (first match): the flash kernel,
+# cuBLAS / CUTLASS products, the MoE's sort, gathers and scatters
+DS_KERNEL_CLASSES = (("flash", "flash_"),
+                     ("products", "gemm|nvjet|xmma|cutlass"),
+                     ("sort_index", "sort|index|gather|scatter|search"))
+
+
+def ds_kernel_classes(events) -> dict:
+    """Device microseconds of ``events`` by DS_KERNEL_CLASSES ("other"
+    for the rest), their sum ("all") and the kernel count."""
+    out = dict.fromkeys([c for c, _ in DS_KERNEL_CLASSES] + ["other"], 0.0)
+    for name, us in events:
+        key = next((c for c, pat in DS_KERNEL_CLASSES
+                    if re.search(pat, name, re.IGNORECASE)), "other")
+        out[key] += us
+    return dict(out, all=sum(us for _, us in events), kernels=len(events))
+
+
+def _spec_leaves(spec):
+    if isinstance(spec, tuple):
+        yield spec
+        return
+    for v in spec.values():
+        yield from _spec_leaves(v)
+
+
+def ds_train_phase(dev) -> dict:
+    """train/deepseek-v3-671b: full width, DS_LAYERS layers (DS_DENSE
+    dense) and the MTP head, DS_TRAIN_EXPERTS experts at top-8, bf16,
+    Adafactor at TRAIN_LR; one fixed batch of TRAIN_B x TRAIN_S tokens in
+    TRAIN_B microbatches (each one dispatch of TRAIN_S tokens).
+    DS_TRAIN_STEPS steps timed with CUDA events: each loss below the one
+    before, finite grad norms, aux > 0, a finite MTP term, exactly 2 m F
+    forward and m F backward bf16 flash launches a step (F =
+    :func:`flash_calls`: the layers and the MTP block; m microbatches),
+    every MoE dispatch (forward and recompute) in deterministic mode and
+    each recompute routed as its forward. Then one f32 AdamW step at
+    DS_F32_CUT's width, card vs CPU (:func:`f32_step_vs_cpu`) under the
+    flip-aware routing rule."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    t_phase = time.perf_counter()
+    cfg = ds_config(n_experts=DS_TRAIN_EXPERTS)
+    micro = min(registry.microbatches(DS_ARCH, "train_4k"), TRAIN_B)
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=TRAIN_B)
+    resident = fresh_peak()
+    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                          dev)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S), device=dev,
+        generator=torch.Generator(dev).manual_seed(SEED + 52))}
+    want = {"flash_attention": 2 * flash_calls(cfg) * micro,
+            "flash_attention_bwd": flash_calls(cfg) * micro}
+
+    # the path: counts set to 0 right before, read right after
+    reset_counts()
+    steps = []
+    with MoeRecorder() as rec:
+        for _ in range(DS_TRAIN_STEPS):
+            before = model_counts()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in model_counts().items()}
+            steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                              launches=launched, loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"]),
+                              aux=float(m["aux"]), mtp=float(m["mtp"])))
+            check(launched == {**dict.fromkeys(launched, 0), **want},
+                  f"train/{DS_ARCH} step {len(steps)} launched {launched}, "
+                  f"expected {want}")
+    counts = model_counts()
+    moe = rec.stats()
+    recompute_same = all(
+        torch.equal(a.expert, b.expert) and torch.equal(a.keep, b.keep)
+        for a, b in zip(rec.routes[0::2], rec.routes[1::2]))
+    check(recompute_same, f"train/{DS_ARCH}: a recompute routed other "
+          "than its forward")
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    check(len(moe) == DS_TRAIN_STEPS * micro * 2 * n_moe
+          and all(rec.deterministic)
+          and all(s["capacity"] == L.moe_capacity(TRAIN_S, cfg)
+                  for s in moe),
+          f"train/{DS_ARCH}: {len(moe)} dispatches, deterministic "
+          f"{set(rec.deterministic)}, capacities "
+          f"{sorted({s['capacity'] for s in moe})}")
+    losses = [st["loss"] for st in steps]
+    check(all(np.isfinite([st[k] for st in steps
+                           for k in ("loss", "grad_norm", "aux", "mtp")]))
+          and all(st["aux"] > 0 for st in steps)
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train/{DS_ARCH}: losses {losses}, grad norms "
+          f"{[st['grad_norm'] for st in steps]}, aux "
+          f"{[st['aux'] for st in steps]}, mtp {[st['mtp'] for st in steps]}")
+    peak = torch.cuda.max_memory_allocated()
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state, batch, m
+    resident_f32 = fresh_peak()
+
+    # the f32 step, card vs CPU, on one set of weights (drawn on the card)
+    t0 = time.perf_counter()
+    cfg32 = ds_config(F32, **DS_F32_CUT)
+    opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    card = TR.make_state(cfg32, opt32,
+                         torch.Generator(dev).manual_seed(SEED), dev)
+    params = f32_copy(card["params"], "cpu")
+    cpu = {"params": params, "opt": O.init_opt(opt32, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    f32_setup_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg32.vocab, (F32_TRAIN_B, F32_TRAIN_S),
+                           generator=torch.Generator().manual_seed(SEED + 53))
+    with MoeRecorder() as rec32:
+        f32 = f32_step_vs_cpu(f"train/{DS_ARCH}/f32", cfg32, opt32, cpu,
+                              card, {"tokens": tokens}, flip_aware_of=rec32)
+    del card, cpu
+    res = dict(arch=DS_ARCH, params=n_params, layers=cfg.n_layers,
+               dense_layers=cfg.n_dense_layers, experts=cfg.n_experts,
+               top_k=cfg.experts_per_token, mtp=cfg.mtp,
+               cuts=ds_cuts(cfg, batch=[256, TRAIN_B],
+                            microbatches=[registry.microbatches(
+                                DS_ARCH, "train_4k"), micro],
+                            f32_step=ds_cuts(cfg32, positions=[
+                                TRAIN_S, F32_TRAIN_S])),
+               batch=TRAIN_B, seq=TRAIN_S, microbatches=micro,
+               optimizer=opt.kind, lr=opt.lr, steps=steps,
+               moe_first_step=moe[:2 * micro * n_moe],
+               recompute_routes_as_forward=recompute_same,
+               seconds_per_step=sec,
+               tokens_per_s=TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
+               resident_at_start_bytes=resident,
+               resident_at_f32_step_bytes=resident_f32,
+               f32_setup_seconds=f32_setup_s,
+               launches_per_step=want, launches=counts, f32=f32,
+               seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{DS_ARCH}", **res)
+    return res
+
+
 def time_bwd_kernel(dev, info: dict) -> dict:
     """The backward kernels at the train cell's shape (a microbatch: q
     [1, 4096, 32, 128], kv 4, causal, bf16) and at the serving shape
@@ -5709,14 +6157,18 @@ MLA_F32_S = 256               # the f32 check path's sequence
 
 
 def mla_entry(mla: dict, direction: str, dt, cases: list, tags: tuple,
-              info: dict | None = None) -> dict:
+              launches: dict, info: dict | None = None) -> dict:
     """The kernels line's record of a flash kernel's q/k width 192, v
-    width 128 instantiation: no model path launches it yet (item 12(e)
-    of ROADMAP.md will), its cases in ``cases`` of dtype ``dt``, and its
-    timing at deepseek-v3's shapes (``mla``, from
-    :func:`time_mla_flash`); for a backward route, each pass's registers,
-    spills, shared bytes and blocks an SM at that width (``info``)."""
-    out = dict(launches_main_path=0,
+    width 128 instantiation: its launches on deepseek-v3's model paths
+    (``launches``: path -> count, each above 0), its cases in ``cases``
+    of dtype ``dt``, and its timing at deepseek-v3's shapes (``mla``,
+    from :func:`time_mla_flash`); for a backward route, each pass's
+    registers, spills, shared bytes and blocks an SM at that width
+    (``info``)."""
+    check(all(n > 0 for n in launches.values()),
+          f"the (192, 128) {direction} kernel in {dt} was not launched on "
+          f"every deepseek-v3 path: {launches}")
+    out = dict(launches_on_model_paths=launches,
                checked_cases=sum(c[5] > 128 and c[9] == dt for c in cases))
     for tag in tags:
         out[tag] = {k: mla[tag]["shape"] if k == "shape" else
@@ -5957,6 +6409,11 @@ def main() -> int:
     mark(f"serve/{WHISPER_ARCH}")
     whisper_train = whisper_train_phase(dev)
     mark(f"train/{WHISPER_ARCH}")
+    # the MLA family: each drive resets the counts first
+    ds_serve = ds_serve_phase(dev)
+    mark(f"serve/{DS_ARCH}")
+    ds_train = ds_train_phase(dev)
+    mark(f"train/{DS_ARCH}")
     bwd_timing = time_bwd_kernel(dev, bwd_check["info"])
     mark("timing/flash_bwd")
     mla = time_mla_flash(dev)
@@ -6047,6 +6504,24 @@ def main() -> int:
                     f"train/{WHISPER_ARCH} ({WHISPER_TRAIN_STEPS} steps of "
                     f"{TRAIN_B} x {TRAIN_S} tokens against "
                     f"{whisper_train['frames']} frames)")
+    ds_path = (f"serve/{DS_ARCH} prefill ({ds_serve['layers']} layers, "
+               f"{ds_serve['experts']} experts at top-"
+               f"{ds_serve['top_k']}, {SERVE_B} x {SERVE_P} tokens; MLA at "
+               f"q/k width 192, v width 128); train/{DS_ARCH} "
+               f"({ds_train['layers']} layers and the MTP block, "
+               f"{ds_train['experts']} experts, {DS_TRAIN_STEPS} steps of "
+               f"{TRAIN_B} x {TRAIN_S} tokens)")
+    ds_fwd = {f"serve/{DS_ARCH} prefill": ds_serve["launches"]
+              ["flash_attention"],
+              f"train/{DS_ARCH}": ds_train["launches"]["flash_attention"]}
+    ds_f32 = {f"serve/{DS_ARCH}/f32 forward and prefill":
+              ds_serve["f32"]["launches"],
+              f"train/{DS_ARCH}/f32": ds_train["f32"]["launches"]
+              ["flash_attention_f32"]}
+    ds_bwd = {f"train/{DS_ARCH}": ds_train["launches"]
+              ["flash_attention_bwd"]}
+    ds_bwd_f32 = {f"train/{DS_ARCH}/f32": ds_train["f32"]["launches"]
+                  ["flash_attention_bwd_f32"]}
     moe_path = (f"serve/{MOE_ARCH} prefill ({moe_serve['layers']} layers, "
                 f"{moe_serve['experts']} experts, {SERVE_B} x {SERVE_P} "
                 f"tokens); train/{MOE_ARCH} ({moe_train['layers']} layers, "
@@ -6160,6 +6635,8 @@ def main() -> int:
                    for key in ("global", "train_window")},
                 whisper_launches=whisper_fwd,
                 whisper_path=whisper_path,
+                deepseek_launches=ds_fwd,
+                deepseek_path=ds_path,
                 **{f"whisper_{key}": {k: row[k] for k in (
                     "shape", "causal", "device_us", "ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")}
@@ -6167,15 +6644,17 @@ def main() -> int:
                 sources=[src, f32_src],
                 launches_by_source={src: launches, f32_src: f32_launches},
                 mla_192x128=mla_entry(mla, "forward", BF16, FLASH_CASES,
-                                      ("serve", "train")),
+                                      ("serve", "train"), ds_fwd),
                 f32=dict(source=f32_src, launches=f32_launches,
                          path="serve/f32 yi-6b prefill",
                          mla_192x128=mla_entry(mla, "forward", F32,
-                                               FLASH_CASES, ("f32",)),
+                                               FLASH_CASES, ("f32",),
+                                               ds_f32),
                          vlm_launches=vlm_f32,
                          moe_launches=moe_f32,
                          hymba_launches=hymba_f32,
                          whisper_launches=whisper_f32,
+                         deepseek_launches=ds_f32,
                          max_abs_err=model_errors["flash_attention_f32"],
                          **{k: f32[k] for k in (
                              "ms", "plain_ms", "bound_ms",
@@ -6223,6 +6702,8 @@ def main() -> int:
         whisper_launches={f"train/{WHISPER_ARCH}":
                           whisper_train["launches"]["flash_attention_bwd"]},
         whisper_path=whisper_path,
+        deepseek_launches=ds_bwd,
+        deepseek_path=ds_path,
         max_abs_err=bwd_check["max_abs_err"]["flash_attention_bwd"],
         max_err_over_scale=bwd_check["worst_err_over_scale"]
         ["flash_attention_bwd"],
@@ -6238,7 +6719,7 @@ def main() -> int:
             if r["kernel"] == "flash_attention_bwd" and k != "train"},
         kernel_info=row["kernel_info"],
         mla_192x128=mla_entry(mla, "backward", BF16, BWD_CASES, ("train",),
-                              info=bwd_check["info"]),
+                              ds_bwd, info=bwd_check["info"]),
         sources=[bwd_src, bwd_f32_src],
         launches_by_source={bwd_src: launches, bwd_f32_src: f32_launches},
         f32=dict(source=bwd_f32_src, launches=f32_launches,
@@ -6252,6 +6733,7 @@ def main() -> int:
                  whisper_launches={f"train/{WHISPER_ARCH}/f32":
                                    whisper_train["f32"]["launches"]
                                    ["flash_attention_bwd_f32"]},
+                 deepseek_launches=ds_bwd_f32,
                  max_abs_err=bwd_check["max_abs_err"]
                  ["flash_attention_bwd_f32"],
                  max_err_over_scale=bwd_check["worst_err_over_scale"]
@@ -6260,7 +6742,8 @@ def main() -> int:
                  ["flash_attention_bwd_f32"],
                  kernel_info=f32_row["kernel_info"],
                  mla_192x128=mla_entry(mla, "backward", F32, BWD_CASES,
-                                       ("f32",), info=bwd_check["info"]),
+                                       ("f32",), ds_bwd_f32,
+                                       info=bwd_check["info"]),
                  **{k: f32_row[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "shape", "dtype", "device_us", "pass_tflops_per_s",
@@ -6307,7 +6790,7 @@ def main() -> int:
     log(serve={s["arch"]: {k: s[k] for k in (
         "prefill_tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}
         for s in (*serves.values(), vlm_serve, moe_serve, hymba_serve,
-                  whisper_serve)},
+                  whisper_serve, ds_serve)},
         vlm={f"serve/{VLM_ARCH}": {k: vlm_serve[k] for k in (
             "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
             "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
@@ -6335,6 +6818,13 @@ def main() -> int:
             "teacher_forced_ms_per_step", "decode_ms_per_step",
             "decode_tokens_per_s", "peak_mem_bytes", "seconds")},
             f"train/{WHISPER_ARCH}": {k: whisper_train[k] for k in (
+                "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+                "seconds")}},
+        deepseek={f"serve/{DS_ARCH}": {k: ds_serve[k] for k in (
+            "prefill_ms", "prefill_tokens_per_s", "prefill_device_us",
+            "teacher_forced_ms_per_step", "decode_ms_per_step",
+            "decode_tokens_per_s", "peak_mem_bytes", "moe", "seconds")},
+            f"train/{DS_ARCH}": {k: ds_train[k] for k in (
                 "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
                 "seconds")}},
         profile_retries=PROFILE_RETRIES,

@@ -9,9 +9,10 @@ the MoE ``llama4-maverick-400b-a17b`` (dense and MoE layers in pairs,
 capacity-routed top-1), the hybrid ``hymba-1.5b`` (attention and Mamba
 heads in parallel, sliding windows, meta tokens), the encoder-decoder
 ``whisper-small`` (a bidirectional encoder over stub frames and
-cross-attention) and the RWKV6 ``rwkv6-3b``, for serving and training.
-Every other architecture of the reference registry raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+cross-attention), ``deepseek-v3-671b`` (multi-head latent attention, a
+dense prefix before top-8 MoE layers with a shared expert, and the MTP
+head) and the RWKV6 ``rwkv6-3b``, for serving and training: every
+architecture of the reference registry.
 """
 from __future__ import annotations
 
@@ -19,20 +20,13 @@ import importlib
 
 ARCHS = ["qwen3-14b", "internlm2-1.8b", "yi-34b", "yi-6b", "qwen2-vl-7b",
          "llama4-maverick-400b-a17b", "hymba-1.5b", "whisper-small",
-         "rwkv6-3b"]
+         "deepseek-v3-671b", "rwkv6-3b"]
 
-# the reference's other architectures → the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "deepseek-v3-671b": "queue 1 item 12(e) (MLA and the MTP head; its MoE "
-                        "and its q/k width 192 flash are ported)",
-}
+# the reference's architectures that the port lacks: none
+NOT_PORTED: dict = {}
 
 
 def _mod(arch: str):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: ROADMAP.md "
-            f"{NOT_PORTED[arch]}")
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}")
     return importlib.import_module(

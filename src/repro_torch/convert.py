@@ -232,16 +232,15 @@ def tensor_to_numpy(t: torch.Tensor, native: bool = False) -> np.ndarray:
 
 
 def lm_params_from_jax(tree, cfg: ModelConfig, device) -> LM:
-    """The reference's ``init_lm`` parameter tree (of a dense, a
-    vision-language, whose tree is the dense one, a dense/MoE-pair, a
-    hybrid, an encoder-decoder or an RWKV6 config), as nested dicts of
-    numpy arrays (bf16 arrays too), → the port's :class:`LM` on
-    ``device``. Each stacked ``[n, ...]`` leaf of a scanned segment, of
-    the encoder's ``blocks`` and of ``cross`` is sliced into the
-    per-layer trees (a pair segment's ``{"dense", "moe"}`` leaves, expert
-    weights ``[n, E, D, F]``, into one tree per pair); an unscanned
-    segment (hymba's global layers), ``meta_tokens`` and the encoder's
-    ``ln`` have no layer axis and cross as they are; every leaf goes
+    """The reference's ``init_lm`` parameter tree (of any config of its
+    registry), as nested dicts of numpy arrays (bf16 arrays too), → the
+    port's :class:`LM` on ``device``. Each stacked ``[n, ...]`` leaf of a
+    scanned segment, of the encoder's ``blocks`` and of ``cross`` is
+    sliced into the per-layer trees (a pair segment's ``{"dense",
+    "moe"}`` leaves, expert weights ``[n, E, D, F]``, into one tree per
+    pair); an unscanned segment (hymba's global layers), ``meta_tokens``,
+    the MTP head's ``mtp`` tree and the encoder's ``ln`` have no layer
+    axis and cross as they are; every leaf goes
     through f32 to ``cfg.dtype``, which is exact for bf16. Raises
     ``ValueError`` if a key or shape does not fit ``cfg``."""
     return LM(cfg, _params_like(tree, init_lm(cfg, device="meta").tree(),

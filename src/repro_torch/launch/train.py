@@ -10,8 +10,9 @@ on the card the step runs with deterministic algorithms
 (``train.trainer``). The reference places the state on a host mesh
 (``make_host_mesh``, ``tree_shardings``); the port has no counterpart on
 one card, and sharding the train state is ROADMAP.md queue 1 item 14.
-The MoE family (llama4-maverick) trains on token batches and logs its
-auxiliary loss. The token batches (and, for the vision-language family,
+The MoE family (llama4-maverick, deepseek-v3) trains on token batches
+and logs its auxiliary loss; a config with the MTP head (deepseek-v3)
+logs its MTP term. The token batches (and, for the vision-language family,
 the stub frontend's embeddings, 3-D positions and labels, for the
 encoder-decoder the stub frontend's ``encoder_len`` frame embeddings,
 as the reference's launcher makes them) come from a ``torch.Generator``
@@ -94,7 +95,8 @@ def main(argv=None) -> None:
         if (i + 1) % 10 == 0 or i == start:
             dt = time.time() - t0
             aux = (f"aux {float(metrics['aux']):.4f} " if cfg.n_experts
-                   else "")
+                   else "") + (f"mtp {float(metrics['mtp']):.4f} "
+                               if cfg.mtp else "")
             print(f"step {i + 1:4d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} {aux}"
                   f"({dt / max(i + 1 - start, 1):.2f}s/step)")

@@ -1,10 +1,13 @@
-"""Prefill and single-token decode (the serving path) for the ported
-families. Counterpart of ``repro.models.decode``.
+"""Prefill and single-token decode (the serving path) for every family.
+Counterpart of ``repro.models.decode``.
 
 The cache keeps the reference's pytree (``cache_spec``):
 ``{"seg0": {"attn": {"k", "v": [n, B, L, K·h]}}}`` for a dense GQA stack,
 ``{"seg0": {"dense": {"attn": ...}, "moe": {"attn": ...}}}`` (each
-``[n, B, L, K·h]`` over the n pairs) for dense/MoE pairs,
+``[n, B, L, K·h]`` over the n pairs) for dense/MoE pairs, MLA's
+compressed cache ``{"attn": {"c_kv": [n, B, L, kvr], "k_rope": [n, B,
+L, dr]}}`` in each of deepseek-v3's two segments (the dense prefix, then
+the MoE layers; ``layers.mla_apply``),
 ``{"seg0": {"state": [n, B, H·hd, hd]}}`` (f32) for an RWKV6 stack, and
 for the hybrid family (hymba) one entry per segment with the Mamba state
 beside the attention cache, ``{"attn": {"k", "v"}, "ssm": [B, d, N]}``
@@ -65,12 +68,11 @@ def _kv_len(seq_len: int, window: int) -> int:
 def block_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                      window: int) -> dict:
     """{"attn": {"k", "v": ((batch, L, K·h), dtype)}} for a GQA block, L
-    = ``min(window, seq_len)`` for a sliding-window layer; the hybrid
+    = ``min(window, seq_len)`` for a sliding-window layer; {"attn":
+    ``layers.mla_cache_spec``} for an MLA block (no window); the hybrid
     family adds the Mamba state ``"ssm"``: ((batch, d_model, N), f32)."""
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: only GQA block caches are ported; ROADMAP.md "
-            f"queue 1 item 12")
+    if cfg.attn_kind == "mla":
+        return {"attn": L.mla_cache_spec(cfg, batch, seq_len)}
     Lkv = _kv_len(seq_len, window)
     kv = cfg.n_kv_heads * cfg.hd
     spec = {"attn": {"k": ((batch, Lkv, kv), cfg.dtype),

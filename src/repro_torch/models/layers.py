@@ -1,8 +1,9 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention with its
-decode cache, the SwiGLU MLP, the capacity-routed MoE, embeddings and the
-head. Counterpart of ``repro.models.layers`` (only what the ported
-families call, M-RoPE, the MoE and the bidirectional attention of
-whisper's encoder included; MLA is not ported yet).
+decode cache, multi-head latent attention (MLA) with its compressed
+cache, the SwiGLU MLP, the capacity-routed MoE, embeddings and the head.
+Counterpart of ``repro.models.layers`` (only what the ported families
+call, M-RoPE, MLA, the MoE and the bidirectional attention of whisper's
+encoder included).
 
 All shapes use: B batch, S sequence, D d_model, H heads, K kv heads,
 h head_dim, F ffn dim, E experts, C expert capacity, V vocab.
@@ -13,12 +14,13 @@ batched over E (``torch.bmm``), and its dispatch and combine are index
 operations that have deterministic CUDA implementations (the train step
 runs in PyTorch's deterministic mode).
 
-The full-sequence (prefill) branch of :func:`gqa_apply` calls the flash
-attention kernel through ``kernels.ops.attention`` at every S, causal or
-bidirectional; the reference switches from the direct softmax to its
-blockwise form at S >= 1024 (and computes the bidirectional branch with
-the direct softmax), and both compute the same function. The decode
-branch stays plain PyTorch, as it is plain jnp in the reference.
+The full-sequence (prefill) branches of :func:`gqa_apply` and
+:func:`mla_apply` call the flash attention kernel through
+``kernels.ops.attention`` at every S, causal or bidirectional; the
+reference switches from the direct softmax to its blockwise form at S >=
+1024 (and computes the bidirectional branch with the direct softmax),
+and both compute the same function. The decode branches stay plain
+PyTorch, as they are plain jnp in the reference.
 
 ``repro.models.pconstraint`` (activation sharding constraints) has no
 counterpart: it is a no-op without a device mesh, and the port has none
@@ -240,6 +242,116 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         new_cache = cache
     y = out.reshape(B, S, H * h) @ p["wo"]
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v3's multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def init_mla(pf: ParamFactory, cfg: ModelConfig) -> dict:
+    """The reference's leaves: the query's low-rank pair ``wq_a`` [D, qr]
+    and ``wq_b`` [qr, H·(dn+dr)] with the norm ``q_a_norm`` between them;
+    ``wkv_a`` [D, kvr+dr] (the latent and the shared rope key); the
+    latent's norm ``kv_a_norm``; its expansions ``wk_b`` [kvr, H·dn] and
+    ``wv_b`` [kvr, H·dv]; ``wo`` [H·dv, D]."""
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {"wq_a": pf.leaf((D, qr)), "q_a_norm": init_rmsnorm(pf, qr),
+            "wq_b": pf.leaf((qr, H * (dn + dr))),
+            "wkv_a": pf.leaf((D, kvr + dr)),
+            "kv_a_norm": init_rmsnorm(pf, kvr),
+            "wk_b": pf.leaf((kvr, H * dn)), "wv_b": pf.leaf((kvr, H * dv)),
+            "wo": pf.leaf((H * dv, D))}
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The compressed cache: the normed latent ``c_kv`` [B, L, kvr] and
+    the rotated shared key ``k_rope`` [B, L, dr] (576 values a token for
+    deepseek-v3, against H·(dn+dv) = 32,768 for its expanded keys and
+    values)."""
+    return {"c_kv": ((batch, max_len, cfg.kv_lora_rank), cfg.dtype),
+            "k_rope": ((batch, max_len, cfg.qk_rope_dim), cfg.dtype)}
+
+
+def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              *, cache: Optional[dict] = None, cache_index=None):
+    """MLA (arXiv:2412.19437 §2.1.1). Returns (out [B,S,D], new_cache).
+
+    The query goes through its low-rank pair, split into a part without
+    rotation (dn) and a rotated part (dr); the keys and values come from
+    one normed latent ``c_kv`` (kvr) per token, and one rotated key
+    ``k_rope`` (dr) per token is shared by every head. The score of a
+    head is (q_nope · k_nope + q_rope · k_rope) / sqrt(dn + dr).
+
+    - No cache (prefill, training): the latent is expanded into per-head
+      keys [B,S,H,dn] and values [B,S,H,dv], the shared rope key is
+      copied into every head, and q [B,S,H,dn+dr], k and v (contiguous)
+      go through one causal flash call (``kernels.ops.attention``) at
+      every S: deepseek-v3's widths launch the kernels' (192, 128)
+      instantiation. The kernel scales by 1/sqrt of q's width, which is
+      MLA's scale. The reference takes its direct softmax below S = 1024
+      and ``flash_attend`` from there; both compute this function, and the
+      port keeps one kernel at every S, as ``gqa_apply`` does.
+    - A cache and S = 1 (decode): the absorbed form of the reference. The
+      step's latent and rope key are written into ``cache["c_kv"]`` and
+      ``cache["k_rope"]`` IN PLACE at ``cache_index`` (an int, or a 0-d
+      integer tensor on the cache's device); q_nope is absorbed through
+      ``wk_b`` into the latent space, the scores are taken against the
+      cached latents and rope keys in f32 (from the cache's dtype, as the
+      reference's ``preferred_element_type``), slots after
+      ``cache_index`` masked at -1e30, the softmax weights cast to the
+      cache's dtype, the context gathered in the latent space and only
+      then expanded through ``wv_b``. Plain PyTorch, as the reference's
+      is plain jnp.
+    - A cache and S > 1 (a chunk written at ``cache_index``): the cache is
+      written the same way, the whole cache is expanded and query row i
+      sees the slots up to ``cache_index + i``. The reference's branch
+      shows every row only the slots up to ``cache_index`` (its mask
+      ignores the row), which is not causal (ROADMAP.md queue 3); no
+      path of either package takes it."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    ql = rmsnorm(p["q_a_norm"], x @ p["wq_a"], cfg.norm_eps)
+    q = (ql @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]                                   # [B,S,kvr+dr]
+    c_kv = rmsnorm(p["kv_a_norm"], kv[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]          # [B,S,dr]
+    if cache is not None:
+        write_slots(cache["c_kv"], cache_index, c_kv)
+        write_slots(cache["k_rope"], cache_index, k_rope)
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    Skv = c_kv.shape[1]
+    if cache is not None and S == 1:
+        q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                             p["wk_b"].reshape(kvr, H, dn))
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(),
+                               c_kv.float())
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                                 k_rope.float())) / math.sqrt(dn + dr)
+        mask = torch.arange(Skv, device=x.device) <= cache_index
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        w = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx,
+                           p["wv_b"].reshape(kvr, H, dv))
+        return out.reshape(B, S, H * dv) @ p["wo"], cache
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, Skv, H, dn)
+    vfull = (c_kv @ p["wv_b"]).reshape(B, Skv, H, dv)
+    kfull = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Skv, H, dr)],
+                      dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    if cache is None:
+        out = ops.attention(qfull, kfull, vfull, causal=True)
+    else:
+        out = attend(qfull, kfull, vfull,
+                     _causal_window_mask(S, Skv, -1, cache_index, x.device))
+    return out.reshape(B, S, H * dv) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
-"""LM assembly for the ported families: dense GQA stacks (yi-6b; and
-qwen2-vl-7b, whose vision-language backbone is the dense block with
-M-RoPE over stub embeddings), llama4-maverick's dense and MoE layers in
-pairs (``moe_interleave=2``), hymba's hybrid blocks (attention and Mamba
-heads in parallel on the same input, sliding-window attention except in
-the global layers, 128 meta tokens before the sequence), whisper's
+"""LM assembly for every family of the reference: dense GQA stacks
+(yi-6b; and qwen2-vl-7b, whose vision-language backbone is the dense
+block with M-RoPE over stub embeddings), llama4-maverick's dense and MoE
+layers in pairs (``moe_interleave=2``), deepseek-v3's MLA blocks (a
+dense prefix of ``n_dense_layers``, then MoE layers, and the MTP head),
+hymba's hybrid blocks (attention and Mamba heads in parallel on the
+same input, sliding-window attention except in the global layers, 128
+meta tokens before the sequence), whisper's
 encoder-decoder (bidirectional dense blocks over stub frame embeddings,
 then decoder blocks each followed by cross-attention to the encoder's
 output) and the attention-free RWKV6 stack (rwkv6-3b). Counterpart of
-``repro.models.transformer`` for those families.
+``repro.models.transformer``.
 
 The reference stacks each homogeneous segment's parameters along a
 leading layer axis and runs it under ``lax.scan``; the port keeps one
@@ -18,20 +20,20 @@ layers) is one layer's tree with no layer axis, as in the reference: a
 ``ParamTree``, whose leaves ``reference_leaves`` reports unstacked. The
 encoder-decoder keeps the reference's ``encoder`` (``{"blocks": one
 tree per layer, "ln"}``) and ``cross`` (one ``{"ln", "attn"}`` tree per
-decoder layer) beside them. MLA and the MoE stack with a dense prefix
-(deepseek-v3) are not ported yet (ROADMAP.md queue 1 item 12).
+decoder layer) beside them; a config with ``mtp`` keeps the reference's
+``mtp`` tree (``{"proj", "block", "ln"}``, one block with no layer
+axis).
 
-Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``) are
-the reference's for the dense, vision-language, MoE-pair, hybrid,
-encoder-decoder and RWKV6 families. The reference saves nothing inside a
-layer (``REMAT_POLICY = nothing_saveable`` on each scanned block, pair,
-or decoder block with its cross-attention); the port runs each block
-(each decoder block with its cross-attention) under non-reentrant
-``torch.utils.checkpoint`` whenever grad is enabled, so the backward
-recomputes the block's forward (flash kernel, Mamba scan and MoE
-routing included) from the block's input, and the loss runs each
-512-token chunk of the head and log-softmax under its own checkpoint,
-never holding the [B,S,V] f32 logits. The recomputed routing is the
+Training: the losses (``ce_loss``, ``ce_loss_seqchunk``, ``lm_loss``
+with the MTP term) are the reference's. The reference saves nothing
+inside a layer (``REMAT_POLICY = nothing_saveable`` on each scanned
+block, pair, or decoder block with its cross-attention); the port runs
+each block (each decoder block with its cross-attention, and the MTP
+block) under non-reentrant ``torch.utils.checkpoint`` whenever grad is
+enabled, so the backward recomputes the block's forward (flash kernel,
+Mamba scan and MoE routing included) from the block's input, and the
+loss runs each 512-token chunk of the head and log-softmax under its own
+checkpoint, never holding the [B,S,V] f32 logits. The recomputed routing is the
 forward's: the same ops on the same input (deterministic on the card,
 where a train step runs in PyTorch's deterministic mode).
 """
@@ -56,35 +58,37 @@ META_TOKENS = 128      # hymba's learned prefix (``meta_tokens`` [128, D])
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """GQA blocks of the dense and vision-language families, dense and
-    MoE layers in pairs (``moe_interleave`` > 1), hybrid blocks with
-    Mamba heads, or the encoder-decoder's dense blocks (family "audio"
-    with ``is_encoder_decoder``); anything else (MLA, an MTP head)
-    raises."""
+    """The block layouts of the reference's families: GQA or MLA blocks,
+    dense (family "dense" or "vlm") or MoE (family "moe": dense and MoE
+    layers in pairs with ``moe_interleave`` > 1, else a dense prefix of
+    ``n_dense_layers`` and then MoE layers); GQA blocks with Mamba heads
+    (family "hybrid") or in the encoder-decoder (family "audio" with
+    ``is_encoder_decoder``). Any other combination raises."""
     dense = cfg.family in ("dense", "vlm") and not cfg.n_experts
-    pairs = cfg.family == "moe" and cfg.n_experts and cfg.moe_interleave > 1
+    moe = cfg.family == "moe" and bool(cfg.n_experts)
     hybrid = cfg.family == "hybrid" and cfg.ssm_kind == "mamba" \
         and not cfg.n_experts
     encdec = cfg.family == "audio" and cfg.is_encoder_decoder \
         and not cfg.n_experts
-    if cfg.attn_kind != "gqa" or cfg.mtp \
-            or not (dense or pairs or hybrid or encdec):
+    attn = cfg.attn_kind == "gqa" \
+        or (cfg.attn_kind == "mla" and (dense or moe))
+    if not attn or not (dense or moe or hybrid or encdec):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA blocks, dense, in dense/MoE pairs, "
-            f"beside Mamba heads or in an encoder-decoder, are ported "
+            f"{cfg.name}: no such block layout in the reference's families "
             f"(attn_kind {cfg.attn_kind!r}, family {cfg.family!r}, "
-            f"moe_interleave {cfg.moe_interleave}, mtp {cfg.mtp}); "
-            f"ROADMAP.md queue 1 item 12")
+            f"n_experts {cfg.n_experts}, ssm_kind {cfg.ssm_kind!r})")
 
 
 def init_block(pf: ParamFactory, cfg: ModelConfig, *, moe: bool) -> dict:
-    """GQA block: pre-norm attention, then the SwiGLU MLP, or the MoE
-    with ``moe``. The hybrid family adds the Mamba heads (``ssm``, d_inner
-    = d_model) and the two norms of the heads' outputs."""
+    """Pre-norm attention (GQA, or MLA where ``attn_kind`` is "mla"),
+    then the SwiGLU MLP, or the MoE with ``moe``. The hybrid family adds
+    the Mamba heads (``ssm``, d_inner = d_model) and the two norms of the
+    heads' outputs."""
     _check_ported(cfg)
     p = {"ln1": L.init_rmsnorm(pf, cfg.d_model),
          "ln2": L.init_rmsnorm(pf, cfg.d_model),
-         "attn": L.init_gqa(pf, cfg)}
+         "attn": (L.init_mla if cfg.attn_kind == "mla" else L.init_gqa)(
+             pf, cfg)}
     if cfg.family == "hybrid":
         p["ssm"] = S.init_mamba(pf, cfg, d_inner=cfg.d_model)
         p["ssm_norm"] = L.init_rmsnorm(pf, cfg.d_model)
@@ -104,14 +108,23 @@ def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
     makes its attention bidirectional (whisper's encoder; no cache,
     ``layers.gqa_apply``). With a cache
     (one decode step; ``layers.gqa_apply``, a ring in a sliding-window
-    layer) the cache is updated IN PLACE and returned: a hybrid block
+    layer, or ``layers.mla_apply``'s compressed cache) the cache is
+    updated IN PLACE and returned: a hybrid block
     also steps its Mamba state ``cache["ssm"]``. The hybrid block runs
     the attention and the Mamba heads on the same normed input, RMS-norms
-    each output and averages them (arXiv:2411.13676 eq. 3)."""
+    each output and averages them (arXiv:2411.13676 eq. 3). An MLA block
+    is causal and takes no window, as in the reference."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, nc = L.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                        cache=None if cache is None else cache["attn"],
-                        cache_index=cache_index, causal=causal)
+    attn_cache = None if cache is None else cache["attn"]
+    if cfg.attn_kind == "mla":
+        if not causal:
+            raise ValueError("MLA attention is causal")
+        a, nc = L.mla_apply(p["attn"], cfg, h, positions, cache=attn_cache,
+                            cache_index=cache_index)
+    else:
+        a, nc = L.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                            cache=attn_cache, cache_index=cache_index,
+                            causal=causal)
     if cfg.family == "hybrid":
         if cache is None:
             m = S.mamba_scan(p["ssm"], cfg, h)
@@ -164,13 +177,14 @@ def rwkv_block_apply(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None):
 
 def plan_segments(cfg: ModelConfig) -> list[dict]:
     """Layer plan → list of segments, each {kind, n, ...}, as the
-    reference plans them for the ported families. With
-    ``moe_interleave`` > 1 (llama4) one ``"pair"`` segment of
-    ``n_layers // moe_interleave`` (dense block, MoE block) pairs. The
-    hybrid family (hymba): each global layer (``global_layers``, default
-    the first, middle and last) is an unscanned segment of one
-    full-attention block, and each run of layers between them one
-    scanned segment at ``window``."""
+    reference plans them. With ``moe_interleave`` > 1 (llama4) one
+    ``"pair"`` segment of ``n_layers // moe_interleave`` (dense block,
+    MoE block) pairs; with experts and ``moe_interleave`` 1 (deepseek-v3)
+    a scanned segment of the ``n_dense_layers`` dense blocks (none if 0),
+    then one of the MoE blocks. The hybrid family (hymba): each global
+    layer (``global_layers``, default the first, middle and last) is an
+    unscanned segment of one full-attention block, and each run of
+    layers between them one scanned segment at ``window``."""
     if cfg.family == "ssm" and cfg.ssm_kind == "rwkv6":
         return [{"kind": "rwkv", "n": cfg.n_layers, "scanned": True}]
     _check_ported(cfg)
@@ -191,12 +205,18 @@ def plan_segments(cfg: ModelConfig) -> list[dict]:
                          "window": cfg.window, "scanned": True})
             i = j
         return segs
-    if cfg.n_experts:
+    if cfg.n_experts and cfg.moe_interleave > 1:
         if cfg.n_layers % cfg.moe_interleave:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
                              f"pairs of {cfg.moe_interleave}")
         return [{"kind": "pair", "n": cfg.n_layers // cfg.moe_interleave,
                  "moe": True, "window": cfg.window, "scanned": True}]
+    if cfg.n_experts:
+        dense = [{"kind": "block", "n": cfg.n_dense_layers, "moe": False,
+                  "window": cfg.window, "scanned": True}]
+        return dense[:bool(cfg.n_dense_layers)] + [
+            {"kind": "block", "n": cfg.n_layers - cfg.n_dense_layers,
+             "moe": True, "window": cfg.window, "scanned": True}]
     return [{"kind": "block", "n": cfg.n_layers, "moe": False,
              "window": cfg.window, "scanned": True}]
 
@@ -243,7 +263,8 @@ def _layout(module):
 class LM(nn.Module):
     """The language model's parameters: ``embed``, ``ln_f``,
     ``segments["seg<i>"]`` (a list of per-layer trees, or one layer's
-    tree for an unscanned segment); for the hybrid family
+    tree for an unscanned segment); with ``cfg.mtp`` the MTP head's
+    ``mtp`` (``{"proj" [2D, D], "block", "ln"}``); for the hybrid family
     ``meta_tokens`` [128, D]; for the encoder-decoder ``encoder``
     (``{"blocks": a list of per-layer trees, "ln"}``) and ``cross`` (a
     list of ``{"ln", "attn"}`` trees, one per decoder layer). Indexes like
@@ -262,6 +283,8 @@ class LM(nn.Module):
             for name, layers in tree["segments"].items()})
         if "meta_tokens" in tree:
             self.meta_tokens = nn.Parameter(tree["meta_tokens"])
+        if "mtp" in tree:
+            self.mtp = ParamTree(tree["mtp"])
         if "encoder" in tree:
             self.encoder = _module(tree["encoder"])
             self.cross = _module(tree["cross"])
@@ -274,6 +297,7 @@ class LM(nn.Module):
     def keys(self) -> list:
         return ["embed", "ln_f", "segments"] + (
             ["meta_tokens"] if "meta_tokens" in self._parameters else []) + (
+            ["mtp"] if "mtp" in self._modules else []) + (
             ["encoder", "cross"] if "encoder" in self._modules else [])
 
     def tree(self) -> dict:
@@ -317,6 +341,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
                         for i, s in enumerate(plan_segments(cfg))}
     if cfg.family == "hybrid":
         tree["meta_tokens"] = pf.leaf((META_TOKENS, cfg.d_model))
+    if cfg.mtp:
+        tree["mtp"] = {"proj": pf.leaf((2 * cfg.d_model, cfg.d_model)),
+                       "block": init_block(pf, cfg, moe=False),
+                       "ln": L.init_rmsnorm(pf, cfg.d_model)}
     if cfg.is_encoder_decoder:
         tree["encoder"] = {
             "blocks": [init_block(pf, cfg, moe=False)
@@ -519,22 +547,40 @@ def ce_loss_seqchunk(embed_params, hidden: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def mtp_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    """deepseek-v3's multi-token prediction term (arXiv:2412.19437
+    §2.2): the final-normed hidden [B,S,D], RMS-normed by ``mtp.ln``,
+    beside the embedding of the next token (the targets shifted by one,
+    padded with token 0), projected [2D → D] by ``mtp.proj``, through the
+    dense ``mtp.block`` at positions 0..S-1 (under :func:`remat`, as the
+    other blocks), then the CE of token t + 2 (``ce_loss_seqchunk`` with
+    ``shift=2``), as the reference computes it."""
+    B, S = hidden.shape[:2]
+    nxt = torch.cat([targets[:, 1:], torch.zeros(
+        (B, 1), dtype=targets.dtype, device=targets.device)], dim=1)
+    h_in = torch.cat([L.rmsnorm(params["mtp"]["ln"], hidden, cfg.norm_eps),
+                      L.embed_apply(params["embed"], nxt)], dim=-1)
+    h_in = h_in @ params["mtp"]["proj"]
+    positions = torch.arange(S, device=hidden.device)[None].expand(B, S)
+    h2 = remat(lambda h: block_apply(params["mtp"]["block"], cfg, h,
+                                     positions, moe=False,
+                                     window=cfg.window)[0], h_in)
+    return ce_loss_seqchunk(params["embed"], h2, targets,
+                            cfg.tie_embeddings, shift=2)
+
+
 def lm_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token loss of the dense, vision-language, MoE-pair, hybrid,
-    encoder-decoder and RWKV6 families. batch: tokens [B,S], or the stub
+    """Next-token loss of every family. batch: tokens [B,S], or the stub
     frontend's embeds [B,S,D] (then labels [B,S]); for the
     encoder-decoder also frames [B,T,D]; optional positions ([B,S], or
     [3,B,S] for M-RoPE), labels, loss_weights. The hybrid family runs the
     sequence behind its meta tokens (:func:`lm_hidden`), the
     encoder-decoder the tokens against the encoded frames
-    (:func:`encdec_forward`). Returns (ce + 0.01·aux, metrics) with
-    metrics ``ce`` and ``aux`` (the MoE auxiliary loss summed over the
-    MoE layers; 0 without MoE). The MTP branch of the reference
-    raises."""
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: lm_loss with the MTP head is not ported: "
-            f"ROADMAP.md queue 1 item 12")
+    (:func:`encdec_forward`). Returns (ce + 0.3·mtp + 0.01·aux, metrics)
+    with metrics ``ce``, ``aux`` (the MoE auxiliary loss summed over the
+    MoE layers; 0 without MoE) and, with ``cfg.mtp``, ``mtp``
+    (:func:`mtp_loss`; the term is 0 without it)."""
     if cfg.is_encoder_decoder:
         hidden, _ = encdec_forward(params, cfg, batch["frames"],
                                    batch["tokens"])
@@ -552,7 +598,12 @@ def lm_loss(params, cfg: ModelConfig, batch: dict):
                                                                         Sq)
         hidden, aux = lm_hidden(params, cfg, x, positions)
     targets = batch["labels"] if "labels" in batch else batch["tokens"]
-    loss = ce_loss_seqchunk(params["embed"], hidden, targets,
-                            cfg.tie_embeddings,
-                            weights=batch.get("loss_weights"), shift=1)
-    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+    ce = ce_loss_seqchunk(params["embed"], hidden, targets,
+                          cfg.tie_embeddings,
+                          weights=batch.get("loss_weights"), shift=1)
+    metrics = {"ce": ce, "aux": aux}
+    loss = ce
+    if cfg.mtp:
+        metrics["mtp"] = mtp_loss(params, cfg, hidden, targets)
+        loss = loss + 0.3 * metrics["mtp"]
+    return loss + 0.01 * aux, metrics

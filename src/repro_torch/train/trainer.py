@@ -129,20 +129,22 @@ def make_grad_fn(cfg: ModelConfig, *, microbatches: int = 1,
     mean loss over the microbatches in ``grad_dtype``, one list per leaf of
     ``reference_leaves(params)`` (the reference's leaves, one tensor a
     layer), and that loss. The parameters' ``.grad`` are left empty."""
-    grads_aux = _grads_and_aux_fn(cfg, microbatches, global_batch,
-                                  grad_dtype)
+    grads_metrics = _grads_and_metrics_fn(cfg, microbatches, global_batch,
+                                          grad_dtype)
 
     def grads_of(params, batch):
-        grads, loss, _ = grads_aux(params, batch)
+        grads, loss, _ = grads_metrics(params, batch)
         return grads, loss
 
     return grads_of
 
 
-def _grads_and_aux_fn(cfg: ModelConfig, microbatches: int,
-                      global_batch: int, grad_dtype):
+def _grads_and_metrics_fn(cfg: ModelConfig, microbatches: int,
+                          global_batch: int, grad_dtype):
     """:func:`make_grad_fn`'s function, returning also the mean over the
-    microbatches of the MoE auxiliary loss (``metrics["aux"]``)."""
+    microbatches of the MoE auxiliary loss (``"aux"``) and, with
+    ``cfg.mtp``, of the MTP term (``"mtp"``), as a dict."""
+    keys = ("aux", "mtp") if cfg.mtp else ("aux",)
     if global_batch % microbatches:
         raise ValueError(f"global batch {global_batch} is not a multiple "
                          f"of {microbatches} microbatches")
@@ -158,13 +160,14 @@ def _grads_and_aux_fn(cfg: ModelConfig, microbatches: int,
             acc = [_grad(p).to(grad_dtype) for p in flat]
             for p in flat:
                 p.grad = None
-            loss, aux = loss.detach(), metrics["aux"].detach()
+            loss = loss.detach()
+            means = {k: metrics[k].detach() for k in keys}
         else:
             mbs = {k: _split_microbatch(v, microbatches, global_batch)
                    for k, v in batch.items()}
             acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
                    for p in flat]
-            losses, auxs = [], []
+            losses, seen = [], {k: [] for k in keys}
             for i in range(microbatches):
                 loss, metrics = T.lm_loss(params, cfg,
                                           {k: v[i] for k, v in mbs.items()})
@@ -174,17 +177,18 @@ def _grads_and_aux_fn(cfg: ModelConfig, microbatches: int,
                         a.add_(_grad(p))
                         p.grad = None
                 losses.append(loss.detach())
-                auxs.append(metrics["aux"].detach())
+                for k in keys:
+                    seen[k].append(metrics[k].detach())
             with torch.no_grad():
                 for a in acc:
                     a.div_(microbatches)
             loss = torch.stack(losses).mean()
-            aux = torch.stack(auxs).mean()
+            means = {k: torch.stack(v).mean() for k, v in seen.items()}
         grads, i = [], 0
         for _, ps, _ in leaves:
             grads.append(acc[i:i + len(ps)])
             i += len(ps)
-        return grads, loss, aux
+        return grads, loss, means
 
     return grads_of
 
@@ -195,24 +199,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     """The train step of ``cfg`` with ``opt_cfg``: ``train_step(state,
     batch) -> (state, {"loss", "grad_norm", "aux"})``, f32 scalars on the
     state's device (``aux``, the MoE auxiliary loss averaged over the
-    microbatches, is 0 without MoE; the reference's step reports loss and
+    microbatches, is 0 without MoE; with ``cfg.mtp`` also ``"mtp"``, the
+    MTP term averaged the same way; the reference's step reports loss and
     grad_norm only); ``batch["tokens"]`` is [global_batch, S], or for the
     vision-language family ``batch`` holds ``embeds`` [global_batch, S,
     D], ``positions`` [3, global_batch, S] and ``labels``; the
     encoder-decoder's also holds ``frames`` [global_batch, T, D]."""
-    grads_of = _grads_and_aux_fn(cfg, microbatches, global_batch,
-                                 grad_dtype)
+    grads_of = _grads_and_metrics_fn(cfg, microbatches, global_batch,
+                                     grad_dtype)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         with deterministic(state["step"].device):
-            grads, loss, aux = grads_of(params, batch)
+            grads, loss, means = grads_of(params, batch)
             apply_opt(opt_cfg, params, grads, state["opt"], state["step"])
             with torch.no_grad():
                 state["step"] += 1
                 metrics = {"loss": loss.float(),
                            "grad_norm": _global_norm(grads),
-                           "aux": aux.float()}
+                           **{k: v.float() for k, v in means.items()}}
         return state, metrics
 
     return train_step

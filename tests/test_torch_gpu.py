@@ -11,8 +11,10 @@ MoE (llama4's smoke config) on the card against the CPU under the
 flip-aware routing rule, hymba's smoke config (the forward behind its
 meta tokens, the captured decode past the ring's wrap, a train
 step) on the card against the CPU, its train step in deterministic mode and its
-checkpointed gradients against un-checkpointed ones, and two trainer
-pods on the card ending bitwise equal.
+checkpointed gradients against un-checkpointed ones, two trainer
+pods on the card ending bitwise equal, and deepseek-v3's smoke config
+(the MLA prefill at its depth and top-8 routing against the CPU under
+the flip-aware rule, the captured absorbed decode against eager steps).
 Every test is marked ``gpu`` and skips without a card.
 
 This file imports only torch, numpy and repro_torch, so it also runs on
@@ -1183,16 +1185,26 @@ class MoeRecorder:
 
 
 def flip_aware_rows(cpu_routes, card_routes, margin):
-    """bool [T] per dispatch pair: the tokens whose expert and keep mask
-    agree on both devices. Raises where a token's expert differs with a
-    top-2 margin of ``margin`` or more."""
+    """bool [T] per dispatch pair: the tokens whose set of k experts and
+    keep mask agree on both devices (a token's choices compared by
+    expert: their order changes no slot). Raises where a token's set
+    differs with a margin of ``margin`` or more between its k-th and
+    (k+1)-th router probabilities (for k = 1 the top-2 margin)."""
     rows = []
     for a, b in zip(cpu_routes, card_routes):
-        top2 = torch.topk(a.probs, 2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        flipped = a.expert != b.expert.cpu()
+        T_, k = a.gate.shape
+        top = torch.topk(a.probs, k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+
+        def by_expert(r):
+            e = r.expert.cpu().reshape(T_, k)
+            order = torch.argsort(e, dim=-1)
+            return (torch.gather(e, 1, order),
+                    torch.gather(r.keep.cpu().reshape(T_, k), 1, order))
+        (ea, ka), (eb, kb) = by_expert(a), by_expert(b)
+        flipped = (ea != eb).any(dim=-1)
         assert bool((gap[flipped] < margin).all()), gap[flipped]
-        rows.append(~flipped & (a.keep == b.keep.cpu()))
+        rows.append(~flipped & (ka == kb).all(dim=-1))
     return rows
 
 
@@ -1305,3 +1317,103 @@ def test_moe_checkpointed_gradients_on_card(cuda):
     for a, b in zip(ckpt, direct):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1e-2, float(b.abs().max()))
+
+
+# -- deepseek-v3 (its smoke config: MLA, a dense prefix, top-k MoE) ------------
+
+DS_ARCH = "deepseek-v3-671b"
+
+
+def _ds_forward(lm, cfg, toks, dev):
+    """The forward's logits at every position, aux and the routes."""
+    from repro_torch.models import layers as L
+    B, S = toks.shape
+    with MoeRecorder() as rec, torch.no_grad():
+        x = L.embed_apply(lm["embed"], toks.to(dev))
+        hidden, aux = T.backbone_forward(
+            lm, cfg, x, torch.arange(S, device=dev)[None].expand(B, S))
+        logits = L.logits_apply(lm["embed"], hidden, cfg.tie_embeddings)
+    return logits.cpu(), float(aux), rec.routes
+
+
+def test_deepseek_mla_prefill_on_card_matches_cpu(cuda):
+    """deepseek-v3's smoke config in f32 at its depth (1 dense and 3 MoE
+    layers, q/k width 48, v width 32: the padded (64, 64) flash), B = 2 x
+    64: the forward launches one f32 flash a layer; every dispatch's
+    experts and keep mask equal the CPU's (at these inputs no token sits
+    within MOE_FLIP_MARGIN of a flip, which the test asserts first, since
+    at this depth a flip would reach other tokens through attention and
+    capacity); the logits at every position agree within 1e-4, as do
+    aux and the prefill's last-token logits."""
+    cfg = registry.get_smoke(DS_ARCH).replace(dtype=torch.float32)
+    lm_cpu, lm_dev = moe_pair(cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 64)))
+    cpu, aux_cpu, r_cpu = _ds_forward(lm_cpu, cfg, toks, "cpu")
+    before = kf.KERNEL.launches
+    card, aux_card, r_card = _ds_forward(lm_dev, cfg, toks, cuda)
+    assert kf.KERNEL.launches - before == cfg.n_layers
+    assert len(r_cpu) == len(r_card) == 3
+    rows = flip_aware_rows(r_cpu, r_card, MOE_FLIP_MARGIN)
+    assert all(bool(r.all()) for r in rows)
+    assert float((cpu - card).abs().max()) < 1e-4
+    assert abs(aux_cpu - aux_card) <= 1e-5 * aux_cpu
+    last, _ = D.prefill(lm_dev, cfg, {"tokens": toks.to(cuda)})
+    assert float((last.cpu() - cpu[:, -1]).abs().max()) < 1e-4
+
+
+def test_deepseek_top8_routing_on_card_matches_cpu(cuda):
+    """k = 8 of 16 experts (deepseek-v3 routes 8 of 256), f32, one dense
+    and one MoE layer, B = 2 x 64 (T = 128 at C = 80): every token's set
+    of experts and keep mask equal the CPU's up to flips under
+    MOE_FLIP_MARGIN (its k-th against its (k+1)-th probability); the
+    logits of the tokens with the same routing agree within 1e-4 (the MoE
+    layer is the last, so a token's routing changes only its own
+    output), as do the aux losses."""
+    cfg = registry.get_smoke(DS_ARCH).replace(
+        dtype=torch.float32, n_layers=2, n_experts=16, experts_per_token=8)
+    lm_cpu, lm_dev = moe_pair(cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 64)))
+    cpu, aux_cpu, r_cpu = _ds_forward(lm_cpu, cfg, toks, "cpu")
+    card, aux_card, r_card = _ds_forward(lm_dev, cfg, toks, cuda)
+    assert len(r_cpu) == len(r_card) == 1
+    assert r_card[0].expert.shape == (128 * 8,)
+    assert r_card[0].capacity == 80
+    (rows,) = flip_aware_rows(r_cpu, r_card, MOE_FLIP_MARGIN)
+    assert rows.float().mean() > 0.9
+    diff = (cpu - card).abs().amax(dim=-1).reshape(-1)
+    assert float(diff[rows].max()) < 1e-4
+    assert abs(aux_cpu - aux_card) <= 1e-5 * aux_cpu
+
+
+def test_deepseek_captured_absorbed_decode_matches_eager(cuda):
+    """The smoke config in f32 on the card: ``launch.serve.generate``
+    (each step one captured CUDA graph of the absorbed MLA decode, both
+    segments' compressed caches written through a 0-d index tensor)
+    against eager ``decode_step`` calls with int indices, B = 2, 12
+    prompt and 4 new tokens: the same logits within 1e-6 and the same
+    tokens; no model kernel is launched; the first prompt step's logits
+    equal the forward's first position within 1e-4."""
+    cfg = registry.get_smoke(DS_ARCH).replace(dtype=torch.float32)
+    _, lm = moe_pair(cfg, cuda)
+    P, N = 12, 4
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, P))).to(cuda)
+    from repro_torch.launch import serve
+    before = {k.source: k.launches for k in (kf.KERNEL, kf.KERNEL_BF16)}
+    gen, logits = serve.generate(lm, cfg, prompts, N, return_logits=True)
+    assert {k.source: k.launches for k in (kf.KERNEL, kf.KERNEL_BF16)} \
+        == before
+    seq = torch.cat([prompts, gen], dim=1)
+    cache = D.cache_zeros(D.cache_spec(cfg, 2, P + N), cuda)
+    eager = []
+    for t in range(P + N - 1):
+        lg, cache = D.decode_step(lm, cfg, {"token": seq[:, t:t + 1],
+                                            "index": t}, cache)
+        eager.append(lg.clone())
+    eager = torch.stack(eager, dim=1)
+    assert float((logits - eager).abs().max()) <= 1e-6
+    assert torch.equal(eager[:, P - 1:].argmax(-1), gen)
+    full, _, _ = _ds_forward(lm, cfg, prompts[:, :1].cpu(), cuda)
+    assert float((full[:, 0] - logits[:, 0].cpu()).abs().max()) < 1e-4

@@ -177,12 +177,15 @@ def _torch_params(p: dict, dtype=torch.float32) -> dict:
 # -- config, capacity, plan ---------------------------------------------------
 
 def test_registry_has_the_moe_config():
+    """Both MoE architectures are ported: NOT_PORTED is empty, and
+    deepseek-v3's config equals the reference's field by field."""
     assert ARCH in registry.ARCHS and ARCH not in registry.NOT_PORTED
     assert registry.microbatches(ARCH, "train_4k") \
         == jregistry.microbatches(ARCH, "train_4k") == 16
+    assert registry.NOT_PORTED == {}
     for arch in ("deepseek-v3-671b",):
-        with pytest.raises(NotImplementedError, match=r"item 12\("):
-            registry.get(arch)
+        assert registry.get(arch).replace(dtype=None).__dict__ \
+            == jregistry.get(arch).replace(dtype=None).__dict__
 
 
 @pytest.mark.parametrize("T_", [1, 7, 64, 100, 256, 4096, 4097])
@@ -213,14 +216,24 @@ def test_plan_segments_match_reference(which):
 
 
 def test_moe_stack_without_pairs_still_raises():
-    """deepseek-v3's layout (a dense prefix, then MoE layers, interleave
-    1) is item 12(e): the port refuses it, and MLA with it."""
-    cfg = registry.get_smoke(ARCH).replace(moe_interleave=1,
-                                           n_dense_layers=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.plan_segments(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.plan_segments(registry.get_smoke(ARCH).replace(attn_kind="mla"))
+    """A MoE stack without pairs (interleave 1: a dense prefix, then MoE
+    layers, deepseek-v3's layout) and this config with MLA blocks plan as
+    the reference plans them; without a prefix the stack is one MoE
+    segment. A layout no family has (MLA beside Mamba heads) raises."""
+    for kw in ({"moe_interleave": 1, "n_dense_layers": 1},
+               {"moe_interleave": 1, "n_dense_layers": 0},
+               {"attn_kind": "mla"},
+               {"moe_interleave": 1, "n_dense_layers": 3,
+                "attn_kind": "mla"}):
+        cfg = registry.get_smoke(ARCH).replace(**kw)
+        jcfg = jregistry.get_smoke(ARCH).replace(**kw)
+        assert T.plan_segments(cfg) == JT.plan_segments(jcfg), kw
+    plan = T.plan_segments(registry.get_smoke(ARCH).replace(
+        moe_interleave=1, n_dense_layers=1))
+    assert [(s["n"], s["moe"]) for s in plan] == [(1, False), (3, True)]
+    with pytest.raises(NotImplementedError, match="no such block layout"):
+        T.plan_segments(registry.get_smoke("hymba-1.5b").replace(
+            attn_kind="mla"))
 
 
 def test_cache_spec_matches_reference():

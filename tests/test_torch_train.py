@@ -140,11 +140,27 @@ def test_lm_loss_and_gradients_match_reference(arch):
 
 
 def test_lm_loss_raises_for_unported_branches():
-    cfg = registry.get_smoke("yi-6b").replace(dtype=torch.float32, mtp=True)
-    lm = T.init_lm(cfg.replace(mtp=False), torch.Generator().manual_seed(0),
-                   "cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.lm_loss(lm, cfg, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    """No branch of the reference's ``lm_loss`` is left unported: a GQA
+    config with the MTP head (yi-6b's smoke config with ``mtp=True``)
+    gives the reference's loss, ce and MTP term, and its MTP leaves'
+    gradients."""
+    jcfg, cfg = (c.replace(mtp=True) for c in _cfgs("yi-6b"))
+    jparams, _ = JT.init_lm(jcfg, jax.random.PRNGKey(3))
+    lm = convert.lm_params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                    "cpu")
+    toks = _tokens(4, cfg, B=2, S=16)
+    (want, jm), jgrads = jax.value_and_grad(JT.lm_loss, has_aux=True)(
+        jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    got, m = T.lm_loss(lm, cfg, {"tokens": torch.from_numpy(toks)})
+    assert _rel(got, want) <= LOSS_TOL
+    assert set(m) == {"ce", "aux", "mtp"} and float(m["aux"]) == 0.0
+    for k in ("ce", "mtp"):
+        assert _rel(m[k].detach(), jm[k]) <= LOSS_TOL
+    got.backward()
+    grads = [[p.grad for p in ps] for _, ps, _ in reference_leaves(lm["mtp"])]
+    assert len(grads) == len(jax.tree.leaves(jgrads["mtp"])) == 11
+    for err, size in _leaf_errs(grads, jgrads["mtp"]):
+        assert err <= GRAD_TOL * max(1e-2, size)
 
 
 def test_blocks_are_checkpointed_under_grad():
