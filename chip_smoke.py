@@ -13,7 +13,8 @@ Phases, each of which must pass or the script exits non-zero:
    flash libraries (forward and backward) that the tensor cores do their
    work (HMMA) and in the f32 ones' (forward and backward) that they do
    none (no HMMA), and log blocks per SM and shared memory per block of
-   each flash and WKV6 instantiation;
+   each flash and WKV6 instantiation and the registers, spills, shared
+   memory and blocks per SM of the WKV6 backward's four CUDA kernels;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, bit-exact, at the engine's shapes, the edge shapes of the
    reference kernel tests, the shapes where the lane mapping switches
@@ -144,7 +145,9 @@ Phases, each of which must pass or the script exits non-zero:
 12. model-kernel timing at the serving path's shapes: kernel (and its
    device time; for WKV6 each pass's, and its workspace), plain version
    and (flash, in bf16 and in f32) ``scaled_dot_product_attention``, with
-   bounds;
+   bounds; the WKV6 backward at the rwkv6-3b train microbatch [1, 4096,
+   40, 64] in bf16 (per call, each of its four passes' device time, the
+   plain backward, ``wkv_bwd_bound``);
 13. flash backward kernel phase: ``flash_attention_bwd`` against its
    plain version on the card (causal and not, windows, Sq != Skv, G = 1
    and 8, h 16 / 64 / 128, hv != h, ragged lengths, the train cell's and
@@ -155,7 +158,13 @@ Phases, each of which must pass or the script exits non-zero:
    one launch of the dtype's kernel a call, two launches at the train
    shape byte-equal; registers, spills, shared memory and blocks per SM
    of both kernels' CUDA kernels at every instantiation (the bf16 one's
-   four at q/k width 192: D, the dk and dv passes, dq);
+   four at q/k width 192: D, the dk and dv passes, dq); then the WKV6
+   backward kernel (``wkv_bwd_phase``): WKV6's autograd on the card in
+   every case of WKV_BWD_CASES (the forward's cases and the train
+   microbatch), one forward and one backward launch a call, the five
+   gradients against ``wkv6_chunked_bwd_plain`` (WKV_BWD_TOL), two
+   backward launches byte-equal, and a head dim past 128 or a
+   non-contiguous dout raising before any launch;
 14. ``train/yi-6b``: full width and depth, bf16, 2 x 4096 tokens a step
    (the reference's train_4k cell with its batch cut to 2), 2
    microbatches, Adafactor, through ``make_train_step`` inside a
@@ -187,8 +196,21 @@ Phases, each of which must pass or the script exits non-zero:
    flash kernels; losses finite and falling; the leader's LAN-1 bytes 0
    and every disseminator's above 0; the executed sequences equal the
    same schedule's through the DES on the CPU with a stub train step;
-   ``train/rwkv6-3b-refused``: RWKV6 training on the card raises
-   ``NotImplementedError`` (no WKV6 backward kernel yet);
+   ``train/rwkv6-3b``: full width and depth (32 layers, d 2560, 40
+   heads of 64, vocab 65,536), bf16, Adafactor, 4 x 4096 tokens a step
+   in the reference's 4 microbatches (its train_4k cell with the batch
+   cut to 4), through ``make_train_step`` inside a
+   ``TrainerStateMachine`` fed by a two-group ``MergedCommandLog``: one
+   fixed batch as 3 STEP commands (1 warm-up, 2 timed with CUDA events),
+   each with exactly 256 WKV6 forward and 128 WKV6 backward launches and
+   no flash launch, a finite grad norm and a loss below the one before;
+   tokens/s and peak memory; a second pod fed the same decisions in the
+   reverse order ends equal leaf for leaf; one more step traced for each
+   backward pass's device time and share; ``train/rwkv6-3b/f32``: 2
+   layers at full width, f32, one AdamW step of 1 x 256 tokens on the
+   card (4 forward and 2 backward WKV6 launches) against the same step
+   on the CPU: loss, grad_norm, every gradient leaf, the parameters
+   after (F32_STEP_TOL);
    ``serve/qwen2-vl-7b`` and ``train/qwen2-vl-7b``: the vision-language
    family (M-RoPE over stub embeddings; ``vlm_serve_phase``,
    ``vlm_train_phase``);
@@ -313,7 +335,10 @@ def check(cond, msg: str) -> None:
 
 
 def log(**kv) -> None:
-    print(json.dumps(kv), flush=True)
+    """Print one JSON line, stamped with the seconds since the script
+    started (``at_s``)."""
+    print(json.dumps({**kv, "at_s": time.perf_counter() - START}),
+          flush=True)
 
 
 # -- traffic ------------------------------------------------------------------
@@ -388,7 +413,8 @@ def build_kernels() -> float:
     t0 = time.perf_counter()
     logs = _build.build(["quorum.cu", "dissem.cu", "flash_attention.cu",
                          "flash_attention_bf16.cu", "flash_attention_bwd.cu",
-                         "flash_attention_bwd_bf16.cu", "wkv6.cu"])
+                         "flash_attention_bwd_bf16.cu", "wkv6.cu",
+                         "wkv6_bwd.cu"])
     seconds = time.perf_counter() - t0
     for source, text in logs.items():
         ptxas = [ln.strip() for ln in text.splitlines()
@@ -461,10 +487,43 @@ def build_kernels() -> float:
             check(err == 0, f"wkv6_occupancy({phase}, {hd}): {err}")
             wkv[f"{name}/hd{hd}"] = dict(blocks_per_sm=blocks.value,
                                          smem_bytes_per_block=smem.value)
+    lib = ctypes.CDLL(str(_build.library_path("wkv6_bwd.cu")))
+    lib.wkv6_bwd_workspace_floats.restype = ctypes.c_longlong
+    for shape in ((1, 4096, 40, 64), (4, 1024, 40, 64), (2, 33, 2, 50),
+                  (2, 32, 3, 17), (1, 1, 1, 1)):
+        want = lib.wkv6_bwd_workspace_floats(*shape)
+        check(kw.bwd_workspace_floats(*shape) == want,
+              f"wkv6 backward workspace at {shape}: the wrapper allocates "
+              f"{kw.bwd_workspace_floats(*shape)} floats, the kernel takes "
+              f"{want}")
     log(phase="build/occupancy",
         flash_attention_bf16=occupancy["flash_attention_bf16.cu"],
-        flash_attention_f32=occupancy["flash_attention.cu"], wkv6=wkv)
+        flash_attention_f32=occupancy["flash_attention.cu"], wkv6=wkv,
+        wkv6_bwd=wkv_bwd_info())
     return seconds
+
+
+def wkv_bwd_info() -> dict:
+    """Registers a thread, spill (local) bytes a thread, dynamic shared
+    bytes a block and blocks an SM of the WKV6 backward's four CUDA
+    kernels (bf16 instantiation) at each padded head width, keyed
+    ``name/hd<W>`` (``wkv6_bwd_info``). None may ask for more shared
+    memory than a block has."""
+    from repro_torch.kernels import _build
+    fn = ctypes.CDLL(str(_build.library_path("wkv6_bwd.cu"))).wkv6_bwd_info
+    out = {}
+    for hd in (32, 64, 128):
+        for phase, name in enumerate(WKV_BWD_PHASES, start=1):
+            vals = [ctypes.c_int() for _ in range(4)]
+            err = fn(phase, hd, *map(ctypes.byref, vals))
+            check(err == 0, f"wkv6_bwd_info({phase}, {hd}): {err}")
+            out[f"{name}/hd{hd}"] = info = dict(zip(
+                ("registers", "spill_bytes", "smem_bytes_per_block",
+                 "blocks_per_sm"), (v.value for v in vals)))
+            check(info["smem_bytes_per_block"] <= SMEM_PER_BLOCK
+                  and info["blocks_per_sm"] >= 1,
+                  f"{name}/hd{hd} does not fit an SM: {info}")
+    return out
 
 
 def max_abs_err(got, want) -> int:
@@ -577,7 +636,8 @@ def reset_counts() -> None:
     from repro_torch.kernels import quorum as kq
     from repro_torch.kernels import rwkv6_scan as kw
     for kernel in (kq.KERNEL, kd.KERNEL, kf.KERNEL, kf.KERNEL_BF16,
-                   kf.KERNEL_BWD, kf.KERNEL_BWD_BF16, kw.KERNEL):
+                   kf.KERNEL_BWD, kf.KERNEL_BWD_BF16, kw.KERNEL,
+                   kw.KERNEL_BWD):
         kernel.launches = 0
 
 
@@ -1088,10 +1148,13 @@ def time_engine(tiles_dev, dev) -> dict:
     return res
 
 
-def traced(run):
+def traced(run, cpu: bool = False):
     """``run()`` under ``torch.profiler`` behind a lead-in; returns the
     profile and its CUDA kernel events as (name, microseconds), the
-    lead-in's left out.
+    lead-in's left out. The profiler records device activity only, unless
+    ``cpu`` (the PyTorch ops too, for ``key_averages``): a traced train
+    step records ~10^5 host ops, whose events take tens of seconds to
+    build.
 
     ``torch.profiler`` loses the first records of a session, the more of
     them the more sessions the process has traced (seen on the H100 after
@@ -1107,8 +1170,8 @@ def traced(run):
     from torch.profiler import ProfilerActivity, profile
     lead = PROFILE_LEAD_IN
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]
+                     + ([ProfilerActivity.CPU] if cpu else [])) as prof:
             for _ in range(lead):
                 torch.cuda._sleep(0)
             torch.cuda.synchronize()
@@ -1179,7 +1242,7 @@ def profile_loop(step, ticks: int, phase: str) -> dict:
             step(t)
         torch.cuda.synchronize()
         wall["us"] = (time.perf_counter() - t0) * 1e6
-    prof, events = traced(run)
+    prof, events = traced(run, cpu=True)
     wall_us = wall["us"]
     kernels = {}
     for name, us in events:
@@ -2323,6 +2386,11 @@ SYMBOLS = {"flash_attention": "flash_bf16_kernel",
            "wkv6_chunked": "wkv6_"}
 WKV_PHASES = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
               "wkv6_output_kernel")
+# the WKV6 backward's four CUDA kernels, whose names share WKV_BWD_PREFIX
+# (which no forward name holds, nor they a forward one)
+WKV_BWD_PHASES = ("wkv6bwd_adjoint_kernel", "wkv6bwd_scan_kernel",
+                  "wkv6bwd_grad_kernel", "wkv6bwd_du_kernel")
+WKV_BWD_PREFIX = "wkv6bwd_"
 EVENTS_PER_CALL = {"flash_attention": 1, "flash_attention_f32": 1,
                    "wkv6_chunked": len(WKV_PHASES)}
 SERVE_B, SERVE_P, SERVE_NEW = 4, 1024, 32
@@ -2446,7 +2514,8 @@ def model_counts() -> dict:
             "flash_attention_f32": kf.KERNEL.launches,
             "flash_attention_bwd": kf.KERNEL_BWD_BF16.launches,
             "flash_attention_bwd_f32": kf.KERNEL_BWD.launches,
-            "wkv6_chunked": kw.KERNEL.launches}
+            "wkv6_chunked": kw.KERNEL.launches,
+            "wkv6_chunked_bwd": kw.KERNEL_BWD.launches}
 
 
 def randn(gen, shape, dev, dtype=F32, scale=1.0) -> torch.Tensor:
@@ -2575,6 +2644,94 @@ def model_kernel_phase(dev) -> dict:
     return worst
 
 
+# the WKV6 backward against its plain version: the forward's cases and the
+# train/rwkv6-3b microbatch, (B, S, H, hd, dtype, std of the raw decay)
+WKV_BWD_CASES = [(1, 4096, 40, 64, BF16, 0.3), *WKV_CASES,
+                 (1, 256, 2, 50, F32, 1.0)]     # hd not a multiple of 8
+# against the plain backward at the kernel's chunk of 32, relative to (max
+# |plain| + 1): f32 2e-5. Both compute in f32 from the same values, but
+# each decay factor is 2^ or e^ of a difference of two cumulative log
+# decays, and a chunk of the steep case sums to ~10^2: the f32 rounding
+# of such a difference is ~1e-5 of the factor, in each version. dr, dk,
+# dv in bf16: one bf16 ulp of the largest value (2^-7 < 8e-3), as the two
+# f32 results may round to neighbouring bf16 values. dwlog and du are f32
+# in both dtypes.
+WKV_BWD_TOL = {F32: 2e-5, BF16: 8e-3}
+WKV_GRADS = ("dr", "dk", "dv", "dwlog", "du")
+
+
+def wkv_bwd_phase(dev) -> dict:
+    """WKV6's autograd on the card in every case of WKV_BWD_CASES: the
+    forward one launch of the forward kernel, the backward one launch of
+    the backward kernel (and no other), its five gradients within
+    WKV_BWD_TOL of ``wkv6_chunked_bwd_plain`` on the same inputs, finite,
+    and a second backward on the same saved tensors byte-equal (no
+    atomics, a fixed order). A head dim past 128 and a non-contiguous
+    dout raise before any launch. Returns the worst absolute error and
+    the worst error over its tolerance's scale."""
+    _, kw = model_kernel_modules()
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    worst, worst_rel, cases = 0.0, 0.0, []
+    for (B, S, H, hd, dt, w_std) in WKV_BWD_CASES:
+        r, k, v, wlog, u = wkv_inputs(gen, B, S, H, hd, dt, w_std, dev)
+        do = randn(gen, (B, S, H, hd), dev)
+        xs = [x.clone().requires_grad_() for x in (r, k, v, wlog, u)]
+        case = [B, S, H, hd, str(dt), w_std]
+        before = model_counts()
+        out = kw.wkv6_chunked(*xs)
+        got = torch.autograd.grad(out, xs, do, retain_graph=True)
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        check(launched == {**dict.fromkeys(launched, 0), "wkv6_chunked": 1,
+                           "wkv6_chunked_bwd": 1},
+              f"wkv6 backward {case} launched {launched}, expected one "
+              "forward and one backward")
+        again = torch.autograd.grad(out, xs, do)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"wkv6 backward {case}: two launches differ")
+        want = kw.wkv6_chunked_bwd_plain(r, k, v, wlog, u, do,
+                                         chunk=kw.CHUNK)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(WKV_GRADS, got, want):
+            tol = WKV_BWD_TOL[dt if name in WKV_GRADS[:3] else F32]
+            scale = float(b.float().abs().max()) + 1.0
+            err = float((a.float() - b.float()).abs().max())
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and bool(torch.isfinite(a).all())
+                  and err <= tol * scale, f"wkv6 backward {case}: {name} "
+                  f"{a.dtype}{tuple(a.shape)}, max abs err {err} > {tol} x "
+                  f"{scale}")
+            errs[name] = dict(err=err, scale=scale, tol=tol)
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / (tol * scale))
+        cases.append(dict(case=case, same_bytes_twice=same, **errs))
+        del r, k, v, wlog, u, do, xs, out, got, again, want
+    # what the kernel does not take raises before a launch
+    r = torch.zeros((1, 40, 2, 32), device=dev)
+    states = torch.zeros((kw.workspace_floats(1, 40, 2, 32),), device=dev)
+    wide = torch.zeros((1, 40, 2, 130), device=dev)
+    raised = {}
+    before = kw.KERNEL_BWD.launches
+    for name, args in (
+            ("hd 130", (wide, wide, wide, wide - 1,
+                        torch.zeros((2, 130), device=dev), wide, states)),
+            ("dout not contiguous", (r, r, r, r - 1,
+                                     torch.zeros((2, 32), device=dev),
+                                     r.transpose(2, 3).contiguous()
+                                     .transpose(2, 3), states))):
+        try:
+            kw.wkv6_bwd(*args)
+            raised[name] = False
+        except ValueError:
+            raised[name] = True
+    check(all(raised.values()) and kw.KERNEL_BWD.launches == before,
+          f"wkv6 backward: bad inputs raised {raised}")
+    torch.cuda.empty_cache()
+    log(phase="kernels/wkv6_bwd", cases=cases, max_abs_err=worst,
+        worst_err_over_tol=worst_rel, bad_inputs_raised=raised)
+    return dict(max_abs_err=worst, worst_err_over_tol=worst_rel)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model layers' kernel calls to the plain versions."""
@@ -2604,6 +2761,21 @@ def f32_copy(lm, device=None):
             return [f32(v) for v in tree]
         return tree.detach().to(device, F32, copy=True)
     return LM(lm.cfg.replace(dtype=F32), f32(lm.tree()))
+
+
+def f32_states(cfg, opt, dev) -> tuple[dict, dict]:
+    """One set of weights for :func:`f32_step_vs_cpu`: the train state of
+    ``cfg`` drawn on the card (seed SEED), and an f32 copy of its
+    parameters on the CPU with a fresh optimizer state. (Drawn on the
+    card: the host's generator takes seconds for a full-width
+    embedding.)"""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    card = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
+                         dev)
+    params = f32_copy(card["params"], "cpu")
+    return ({"params": params, "opt": O.init_opt(opt, params),
+             "step": torch.zeros((), dtype=torch.int32)}, card)
 
 
 def teacher_forced(lm, cfg, prompts):
@@ -2963,6 +3135,29 @@ def wkv_bound(B, S, H, hd, itemsize) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def wkv_bwd_bound(B, S, H, hd, itemsize) -> dict:
+    """The recurrence's gradient needs, per state element per token, 6
+    FMAs (decay the state's gradient and add r do; read out dr from the
+    state, dk and dv from the state's gradient, dwlog from their product)
+    = 12 hd^2 flops per token and head, counted at the bf16 tensor-core
+    rate; read once: r/k/v in their type, wlog, do and u in f32; written
+    once: dr/dk/dv in their type, dwlog and du in f32. The forward's saved
+    chunk states (f32 [W, W], W the padded head width, for every chunk
+    but the first), which this kernel reads in place of a recompute, are
+    its design's cost and not the function's: ``state_bytes`` reports
+    them, outside the bound."""
+    _, kw = model_kernel_modules()
+    n, w = B * S * H * hd, kw.padded_width(hd)
+    states = 4 * B * H * max(-(-S // kw.CHUNK) - 1, 0) * w * w
+    flops = 12 * B * S * H * hd * hd
+    nbytes = (3 * itemsize * n + 8 * n + 4 * H * hd
+              + 3 * itemsize * n + 4 * n + 4 * H * hd)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, state_bytes=states,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_model_kernels(dev) -> dict:
     """Each model kernel at its serving-path shape (B=4, S=1024; flash in
     bf16 and in f32, WKV6 in bf16): per call (CUDA events over back-to-back
@@ -3038,7 +3233,51 @@ def time_model_kernels(dev) -> dict:
         **wkv_bound(B, S, H, hd, 2))
     log(phase="timing/model_kernel", name="wkv6_chunked",
         **rows["wkv6_chunked"])
+    del r, kk, vv, wlog, u
+    rows["wkv6_chunked_bwd"] = time_wkv_bwd(dev, gen)
     return rows
+
+
+def time_wkv_bwd(dev, gen) -> dict:
+    """The WKV6 backward at the rwkv6-3b train microbatch [1, 4096, 40, 64]
+    in bf16: per call (CUDA events over back-to-back calls of
+    ``wkv6_bwd`` on one forward's saved states), each pass's device time
+    (``torch.profiler``), the plain backward, the bound, and each pass's
+    registers, spills, shared memory and blocks per SM at hd 64."""
+    _, kw = model_kernel_modules()
+    B, S, H, hd = 1, TRAIN_S, 40, 64
+    r, kk, vv, wlog, u = wkv_inputs(gen, B, S, H, hd, BF16, 0.3, dev)
+    do = randn(gen, (B, S, H, hd), dev)
+    _, states = kw.wkv6_fwd(r, kk, vv, wlog, u)
+
+    def bwd():
+        return kw.wkv6_bwd(r, kk, vv, wlog, u, do, states)
+    before = kw.KERNEL_BWD.launches
+    ms = time_cuda(bwd, reps=20, warmup=3)
+    check(kw.KERNEL_BWD.launches - before == 23,
+          "wkv6_chunked_bwd: timed calls did not launch it")
+    calls = 5
+    prof = device_kernels(bwd, calls, WKV_BWD_PREFIX,
+                          calls * len(WKV_BWD_PHASES))
+    phase_us = {p: sum(us for name, us in prof if p in name) / calls
+                for p in WKV_BWD_PHASES}
+    check(sum(WKV_BWD_PREFIX in name for name, _ in prof)
+          == calls * len(WKV_BWD_PHASES) and all(phase_us.values()),
+          f"wkv6_chunked_bwd: profiler saw {phase_us} over {calls} calls")
+    info = wkv_bwd_info()
+    row = dict(
+        shape=[B, S, H, hd], dtype="bfloat16", ms=ms,
+        plain_ms=time_cuda(lambda: kw.wkv6_chunked_bwd_plain(
+            r, kk, vv, wlog, u, do), reps=2, warmup=1),
+        library_ms=None,
+        library="none: no single PyTorch call computes the WKV6 gradient",
+        device_us=sum(phase_us.values()), phase_device_us=phase_us,
+        workspace_bytes=4 * kw.bwd_workspace_floats(B, S, H, hd),
+        kernel_info={p: info[f"{p}/hd64"] for p in WKV_BWD_PHASES},
+        **wkv_bwd_bound(B, S, H, hd, 2))
+    row["over_bound"] = ms / row["bound_ms"]
+    log(phase="timing/model_kernel", name="wkv6_chunked_bwd", **row)
+    return row
 
 
 # -- the training path ---------------------------------------------------------
@@ -3053,7 +3292,6 @@ TRAIN_STEPS = 4               # 1 warm-up + 3 timed, each one STEP command
 TRAIN_LR = 1e-4
 F32_TRAIN_LAYERS, F32_TRAIN_B, F32_TRAIN_S = 2, 1, 256
 CKPT_B, CKPT_S = 2, 512       # the 2-layer checkpoint round trip
-REFUSE_S = 64
 # the f32 step, card vs CPU, from one set of weights: f32 rounding in
 # another summation order through 2 layers (cuBLAS against the host's
 # BLAS): loss 1e-5 and grad_norm 1e-4 relative, each gradient leaf 1e-3
@@ -3425,31 +3663,28 @@ def train_phase(dev) -> dict:
 def train_f32_phase(dev) -> dict:
     """yi-6b at F32_TRAIN_LAYERS layers, full width, f32, one AdamW step
     of F32_TRAIN_B x F32_TRAIN_S tokens on the card and on the CPU from
-    one set of weights (drawn on the host): :func:`f32_step_vs_cpu`."""
-    from repro_torch import convert
+    one set of weights (:func:`f32_states`): :func:`f32_step_vs_cpu`."""
     from repro_torch.configs import registry
     from repro_torch.runtime.data import ShardedBatchSource
     from repro_torch.train import optimizer as O
-    from repro_torch.train import trainer as TR
     cfg = registry.get(TRAIN_ARCH).replace(n_layers=F32_TRAIN_LAYERS,
                                            dtype=F32)
     opt = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    cpu = TR.make_state(cfg, opt, torch.Generator().manual_seed(SEED), "cpu")
-    card = convert.train_state_from_jax(convert.train_state_to_numpy(cpu),
-                                        cfg, dev)
+    cpu, card = f32_states(cfg, opt, dev)
     tokens = ShardedBatchSource(cfg.vocab, F32_TRAIN_B, F32_TRAIN_S,
                                 seed=SEED + 7, device="cpu").batch(0)
     return f32_step_vs_cpu("train/f32", cfg, opt, cpu, card, tokens)
 
 
 def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
-                    batch: dict, flip_aware_of=None) -> dict:
+                    batch: dict, flip_aware_of=None, want=None) -> dict:
     """One AdamW step of the f32 state ``cpu`` on the CPU and of its copy
     ``card`` on the card, on the same ``batch`` (on the CPU): loss,
     grad_norm, every gradient leaf and the parameters after the step
     (F32_STEP_TOL), and exactly 2 L forward and L backward f32 flash
     launches on the card, L the flash calls of a forward
-    (:func:`flash_calls`). With ``flip_aware_of``, an active
+    (:func:`flash_calls`), or the launches ``want`` names. With
+    ``flip_aware_of``, an active
     :class:`MoeRecorder`, the MoE dispatches of the two runs (the card's
     first) are held to the flip-aware rule first; the step's checks then
     hold only where no token flipped, so a flip fails them, and the log
@@ -3502,9 +3737,9 @@ def f32_step_vs_cpu(phase: str, cfg, opt, cpu: dict, card: dict,
                        dropped=[int((~r.keep).sum()) for r in routes[:half]],
                        capacity=routes[0].capacity)
     card_launched = out["card"]["launched"]
-    check(card_launched == {**dict.fromkeys(card_launched, 0),
-                            "flash_attention_f32": 2 * flash_calls(cfg),
-                            "flash_attention_bwd_f32": flash_calls(cfg)},
+    want = want or {"flash_attention_f32": 2 * flash_calls(cfg),
+                    "flash_attention_bwd_f32": flash_calls(cfg)}
+    check(card_launched == {**dict.fromkeys(card_launched, 0), **want},
           f"{phase}: launches {card_launched}")
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
@@ -3931,38 +4166,183 @@ def smr_phase(dev) -> dict:
     return res
 
 
-def train_refusal_phase(dev) -> dict:
-    """rwkv6-3b (full width, one layer) refuses to train on the card: the
-    WKV6 kernel runs the forward, and the backward raises
-    NotImplementedError before any parameter changes."""
+RWKV_ARCH = "rwkv6-3b"
+# train/rwkv6-3b: full width and depth, bf16, Adafactor at TRAIN_LR; the
+# reference's train_4k cell (seq 4096, batch 256) with the batch cut to 4,
+# in its 4 microbatches (configs/rwkv6_3b.py); one fixed batch as
+# RWKV_TRAIN_STEPS STEP commands (1 warm-up, then timed)
+RWKV_TRAIN_B = 4
+RWKV_TRAIN_STEPS = 3
+RWKV_F32_LAYERS = 2
+
+
+def rwkv_train_phase(dev) -> dict:
+    """train/rwkv6-3b: full width and depth in bf16, RWKV_TRAIN_B x
+    TRAIN_S tokens a step in the reference's microbatches, Adafactor,
+    through make_train_step inside a TrainerStateMachine fed by a
+    two-group MergedCommandLog: RWKV_TRAIN_STEPS STEP commands of one
+    fixed batch, each timed with CUDA events, with exactly 2 L m WKV6
+    forward launches (forward and recompute), L m WKV6 backward launches
+    and no flash launch a step, a finite grad norm and a loss below the
+    one before. A second pod applies the same decisions fed in the
+    reverse order and must end equal, leaf for leaf (torch.equal). Then
+    one more step of pod 0 under torch.profiler: the device time of
+    each backward pass and its share of the step."""
     from repro_torch.configs import registry
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.runtime.statemachine import (MergedCommandLog,
+                                                  TrainerStateMachine)
     from repro_torch.train import optimizer as O
     from repro_torch.train import trainer as TR
-    _, kw = model_kernel_modules()
-    cfg = registry.get("rwkv6-3b").replace(n_layers=1)
-    opt = O.OptConfig(kind="adafactor", lr=TRAIN_LR)
-    state = TR.make_state(cfg, opt, torch.Generator(dev).manual_seed(SEED),
-                          dev)
-    before = state["params"]["ln_f"]["scale"].clone()
-    step_fn = TR.make_train_step(cfg, opt, global_batch=1)
-    tokens = torch.randint(0, cfg.vocab, (1, REFUSE_S), device=dev,
-                           generator=torch.Generator(dev).manual_seed(SEED))
-    launches = kw.KERNEL.launches
-    try:
-        step_fn(state, {"tokens": tokens})
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    res = dict(raised=raised, wkv6_launches=kw.KERNEL.launches - launches,
-               step=int(state["step"]))
-    log(phase="train/rwkv6-3b-refused", **res)
-    check("WKV6 backward kernel" in raised and res["wkv6_launches"] >= 1
-          and res["step"] == 0
-          and torch.equal(before, state["params"]["ln_f"]["scale"]),
-          f"rwkv6-3b training on the card did not refuse: {res}")
-    del state
+    t_phase = time.perf_counter()
+    cfg = registry.get(RWKV_ARCH)
+    micro = registry.microbatches(RWKV_ARCH, "train_4k")
+    opt = O.OptConfig(kind=O.choose_optimizer(1e12), lr=TRAIN_LR)
+    step_fn = TR.make_train_step(cfg, opt, microbatches=micro,
+                                 global_batch=RWKV_TRAIN_B)
+    batch = ShardedBatchSource(cfg.vocab, RWKV_TRAIN_B, TRAIN_S,
+                               seed=SEED + 41, device=dev).batch(0)
+    store = {f"b_{i}": batch for i in range(RWKV_TRAIN_STEPS)}
+    decided = train_decisions(RWKV_TRAIN_STEPS)
+    want = {"wkv6_chunked": 2 * cfg.n_layers * micro,
+            "wkv6_chunked_bwd": cfg.n_layers * micro}
+
+    def pod(name):
+        return TrainerStateMachine(name, step_fn, TR.make_state(
+            cfg, opt, torch.Generator(dev).manual_seed(SEED), dev), store)
+
+    resident = fresh_peak()
+    t0 = time.perf_counter()
+    a = pod("pod0")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+
+    def timed_apply(cmd):
+        before = model_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        a.apply(cmd)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in model_counts().items()}
+        steps.append(dict(seconds=start.elapsed_time(end) / 1e3,
+                          launches=launched, **a.metrics_log[-1]))
+        check(launched == {**dict.fromkeys(launched, 0), **want},
+              f"train/{RWKV_ARCH} step {len(steps)} launched {launched}, "
+              f"expected {want}")
+
+    # the main path: counts set to 0 right before, read right after
+    reset_counts()
+    log_a = MergedCommandLog(2, apply=timed_apply)
+    for g, i, cmd in decided:
+        log_a.feed(g, i, cmd)
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    check(a.step == RWKV_TRAIN_STEPS and log_a.audit() == []
+          and counts["wkv6_chunked_bwd"] == RWKV_TRAIN_STEPS
+          * want["wkv6_chunked_bwd"]
+          and all(np.isfinite([st[k] for st in steps
+                               for k in ("loss", "grad_norm")]))
+          and all(y < x for x, y in zip(losses, losses[1:])),
+          f"train/{RWKV_ARCH}: step {a.step}, counts {counts}, losses "
+          f"{losses}, grad norms {[st['grad_norm'] for st in steps]}")
+    timed = steps[1:]
+    sec = sum(st["seconds"] for st in timed) / len(timed)
+    split = {"pod0": time.perf_counter() - t_phase}
+
+    # the replica: the same decisions in the reverse feed order
+    b = pod("pod1")
+    log_b = MergedCommandLog(2, apply=b.apply)
+    for g, i, cmd in decided[::-1]:
+        log_b.feed(g, i, cmd)
+    same, n_tensors = leaves_equal(a.state, b.state)
+    check(same and log_b.audit() == [] and log_a.merged == log_b.merged
+          and a.metrics_log == b.metrics_log,
+          f"train/{RWKV_ARCH}: pods differ (leaves equal {same}, merged "
+          f"logs equal {log_a.merged == log_b.merged})")
+    del b, log_b
     torch.cuda.empty_cache()
+    split["pod1"] = time.perf_counter() - t_phase - sum(split.values())
+
+    # one more step of pod 0, traced: device time of each WKV6 pass
+    wall = {}
+
+    def one_step():
+        t1 = time.perf_counter()
+        step_fn(a.state, batch)
+        torch.cuda.synchronize()
+        wall["us"] = (time.perf_counter() - t1) * 1e6
+    events = device_kernels(one_step, 1, WKV_BWD_PREFIX,
+                            len(WKV_BWD_PHASES) * want["wkv6_chunked_bwd"])
+    fwd_us = {p: [us for name, us in events if p in name]
+              for p in WKV_PHASES}
+    bwd_us = {p: [us for name, us in events if p in name]
+              for p in WKV_BWD_PHASES}
+    check(all(len(v) == want["wkv6_chunked"] for v in fwd_us.values())
+          and all(len(v) == want["wkv6_chunked_bwd"]
+                  for v in bwd_us.values())
+          and not any("flash" in name for name, _ in events),
+          f"train/{RWKV_ARCH} profile: "
+          f"{ {k: len(v) for k, v in {**fwd_us, **bwd_us}.items()} } "
+          "WKV6 events")
+    busy = sum(us for _, us in events)
+    fwd_total = sum(sum(v) for v in fwd_us.values())
+    bwd_total = sum(sum(v) for v in bwd_us.values())
+    by_name = {}
+    for name, us in events:
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + us
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=RWKV_TRAIN_B, seq=TRAIN_S,
+        microbatches=micro, optimizer=opt.kind, lr=opt.lr,
+        cuts={"batch": [256, RWKV_TRAIN_B]}, init_seconds=init_s,
+        steps=steps, seconds_per_step=sec,
+        tokens_per_s=RWKV_TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
+        resident_at_start_bytes=resident, launches_per_step=want,
+        launches=counts, replica_leaves_compared=n_tensors,
+        profiled_step=dict(
+            wall_us=wall["us"], device_us=busy,
+            device_busy_share=busy / wall["us"],
+            wkv_fwd_us_per_call=fwd_total / want["wkv6_chunked"],
+            wkv_bwd_us_per_call=bwd_total / want["wkv6_chunked_bwd"],
+            wkv_bwd_pass_us_per_call={
+                k: sum(v) / len(v) for k, v in bwd_us.items()},
+            wkv_fwd_share=fwd_total / busy, wkv_bwd_share=bwd_total / busy,
+            wkv_bwd_pass_share={k: sum(v) / busy
+                                for k, v in bwd_us.items()},
+            heaviest_kernels=[dict(name=n, us=us, share=us / busy)
+                              for n, us in heaviest]))
+    del a, log_a, store, batch
+    torch.cuda.empty_cache()
+    split["traced_step"] = time.perf_counter() - t_phase - sum(split.values())
+    res["f32"] = rwkv_train_f32_phase(dev)
+    split["f32"] = time.perf_counter() - t_phase - sum(split.values())
+    res.update(split_seconds=split, seconds=time.perf_counter() - t_phase)
+    log(phase=f"train/{RWKV_ARCH}", **res)
     return res
+
+
+def rwkv_train_f32_phase(dev) -> dict:
+    """train/rwkv6-3b/f32: rwkv6-3b at RWKV_F32_LAYERS layers, full width,
+    f32, one AdamW step of F32_TRAIN_B x F32_TRAIN_S tokens on the card and
+    on the CPU from one set of weights (:func:`f32_states`), with 2 L
+    WKV6 forward and L backward launches on the card:
+    :func:`f32_step_vs_cpu`."""
+    from repro_torch.configs import registry
+    from repro_torch.runtime.data import ShardedBatchSource
+    from repro_torch.train import optimizer as O
+    cfg = registry.get(RWKV_ARCH).replace(n_layers=RWKV_F32_LAYERS,
+                                          dtype=F32)
+    opt = O.OptConfig(kind="adamw", lr=TRAIN_LR)
+    cpu, card = f32_states(cfg, opt, dev)
+    tokens = ShardedBatchSource(cfg.vocab, F32_TRAIN_B, F32_TRAIN_S,
+                                seed=SEED + 42, device="cpu").batch(0)
+    return f32_step_vs_cpu(f"train/{RWKV_ARCH}/f32", cfg, opt, cpu, card,
+                           tokens, want={
+                               "wkv6_chunked": 2 * cfg.n_layers,
+                               "wkv6_chunked_bwd": cfg.n_layers})
 
 
 # -- the vision-language family: qwen2-vl-7b ----------------------------------
@@ -4315,11 +4695,7 @@ def vlm_train_phase(dev) -> dict:
     cfg32 = registry.get(VLM_ARCH).replace(n_layers=VLM_F32_LAYERS,
                                            dtype=F32)
     opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    card = TR.make_state(cfg32, opt32,
-                         torch.Generator(dev).manual_seed(SEED), dev)
-    params = f32_copy(card["params"], "cpu")
-    cpu = {"params": params, "opt": O.init_opt(opt32, params),
-           "step": torch.zeros((), dtype=torch.int32)}
+    cpu, card = f32_states(cfg32, opt32, dev)
     inp = vlm_inputs(cpu["params"], cfg32, VLM_F32_TRAIN_LAYOUT,
                      F32_TRAIN_B, torch.Generator().manual_seed(SEED + 24),
                      torch.device("cpu"))
@@ -4765,11 +5141,7 @@ def moe_train_phase(dev) -> dict:
     cfg32 = full.replace(n_layers=MOE_TRAIN_LAYERS,
                          n_experts=MOE_F32_EXPERTS, dtype=F32)
     opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    card = TR.make_state(cfg32, opt32,
-                         torch.Generator(dev).manual_seed(SEED), dev)
-    params = f32_copy(card["params"], "cpu")
-    cpu = {"params": params, "opt": O.init_opt(opt32, params),
-           "step": torch.zeros((), dtype=torch.int32)}
+    cpu, card = f32_states(cfg32, opt32, dev)
     f32_setup_s = time.perf_counter() - t0
     tokens = torch.randint(0, cfg32.vocab, (MOE_F32_B, MOE_F32_TRAIN_S),
                            generator=torch.Generator().manual_seed(SEED + 33))
@@ -5217,11 +5589,7 @@ def hymba_train_phase(dev) -> dict:
     # the f32 step, card vs CPU, on one set of weights (drawn on the card)
     cfg32 = hymba_config(HYMBA_F32_LAYERS, F32)
     opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    card = TR.make_state(cfg32, opt32,
-                         torch.Generator(dev).manual_seed(SEED), dev)
-    params = f32_copy(card["params"], "cpu")
-    cpu = {"params": params, "opt": O.init_opt(opt32, params),
-           "step": torch.zeros((), dtype=torch.int32)}
+    cpu, card = f32_states(cfg32, opt32, dev)
     tokens = ShardedBatchSource(cfg32.vocab, F32_TRAIN_B, F32_TRAIN_S,
                                 seed=SEED + 32, device="cpu").batch(0)
     f32 = f32_step_vs_cpu(f"train/{HYMBA_ARCH}/f32", cfg32, opt32, cpu,
@@ -5613,11 +5981,7 @@ def whisper_train_phase(dev) -> dict:
     # the f32 step, card vs CPU, on one set of weights (drawn on the card)
     cfg32 = whisper_config(WHISPER_F32_LAYERS, F32)
     opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    card = TR.make_state(cfg32, opt32,
-                         torch.Generator(dev).manual_seed(SEED), dev)
-    params = f32_copy(card["params"], "cpu")
-    cpu = {"params": params, "opt": O.init_opt(opt32, params),
-           "step": torch.zeros((), dtype=torch.int32)}
+    cpu, card = f32_states(cfg32, opt32, dev)
     tokens = ShardedBatchSource(cfg32.vocab, F32_TRAIN_B, F32_TRAIN_S,
                                 seed=SEED + 46, device="cpu",
                                 d_model=cfg32.d_model,
@@ -6019,11 +6383,7 @@ def ds_train_phase(dev) -> dict:
     t0 = time.perf_counter()
     cfg32 = ds_config(F32, **DS_F32_CUT)
     opt32 = O.OptConfig(kind="adamw", lr=TRAIN_LR)
-    card = TR.make_state(cfg32, opt32,
-                         torch.Generator(dev).manual_seed(SEED), dev)
-    params = f32_copy(card["params"], "cpu")
-    cpu = {"params": params, "opt": O.init_opt(opt32, params),
-           "step": torch.zeros((), dtype=torch.int32)}
+    cpu, card = f32_states(cfg32, opt32, dev)
     f32_setup_s = time.perf_counter() - t0
     tokens = torch.randint(0, cfg32.vocab, (F32_TRAIN_B, F32_TRAIN_S),
                            generator=torch.Generator().manual_seed(SEED + 53))
@@ -6381,14 +6741,18 @@ def main() -> int:
     bwd_check = bwd_kernel_phase(dev)
     for name, err in bwd_check["forward_max_abs_err"].items():
         model_errors[name] = max(model_errors[name], err)
+    wkv_bwd_check = wkv_bwd_phase(dev)
     train = train_phase(dev)
     train_f32 = train_f32_phase(dev)
     checkpoint_phase(dev)
     # the training service over the port's HT-Paxos: its drive resets
     # the counts first
     smr = smr_phase(dev)
-    train_refusal_phase(dev)
     mark("train")
+    # RWKV6 through the WKV6 backward kernel: its drive resets the counts
+    # first
+    rwkv_train = rwkv_train_phase(dev)
+    mark(f"train/{RWKV_ARCH}")
     # the vision-language family: each drive resets the counts first
     vlm_serve = vlm_serve_phase(dev)
     mark(f"serve/{VLM_ARCH}")
@@ -6547,13 +6911,22 @@ def main() -> int:
             dtype=row["dtype"])
         if name == "wkv6_chunked":
             # one call runs three CUDA kernels: device time of each, per
-            # call, in the prefill and in the timing phase
+            # call, in the prefill and in the timing phase; the train
+            # path's launches (forward and recompute) and device time
+            train_wkv = {f"train/{RWKV_ARCH}": rwkv_train["launches"][name],
+                         f"train/{RWKV_ARCH}/f32":
+                         rwkv_train["f32"]["launches"][name]}
+            check(all(v > 0 for v in train_wkv.values()),
+                  f"wkv6 was not launched on its train paths: {train_wkv}")
             entry.update(
                 phase_device_ms={p: us / 1e3 for p, us in
                                  serve["prefill_kernel_phase_us"].items()},
                 timing_phase_device_ms={p: us / 1e3 for p, us in
                                         row["phase_device_us"].items()},
-                workspace_bytes=row["workspace_bytes"])
+                workspace_bytes=row["workspace_bytes"],
+                train_launches=train_wkv,
+                train_device_ms_per_call=rwkv_train["profiled_step"]
+                ["wkv_fwd_us_per_call"] / 1e3)
         if name == "flash_attention":
             # the f32 check path: its own kernel, launched by the f32
             # prefill of serve/f32
@@ -6749,8 +7122,42 @@ def main() -> int:
                      "shape", "dtype", "device_us", "pass_tflops_per_s",
                      "tflops_per_s", "over_bound", "over_library",
                      "forward_ms")})))
+    # the WKV6 backward: no Pallas counterpart, it replaces jax.grad through
+    # the jnp chunked RWKV6 time mix; launched by train/rwkv6-3b (bf16) and
+    # its f32 step
+    row = model_timing["wkv6_chunked_bwd"]
+    launches = rwkv_train["launches"]["wkv6_chunked_bwd"]
+    f32_launches = rwkv_train["f32"]["launches"]["wkv6_chunked_bwd"]
+    check(launches > 0 and f32_launches > 0, "the WKV6 backward kernel was "
+          f"not launched on its train paths: {launches}, {f32_launches}")
+    kernels.append(dict(
+        name="wkv6_chunked_bwd", route="cuda", source=csrc + "wkv6_bwd.cu",
+        replaces="src/repro/models/ssm.py:72", pallas_counterpart=None,
+        replaces_what="no Pallas kernel: jax.grad through "
+                      "models/ssm.py::rwkv6_chunked",
+        launches=launches,
+        path=f"train/{RWKV_ARCH} ({rwkv_train['layers']} layers, "
+             f"{RWKV_TRAIN_STEPS} steps of {RWKV_TRAIN_B} x {TRAIN_S} "
+             f"tokens in {rwkv_train['microbatches']} microbatches)",
+        f32_launches={f"train/{RWKV_ARCH}/f32": f32_launches},
+        max_abs_err=wkv_bwd_check["max_abs_err"],
+        worst_err_over_tol=wkv_bwd_check["worst_err_over_tol"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        library=row["library"],
+        device_ms=rwkv_train["profiled_step"]["wkv_bwd_us_per_call"] / 1e3,
+        pass_device_ms={p: us / 1e3 for p, us in rwkv_train["profiled_step"]
+                        ["wkv_bwd_pass_us_per_call"].items()},
+        timing_pass_device_ms={p: us / 1e3 for p, us in
+                               row["phase_device_us"].items()},
+        shape=row["shape"], dtype=row["dtype"],
+        workspace_bytes=row["workspace_bytes"],
+        kernel_info=row["kernel_info"]))
     log(train={k: train[k] for k in ("seconds_per_step", "tokens_per_s",
                                      "peak_mem_bytes")},
+        train_rwkv={k: rwkv_train[k] for k in (
+            "seconds_per_step", "tokens_per_s", "peak_mem_bytes",
+            "seconds")},
         smr={k: smr[k] for k in (
             "seconds_per_step", "tokens_per_s", "ckpt_save_seconds",
             "ckpt_restore_seconds", "des_host_seconds", "peak_mem_bytes",

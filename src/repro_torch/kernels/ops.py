@@ -3,10 +3,10 @@
 Each dispatches on the device of the tensors it is given: a CUDA tensor
 launches the hand-written kernel, a CPU tensor runs its plain version
 (the counterpart of ``repro.kernels.ops``, which dispatches on the
-backend instead). Both are differentiable: attention through the
-``FlashAttention`` autograd function (its backward is the backward
-kernel on the card), WKV6 through autograd on the CPU and, on the card,
-a function whose backward raises until the WKV6 backward kernel exists.
+backend instead). Both are differentiable through autograd functions
+whose backward is the backward kernel on the card and its plain version
+on the CPU: attention through ``FlashAttention``, WKV6 through ``WKV6``
+(deterministic on the card: no atomics, a fixed summation order).
 """
 from __future__ import annotations
 

@@ -18,6 +18,11 @@
   in place of the reference's ``(r exp(cum_ex)) . (k exp(-cum))``, which
   overflows f32 once a chunk's log decay sums past about -88.7 (a 128-token
   chunk of the rwkv6 models' decay does). Same function, no overflow.
+- :func:`wkv6_chunked_bwd_plain`: its gradient from explicit formulas
+  (not autograd), every exponent at or below zero: the plain version of
+  the WKV6 backward kernel, which the JAX package does not have (it takes
+  ``jax.grad`` through ``repro.models.ssm.rwkv6_chunked``, whose gradient
+  overflows where its forward does).
 """
 from __future__ import annotations
 
@@ -133,6 +138,23 @@ def wkv6_ref(r, k, v, wlog, u) -> torch.Tensor:
     return torch.stack(outs, dim=1)
 
 
+def _wkv6_chunk_decays(ww: torch.Tensor):
+    """cum, cum_ex, total of one chunk's log decay ww [B,H,C,hd], and the
+    pairwise in-chunk decay dec[t, s] = exp(cum_ex[t] - cum[s]) for s < t
+    (0 elsewhere) as [B,H,C,C,hd]: every exponent <= 0."""
+    C = ww.shape[2]
+    cum = torch.cumsum(ww, dim=2)
+    cum_ex = cum - ww
+    total = cum[:, :, -1:, :]
+    below = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                  device=ww.device), diagonal=-1)
+    expo = cum_ex[:, :, :, None, :] - cum[:, :, None, :, :]
+    # s >= t would have a positive exponent: mask it before the exp
+    dec = torch.exp(torch.where(below[:, :, None], expo,
+                                torch.full_like(expo, -math.inf)))
+    return cum, cum_ex, total, dec
+
+
 def wkv6_chunked_ref(r, k, v, wlog, u, *, chunk: int = 128) -> torch.Tensor:
     """Chunked WKV6, overflow-free. Shapes as :func:`wkv6_ref`; any S (the
     last chunk may be short). Within a chunk, with cum the inclusive
@@ -152,15 +174,7 @@ def wkv6_chunked_ref(r, k, v, wlog, u, *, chunk: int = 128) -> torch.Tensor:
     for t0 in range(0, S, chunk):
         rr, kk, vv, ww = (t[:, :, t0:t0 + chunk] for t in (rf, kf, vf, wf))
         C = rr.shape[2]
-        cum = torch.cumsum(ww, dim=2)
-        cum_ex = cum - ww
-        total = cum[:, :, -1:, :]                       # [B,H,1,hd]
-        below = torch.tril(torch.ones((C, C), dtype=torch.bool,
-                                      device=r.device), diagonal=-1)
-        expo = cum_ex[:, :, :, None, :] - cum[:, :, None, :, :]
-        # s >= t would have a positive exponent: mask it before the exp
-        dec = torch.exp(torch.where(below[:, :, None], expo,
-                                    torch.full_like(expo, -math.inf)))
+        cum, cum_ex, total, dec = _wkv6_chunk_decays(ww)
         att = torch.einsum("bhtk,bhsk,bhtsk->bhts", rr, kk, dec)
         diag = (rr * uf * kk).sum(dim=-1)
         out[:, :, t0:t0 + C] = (att @ vv + diag[..., None] * vv
@@ -168,3 +182,93 @@ def wkv6_chunked_ref(r, k, v, wlog, u, *, chunk: int = 128) -> torch.Tensor:
         state = (torch.exp(total).transpose(-1, -2) * state
                  + (kk * torch.exp(total - cum)).transpose(-1, -2) @ vv)
     return out.permute(0, 2, 1, 3)
+
+
+def wkv6_chunked_bwd_plain(r, k, v, wlog, u, dout, *, chunk: int = 128):
+    """The gradient of :func:`wkv6_chunked_ref` at (r, k, v, wlog, u) for
+    the output's gradient ``dout`` (f32 [B,S,H,hd]), from explicit
+    formulas (not autograd), in f32. Returns (dr, dk, dv) in r's dtype,
+    dwlog f32 [B,S,H,hd] and du f32 [H,hd] (summed over batch and
+    sequence). The arithmetic of the WKV6 backward kernel, chunk by chunk,
+    every exponent <= 0. With S_c the state entering chunk c, A[t, s] =
+    do_t · v_s, and in the chunk cum, cum_ex, total and dec as in the
+    forward:
+
+        G_c     = the gradient of the state leaving chunk c (0 for the
+                  last): G_{c-1} = exp(total_c) ⊙ G_c
+                                   + (r ⊙ exp(cum_ex))_cᵀ do_c
+        dr_t    = Σ_{s<t} dec[t,s] ⊙ k_s A[t,s]            (intra)
+                  + exp(cum_ex_t) ⊙ (S_c do_t)              (inter)
+                  + u ⊙ k_t A[t,t]
+        dk_s    = Σ_{t>s} dec[t,s] ⊙ r_t A[t,s]            (intra)
+                  + exp(total - cum_s) ⊙ (G_c v_s)          (inter)
+                  + u ⊙ r_s A[s,s]
+        dv_s    = Σ_{t>s} att[t,s] do_t + (r_s·(u⊙k_s)) do_s
+                  + (k_s ⊙ exp(total - cum_s)) G_c
+        du      = Σ r_t ⊙ k_t A[t,t]
+
+    dwlog_i is the sum of the terms of every (t, s) pair with s < i < t,
+    which the decay of token i enters. In chunk c, with f_t = r_t ⊙ (dr
+    intra + inter)_t - k_t ⊙ (dk intra + inter)_t and h_t = k_t ⊙ (dk
+    intra + inter)_t:
+
+        dwlog_i = Σ_{t>i in c} f_t - h_i + Σ_j G_c[:, j] ⊙ S_{c+1}[:, j]
+
+    (the last term: the pairs that straddle chunk c's end, S_{c+1} the
+    state leaving it). Every sum stays inside one chunk, so none of them
+    cancels terms from the rest of the sequence."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, gf = (t.float().permute(0, 2, 1, 3)
+                          for t in (r, k, v, wlog, dout))  # [B,H,S,hd]
+    uf = u.float()[None, :, None, :]                       # [1,H,1,hd]
+    bounds = [(t0, min(t0 + chunk, S)) for t0 in range(0, S, chunk)]
+    # the state entering each chunk, and after the last
+    states = [torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                          device=r.device)]
+    for t0, t1 in bounds:
+        kk, vv = kf[:, :, t0:t1], vf[:, :, t0:t1]
+        cum = torch.cumsum(wf[:, :, t0:t1], dim=2)
+        total = cum[:, :, -1:, :]
+        states.append(torch.exp(total).transpose(-1, -2) * states[-1]
+                      + (kk * torch.exp(total - cum)).transpose(-1, -2)
+                      @ vv)
+    # the gradient of the state leaving each chunk, last to first
+    grads = [torch.zeros_like(states[0])]
+    for t0, t1 in bounds[:0:-1]:
+        rr, gg = rf[:, :, t0:t1], gf[:, :, t0:t1]
+        cum = torch.cumsum(wf[:, :, t0:t1], dim=2)
+        grads.append(torch.exp(cum[:, :, -1:, :]).transpose(-1, -2)
+                     * grads[-1]
+                     + (rr * torch.exp(cum - wf[:, :, t0:t1]))
+                     .transpose(-1, -2) @ gg)
+    grads = grads[::-1]
+    dr, dk, dv, dwlog = (torch.empty((B, H, S, hd), dtype=torch.float32,
+                                     device=r.device) for _ in range(4))
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    for c, (t0, t1) in enumerate(bounds):
+        rr, kk, vv, gg = (t[:, :, t0:t1] for t in (rf, kf, vf, gf))
+        s_in, s_out, g_out = states[c], states[c + 1], grads[c]
+        cum, cum_ex, total, dec = _wkv6_chunk_decays(wf[:, :, t0:t1])
+        a = gg @ vv.transpose(-1, -2)                      # A[t, s]
+        a_diag = torch.diagonal(a, dim1=-2, dim2=-1)[..., None]
+        att = torch.einsum("bhtd,bhsd,bhtsd->bhts", rr, kk, dec)
+        bonus = (rr * uf * kk).sum(-1, keepdim=True)        # att[t, t]
+        dr_state = (torch.einsum("bhtsd,bhsd,bhts->bhtd", dec, kk, a)
+                    + torch.exp(cum_ex) * (gg @ s_in.transpose(-1, -2)))
+        k_out = torch.exp(total - cum)
+        dk_state = (torch.einsum("bhtsd,bhtd,bhts->bhsd", dec, rr, a)
+                    + k_out * (vv @ g_out.transpose(-1, -2)))
+        dr[:, :, t0:t1] = dr_state + uf * kk * a_diag
+        dk[:, :, t0:t1] = dk_state + uf * rr * a_diag
+        dv[:, :, t0:t1] = (att.transpose(-1, -2) @ gg + bonus * gg
+                           + (kk * k_out) @ g_out)
+        du += (rr * kk * a_diag).sum(dim=(0, 2))
+        # Σ_{t>i} f_t, summed from the chunk's last token back
+        f = rr * dr_state - kk * dk_state
+        after = torch.flip(torch.cumsum(torch.flip(f[:, :, 1:], [2]), dim=2),
+                           [2])
+        after = torch.cat([after, torch.zeros_like(f[:, :, :1])], dim=2)
+        dwlog[:, :, t0:t1] = (after - kk * dk_state
+                              + (g_out * s_out).sum(-1)[:, :, None, :])
+    back = [x.permute(0, 2, 1, 3) for x in (dr, dk, dv, dwlog)]
+    return (*(x.to(r.dtype) for x in back[:3]), back[3], du)

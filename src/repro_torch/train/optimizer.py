@@ -24,7 +24,8 @@ reference's buffer donation): beyond one layer's temporaries it makes no
 copy of a leaf's parameters or state. AdamW, which is elementwise, takes
 a tensor in slices of its first dim of at most ``ADAMW_CHUNK`` elements,
 so its temporaries are a slice's (the same bytes as a whole-tensor
-update). The reference's logical sharding
+update); on the CPU at most ``ADAMW_CHUNK_HOST``, so that they stay in
+the host's caches. The reference's logical sharding
 axes (``init_opt``'s second result) have no counterpart without a mesh.
 """
 from __future__ import annotations
@@ -54,8 +55,12 @@ class OptConfig:
 # where a tensor is large (llama4's f32 embedding table is 4.1 GB), and on
 # the host they come from the allocator's heap instead of fresh pages
 # (a 4.1 GB table's update: 12.7-14.0 s in slices of 2**22 against
-# 19.3-21.1 s whole or in slices of 2**25 on the H100 machine's host)
+# 19.3-21.1 s whole or in slices of 2**25 on the H100 machine's host).
+# On the CPU a slice is at most ADAMW_CHUNK_HOST (1 MB in f32), so that
+# the ~15 elementwise passes over it run in the host's caches and not
+# from memory; on the card ADAMW_CHUNK keeps the launches few.
 ADAMW_CHUNK = 1 << 22
+ADAMW_CHUNK_HOST = 1 << 18
 
 
 def choose_optimizer(n_params: int) -> str:
@@ -114,7 +119,8 @@ def init_opt(cfg: OptConfig, params) -> dict:
 # time and no new copy of its parameters or state is made.
 
 def _adamw(cfg: OptConfig, p, g32, s: dict, stepf, decay: bool) -> None:
-    rows = max(1, ADAMW_CHUNK // max(1, p[0].numel())) if p.dim() else 0
+    chunk = ADAMW_CHUNK if p.is_cuda else ADAMW_CHUNK_HOST
+    rows = max(1, chunk // max(1, p[0].numel())) if p.dim() else 0
     if p.dim() and p.shape[0] > rows:
         for i in range(0, p.shape[0], rows):
             sl = slice(i, i + rows)

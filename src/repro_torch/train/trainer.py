@@ -18,12 +18,12 @@ replicated trainer must end bitwise equal (``runtime.statemachine``), so
 every op whose CUDA kernel has a nondeterministic default (the backward
 of the embedding gather and of the loss's gather, which accumulate rows
 that repeat) takes its deterministic one, and an op that has none raises
-instead of running. The flash backward kernel is deterministic by
-design, and cuBLAS is on one stream. The MoE's dispatch and combine
-(``models.layers.moe_apply``) use only ops with a deterministic CUDA
-implementation: a stable sort, ``searchsorted``, advanced-index gathers
-and ``index_put`` (whose backward accumulates deterministically in this
-mode), ``topk``. cuBLAS's deterministic mode needs
+instead of running. The flash and WKV6 backward kernels are
+deterministic by design, and cuBLAS is on one stream. The MoE's dispatch
+and combine (``models.layers.moe_apply``) use only ops with a
+deterministic CUDA implementation: a stable sort, ``searchsorted``,
+advanced-index gathers and ``index_put`` (whose backward accumulates
+deterministically in this mode), ``topk``. cuBLAS's deterministic mode needs
 ``CUBLAS_WORKSPACE_CONFIG`` set before the process's first matrix product
 (PyTorch reads it once): entry points set it to ``:4096:8`` before they
 touch the card (:func:`set_cublas_workspace`), and a step on the card

@@ -2,7 +2,9 @@
 (the engine kernels bit-exact, in place and out of place; the model
 kernels within the tolerances of tests/test_kernels.py; the flash
 backward kernel within the same tolerances relative to the gradient's
-size, and byte-equal across two launches), launches counted, the entry
+size, and byte-equal across two launches; the WKV6 backward kernel
+against its plain backward, byte-equal across two launches), launches
+counted, the entry
 points' default device, a small engine run (captured in a CUDA graph
 and eager, against the CPU, and a replay after a state change), the
 pipeline and adaptive passes captured and eager, the smoke models' serving
@@ -1100,14 +1102,84 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
             1.0, float(b.abs().max()))
 
 
-def test_wkv6_backward_on_card_raises(cuda):
-    r, k, v = (torch.randn((1, 8, 2, 32), device=cuda, requires_grad=True)
+# the forward's cases of chip_smoke.py (WKV_CASES) and the rwkv6-3b train
+# microbatch: (B, S, H, hd, dtype, std of the raw decay)
+WKV_BWD_CASES = [
+    (1, 4096, 40, 64, "bfloat16", 0.3),     # train/rwkv6-3b microbatch
+    (4, 1024, 40, 64, "bfloat16", 0.3), (4, 1024, 40, 64, "float32", 0.3),
+    *[(2, S, H, hd, dt, 1.0) for dt in ("float32", "bfloat16")
+      for (S, H, hd) in ((64, 2, 32), (128, 4, 64), (64, 1, 128))],
+    (2, 256, 4, 64, "float32", 0.3), (2, 300, 4, 64, "float32", 3.0),
+    (1, 37, 2, 32, "float32", 1.0), (1, 4096, 8, 64, "bfloat16", 1.0),
+    (2, 1, 2, 32, "float32", 1.0), (2, 31, 2, 64, "float32", 1.0),
+    (2, 33, 2, 64, "bfloat16", 1.0), (1, 512, 4, 128, "bfloat16", 1.0),
+    (1, 256, 2, 50, "float32", 1.0)]        # hd not a multiple of 8
+
+
+def wkv_bwd_tol(name: str, dtype) -> float:
+    """The backward kernel against its plain version at the kernel's chunk
+    of 32, relative to (max |plain| + 1): f32 2e-5 (both compute in f32
+    from the same values, but each decay factor is the exponential of a
+    difference of two cumulative log decays, which reach ~10^2 in a chunk
+    of a steep decay: its f32 rounding is ~1e-5 of the factor in each);
+    dr, dk and dv in bf16 8e-3, one bf16 ulp of the largest value
+    (2^-7), as the two f32 results may round to neighbouring bf16
+    values."""
+    return 8e-3 if dtype == torch.bfloat16 and name in ("dr", "dk", "dv") \
+        else 2e-5
+
+
+@pytest.mark.parametrize("B,S,H,hd,dtype,w_std", WKV_BWD_CASES)
+def test_wkv6_backward_kernel_matches_plain(cuda, B, S, H, hd, dtype, w_std):
+    """WKV6's backward on the card is one launch of the backward kernel
+    (and the forward one of the forward kernel); its gradients equal the
+    plain backward's within :func:`wkv_bwd_tol`, and a second launch on
+    the same saved tensors gives the same bytes."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + hd + 1)
+    r, k, v = (torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
                for _ in range(3))
-    wlog = -torch.ones((1, 8, 2, 32), device=cuda)
+    wlog = -torch.nn.functional.softplus(
+        w_std * torch.randn((B, S, H, hd), generator=g, device=cuda)) - 1e-4
+    u = 0.1 * torch.randn((H, hd), generator=g, device=cuda)
+    do = torch.randn((B, S, H, hd), generator=g, device=cuda)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, wlog, u)]
+    before = (kw.KERNEL.launches, kw.KERNEL_BWD.launches)
+    out = kw.wkv6_chunked(*xs)
+    got = torch.autograd.grad(out, xs, do, retain_graph=True)
+    assert (kw.KERNEL.launches, kw.KERNEL_BWD.launches) \
+        == (before[0] + 1, before[1] + 1)
+    again = torch.autograd.grad(out, xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = kw.wkv6_chunked_bwd_plain(r, k, v, wlog, u, do, chunk=kw.CHUNK)
+    for name, a, b in zip(("dr", "dk", "dv", "dwlog", "du"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        scale = float(b.float().abs().max()) + 1.0
+        assert float((a.float() - b.float()).abs().max()) \
+            <= wkv_bwd_tol(name, dt) * scale, name
+
+
+def test_wkv6_backward_kernel_rejects_bad_inputs(cuda):
+    """A head dim past 128, a non-contiguous dout and a workspace of the
+    wrong size raise before any launch."""
+    r, k, v = (torch.randn((1, 40, 2, 32), device=cuda) for _ in range(3))
+    wlog = -torch.ones((1, 40, 2, 32), device=cuda)
     u = torch.zeros((2, 32), device=cuda)
-    out = kw.wkv6_chunked(r, k, v, wlog, u)
-    with pytest.raises(NotImplementedError, match="WKV6 backward kernel"):
-        out.sum().backward()
+    do = torch.randn((1, 40, 2, 32), device=cuda)
+    states = torch.zeros((kw.workspace_floats(1, 40, 2, 32),), device=cuda)
+    before = kw.KERNEL_BWD.launches
+    wide = torch.zeros((1, 40, 2, 130), device=cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        kw.wkv6_bwd(wide, wide, wide, wide - 1, torch.zeros((2, 130),
+                                                            device=cuda),
+                    wide, states)
+    with pytest.raises(ValueError, match="dout must be contiguous"):
+        kw.wkv6_bwd(r, k, v, wlog, u, do.transpose(2, 3).contiguous()
+                    .transpose(2, 3), states)
+    with pytest.raises(ValueError, match="workspace"):
+        kw.wkv6_bwd(r, k, v, wlog, u, do, states[1:])
+    assert kw.KERNEL_BWD.launches == before
 
 
 def test_smoke_train_step_on_card_matches_cpu(cuda):

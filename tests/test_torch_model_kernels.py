@@ -1069,7 +1069,8 @@ def test_flash_bwd_wrapper_checks_inputs():
 
 
 def test_wkv6_trains_on_cpu():
-    """On a CPU tensor autograd differentiates the plain WKV6 version."""
+    """On a CPU tensor the WKV6 function's backward (the plain backward,
+    ``wkv6_chunked_bwd_plain``) gives finite, nonzero gradients."""
     r, k, v, wlog, u = (x.requires_grad_() for x in _t(*_wkv_inputs(
         8, 1, 40, 2, 16)))
     out = ws.wkv6_chunked(r, k, v, wlog, u, chunk=16)

@@ -372,6 +372,50 @@ def test_rwkv6_prefill_finite_where_reference_is_nan(models):
                 want_mix) < LAYER_TOL
 
 
+def test_rwkv6_gradient_finite_where_reference_is_nan(models):
+    """rwkv6-smoke, f32, B = 2, S = 128, the input of the test above:
+    jax.grad of the reference's chunked time mix (``models/ssm.py::
+    rwkv6_chunked``) in x and in the decay base is NaN, as its forward is
+    (in the bonus u, which only the diagonal terms take, it is finite).
+    The port's gradient, taken
+    through the WKV6 function's plain backward, is finite and equals
+    jax.grad of the reference's sequential form (its decode step scanned
+    over the tokens) in x, the decay base and the bonus u, within
+    LAYER_TOL relative to (max |grad| + 1): f32 rounding of sums over 128
+    tokens and a 128-wide layer in another order."""
+    m = models["rwkv6-3b"]
+    jl, tl = m.layer(0)
+    x = _rand(13, 2, 128, m.cfg.d_model)
+    cot = _rand(14, 2, 128, m.cfg.d_model)
+    H, hd = m.cfg.ssm_heads, m.cfg.d_model // m.cfg.ssm_heads
+
+    def chunked(xx, bu, db):
+        p = {**jl["tmix"], "bonus_u": bu, "decay_base": db}
+        return jnp.sum(JS.rwkv6_chunked(p, m.jcfg, xx) * cot)
+
+    def sequential(xx, bu, db):
+        p = {**jl["tmix"], "bonus_u": bu, "decay_base": db}
+
+        def body(st, xt):
+            y, st = JS.rwkv6_decode_step(p, m.jcfg, xt[:, None], st)
+            return st, y[:, 0]
+        _, ys = jax.lax.scan(body, jnp.zeros((2, H, hd, hd), jnp.float32),
+                             jnp.swapaxes(xx, 0, 1))
+        return jnp.sum(jnp.swapaxes(ys, 0, 1) * cot)
+    args = (jnp.asarray(x), jl["tmix"]["bonus_u"], jl["tmix"]["decay_base"])
+    nan = jax.jit(jax.grad(chunked, argnums=(0, 2)))(*args)
+    assert all(np.isnan(np.asarray(g)).any() for g in nan)
+    want = jax.jit(jax.grad(sequential, argnums=(0, 1, 2)))(*args)
+    xt = torch.from_numpy(x).requires_grad_()
+    leaves = (xt, tl["tmix"]["bonus_u"], tl["tmix"]["decay_base"])
+    loss = (S.rwkv6_chunked(tl["tmix"], m.cfg, xt)
+            * torch.from_numpy(cot)).sum()
+    for got, w in zip(torch.autograd.grad(loss, leaves), want):
+        w = np.asarray(w)
+        assert torch.isfinite(got).all()
+        assert _err(got, w) < LAYER_TOL * (float(np.abs(w).max()) + 1.0)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(models, arch):
     """Counterpart of test_arch_smoke.py::test_decode_matches_forward_internlm:

@@ -326,14 +326,16 @@ def _functional_opt(opt, params, grads, state, step):
 
 def test_adamw_in_slices_gives_the_same_bytes(monkeypatch):
     """AdamW updates a tensor in slices of its first dim (ADAMW_CHUNK
-    elements at most): with ADAMW_CHUNK = 100 every matrix goes one row at
-    a time and the stacked norm scales in slices, and every parameter and
-    moment ends with the bytes of the whole-tensor update."""
+    elements at most on the card, ADAMW_CHUNK_HOST on the CPU): with both
+    at 100 every matrix goes one row at a time and the stacked norm
+    scales in slices, and every parameter and moment ends with the bytes
+    of the whole-tensor update."""
     opt = O.OptConfig(kind="adamw", lr=LR)
     _, cfg = _cfgs("yi-6b")
     states = []
     for chunk in (O.ADAMW_CHUNK, 100):
         monkeypatch.setattr(O, "ADAMW_CHUNK", chunk)
+        monkeypatch.setattr(O, "ADAMW_CHUNK_HOST", chunk)
         state = TR.make_state(cfg, opt, torch.Generator().manual_seed(0),
                               "cpu")
         for i in range(2):
