@@ -160,8 +160,9 @@ Phases, each of which must pass or the script exits non-zero:
    of both kernels' CUDA kernels at every instantiation (the bf16 one's
    four at q/k width 192: D, the dk and dv passes, dq); then the WKV6
    backward kernel (``wkv_bwd_phase``): WKV6's autograd on the card in
-   every case of WKV_BWD_CASES (the forward's cases and the train
-   microbatch), one forward and one backward launch a call, the five
+   every case of WKV_BWD_CASES (the forward's cases, the train
+   microbatch, and lengths that end inside an 8-token leaf and on a
+   half's edge), one forward and one backward launch a call, the five
    gradients against ``wkv6_chunked_bwd_plain`` (WKV_BWD_TOL), two
    backward launches byte-equal, and a head dim past 128 or a
    non-contiguous dout raising before any launch;
@@ -2647,7 +2648,10 @@ def model_kernel_phase(dev) -> dict:
 # the WKV6 backward against its plain version: the forward's cases and the
 # train/rwkv6-3b microbatch, (B, S, H, hd, dtype, std of the raw decay)
 WKV_BWD_CASES = [(1, 4096, 40, 64, BF16, 0.3), *WKV_CASES,
-                 (1, 256, 2, 50, F32, 1.0)]     # hd not a multiple of 8
+                 (1, 256, 2, 50, F32, 1.0),     # hd not a multiple of 8
+                 # ending inside an 8-token leaf (17), on a half's edge (48)
+                 (2, 17, 2, 32, F32, 1.0), (2, 17, 2, 128, BF16, 1.0),
+                 (2, 48, 2, 128, F32, 1.0), (2, 48, 2, 32, BF16, 1.0)]
 # against the plain backward at the kernel's chunk of 32, relative to (max
 # |plain| + 1): f32 2e-5. Both compute in f32 from the same values, but
 # each decay factor is 2^ or e^ of a difference of two cumulative log

@@ -20,9 +20,11 @@
   chunk of the rwkv6 models' decay does). Same function, no overflow.
 - :func:`wkv6_chunked_bwd_plain`: its gradient from explicit formulas
   (not autograd), every exponent at or below zero: the plain version of
-  the WKV6 backward kernel, which the JAX package does not have (it takes
-  ``jax.grad`` through ``repro.models.ssm.rwkv6_chunked``, whose gradient
-  overflows where its forward does).
+  the WKV6 backward kernel, the function it computes (not its arithmetic,
+  which ``tests/test_torch_wkv6_bwd.py`` emulates), which the JAX package
+  does not have (it takes ``jax.grad`` through
+  ``repro.models.ssm.rwkv6_chunked``, whose gradient overflows where its
+  forward does).
 """
 from __future__ import annotations
 
@@ -189,10 +191,14 @@ def wkv6_chunked_bwd_plain(r, k, v, wlog, u, dout, *, chunk: int = 128):
     the output's gradient ``dout`` (f32 [B,S,H,hd]), from explicit
     formulas (not autograd), in f32. Returns (dr, dk, dv) in r's dtype,
     dwlog f32 [B,S,H,hd] and du f32 [H,hd] (summed over batch and
-    sequence). The arithmetic of the WKV6 backward kernel, chunk by chunk,
-    every exponent <= 0. With S_c the state entering chunk c, A[t, s] =
-    do_t · v_s, and in the chunk cum, cum_ex, total and dec as in the
-    forward:
+    sequence). The function that the WKV6 backward kernel computes, chunk
+    by chunk, every exponent <= 0, with one exp per (t, s, d) pair and the
+    state leaving each chunk; the kernel's own arithmetic (the decay
+    factored on two levels, the chunk-end term from the entering state,
+    split-TF32 state products) is emulated in
+    ``tests/test_torch_wkv6_bwd.py``. With S_c the state entering chunk c,
+    A[t, s] = do_t · v_s, and in the chunk cum, cum_ex, total and dec as in
+    the forward:
 
         G_c     = the gradient of the state leaving chunk c (0 for the
                   last): G_{c-1} = exp(total_c) ⊙ G_c

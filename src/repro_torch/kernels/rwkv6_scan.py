@@ -31,11 +31,15 @@ leaving state, and ``du`` summed over the chunks' partials in a fixed
 order). No float atomics and a fixed summation order: two calls on the
 same inputs give the same bytes, so replicas that train on one log stay
 bitwise equal. On a CPU tensor the backward runs
-:func:`wkv6_chunked_bwd_plain`, the same arithmetic in plain PyTorch at
-the forward's ``chunk``. Neither takes autograd through the plain
-forward, and nothing falls back to it on the card. The JAX package has
-no backward kernel: it takes ``jax.grad`` through its jnp chunked form,
-whose gradient overflows where its forward does.
+:func:`wkv6_chunked_bwd_plain` at the forward's ``chunk``: the same
+function from explicit formulas in plain PyTorch, not the kernel's
+arithmetic (which factors the intra-chunk decay on two levels, forms the
+chunk-end term from the entering state, and takes its state products in
+split TF32; ``tests/test_torch_wkv6_bwd.py`` emulates it). Neither takes
+autograd through the plain forward, and nothing falls back to it on the
+card. The JAX package has no backward kernel: it takes ``jax.grad``
+through its jnp chunked form, whose gradient overflows where its forward
+does.
 """
 from __future__ import annotations
 

@@ -1113,7 +1113,11 @@ WKV_BWD_CASES = [
     (1, 37, 2, 32, "float32", 1.0), (1, 4096, 8, 64, "bfloat16", 1.0),
     (2, 1, 2, 32, "float32", 1.0), (2, 31, 2, 64, "float32", 1.0),
     (2, 33, 2, 64, "bfloat16", 1.0), (1, 512, 4, 128, "bfloat16", 1.0),
-    (1, 256, 2, 50, "float32", 1.0)]        # hd not a multiple of 8
+    (1, 256, 2, 50, "float32", 1.0),        # hd not a multiple of 8
+    # lengths that end inside an 8-token leaf (17) and on a half's edge
+    # (48 = a chunk and a half)
+    (2, 17, 2, 32, "float32", 1.0), (2, 17, 2, 128, "bfloat16", 1.0),
+    (2, 48, 2, 128, "float32", 1.0), (2, 48, 2, 32, "bfloat16", 1.0)]
 
 
 def wkv_bwd_tol(name: str, dtype) -> float:

@@ -4,9 +4,13 @@ CPU tensor) against three oracles on the same numpy inputs: autograd
 through the port's sequential ``ref.wkv6_ref`` and through its chunked
 ``ref.wkv6_chunked_ref``, and ``jax.vjp`` of the JAX package's
 ``repro.kernels.ref.wkv6_ref``; then a plain emulation of the CUDA
-kernel's four passes (C = 32, the reverse scan over chunks, the chunk's
-gradients, du summed over (batch, chunk) partials in order) against the
-same oracle.
+kernel's arithmetic (C = 32, cumsums by groups of 8 tokens, the reverse
+scan over chunks, the intra-chunk decay factored on two levels with an exp
+per pair only inside 8-token leaves, the chunk-end term of dwlog from the
+entering state, split-TF32 state products, du summed over (batch, chunk)
+partials in order) against the same oracle, and two of its steps against
+their direct forms: the factored intra-chunk sums against per-pair sums,
+and y from the entering state against the sum over the leaving state.
 
 The JAX oracle is one ``jax.vjp`` call for every case: each case is two
 heads of it, zero-padded to 70 tokens and head width 64, with the
@@ -53,7 +57,9 @@ def _inputs(case):
     to bf16 values for a bf16 case. wlog = -softplus(N(0, w_std)) - 1e-4,
     as the model's ``_decay_log``."""
     S, hd, dt, w_std = case
-    rng = np.random.default_rng(1000 + CASES.index(case))
+    seed = (1000 + CASES.index(case) if case in CASES
+            else 2000 + 97 * case[0] + case[1])
+    rng = np.random.default_rng(seed)
     r, k, v, do = (rng.standard_normal((2, S, 2, hd)).astype(np.float32)
                    for _ in range(4))
     wlog = (-np.logaddexp(0.0, w_std * rng.standard_normal((2, S, 2, hd)))
@@ -177,76 +183,184 @@ def test_wkv6_bwd_wrapper_checks_inputs():
 # -- the kernel's passes, emulated --------------------------------------------
 
 LOG2E = 1.4426950408889634
+TOK, GROUPS = 8, 4        # the kernel's groups (leaves) of 8 tokens
+
+
+def _exp2(e):
+    """2^e, asserting that no exponent is positive (the kernel's rule)."""
+    assert bool((e <= 0).all()), "a positive exponent"
+    return torch.exp2(e)
+
+
+def _group_cumsums(wl):
+    """The kernel's cumsums of log2 decays ``wl`` [..., 32, hd]: each group
+    of 8 tokens summed token by token, offset by the chained sum of the
+    groups before it. Returns cum [..., 32, hd] and the bounds [..., 5,
+    hd] (bound[q] = groups 0..q-1, bound[4] = total), each bound a value
+    of cum: the cum of a group's last token is the next bound exactly."""
+    *lead, C, hd = wl.shape
+    cs = torch.cumsum(wl.reshape(*lead, GROUPS, TOK, hd), dim=-2)
+    bounds = [torch.zeros_like(cs[..., 0, -1, :])]
+    for q in range(GROUPS):
+        bounds.append(bounds[-1] + cs[..., q, -1, :])
+    bound = torch.stack(bounds, dim=-2)
+    return (bound[..., :GROUPS, None, :] + cs).reshape(*lead, C, hd), bound
+
+
+def _cum_ex(cum):
+    """cum of the token before (0 before the chunk's first)."""
+    return torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                     dim=-2)
+
+
+def _intra_factored(rf, kf, a, cum, bound):
+    """att[t, s] (s < t), and dr's and dk's intra-chunk sums, as the
+    kernel factors the decay 2^(cum_ex[t] - cum[s]) on two levels: for t
+    on the right and s on the left of the chunk's halves (pivot m =
+    token 15) or of a half's quarters (pivot: the left quarter's last
+    token), 2^(cum_ex[t] - m) 2^(m - cum[s]), so the three sums are
+    products of decayed rows; only pairs inside an 8-token leaf take an
+    exp per (t, s, d), one shared by the three sums (2^0 = 1 for adjacent
+    tokens). rf, kf [..., 32, hd], a = A [..., 32, 32]."""
+    cum_ex = _cum_ex(cum)
+    att = torch.zeros_like(a)
+    dri, dki = torch.zeros_like(rf), torch.zeros_like(kf)
+    for t, s, q in ((slice(16, 32), slice(0, 16), 2),     # level 1
+                    (slice(8, 16), slice(0, 8), 1),       # level 2
+                    (slice(24, 32), slice(16, 24), 3)):
+        m = bound[..., q:q + 1, :]
+        er, ek = _exp2(cum_ex[..., t, :] - m), _exp2(m - cum[..., s, :])
+        x, y = rf[..., t, :] * er, kf[..., s, :] * ek
+        att[..., t, s] = x @ y.transpose(-1, -2)
+        dri[..., t, :] += er * (a[..., t, s] @ y)
+        dki[..., s, :] += ek * (a[..., t, s].transpose(-1, -2) @ x)
+    lead, hd = rf.shape[:-2], rf.shape[-1]
+
+    def leaves(z):
+        return z.reshape(*lead, GROUPS, TOK, hd)
+    below = torch.tril(torch.ones((TOK, TOK), dtype=torch.bool), diagonal=-1)
+    expo = leaves(cum_ex)[..., :, None, :] - leaves(cum)[..., None, :, :]
+    e = _exp2(torch.where(below[..., None], expo,
+                          torch.full_like(expo, -math.inf)))
+    al = torch.stack([a[..., g * TOK:(g + 1) * TOK, g * TOK:(g + 1) * TOK]
+                      for g in range(GROUPS)], dim=-3)
+    rl, kl = leaves(rf), leaves(kf)
+    leaf = torch.einsum("...gtd,...gsd,...gtsd->...gts", rl, kl, e)
+    for g in range(GROUPS):
+        att[..., g * TOK:(g + 1) * TOK, g * TOK:(g + 1) * TOK] = leaf[..., g,
+                                                                      :, :]
+    dri += torch.einsum("...gtsd,...gsd,...gts->...gtd", e, kl,
+                        al).reshape(rf.shape)
+    dki += torch.einsum("...gtsd,...gtd,...gts->...gsd", e, rl,
+                        al).reshape(kf.shape)
+    return att, dri, dki
+
+
+def _intra_pairs(rf, kf, a, cum):
+    """The same three sums with one exp per (t, s, d) pair s < t."""
+    cum_ex = _cum_ex(cum)
+    C = rf.shape[-2]
+    below = torch.tril(torch.ones((C, C), dtype=torch.bool), diagonal=-1)
+    expo = cum_ex[..., :, None, :] - cum[..., None, :, :]
+    dec = _exp2(torch.where(below[..., None], expo,
+                            torch.full_like(expo, -math.inf)))
+    return (torch.einsum("...td,...sd,...tsd->...ts", rf, kf, dec),
+            torch.einsum("...tsd,...sd,...ts->...td", dec, kf, a),
+            torch.einsum("...tsd,...td,...ts->...sd", dec, rf, a))
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as the card's cvt.rna.tf32.f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(a, b):
+    """a @ b as the kernel's state products take it on the tensor cores:
+    each operand as hi + lo TF32 parts, lo·hi + hi·lo + hi·hi summed in
+    f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _kernel_chunks(r, k, v, wlog, dout, chunk=ws.CHUNK):
+    """The inputs in the kernel's chunks ([B, H, n, chunk, hd], f32,
+    zero-padded), its grouped log2 cumsums, the states entering each chunk
+    (the forward's scan, emulated: states[:, :, c] enters chunk c, c = n
+    leaves the last) and, by passes 1 and 2, G_c (grads[:, :, c], the
+    gradient of the state leaving chunk c; 0 for the last)."""
+    B, S, H, hd = r.shape
+    n = -(-S // chunk)
+
+    def chunks(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, n * chunk - S))
+        return x.reshape(B, n, chunk, H, hd).permute(0, 3, 1, 2, 4)
+    rf, kf, vf, gf = chunks(r), chunks(k), chunks(v), chunks(dout)
+    cum, bound = _group_cumsums(chunks(wlog) * LOG2E)
+    total = bound[..., -1, :]                               # [B,H,n,hd]
+    k_out = kf * _exp2(total[..., None, :] - cum)
+    states = [torch.zeros((B, H, hd, hd))]
+    for c in range(n):
+        states.append(_exp2(total[:, :, c, :, None]) * states[-1]
+                      + k_out[:, :, c].transpose(-1, -2) @ vf[:, :, c])
+    # 1. each chunk's term (r 2^cum_ex)^T do of the gradient of the state
+    # entering it, 2. the reverse scan
+    term = (rf * _exp2(_cum_ex(cum))).transpose(-1, -2) @ gf
+    g = torch.zeros((B, H, hd, hd))
+    grads = [g]
+    for c in range(n - 1, 0, -1):
+        g = _exp2(total[:, :, c, :, None]) * g + term[:, :, c]
+        grads.append(g)
+    return dict(rf=rf, kf=kf, vf=vf, gf=gf, cum=cum, bound=bound,
+                total=total, k_out=k_out, states=torch.stack(states, dim=2),
+                grads=torch.stack(grads[::-1], dim=2))
 
 
 def _wkv6_bwd_passes(r, k, v, wlog, u, dout, *, chunk=ws.CHUNK):
-    """The CUDA backward kernel's four passes in plain PyTorch (a test
+    """The CUDA backward kernel's arithmetic in plain PyTorch (a test
     helper, on no path), in f32 on log2(e)-scaled cumulative decays over
-    chunks zero-padded to ``chunk`` tokens, as the kernel lays them out:
+    chunks zero-padded to ``chunk`` tokens, summed by groups of 8 tokens
+    as the kernel sums them:
 
     1. each chunk c but the first: its term (r ⊙ 2^cum_ex)ᵀ do of the
        gradient of the state entering it, and its decay 2^total;
     2. the reverse scan from the last slot: G_{c-1} = 2^total_c G_c +
        term_c, G_last = 0;
     3. each chunk's dr, dk, dv from its inputs, its entering state S_c
-       (the forward's scan, emulated here) and G_c; dwlog from the
-       chunk's last token back: Σ_{t>i} f_t - h_i + Σ_j G_c S_{c+1}; a
-       [B, n, H, hd] partial of du;
+       (the forward's scan, emulated here) and G_c: A = do vᵀ, the
+       intra-chunk sums factored on two levels with per-pair exps only
+       inside 8-token leaves (:func:`_intra_factored`), the three state
+       products (S_c do, G_c v, kout G_c) in split TF32
+       (:func:`_split_tf32`);
+       dwlog from the chunk's last token back, Σ_{t>i} f_t - h_i + y, with
+       y = 2^total ⊙ Σ_j G_c S_c + Σ_s k_s ⊙ p_out_s (p_out = dk's state
+       term) and no S_{c+1}; a [B, n, H, hd] partial of du;
     4. du: the partials summed over batch, then chunk, in that order.
 
     Asserts that no exponent it takes is positive."""
     B, S, H, hd = r.shape
     n = -(-S // chunk)
-
-    def chunks(x):              # [B,S,H,hd] -> [B,H,n,chunk,hd], zero-padded
-        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, n * chunk - S))
-        return x.reshape(B, n, chunk, H, hd).permute(0, 3, 1, 2, 4)
-
-    def exp2(e):
-        assert bool((e <= 0).all()), "a positive exponent"
-        return torch.exp2(e)
-    rf, kf, vf, gf = chunks(r), chunks(k), chunks(v), chunks(dout)
-    cum = torch.cumsum(chunks(wlog) * LOG2E, dim=3)
-    cum_ex = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
-                       dim=3)
-    total = cum[..., -1, :]                                 # [B,H,n,hd]
-    k_out = kf * exp2(total[..., None, :] - cum)
-    # the forward's states: states[:, :, c] enters chunk c (c = n: leaves
-    # the last)
-    states = [torch.zeros((B, H, hd, hd))]
-    for c in range(n):
-        states.append(exp2(total[:, :, c, :, None]) * states[-1]
-                      + k_out[:, :, c].transpose(-1, -2) @ vf[:, :, c])
-    states = torch.stack(states, dim=2)
-    # 1. the chunks' terms, 2. the reverse scan: grads[:, :, c] = G_c
-    term = (rf * exp2(cum_ex)).transpose(-1, -2) @ gf
-    g = torch.zeros((B, H, hd, hd))
-    grads = [g]
-    for c in range(n - 1, 0, -1):
-        g = exp2(total[:, :, c, :, None]) * g + term[:, :, c]
-        grads.append(g)
-    grads = torch.stack(grads[::-1], dim=2)
-    # 3. the chunks' gradients
-    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool),
-                       diagonal=-1)
-    expo = cum_ex[..., :, None, :] - cum[..., None, :, :]   # [t, s]
-    dec = exp2(torch.where(below[..., None], expo,
-                           torch.full_like(expo, -math.inf)))
+    z = _kernel_chunks(r, k, v, wlog, dout, chunk)
+    rf, kf, vf, gf, cum = z["rf"], z["kf"], z["vf"], z["gf"], z["cum"]
+    total, s_in, g_out = z["total"], z["states"][:, :, :n], z["grads"]
     a = gf @ vf.transpose(-1, -2)                           # A[t, s]
     a_diag = torch.diagonal(a, dim1=-2, dim2=-1)[..., None]
     uf = u.float()[None, :, None, None, :]
-    att = (torch.einsum("bhntd,bhnsd,bhntsd->bhnts", rf, kf, dec)
-           + torch.diag_embed((rf * uf * kf).sum(-1)))
-    dr_state = (torch.einsum("bhntsd,bhnsd,bhnts->bhntd", dec, kf, a)
-                + exp2(cum_ex) * (gf @ states[:, :, :n].transpose(-1, -2)))
-    dk_state = (torch.einsum("bhntsd,bhntd,bhnts->bhnsd", dec, rf, a)
-                + exp2(total[..., None, :] - cum)
-                * (vf @ grads.transpose(-1, -2)))
+    att, dr_state, dk_state = _intra_factored(rf, kf, a, cum, z["bound"])
+    att = att + torch.diag_embed((rf * uf * kf).sum(-1))
+    dr_state = dr_state + _exp2(_cum_ex(cum)) * _split_tf32(
+        gf, s_in.transpose(-1, -2))
+    p_out = _exp2(total[..., None, :] - cum) * _split_tf32(
+        vf, g_out.transpose(-1, -2))
+    dk_state = dk_state + p_out
     dr = dr_state + uf * kf * a_diag
     dk = dk_state + uf * rf * a_diag
-    dv = att.transpose(-1, -2) @ gf + k_out @ grads
+    dv = att.transpose(-1, -2) @ gf + _split_tf32(z["k_out"], g_out)
     f, h = rf * dr_state - kf * dk_state, kf * dk_state
-    y = (grads * states[:, :, 1:]).sum(-1)                  # [B,H,n,hd]
+    y = (_exp2(total) * (g_out * s_in).sum(-1)
+         + (kf * p_out).sum(-2))                            # [B,H,n,hd]
     dwlog = torch.empty_like(f)
     after = torch.zeros_like(f[..., 0, :])
     for t in range(chunk - 1, -1, -1):
@@ -277,3 +391,42 @@ def test_wkv6_bwd_kernel_passes_match_oracle(case, jax_grads):
     _check(case, got, jax_grads[case])
     plain = ref.wkv6_chunked_bwd_plain(r, k, v, wlog, u, do, chunk=32)
     _check(case, got, [x.float().numpy() for x in plain])
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv6_bwd_y_from_entering_state(hd):
+    """y = Σ_j G_c S_{c+1}, the pairs that straddle a chunk's end, from
+    S_c, G_c and dk's state term alone (2^total ⊙ Σ_j G_c S_c + Σ_s k_s ⊙
+    p_out_s, as the kernel forms it) against the direct sum over the state
+    leaving the chunk: f32, the steep decay, 300 tokens (ten chunks, the
+    last ragged), within 1e-5 of (max |y| + 1)."""
+    case = (300, hd, "float32", 3.0)
+    r, k, v, wlog, u, do = _torch(case, _inputs(case))
+    z = _kernel_chunks(r, k, v, wlog, do)
+    s_in, s_out, g_out = (z["states"][:, :, :-1], z["states"][:, :, 1:],
+                          z["grads"])
+    p_out = (_exp2(z["total"][..., None, :] - z["cum"])
+             * (z["vf"] @ g_out.transpose(-1, -2)))
+    got = (_exp2(z["total"]) * (g_out * s_in).sum(-1)
+           + (z["kf"] * p_out).sum(-2))
+    want = (g_out * s_out).sum(-1)
+    assert float(want.abs().max()) > 1.0
+    assert float((got - want).abs().max()) <= F32_TOL * (
+        float(want.abs().max()) + 1.0)
+
+
+@pytest.mark.parametrize("S", [1, 8, 9, 16, 17, 31, 33, 300])
+def test_wkv6_bwd_factored_intra_matches_pairs(S):
+    """The two-level factoring of the intra-chunk sums (att, dr's and
+    dk's) against one exp per (t, s, d) pair, on the kernel's grouped
+    cumsums: lengths at and past a leaf's and a half's edge, and ragged
+    chunks; f32, hd 32, within 1e-5 of (max |pairs| + 1)."""
+    case = (S, 32, "float32", 1.0)
+    r, k, v, wlog, u, do = _torch(case, _inputs(case))
+    z = _kernel_chunks(r, k, v, wlog, do)
+    a = z["gf"] @ z["vf"].transpose(-1, -2)
+    got = _intra_factored(z["rf"], z["kf"], a, z["cum"], z["bound"])
+    want = _intra_pairs(z["rf"], z["kf"], a, z["cum"])
+    for name, x, y in zip(("att", "dr", "dk"), got, want):
+        assert float((x - y).abs().max()) <= F32_TOL * (
+            float(y.abs().max()) + 1.0), name
