@@ -51,7 +51,16 @@ Phases, each of which must pass or the script exits non-zero:
    replay takes, alone and with the step's tile copies;
 5. a ``torch.profiler`` pass over 32 host-driven ticks of the main path:
    kernels per tick, device time per tick, device busy share, and the
-   heaviest kernels and PyTorch ops;
+   heaviest kernels and PyTorch ops; then ``dense_ticks``: the bool-tile
+   entry points ``engine.sharded.sharded_tick_dense`` and
+   ``dissem.engine.stability_tick_dense`` at the engine cell's G, W and
+   ack, vote and hold widths over seeded bool tiles, on the card and on
+   the CPU: state and outputs equal bit for bit, exactly 2 quorum and 1
+   stability launches a call; and ``dryrun``: the port's dry run
+   (``launch.dryrun``) over every arch x shape cell x both production
+   meshes on the meta device, no error record, each skipped record one
+   that ``cell_applicable`` explains, each arch's largest argument bytes
+   per device;
 6. pipeline phase: the closed pipeline (``repro_torch.pipeline``) at the
    same engine deployment with 8,000 clients (8 per lane), 1024-byte
    requests, a byte budget of one lane-tick (8,292 B), seeded per-node
@@ -175,7 +184,8 @@ Phases, each of which must pass or the script exits non-zero:
    and grad_norm; tokens/s and peak memory; a second pod fed the same
    decisions in another order ends equal leaf for leaf (``torch.equal``
    on the card); one more step traced for each kernel's device time
-   (each backward pass's);
+   (each backward pass's); the dry run's state bytes per device at the
+   (1, 1) host mesh equal the bytes of the state on the card;
 15. ``train/f32``: yi-6b at 2 layers, full width, f32, one AdamW step on
    the card against the same step on the CPU from one set of weights (2
    f32 backward launches, no bf16 one): loss, grad_norm, every gradient
@@ -314,9 +324,10 @@ WATERMARK, STRIDE = 1024, 1 << 22
 T_MAIN = 288          # 9 windows at the order budget: >= 6 generations
 T_FAMILY = 48         # plain/recycled/gated families, once each
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+# the H100 SXM's HBM3 rate and dense bf16 tensor-core rate: set in main
+# from repro_torch.analysis.roofline (HBM_BW, PEAK_BF16), their one source
+HBM_BYTES_PER_S = BF16_FLOPS_PER_S = None
 INT_OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate
-BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 rate of the CUDA cores
 WARMUP, REPS = 20, 200
 PROFILE_TRIES = 5
@@ -1221,6 +1232,119 @@ def profile_ticks(tiles_dev, dev, ticks: int = 32) -> dict:
     return profile_loop(
         lambda t: eng.tick(*(x[t] for x in tiles_dev)), ticks,
         "profile/tick")
+
+
+DENSE_TICKS = 4       # seeded bool tiles through the dense entry points
+DENSE_WANT = (2, 1)   # quorum, stability launches a call of each
+
+
+def dense_ticks_phase(dev) -> dict:
+    """``sharded_tick_dense`` and ``stability_tick_dense`` at the engine
+    cell (G x W, N_DISS acks, N_SEQ votes, PART holds, budget BUDGET)
+    over DENSE_TICKS seeded bool tiles, on the card and on the CPU: the state and every output must be equal bit
+    for bit, and each call must launch exactly DENSE_WANT kernels."""
+    from repro_torch.convert import bits_to_numpy, engine_state_to_numpy
+    from repro_torch.dissem import engine as DE
+    from repro_torch.engine import sharded as SHD
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2)
+    # dense enough that slots stabilise, are assigned and decided within
+    # DENSE_TICKS ticks (acks reach 501 of 1000 at the second tick)
+    acks = rng.random((DENSE_TICKS, G, W, N_DISS)) < 0.3
+    votes = rng.random((DENSE_TICKS, G, W, N_SEQ)) < 0.5
+    holds = rng.random((DENSE_TICKS, G, W, PART)) < 1 / 4
+    maj = dict(diss_majority=N_DISS // 2 + 1, seq_majority=N_SEQ // 2 + 1,
+               order_budget=BUDGET)
+
+    def drive(where) -> dict:
+        st = SHD.init_sharded(G, W, N_DISS, N_SEQ, where)
+        d = DE.init_dissem(G, W, PART, device=where)
+        outs, per_call = [], []
+        for t in range(DENSE_TICKS):
+            before = read_counts()
+            st, out = SHD.sharded_tick_dense(
+                st, torch.from_numpy(acks[t]).to(where),
+                torch.from_numpy(votes[t]).to(where), **maj)
+            mid = read_counts()
+            d, dout = DE.stability_tick_dense(
+                d, torch.from_numpy(holds[t]).to(where),
+                majority=PART // 2 + 1)
+            after = read_counts()
+            per_call.append((mid[0] - before[0], mid[1] - before[1],
+                             after[0] - mid[0], after[1] - mid[1]))
+            outs.append({**{f"tick/{k}": v.cpu().numpy()
+                            for k, v in out.items()},
+                         **{f"stability/{k}": v.cpu().numpy()
+                            for k, v in dout.items()}})
+        return dict(state=engine_state_to_numpy(st),
+                    dissem={"hold_bits": bits_to_numpy(d.hold_bits),
+                            "stable": d.stable.cpu().numpy()},
+                    outs=outs, per_call=per_call)
+    card, cpu = drive(dev), drive(torch.device("cpu"))
+    check(trees_equal(card["state"], cpu["state"])
+          and trees_equal(card["dissem"], cpu["dissem"])
+          and all(trees_equal(a, b) for a, b in zip(card["outs"],
+                                                    cpu["outs"])),
+          "dense ticks: the card's state or outputs differ from the CPU's")
+    check(all(c == (DENSE_WANT[0], 0, 0, DENSE_WANT[1])
+              for c in card["per_call"]),
+          f"dense ticks launched {card['per_call']} (quorum, stability "
+          f"per sharded tick; quorum, stability per stability tick), "
+          f"expected {DENSE_WANT}")
+    decided = int(sum(o["tick/newly_decided"].sum() for o in cpu["outs"]))
+    stable = int(sum(o["stability/newly_stable"].sum()
+                     for o in cpu["outs"]))
+    check(decided > 0 and stable > 0,
+          f"dense ticks decided {decided} and stabilised {stable} slots")
+    res = dict(ticks=DENSE_TICKS, shape=[G, W, N_DISS, N_SEQ, PART],
+               launches=[DENSE_TICKS * n for n in DENSE_WANT],
+               newly_decided=decided, newly_stable=stable,
+               parity="bit-exact", seconds=time.perf_counter() - t0)
+    log(phase="dense_ticks", **res)
+    return res
+
+
+def dryrun_phase() -> dict:
+    """The port's dry run over every arch x SHAPES cell x both production
+    meshes, on the meta device (``launch.dryrun.lower_cell``): fails on an
+    error record and on a skipped record that ``cell_applicable`` does
+    not explain; logs the counts and each arch's largest argument bytes
+    per device."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.common import SHAPES
+    t0 = time.perf_counter()
+    recs = []
+    for arch in registry.ARCHS:
+        for shape in SHAPES:
+            for multi in (False, True):
+                try:
+                    recs.append(DR.lower_cell(arch, shape, multi))
+                except Exception as e:      # a failure is a result
+                    recs.append(dict(arch=arch, shape=shape,
+                                     mesh="multi" if multi else "single",
+                                     status="error",
+                                     error=f"{type(e).__name__}: {e}"))
+    errors = [r for r in recs if r["status"] == "error"]
+    check(not errors, f"dry run errors: {errors[:3]}")
+    for r in recs:
+        ok, why = DR.cell_applicable(registry.get(r["arch"]), r["shape"])
+        check((r["status"] == "ok") == ok
+              and (ok or r.get("reason") == why),
+              f"dry run cell {r['arch']}/{r['shape']}/{r['mesh']}: "
+              f"{r['status']} {r.get('reason')!r}")
+    largest = {}
+    for r in recs:
+        if r["status"] == "ok":
+            largest[r["arch"]] = max(largest.get(r["arch"], 0),
+                                     r["argument_bytes_per_device"])
+    res = dict(cells=len(recs),
+               ok=sum(r["status"] == "ok" for r in recs),
+               skipped=sum(r["status"] == "skipped" for r in recs),
+               errors=0, largest_argument_bytes_per_device=largest,
+               seconds=time.perf_counter() - t0)
+    log(phase="dryrun", **res)
+    return res
 
 
 def profile_loop(step, ticks: int, phase: str) -> dict:
@@ -3576,6 +3700,16 @@ def train_phase(dev) -> dict:
     a = pod("pod0")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # the dry run's layout at the (1, 1) host mesh puts the whole state
+    # on one device: its bytes per device are the card's state's
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import tree_bytes
+    dry_bytes = DR.state_bytes_per_device(cfg, opt, make_host_mesh())
+    card_bytes = tree_bytes(a.state)
+    check(dry_bytes == card_bytes,
+          f"train: the dry run's state bytes per device {dry_bytes} != "
+          f"the card's state bytes {card_bytes}")
     steps = []
 
     def timed_apply(cmd):
@@ -3648,6 +3782,7 @@ def train_phase(dev) -> dict:
         tokens_per_s=TRAIN_B * TRAIN_S / sec, peak_mem_bytes=peak,
         launches_per_step=want, launches=counts,
         replica_leaves_compared=n_tensors,
+        state_bytes=card_bytes, dryrun_state_bytes_per_device=dry_bytes,
         profiled_step=dict(
             wall_us=wall["us"], device_us=busy,
             device_busy_share=busy / wall["us"],
@@ -6668,6 +6803,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BYTES_PER_S, BF16_FLOPS_PER_S
+    from repro_torch.analysis import roofline
+    HBM_BYTES_PER_S, BF16_FLOPS_PER_S = roofline.HBM_BW, roofline.PEAK_BF16
     # the train phases run in PyTorch's deterministic mode, which asks for
     # this cuBLAS setting before the process's first matrix product
     from repro_torch.train.trainer import set_cublas_workspace
@@ -6714,6 +6852,9 @@ def main() -> int:
     profile_ticks(tiles_dev, dev)
     del tiles_dev
     mark("engine")
+    dense = dense_ticks_phase(dev)
+    dryrun_phase()
+    mark("dense_ticks, dryrun")
     # the closed pipeline: its drive resets the counts first
     pipe = pipeline_phase(dev, engine["ticks_per_s"])
     # adaptive batching and its subtick mode: each drive resets the
@@ -6817,7 +6958,8 @@ def main() -> int:
                       for tag, ranks in mesh.items()},
                    **{f"{path}/mesh": sum(r[path]["launches"][i]
                                           for r in mesh[cells])
-                      for path in ("adaptive", "pipeline")}}
+                      for path in ("adaptive", "pipeline")},
+                   "dense_ticks": dense["launches"][i]}
         check(all(v > 0 for v in by_path.values()),
               f"{name} was not launched on every engine path: {by_path}")
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,

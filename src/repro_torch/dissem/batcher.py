@@ -1,16 +1,26 @@
 """Request → batch accumulation under a wire-byte budget (§4.1 step 13).
 
-The port's copy of the reference's streaming ``BatchAccumulator``. A
-batch of requests with payload sizes ``q_i`` costs ``OVERHEAD + ID_BYTES
-+ Σ (ID_BYTES + q_i)`` on the wire (``core.network.batch_bytes``); a
-batch is flushed when admitting the next request would push it past
-``budget_bytes`` or past ``max_requests``. Host-side: the closed
-pipeline's numpy twin (``pipeline.closed.plan_admissions``) replays a
-workload through one accumulator per disseminator lane.
+The port's copy of the reference's batcher. A batch of requests with
+payload sizes ``q_i`` costs ``OVERHEAD + ID_BYTES + Σ (ID_BYTES + q_i)``
+on the wire (``core.network.batch_bytes``); a batch is flushed when
+admitting the next request would push it past ``budget_bytes`` or past
+``max_requests``. Two equivalent forms, as in the reference:
+
+* :func:`plan_batches` — one-shot greedy plan over a numpy size array
+  (order-preserving: request i never jumps ahead of request j < i), with
+  :func:`batch_wire_sizes` the plan's per-batch wire bytes;
+* :class:`BatchAccumulator` — the streaming mirror (one ``add`` per
+  request arrival, flush on overflow or count).
+
+Host-side: the closed pipeline's numpy twin
+(``pipeline.closed.plan_admissions``) replays a workload through one
+accumulator per disseminator lane.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from ..core.network import ID_BYTES, OVERHEAD
 
@@ -20,6 +30,51 @@ EMPTY_BATCH_BYTES = OVERHEAD + ID_BYTES     # header: overhead + batch_id
 def request_wire_bytes(size: int) -> int:
     """Wire cost of adding one request of payload ``size`` to a batch."""
     return ID_BYTES + int(size)
+
+
+def _check_budget(budget_bytes: int) -> None:
+    if budget_bytes <= EMPTY_BATCH_BYTES:
+        raise ValueError(
+            f"budget_bytes={budget_bytes} cannot fit the batch header "
+            f"({EMPTY_BATCH_BYTES} B) plus any request")
+
+
+def plan_batches(request_sizes, *, budget_bytes: int,
+                 max_requests: int | None = None) -> np.ndarray:
+    """Greedy order-preserving batch assignment.
+
+    request_sizes: int array [N] of payload bytes. Returns int32[N] batch
+    index per request (consecutive from 0). A batch closes when admitting
+    the next request would exceed ``budget_bytes`` on the wire or reach
+    ``max_requests``; a single oversized request still gets a batch of
+    its own (requests are atomic: the budget bounds batching, it is not
+    an admission filter)."""
+    _check_budget(budget_bytes)
+    sizes = np.asarray(request_sizes, dtype=np.int64)
+    out = np.empty(len(sizes), np.int32)
+    batch, used, count = 0, EMPTY_BATCH_BYTES, 0
+    for i, s in enumerate(sizes):
+        cost = request_wire_bytes(int(s))
+        if count > 0 and (
+                used + cost > budget_bytes
+                or (max_requests is not None and count >= max_requests)):
+            batch += 1
+            used, count = EMPTY_BATCH_BYTES, 0
+        out[i] = batch
+        used += cost
+        count += 1
+    return out
+
+
+def batch_wire_sizes(request_sizes, assignment) -> np.ndarray:
+    """Per-batch wire bytes of a :func:`plan_batches` assignment:
+    int64[n_batches], entry b = header + Σ assigned request costs."""
+    sizes = np.asarray(request_sizes, dtype=np.int64)
+    assignment = np.asarray(assignment, dtype=np.int64)
+    n = int(assignment.max()) + 1 if len(assignment) else 0
+    out = np.full(n, EMPTY_BATCH_BYTES, np.int64)
+    np.add.at(out, assignment, ID_BYTES + sizes)
+    return out
 
 
 @dataclass
@@ -38,10 +93,7 @@ class BatchAccumulator:
     bytes_flushed: int = 0
 
     def __post_init__(self) -> None:
-        if self.budget_bytes <= EMPTY_BATCH_BYTES:
-            raise ValueError(
-                f"budget_bytes={self.budget_bytes} cannot fit the batch "
-                f"header ({EMPTY_BATCH_BYTES} B) plus any request")
+        _check_budget(self.budget_bytes)
 
     def add(self, size: int):
         cost = request_wire_bytes(size)

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.tilesim import _words
+from ..core.tilesim import _words, pack_tile
 from ..device import resolve_device
 from ..kernels.dissem import stability_update_grouped
 
@@ -66,6 +66,14 @@ def stability_tick(state: DissemState, packed: torch.Tensor, *,
                    majority: int) -> tuple[DissemState, dict]:
     """One absorb/stabilize pass (the reference's jitted entry point)."""
     return absorb_holds_packed(state, packed, majority)
+
+
+def stability_tick_dense(state: DissemState, holds: torch.Tensor, *,
+                         majority: int) -> tuple[DissemState, dict]:
+    """Bool-tile form of :func:`stability_tick`: holds bool[G, W, D],
+    packed with ``tilesim.pack_tile`` (one stability kernel launch on a
+    CUDA tensor)."""
+    return absorb_holds_packed(state, pack_tile(holds), majority)
 
 
 def run_stability_ticks(state: DissemState, packed_seq: torch.Tensor, *,

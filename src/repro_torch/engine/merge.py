@@ -199,3 +199,14 @@ def oracle_merge(group_logs: list[list[int]]) -> list[int]:
             if e >= 0:
                 out.append(int(e))
         r += 1
+
+
+def oracle_is_legal_interleaving(merged: list, group_orders: list[list])\
+        -> bool:
+    """True iff ``merged`` is a legal interleaving of the per-group orders:
+    its restriction to each group's ids equals a prefix of that group's
+    order, and it contains no foreign ids (the checker is
+    ``core.invariants.check_legal_interleaving``, shared with the DES
+    audit)."""
+    from ..core.invariants import check_legal_interleaving
+    return not check_legal_interleaving(merged, group_orders)

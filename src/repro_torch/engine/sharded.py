@@ -71,6 +71,21 @@ def sharded_tick(state: QuorumState, packed_acks: torch.Tensor,
         inplace=inplace)
 
 
+def sharded_tick_dense(state: QuorumState, acks: torch.Tensor,
+                       votes: torch.Tensor, *, diss_majority: int,
+                       seq_majority: int, order_budget: int | None = None)\
+        -> tuple[QuorumState, dict]:
+    """Bool-tile form of :func:`sharded_tick` (acks bool[G, W, D], votes
+    bool[G, W, S], packed with ``tilesim.pack_tile``): the interface of
+    the reference's ``jaxsim.engine_tick`` with a group axis (two quorum
+    kernel launches on a CUDA tensor)."""
+    return sharded_tick(state, tilesim.pack_tile(acks),
+                        tilesim.pack_tile(votes),
+                        diss_majority=diss_majority,
+                        seq_majority=seq_majority,
+                        order_budget=order_budget)
+
+
 def run_sharded_ticks(state: QuorumState, packed_acks_seq: torch.Tensor,
                       packed_votes_seq: torch.Tensor, *, diss_majority: int,
                       seq_majority: int, order_budget: int | None = None)\

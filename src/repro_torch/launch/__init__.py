@@ -1,1 +1,3 @@
-"""Command-line entry points of the port (``serve``, ``train``)."""
+"""Command-line entry points of the port (``serve``, ``train``,
+``dryrun``), the meshes (``mesh``) and the layout rules
+(``sharding``)."""

@@ -1,4 +1,18 @@
-"""The group mesh: ordering groups spread over ``torch.distributed`` ranks.
+"""The meshes of the port: the model mesh of the layout rules and the
+dry run, and the group mesh of the meshed engine.
+
+The model mesh (:class:`ModelMesh`) names its axes ("pod", "data",
+"model") and their sizes, as the reference's ``jax`` meshes do.
+:func:`make_production_mesh` gives the reference's single-pod 16 × 16
+and two-pod 2 × 16 × 16 meshes, :func:`make_host_mesh` the host mesh of
+the training launcher. Where the default process group has exactly as
+many ranks as the mesh, the mesh holds a ``torch.distributed``
+``DeviceMesh`` over them (rank r at the r-th place in row-major order),
+and tensors can be placed on it (``launch.sharding.place``); otherwise it
+is abstract, the counterpart of the dry run's placeholder devices: the
+layout rules and the per-device bytes still hold, nothing is placed.
+
+The group mesh: ordering groups spread over ``torch.distributed`` ranks.
 
 The engine's G ordering groups are independent within a tick; only the
 round-robin merge crosses them. So they shard along one axis of ranks,
@@ -13,7 +27,7 @@ is one rank and every collective here is the identity, as the
 reference's one-device mesh is.
 
 Functions only: importing this module creates no process group and
-touches no CUDA device.
+touches no CUDA device, and no function here starts a process group.
 """
 from __future__ import annotations
 
@@ -22,6 +36,79 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+
+@dataclass(frozen=True)
+class ModelMesh:
+    """A mesh of named axes: ``axis_names`` and their ``sizes``, and the
+    ``DeviceMesh`` over the process group's ranks (None: an abstract
+    mesh)."""
+    axis_names: tuple
+    sizes: tuple
+    device_mesh: Any = None
+
+    @property
+    def shape(self) -> dict:
+        """Axis name → size, as a ``jax`` mesh's ``shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """Devices (ranks) in the mesh."""
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def _world() -> int:
+    """Ranks of the default process group (0: none)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
+def _model_mesh(sizes: tuple, names: tuple) -> ModelMesh:
+    """A mesh over the default process group where it has exactly
+    ``prod(sizes)`` ranks (NCCL's on ``cuda``, any other backend's on the
+    host), else abstract. Never starts a process group."""
+    mesh = ModelMesh(tuple(names), tuple(int(s) for s in sizes))
+    if _world() != mesh.size:
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    grid = torch.arange(mesh.size).reshape(mesh.sizes)
+    return ModelMesh(mesh.axis_names, mesh.sizes,
+                     DeviceMesh(kind, grid, mesh_dim_names=mesh.axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ModelMesh:
+    """The reference's production mesh: 16 × 16 on ("data", "model"), or
+    2 × 16 × 16 on ("pod", "data", "model") with ``multi_pod``; abstract
+    unless the process group has 256 (512) ranks."""
+    if multi_pod:
+        return _model_mesh((2, 16, 16), ("pod", "data", "model"))
+    return _model_mesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh() -> ModelMesh:
+    """(n // 2, 2) on ("data", "model") over a process group of n >= 2
+    ranks; (1, 1) with no device mesh in a world of one (no process
+    group, or one rank), as :class:`GroupMesh` has it."""
+    n = _world()
+    if n >= 2:
+        return _model_mesh((n // 2, 2), ("data", "model"))
+    return ModelMesh(("data", "model"), (1, 1))
+
+
+def mesh_axes(mesh: ModelMesh) -> dict:
+    """Axis name → size."""
+    return dict(mesh.shape)
+
+
+def fsdp_axes(mesh: ModelMesh) -> tuple:
+    """Axes used for fully-sharded parameter (and batch) placement."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
 @dataclass(frozen=True)

@@ -7,9 +7,12 @@ Trains the arch's reduced (smoke) config on synthetic tokens, or with
 checkpoints go through the quorum-commit layer (``--ckpt-every``,
 ``--resume``). Runs on the CUDA card unless ``--device cpu`` is given;
 on the card the step runs with deterministic algorithms
-(``train.trainer``). The reference places the state on a host mesh
-(``make_host_mesh``, ``tree_shardings``); the port has no counterpart on
-one card, and sharding the train state is ROADMAP.md queue 1 item 14.
+(``train.trainer``). As in the reference, the launcher builds the host
+mesh (``launch.mesh.make_host_mesh``: (1, 1) in a world of one) and the
+state's layout on it (``launch.sharding.tree_shardings`` by
+``trainer.state_axes``), and prints the mesh and the state's bytes per
+device under that layout; the step itself runs unsharded, as the
+reference's jitted step does.
 The MoE family (llama4-maverick, deepseek-v3) trains on token batches
 and logs its auxiliary loss; a config with the MTP head (deepseek-v3)
 logs its MTP term. The token batches (and, for the vision-language family,
@@ -32,7 +35,10 @@ from ..device import resolve_device
 from ..models.common import param_count
 from ..runtime.checkpoint import restore_sharded, save_sharded
 from ..train.optimizer import OptConfig, choose_optimizer
-from ..train.trainer import make_state, make_train_step, set_cublas_workspace
+from ..train.trainer import (make_state, make_train_step,
+                             set_cublas_workspace, state_axes)
+from .mesh import make_host_mesh
+from .sharding import sharded_bytes, tree_shardings
 
 
 def main(argv=None) -> None:
@@ -62,6 +68,11 @@ def main(argv=None) -> None:
     state = make_state(cfg, opt, torch.Generator(dev).manual_seed(0), dev)
     print(f"arch={cfg.name} params={param_count(state['params']):,d} "
           f"opt={opt.kind}")
+    mesh = make_host_mesh()
+    s_sh = tree_shardings(mesh, state,
+                          state_axes(cfg, opt, state["params"]))
+    print(f"mesh={mesh.shape} state_bytes/device="
+          f"{sharded_bytes(state, s_sh):,d}")
     step_fn = make_train_step(cfg, opt, microbatches=1,
                               global_batch=args.batch)
     if args.resume:

@@ -7,10 +7,19 @@ ones, in ``cfg.dtype`` — from a ``torch.Generator`` the caller seeds. The
 two frameworks draw different numbers from one seed; tests that compare
 them carry one set of weights across through ``repro_torch.convert``.
 
-The reference builds a logical-sharding spec beside every leaf and has an
-``abstract`` mode (shapes without arrays) for its dry-run; the port has no
-mesh and no dry-run, so neither has a counterpart. Shapes without arrays
-come from ``device="meta"``. :class:`ParamTree` holds a parameter tree as
+Every leaf is drawn with its logical sharding axes, a tuple of logical
+axis names (one per dim, None for a replicated dim), as in the
+reference. :class:`ParamFactory` checks them against the shape; an
+:class:`AxesFactory` passed to the same init functions returns them in
+place of tensors, so ``models.transformer.param_axes`` builds the axes
+tree from the code that builds the parameters, and the two cannot
+drift. ``repro_torch.launch.sharding`` maps logical axes to mesh axes.
+The reference's ``abstract`` mode (shapes without arrays) is the meta
+device here (``device="meta"``). Its ``split_tree`` and
+``stack_layers`` have no counterpart by design: the port builds
+``ParamTree`` modules from the init functions' nested dicts and keeps one
+tree per layer, and :func:`reference_leaves` walks them in the
+reference's stacked layout. :class:`ParamTree` holds a parameter tree as
 an ``nn.Module`` that also indexes like the reference's nested dicts; its
 parameters are trainable (``requires_grad``), and the serving entry
 points run under ``torch.no_grad``.
@@ -83,11 +92,36 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass
+class ShapeCell:
+    """One (arch × input-shape) dry-run cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def _check_axes(shape: tuple, axes: tuple) -> None:
+    if len(shape) != len(axes):
+        raise ValueError(f"logical axes {axes} for a leaf of shape {shape}")
+
+
 class ParamFactory:
     """Draws parameter leaves in ``dtype`` on ``device``.
 
-    ``leaf(shape, scale=0.02, zero=False)`` is normal·scale (drawn in f32,
-    scaled in place, then cast) or zeros; ``ones(shape)`` is ones.
+    ``leaf(shape, axes, scale=0.02, zero=False)`` is normal·scale (drawn
+    in f32, scaled in place, then cast) or zeros; ``ones(shape, axes)``
+    is ones. ``axes`` names the leaf's logical axis per dim (drawn from
+    embed, vocab, mlp, moe_mlp, heads, kv_heads, q_lora, kv_lora, expert,
+    or None for a replicated dim) and must have one entry per dim.
     ``generator`` must live on ``device``; it may be None only on the meta
     device, where nothing is drawn."""
 
@@ -99,8 +133,11 @@ class ParamFactory:
         self.dtype = dtype
         self.device = device
 
-    def leaf(self, shape: tuple, scale: float = 0.02,
+    def leaf(self, shape: tuple, axes: tuple, scale: float = 0.02,
              zero: bool = False) -> torch.Tensor:
+        _check_axes(shape, axes)
+        if self.device.type == "meta":      # shapes only: nothing drawn
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if zero:
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         x = torch.randn(shape, generator=self.generator, dtype=torch.float32,
@@ -109,8 +146,34 @@ class ParamFactory:
         # routed expert leaf of llama4-maverick is 21.5 GB in f32)
         return x.mul_(scale).to(self.dtype)
 
-    def ones(self, shape: tuple) -> torch.Tensor:
+    def ones(self, shape: tuple, axes: tuple) -> torch.Tensor:
+        _check_axes(shape, axes)
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+
+class AxesFactory(ParamFactory):
+    """A factory whose leaves are their logical axes: the init functions
+    run with it build the axes tree in the layout of the parameters
+    (``models.transformer.param_axes``). Nothing is drawn."""
+
+    def __init__(self) -> None:
+        super().__init__(None, None, torch.device("meta"))
+
+    def leaf(self, shape: tuple, axes: tuple, scale: float = 0.02,
+             zero: bool = False) -> tuple:
+        _check_axes(shape, axes)
+        return tuple(axes)
+
+    def ones(self, shape: tuple, axes: tuple) -> tuple:
+        _check_axes(shape, axes)
+        return tuple(axes)
+
+
+def is_axes(x) -> bool:
+    """A leaf of an axes tree: a tuple of logical axis names or None (the
+    reference's ``is_leaf`` rule in ``tree_shardings``)."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
 
 
 class ParamTree(nn.Module):
@@ -145,6 +208,26 @@ class ParamTree(nn.Module):
                     else self[k].data) for k in self.keys()}
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, nn.Module):
+        yield from tree.parameters()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in ``tree``: a tensor, a module's parameters,
+    or nested dicts and lists of them (a train state; meta tensors count
+    their shapes)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
 def param_count(tree: nn.Module) -> int:
     """Number of parameter elements in ``tree`` (an ``LM`` or any
     module)."""
@@ -161,9 +244,9 @@ def reference_leaves(tree, path: tuple = ()) -> list:
     ``nn.ModuleDict``: anything with ``keys()`` and ``[key]``), a list of
     per-layer trees (an ``nn.ModuleList``), which the reference stacks
     along a leading layer axis: each of its leaves is one leaf, made of
-    one tensor per layer, with ``stacked`` True; or a leaf (a tensor or
-    an array)."""
-    if isinstance(tree, (list, tuple, nn.ModuleList)):
+    one tensor per layer, with ``stacked`` True; or a leaf (a tensor, an
+    array, or the logical axes of an axes tree, :func:`is_axes`)."""
+    if isinstance(tree, (list, tuple, nn.ModuleList)) and not is_axes(tree):
         layers = [reference_leaves(layer, path) for layer in tree]
         return [(p, [layer[j][1][0] for layer in layers], True)
                 for j, (p, _, _) in enumerate(layers[0])]

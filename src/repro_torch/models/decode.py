@@ -126,6 +126,12 @@ def cache_zeros(spec, device=None) -> Any:
     return {k: cache_zeros(v, dev) for k, v in spec.items()}
 
 
+def cache_abstract(spec) -> Any:
+    """The cache of ``spec`` on the meta device: its shapes and dtypes,
+    no storage (the reference's ``ShapeDtypeStruct`` leaves)."""
+    return cache_zeros(spec, "meta")
+
+
 # ---------------------------------------------------------------------------
 # decode: one new token against a filled cache
 # ---------------------------------------------------------------------------

@@ -22,9 +22,10 @@ reference switches from the direct softmax to its blockwise form at S >=
 and both compute the same function. The decode branches stay plain
 PyTorch, as they are plain jnp in the reference.
 
-``repro.models.pconstraint`` (activation sharding constraints) has no
-counterpart: it is a no-op without a device mesh, and the port has none
-yet.
+The layout constraints of ``models.pconstraint`` (the batch dim of
+q/k/v and of the attention output, the expert dim of the MoE's dispatch
+buffers, the weights' compute layout) are called where the reference
+calls them. Without a mesh each returns its input itself.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..kernels import ops
 from .common import ModelConfig, ParamFactory
+from .pconstraint import constrain_batch, constrain_expert
+from .pconstraint import weight_compute_layout as wcl
 
 # ---------------------------------------------------------------------------
 # norms
@@ -44,7 +47,7 @@ from .common import ModelConfig, ParamFactory
 
 
 def init_rmsnorm(pf: ParamFactory, d: int) -> dict:
-    return {"scale": pf.ones((d,))}
+    return {"scale": pf.ones((d,), (None,))}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -131,11 +134,13 @@ def mrope_positions(layout, batch: int, device=None):
 def init_gqa(pf: ParamFactory, cfg: ModelConfig) -> dict:
     """Weights stay 2-D with the head dims flattened (H·h etc.)."""
     D, H, K, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"wq": pf.leaf((D, H * h)), "wk": pf.leaf((D, K * h)),
-         "wv": pf.leaf((D, K * h)), "wo": pf.leaf((H * h, D))}
+    p = {"wq": pf.leaf((D, H * h), ("embed", "heads")),
+         "wk": pf.leaf((D, K * h), ("embed", "kv_heads")),
+         "wv": pf.leaf((D, K * h), ("embed", "kv_heads")),
+         "wo": pf.leaf((H * h, D), ("heads", "embed"))}
     if cfg.qk_norm:
-        p["q_norm"] = {"scale": pf.ones((h,))}
-        p["k_norm"] = {"scale": pf.ones((h,))}
+        p["q_norm"] = init_rmsnorm(pf, h)
+        p["k_norm"] = init_rmsnorm(pf, h)
     return p
 
 
@@ -171,7 +176,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     w = w.to(v.dtype).float()
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float()).to(v.dtype)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    return constrain_batch(out.reshape(B, Sq, H, v.shape[-1]))
 
 
 def write_slots(buf: torch.Tensor, start, val: torch.Tensor) -> None:
@@ -209,9 +214,9 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     never-written zero slots until the ring fills (ROADMAP.md queue 3)."""
     B, S, D = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, h)
-    k = (x @ p["wk"]).reshape(B, S, K, h)
-    v = (x @ p["wv"]).reshape(B, S, K, h)
+    q = constrain_batch((x @ wcl(p["wq"], (1,))).reshape(B, S, H, h))
+    k = constrain_batch((x @ wcl(p["wk"], (1,))).reshape(B, S, K, h))
+    v = constrain_batch((x @ wcl(p["wv"], (1,))).reshape(B, S, K, h))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -240,7 +245,7 @@ def gqa_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         out = attend(q, ck.reshape(B, Skv, K, h), cv.reshape(B, Skv, K, h),
                      m)
         new_cache = cache
-    y = out.reshape(B, S, H * h) @ p["wo"]
+    y = out.reshape(B, S, H * h) @ wcl(p["wo"], (0,))
     return y, new_cache
 
 
@@ -257,12 +262,14 @@ def init_mla(pf: ParamFactory, cfg: ModelConfig) -> dict:
     D, H = cfg.d_model, cfg.n_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    return {"wq_a": pf.leaf((D, qr)), "q_a_norm": init_rmsnorm(pf, qr),
-            "wq_b": pf.leaf((qr, H * (dn + dr))),
-            "wkv_a": pf.leaf((D, kvr + dr)),
+    return {"wq_a": pf.leaf((D, qr), ("embed", "q_lora")),
+            "q_a_norm": init_rmsnorm(pf, qr),
+            "wq_b": pf.leaf((qr, H * (dn + dr)), ("q_lora", "heads")),
+            "wkv_a": pf.leaf((D, kvr + dr), ("embed", None)),
             "kv_a_norm": init_rmsnorm(pf, kvr),
-            "wk_b": pf.leaf((kvr, H * dn)), "wv_b": pf.leaf((kvr, H * dv)),
-            "wo": pf.leaf((H * dv, D))}
+            "wk_b": pf.leaf((kvr, H * dn), ("kv_lora", "heads")),
+            "wv_b": pf.leaf((kvr, H * dv), ("kv_lora", "heads")),
+            "wo": pf.leaf((H * dv, D), ("heads", "embed"))}
 
 
 def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -314,11 +321,12 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
-    ql = rmsnorm(p["q_a_norm"], x @ p["wq_a"], cfg.norm_eps)
-    q = (ql @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    ql = rmsnorm(p["q_a_norm"], x @ wcl(p["wq_a"], ()), cfg.norm_eps)
+    q = constrain_batch((ql @ wcl(p["wq_b"], (1,)))
+                        .reshape(B, S, H, dn + dr))
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    kv = x @ p["wkv_a"]                                   # [B,S,kvr+dr]
+    kv = x @ wcl(p["wkv_a"], ())                          # [B,S,kvr+dr]
     c_kv = rmsnorm(p["kv_a_norm"], kv[..., :kvr], cfg.norm_eps)
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]          # [B,S,dr]
@@ -340,9 +348,12 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         ctx = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
         out = torch.einsum("bqhr,rhv->bqhv", ctx,
                            p["wv_b"].reshape(kvr, H, dv))
-        return out.reshape(B, S, H * dv) @ p["wo"], cache
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, Skv, H, dn)
-    vfull = (c_kv @ p["wv_b"]).reshape(B, Skv, H, dv)
+        return (constrain_batch(out.reshape(B, S, H * dv))
+                @ wcl(p["wo"], (0,))), cache
+    k_nope = constrain_batch((c_kv @ wcl(p["wk_b"], (1,)))
+                             .reshape(B, Skv, H, dn))
+    vfull = constrain_batch((c_kv @ wcl(p["wv_b"], (1,)))
+                            .reshape(B, Skv, H, dv))
     kfull = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Skv, H, dr)],
                       dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
@@ -351,7 +362,8 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     else:
         out = attend(qfull, kfull, vfull,
                      _causal_window_mask(S, Skv, -1, cache_index, x.device))
-    return out.reshape(B, S, H * dv) @ p["wo"], cache
+    return (constrain_batch(out.reshape(B, S, H * dv))
+            @ wcl(p["wo"], (0,))), cache
 
 
 # ---------------------------------------------------------------------------
@@ -359,15 +371,16 @@ def mla_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_mlp(pf: ParamFactory, d: int, f: int) -> dict:
-    return {"w_gate": pf.leaf((d, f)), "w_up": pf.leaf((d, f)),
-            "w_down": pf.leaf((f, d))}
+    return {"w_gate": pf.leaf((d, f), ("embed", "mlp")),
+            "w_up": pf.leaf((d, f), ("embed", "mlp")),
+            "w_down": pf.leaf((f, d), ("mlp", "embed"))}
 
 
 def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    g = x @ wcl(p["w_gate"], (1,))
+    u = x @ wcl(p["w_up"], (1,))
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    return h @ wcl(p["w_down"], (0,))
 
 
 # ---------------------------------------------------------------------------
@@ -379,9 +392,10 @@ def init_moe(pf: ParamFactory, cfg: ModelConfig) -> dict:
     stacked over E, and the shared expert's MLP when the config has
     one."""
     D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
-    p = {"router": pf.leaf((D, E), scale=0.006),
-         "w_gate": pf.leaf((E, D, F)), "w_up": pf.leaf((E, D, F)),
-         "w_down": pf.leaf((E, F, D))}
+    p = {"router": pf.leaf((D, E), ("embed", None), scale=0.006),
+         "w_gate": pf.leaf((E, D, F), ("expert", "embed", "moe_mlp")),
+         "w_up": pf.leaf((E, D, F), ("expert", "embed", "moe_mlp")),
+         "w_down": pf.leaf((E, F, D), ("expert", "moe_mlp", "embed"))}
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(pf, D, (cfg.moe_d_ff or cfg.d_ff)
                                * cfg.n_shared_experts)
@@ -462,11 +476,11 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor):
     C = r.capacity
     tok = torch.arange(T * k, device=x.device) // k
     buf = x.new_zeros((E, C + 1, D)).index_put((r.expert, r.slot), xf[tok])
-    buf = buf[:, :C]
-    g = torch.bmm(buf, p["w_gate"])
-    u = torch.bmm(buf, p["w_up"])
+    buf = constrain_expert(buf[:, :C])
+    g = torch.bmm(buf, wcl(p["w_gate"], (0,)))
+    u = torch.bmm(buf, wcl(p["w_up"], (0,)))
     h = F.silu(g.float()).to(x.dtype) * u
-    out = torch.bmm(h, p["w_down"])                          # [E, C, D]
+    out = constrain_expert(torch.bmm(h, wcl(p["w_down"], (0,))))  # [E,C,D]
     y_tok = out[r.expert, torch.where(r.keep, r.slot, 0)]
     y_tok = torch.where(r.keep[:, None], y_tok, 0.0)
     y_tok = y_tok * r.gate.reshape(T * k)[:, None].to(y_tok.dtype)
@@ -482,9 +496,10 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def init_embed(pf: ParamFactory, cfg: ModelConfig) -> dict:
-    p = {"tok": pf.leaf((cfg.vocab, cfg.d_model), scale=0.02)}
+    p = {"tok": pf.leaf((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                        scale=0.02)}
     if not cfg.tie_embeddings:
-        p["out"] = pf.leaf((cfg.d_model, cfg.vocab))
+        p["out"] = pf.leaf((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     return p
 
 

@@ -31,16 +31,16 @@ def init_rwkv6(pf: ParamFactory, cfg: ModelConfig) -> dict:
     H = cfg.ssm_heads or cfg.n_heads
     h = D // H
     return {
-        "w_r": pf.leaf((D, H * h)),
-        "w_k": pf.leaf((D, H * h)),
-        "w_v": pf.leaf((D, H * h)),
-        "w_g": pf.leaf((D, H * h)),
+        "w_r": pf.leaf((D, H * h), ("embed", "heads")),
+        "w_k": pf.leaf((D, H * h), ("embed", "heads")),
+        "w_v": pf.leaf((D, H * h), ("embed", "heads")),
+        "w_g": pf.leaf((D, H * h), ("embed", "heads")),
         # data-dependent decay projection (lora-style, simplified: direct)
-        "w_w": pf.leaf((D, H * h), scale=0.006),
-        "decay_base": pf.leaf((H * h,), zero=True),
-        "bonus_u": pf.leaf((H * h,), zero=True),
-        "w_o": pf.leaf((H * h, D)),
-        "ln_x": {"scale": pf.ones((D,))},
+        "w_w": pf.leaf((D, H * h), ("embed", "heads"), scale=0.006),
+        "decay_base": pf.leaf((H * h,), ("heads",), zero=True),
+        "bonus_u": pf.leaf((H * h,), ("heads",), zero=True),
+        "w_o": pf.leaf((H * h, D), ("heads", "embed")),
+        "ln_x": {"scale": pf.ones((D,), (None,))},
     }
 
 
@@ -116,8 +116,9 @@ def rwkv6_sequential_oracle(p, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_channel_mix(pf: ParamFactory, d: int, f: int) -> dict:
-    return {"w_k": pf.leaf((d, f)), "w_v": pf.leaf((f, d)),
-            "w_r": pf.leaf((d, d))}
+    return {"w_k": pf.leaf((d, f), ("embed", "mlp")),
+            "w_v": pf.leaf((f, d), ("mlp", "embed")),
+            "w_r": pf.leaf((d, d), ("embed", None))}
 
 
 def channel_mix(p, x: torch.Tensor) -> torch.Tensor:
@@ -147,14 +148,14 @@ def channel_mix(p, x: torch.Tensor) -> torch.Tensor:
 def init_mamba(pf: ParamFactory, cfg: ModelConfig, d_inner: int) -> dict:
     N = cfg.ssm_state
     return {
-        "w_in": pf.leaf((cfg.d_model, d_inner)),
-        "w_gate": pf.leaf((cfg.d_model, d_inner)),
-        "w_B": pf.leaf((d_inner, N), scale=0.01),
-        "w_C": pf.leaf((d_inner, N), scale=0.01),
-        "w_dt": pf.leaf((d_inner,), zero=True),
-        "A_log": pf.leaf((d_inner, N), zero=True),
-        "Dskip": pf.ones((d_inner,)),
-        "w_out": pf.leaf((d_inner, cfg.d_model)),
+        "w_in": pf.leaf((cfg.d_model, d_inner), ("embed", "heads")),
+        "w_gate": pf.leaf((cfg.d_model, d_inner), ("embed", "heads")),
+        "w_B": pf.leaf((d_inner, N), ("heads", None), scale=0.01),
+        "w_C": pf.leaf((d_inner, N), ("heads", None), scale=0.01),
+        "w_dt": pf.leaf((d_inner,), ("heads",), zero=True),
+        "A_log": pf.leaf((d_inner, N), ("heads", None), zero=True),
+        "Dskip": pf.ones((d_inner,), ("heads",)),
+        "w_out": pf.leaf((d_inner, cfg.d_model), ("heads", "embed")),
     }
 
 
@@ -242,3 +243,12 @@ def mamba_decode_step(p, cfg: ModelConfig, x: torch.Tensor,
 
 def mamba_state_spec(cfg: ModelConfig, batch: int, d_inner: int):
     return ((batch, d_inner, cfg.ssm_state), torch.float32)
+
+
+def rwkv6_state_spec(cfg: ModelConfig, batch: int):
+    """One RWKV6 layer's decode state: ((batch, H, hd, hd), f32). The
+    decode cache keeps it flattened to [B, H·hd, hd]
+    (``models.decode.cache_spec``)."""
+    H = cfg.ssm_heads or cfg.n_heads
+    hd = cfg.d_model // H
+    return ((batch, H, hd, hd), torch.float32)

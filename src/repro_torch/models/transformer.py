@@ -47,7 +47,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import layers as L
 from . import ssm as S
-from .common import ModelConfig, ParamFactory, ParamTree
+from .common import AxesFactory, ModelConfig, ParamFactory, ParamTree
+from .pconstraint import constrain_batch
 
 # ---------------------------------------------------------------------------
 # blocks
@@ -114,6 +115,7 @@ def block_apply(p, cfg: ModelConfig, x: torch.Tensor,
     the attention and the Mamba heads on the same normed input, RMS-norms
     each output and averages them (arXiv:2411.13676 eq. 3). An MLA block
     is causal and takes no window, as in the reference."""
+    x = constrain_batch(x)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_cache = None if cache is None else cache["attn"]
     if cfg.attn_kind == "mla":
@@ -155,6 +157,7 @@ def init_rwkv_block(pf: ParamFactory, cfg: ModelConfig) -> dict:
 def rwkv_block_apply(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None):
     """Returns (x, new_cache). Decode: ``cache["state"]`` is the flattened
     [B, H·hd, hd] f32 state; the new state comes back in a new tensor."""
+    x = constrain_batch(x)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cache is None:
         y = S.rwkv6_chunked(p["tmix"], cfg, h)
@@ -329,20 +332,18 @@ def segment_layers(seg_params) -> list:
     return [seg_params]
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
-            device=None) -> LM:
-    """Draw the model's parameters from ``generator`` (a torch.Generator
-    on ``device``) in ``cfg.dtype``. ``device`` defaults to the CUDA card
-    and raises without one; ``"meta"`` gives shapes without arrays."""
-    pf = ParamFactory(generator, cfg.dtype, resolve_device(device))
+def _lm_tree(pf: ParamFactory, cfg: ModelConfig) -> dict:
+    """The model's layout (:meth:`LM.tree`) with ``pf``'s leaves."""
     tree = {"embed": L.init_embed(pf, cfg),
             "ln_f": L.init_rmsnorm(pf, cfg.d_model)}
     tree["segments"] = {f"seg{i}": init_segment(pf, cfg, s)
                         for i, s in enumerate(plan_segments(cfg))}
     if cfg.family == "hybrid":
-        tree["meta_tokens"] = pf.leaf((META_TOKENS, cfg.d_model))
+        tree["meta_tokens"] = pf.leaf((META_TOKENS, cfg.d_model),
+                                      (None, "embed"))
     if cfg.mtp:
-        tree["mtp"] = {"proj": pf.leaf((2 * cfg.d_model, cfg.d_model)),
+        tree["mtp"] = {"proj": pf.leaf((2 * cfg.d_model, cfg.d_model),
+                                       ("embed", None)),
                        "block": init_block(pf, cfg, moe=False),
                        "ln": L.init_rmsnorm(pf, cfg.d_model)}
     if cfg.is_encoder_decoder:
@@ -353,7 +354,26 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         tree["cross"] = [{"ln": L.init_rmsnorm(pf, cfg.d_model),
                           "attn": L.init_gqa(pf, cfg)}
                          for _ in range(cfg.n_layers)]
-    return LM(cfg, tree)
+    return tree
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
+            device=None) -> LM:
+    """Draw the model's parameters from ``generator`` (a torch.Generator
+    on ``device``) in ``cfg.dtype``. ``device`` defaults to the CUDA card
+    and raises without one; ``"meta"`` gives shapes without arrays."""
+    return LM(cfg, _lm_tree(ParamFactory(generator, cfg.dtype,
+                                         resolve_device(device)), cfg))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the layout of
+    :meth:`LM.tree`: nested dicts, one tree per layer in a list for each
+    scanned segment, a tuple of axis names (or None) at each leaf. The
+    reference's ``init_lm`` returns them as its second value, each
+    stacked leaf's with a leading "layers"; the port's per-layer leaf has
+    no layer axis (``models.common.reference_leaves`` pairs the two)."""
+    return _lm_tree(AxesFactory(), cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,10 @@ copy of a leaf's parameters or state. AdamW, which is elementwise, takes
 a tensor in slices of its first dim of at most ``ADAMW_CHUNK`` elements,
 so its temporaries are a slice's (the same bytes as a whole-tensor
 update); on the CPU at most ``ADAMW_CHUNK_HOST``, so that they stay in
-the host's caches. The reference's logical sharding
-axes (``init_opt``'s second result) have no counterpart without a mesh.
+the host's caches. The reference's ``init_opt`` also returns the
+state's logical sharding axes; here :func:`opt_axes` gives them, in the
+state's stacked layout, so ``launch.sharding.tree_shardings`` lays the
+state out as it lays out the parameters (ZeRO-style).
 """
 from __future__ import annotations
 
@@ -111,6 +113,31 @@ def init_opt(cfg: OptConfig, params) -> dict:
             leaf = {"v": zeros(shape)}
         _set(state, path, leaf)
     return state
+
+
+def opt_axes(cfg: OptConfig, params, axes) -> dict:
+    """The logical axes of :func:`init_opt`'s state, in its layout: each
+    state leaf takes its parameter leaf's axes in the reference's stacked
+    form (a leading "layers" where the leaf is stacked). AdamW's ``m``
+    and ``v`` take them whole; Adafactor's factored ``vr`` drops the last
+    and ``vc`` the second-to-last, as the reference's ``init_opt`` does.
+    ``params`` is an ``LM`` (the meta device will do: only shapes are
+    read), ``axes`` its axes tree (``models.transformer.param_axes``)."""
+    out: dict = {}
+    for (path, tensors, stacked), (apath, a, _) in zip(
+            reference_leaves(params), reference_leaves(axes), strict=True):
+        if path != apath:
+            raise ValueError(f"axes tree at {apath} for the leaf {path}")
+        shape = _stacked_shape(tensors, stacked)
+        ax = ("layers", *a[0]) if stacked else a[0]
+        if cfg.kind == "adamw":
+            leaf = {"m": ax, "v": ax}
+        elif _factored(cfg, shape):
+            leaf = {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        else:
+            leaf = {"v": ax}
+        _set(out, path, leaf)
+    return out
 
 
 # -- the update of one tensor (a whole leaf, or one layer of a leaf) ---------

@@ -39,7 +39,7 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.common import ModelConfig, reference_leaves
-from .optimizer import OptConfig, apply_opt, init_opt
+from .optimizer import OptConfig, apply_opt, init_opt, opt_axes
 
 CUBLAS_WORKSPACE = ":4096:8"
 # the settings under which cuBLAS is deterministic
@@ -52,14 +52,30 @@ def make_state(cfg: ModelConfig, opt_cfg: OptConfig,
     """``{"params", "opt", "step"}``: the model drawn from ``generator``
     (a ``torch.Generator`` on ``device``, seed 0 if None), its optimizer
     state and an int32 step of 0. ``device`` defaults to the CUDA card
-    and raises without one. The reference also returns the logical
-    sharding axes, which have no counterpart without a mesh."""
+    and raises without one; on ``"meta"`` nothing is drawn (shapes
+    only, the reference's ``abstract=True``). The reference also returns
+    the logical sharding axes: :func:`state_axes`."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     params = T.init_lm(cfg, generator, dev)
     return {"params": params, "opt": init_opt(opt_cfg, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def state_axes(cfg: ModelConfig, opt_cfg: OptConfig, params=None) -> dict:
+    """The logical axes of :func:`make_state`'s state, in its layout
+    (the second value of the reference's ``make_state``): ``"params"``
+    from ``models.transformer.param_axes``, ``"opt"`` from
+    ``optimizer.opt_axes``, ``"step"`` ``()``. ``params`` (an ``LM``,
+    the state's own or one on the meta device) gives the shapes that
+    Adafactor's factoring reads; default: the model on the meta
+    device."""
+    axes = T.param_axes(cfg)
+    if params is None:
+        params = T.init_lm(cfg, None, "meta")
+    return {"params": axes, "opt": opt_axes(opt_cfg, params, axes),
+            "step": ()}
 
 
 def _split_microbatch(x: torch.Tensor, m: int, global_batch: int):

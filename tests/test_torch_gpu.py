@@ -16,7 +16,9 @@ step) on the card against the CPU, its train step in deterministic mode and its
 checkpointed gradients against un-checkpointed ones, two trainer
 pods on the card ending bitwise equal, and deepseek-v3's smoke config
 (the MLA prefill at its depth and top-8 routing against the CPU under
-the flip-aware rule, the captured absorbed decode against eager steps).
+the flip-aware rule, the captured absorbed decode against eager steps),
+and the engine's bool-tile ticks (``sharded_tick_dense``,
+``stability_tick_dense``) on the card against the CPU.
 Every test is marked ``gpu`` and skips without a card.
 
 This file imports only torch, numpy and repro_torch, so it also runs on
@@ -142,6 +144,43 @@ def test_stability_call_is_one_device_op(cuda):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     assert len(names) == 10 and all("stability_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("G,W,D,S", [(2, 16, 37, 5), (4, 2048, 250, 16)])
+def test_dense_ticks_on_card_match_cpu(cuda, G, W, D, S):
+    """``sharded_tick_dense`` and ``stability_tick_dense`` over seeded bool
+    tiles on the card equal the CPU's, state and outputs bit for bit; a
+    call launches 2 quorum kernels and 1 stability kernel."""
+    from repro_torch.dissem import engine as DE
+    from repro_torch.engine import sharded as SHD
+    rng = np.random.default_rng(G * W + D)
+    ticks = [(rng.random((G, W, D)) < 0.3, rng.random((G, W, S)) < 0.5,
+              rng.random((G, W, D)) < 0.4) for _ in range(4)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = SHD.init_sharded(G, W, D, S, dev)
+        d = DE.init_dissem(G, W, D, device=dev)
+        outs = []
+        q0, s0 = kq.KERNEL.launches, kd.KERNEL.launches
+        for acks, votes, holds in ticks:
+            st, out = SHD.sharded_tick_dense(
+                st, torch.from_numpy(acks).to(dev),
+                torch.from_numpy(votes).to(dev), diss_majority=D // 2 + 1,
+                seq_majority=S // 2 + 1, order_budget=8)
+            d, dout = DE.stability_tick_dense(
+                d, torch.from_numpy(holds).to(dev), majority=D // 2 + 1)
+            outs.append([v.cpu() for v in (*out.values(), *dout.values())])
+        launched = (kq.KERNEL.launches - q0, kd.KERNEL.launches - s0)
+        runs[dev.type] = (convert.engine_state_to_numpy(st),
+                          convert.bits_to_numpy(d.hold_bits),
+                          d.stable.cpu(), outs, launched)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card[4] == (2 * len(ticks), len(ticks)) and cpu[4] == (0, 0)
+    for f in cpu[0]:
+        assert np.array_equal(card[0][f], cpu[0][f]), f
+    assert np.array_equal(card[1], cpu[1]) and torch.equal(card[2], cpu[2])
+    for a, b in zip(card[3], cpu[3]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("fam", FAMILIES)
